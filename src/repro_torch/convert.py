@@ -1,0 +1,90 @@
+"""Carry state between the reference and the port, as numpy arrays.
+
+The reference's state reaches this module as the same ``NamedTuple``
+with numpy leaves and its keys as their data words (the caller applies
+``jax.random.key_data`` and ``np.asarray``; nothing here imports JAX).
+:func:`to_numpy` turns the port's state back into numpy, keys as uint32
+words, for comparison with the reference.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .core.types import ExperimentState, IslandState, PoolState
+
+_KEY_FIELDS = ("rng", "key")
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x)).to(dtype=dtype, device=device)
+
+
+def key_from_numpy(words, device="cpu") -> torch.Tensor:
+    return torch.as_tensor(np.asarray(words, dtype=np.uint32).astype(
+        np.int64), device=device)
+
+
+def _genome_dtype(x) -> torch.dtype:
+    return torch.int8 if np.asarray(x).dtype == np.int8 else torch.float32
+
+
+def islands_from_numpy(isl: Any, device="cpu") -> IslandState:
+    """A batch of islands (leading axis) with reference dtypes."""
+    g = _genome_dtype(isl.pop)
+    i32 = torch.int32
+    return IslandState(
+        pop=_tensor(isl.pop, g, device),
+        fitness=_tensor(isl.fitness, torch.float32, device),
+        pop_size=_tensor(isl.pop_size, i32, device),
+        rng=key_from_numpy(isl.rng, device),
+        generation=_tensor(isl.generation, i32, device),
+        evaluations=_tensor(isl.evaluations, i32, device),
+        best_fitness=_tensor(isl.best_fitness, torch.float32, device),
+        best_genome=_tensor(isl.best_genome, g, device),
+        done=_tensor(isl.done, torch.bool, device),
+        experiments=_tensor(isl.experiments, i32, device),
+        uuid=_tensor(isl.uuid, i32, device),
+    )
+
+
+def pool_from_numpy(pool: Any, device="cpu") -> PoolState:
+    return PoolState(
+        genomes=_tensor(pool.genomes, _genome_dtype(pool.genomes), device),
+        fitness=_tensor(pool.fitness, torch.float32, device),
+        ptr=_tensor(pool.ptr, torch.int32, device),
+        count=_tensor(pool.count, torch.int32, device),
+    )
+
+
+def experiment_from_numpy(st: Any, device="cpu") -> ExperimentState:
+    """The carried part of an ``ExperimentState`` (islands, pool, key,
+    epoch, stopped, next_uuid); async state, stats and counters are left
+    empty."""
+    return ExperimentState(
+        islands=islands_from_numpy(st.islands, device),
+        pool=pool_from_numpy(st.pool, device),
+        astate=(),
+        key=key_from_numpy(st.key, device),
+        epoch=_tensor(st.epoch, torch.int32, device),
+        stopped=_tensor(st.stopped, torch.bool, device),
+        stats=(),
+        next_uuid=_tensor(st.next_uuid, torch.int32, device),
+    )
+
+
+def to_numpy(tree: Any) -> Any:
+    """Tensors -> numpy through NamedTuples and tuples; key fields become
+    uint32 words."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(
+            to_numpy(v).astype(np.uint32) if name in _KEY_FIELDS
+            and isinstance(v, torch.Tensor) else to_numpy(v)
+            for name, v in zip(tree._fields, tree)))
+    if isinstance(tree, tuple):
+        return tuple(to_numpy(v) for v in tree)
+    return tree

@@ -1,0 +1,264 @@
+"""Plain PyTorch GA generation: the version beside the CUDA kernel.
+
+A port of ``repro.kernels.ga.common`` for binary genomes, batched over a
+leading island axis (the reference gets that axis from ``vmap``). Every
+random decision is a pure function of ``(seed words, salt, counter)``
+through :mod:`repro_torch.rand`, so this version, the CUDA kernel and the
+reference draw the same bits. The pipeline:
+
+* :func:`selection_plan` - elite indices (iterative masked argmax, ties to
+  the lowest index), tournament or roulette parents, two-point cuts and the
+  crossover gate, as five ``(I, n)`` vectors aligned with output rows;
+* :func:`child_tile_math` - crossover and mutation of each gene, drawn with
+  counter ``(r - elite) * L + c``;
+* :func:`fused_fitness` - the optional trap / royal_road / onemax fitness
+  of the new rows;
+* :func:`generation_math` - the three composed.
+
+Two sums fix their f32 order: the roulette prefix sum is a left-to-right
+scan (the kernel scans in the same order) and the trap sum is
+:func:`repro_torch.kernels.trap.ref.ordered_sum`. Float genomes (blend
+crossover, gaussian mutation, the rastrigin/sphere/f15 evals) come with the
+next slice of the port (ROADMAP, Queue B item 2, float half).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ... import rand
+from ..trap.ref import ordered_sum, trap_scores
+
+NEG_INF = float("-inf")
+
+# Draw-site stream salts: the protocol shared with the kernel and the
+# reference (repro/kernels/ga/common.py).
+SALT_SELECT_A = 0xA1
+SALT_SELECT_B = 0xB2
+SALT_CROSSOVER = 0xC3
+SALT_CROSSOVER_GATE = 0xD4
+SALT_MUTATE = 0xE5
+SALT_MUTATE_NOISE = 0xF6
+
+FLOAT_TODO = ("float genomes are not ported yet (ROADMAP, Queue B item 2, "
+              "float half of the generation kernel)")
+SEPARABLE_EVALS = ("trap", "royal_road", "onemax")
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationSpec:
+    """Static description of one generation step (hashable)."""
+
+    kind: str
+    length: int
+    elite: int
+    selection: str
+    tournament_k: int
+    crossover: str
+    crossover_rate: float
+    mutation_rate: float
+    mutation_sigma: float
+    low: float = -5.0
+    high: float = 5.0
+    blend_alpha: float = 0.5
+    fused_eval: Optional[Tuple[Tuple[str, Any], ...]] = None
+
+    def __post_init__(self):
+        if self.kind not in ("binary", "float"):
+            raise ValueError(f"unknown genome kind {self.kind!r}")
+        if self.selection not in ("tournament", "roulette"):
+            raise ValueError(f"unknown selection {self.selection!r}")
+        if self.crossover not in ("two_point", "uniform", "blend"):
+            raise ValueError(f"unknown crossover {self.crossover!r}")
+        if self.crossover == "blend" and self.kind != "float":
+            raise ValueError("blend crossover requires float genome")
+
+    @property
+    def eval_spec(self) -> Optional[Dict[str, Any]]:
+        return dict(self.fused_eval) if self.fused_eval is not None else None
+
+
+def check_supported(spec: GenerationSpec) -> None:
+    """Raise for what this slice does not carry."""
+    if spec.kind != "binary":
+        raise NotImplementedError(FLOAT_TODO)
+    ev = spec.eval_spec
+    if ev is not None and ev["eval"] not in SEPARABLE_EVALS:
+        raise NotImplementedError(
+            f"fused eval {ev['eval']!r}: " + FLOAT_TODO)
+
+
+class SelectionPlan(NamedTuple):
+    """Per-output-row decisions, each ``(I, n)`` int32. Rows [0, elite)
+    carry the elite index with gate and cuts 0."""
+
+    idx_a: torch.Tensor
+    idx_b: torch.Tensor
+    cut1: torch.Tensor
+    cut2: torch.Tensor
+    gate: torch.Tensor
+
+
+def _seed_view(seed: torch.Tensor):
+    """(I, 2) seed words -> k0, k1 of shape (I, 1, 1)."""
+    return seed[:, 0].reshape(-1, 1, 1), seed[:, 1].reshape(-1, 1, 1)
+
+
+def _tournament(k0, k1, masked: torch.Tensor, maxval: torch.Tensor,
+                n_children: int, k: int, salt: int) -> torch.Tensor:
+    """(I, n_children) winners of size-k tournaments (ties to the first
+    candidate)."""
+    n_isl = masked.shape[0]
+    cand = rand.randint(k0, k1, (n_children, k), maxval, salt).long()
+    cand_f = torch.gather(masked, 1, cand.reshape(n_isl, -1))
+    win = cand_f.reshape(n_isl, n_children, k).argmax(-1, keepdim=True)
+    return torch.gather(cand, 2, win)[..., 0]
+
+
+def prefix_sum(w: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 prefix sum over the last axis, left to right."""
+    cum = torch.empty_like(w)
+    acc = torch.zeros_like(w[..., 0])
+    for j in range(w.shape[-1]):
+        acc = acc + w[..., j]
+        cum[..., j] = acc
+    return cum
+
+
+def _roulette(k0, k1, masked: torch.Tensor, maxval: torch.Tensor,
+              n_children: int, salt: int) -> torch.Tensor:
+    """(I, n_children) fitness-proportional parents by inverse CDF; padded
+    lanes weigh exactly 0 and the final clamp keeps draws in range."""
+    valid = torch.isfinite(masked)
+    finite = torch.where(valid, masked, 0.0)
+    lo = torch.where(valid, masked, float("inf")).amin(-1, keepdim=True)
+    w = torch.where(valid, finite - lo + 1e-6, 0.0)
+    cum = prefix_sum(w)
+    u = rand.uniform(k0, k1, (n_children, 1), salt)[..., 0] * cum[:, -1:]
+    idx = (cum[:, None, :] <= u[:, :, None]).sum(-1).to(torch.int32)
+    return torch.minimum(idx, maxval[:, :, 0] - 1)
+
+
+def selection_plan(seed: torch.Tensor, fitness: torch.Tensor,
+                   pop_size: torch.Tensor, spec: GenerationSpec,
+                   n: int) -> SelectionPlan:
+    """All per-row randomness of one generation for every island."""
+    k0, k1 = _seed_view(seed)
+    dev = fitness.device
+    lanes = torch.arange(n, device=dev)
+    masked = torch.where(lanes < pop_size[:, None], fitness, NEG_INF)
+    maxval = torch.clamp(pop_size, min=1).to(torch.int64).reshape(-1, 1, 1)
+    n_children = n - spec.elite
+    n_isl = fitness.shape[0]
+
+    elite_idx = []
+    tmp = masked
+    for _ in range(spec.elite):
+        idx = tmp.argmax(-1)
+        elite_idx.append(idx)
+        tmp = torch.where(lanes == idx[:, None], NEG_INF, tmp)
+
+    if spec.selection == "tournament":
+        ia = _tournament(k0, k1, masked, maxval, n_children,
+                         spec.tournament_k, SALT_SELECT_A)
+        ib = _tournament(k0, k1, masked, maxval, n_children,
+                         spec.tournament_k, SALT_SELECT_B)
+    else:
+        ia = _roulette(k0, k1, masked, maxval, n_children, SALT_SELECT_A)
+        ib = _roulette(k0, k1, masked, maxval, n_children, SALT_SELECT_B)
+
+    zeros = torch.zeros((n_isl, n_children), dtype=torch.int32, device=dev)
+    if spec.crossover == "two_point":
+        cuts = rand.randint(k0, k1, (n_children, 2), spec.length + 1,
+                            SALT_CROSSOVER)
+        c1, c2 = cuts.amin(-1), cuts.amax(-1)
+    else:
+        c1 = c2 = zeros
+    gate = rand.bernoulli(k0, k1, (n_children, 1), spec.crossover_rate,
+                          SALT_CROSSOVER_GATE)[..., 0].to(torch.int32)
+
+    ez = torch.zeros((n_isl, spec.elite), dtype=torch.int32, device=dev)
+    e = (torch.stack(elite_idx, -1).to(torch.int32) if spec.elite else ez)
+
+    def cat(a, b):
+        return torch.cat([a, b.to(torch.int32)], dim=1)
+
+    return SelectionPlan(idx_a=cat(e, ia), idx_b=cat(e, ib),
+                         cut1=cat(ez, c1), cut2=cat(ez, c2),
+                         gate=cat(ez, gate))
+
+
+def child_tile_math(seed: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
+                    cut1: torch.Tensor, cut2: torch.Tensor,
+                    gate: torch.Tensor, spec: GenerationSpec) -> torch.Tensor:
+    """Crossover + mutation of the whole (I, n, L) f32 parent tiles.
+    Elite rows (row < elite) pass parent A through."""
+    k0, k1 = _seed_view(seed)
+    n, length = pa.shape[1], pa.shape[2]
+    off = (-spec.elite, 0)
+    rows = torch.arange(n, device=pa.device)[:, None]
+    is_child = rows >= spec.elite
+
+    if spec.crossover == "two_point":
+        pos = torch.arange(length, device=pa.device)
+        inside = (pos >= cut1[..., None]) & (pos < cut2[..., None])
+        kids = torch.where(inside, pb, pa)
+    elif spec.crossover == "uniform":
+        take = rand.bernoulli(k0, k1, (n, length), 0.5, SALT_CROSSOVER, off,
+                              length)
+        kids = torch.where(take, pb, pa)
+    else:
+        raise NotImplementedError(FLOAT_TODO)
+    kids = torch.where(gate[..., None] != 0, kids, pa)
+
+    hits = rand.bernoulli(k0, k1, (n, length), spec.mutation_rate,
+                          SALT_MUTATE, off, length) & is_child
+    return torch.where(hits, 1.0 - kids, kids)
+
+
+def fused_fitness(popf: torch.Tensor, spec: Dict[str, Any]) -> torch.Tensor:
+    """Fitness of (..., n, L) f32 genes -> (..., n), maximised."""
+    kind = spec["eval"]
+    lead = popf.shape[:-1]
+    if kind == "trap":
+        l = int(spec["l"])
+        u = popf.reshape(*lead, -1, l).sum(-1)
+        return ordered_sum(trap_scores(u, l=l, a=float(spec["a"]),
+                                       b=float(spec["b"]),
+                                       z=float(spec["z"])))
+    if kind == "royal_road":
+        r = int(spec["r"])
+        u = popf.reshape(*lead, -1, r).sum(-1)
+        return float(r) * (u >= r - 0.5).to(torch.float32).sum(-1)
+    if kind == "onemax":
+        return popf.sum(-1)
+    raise NotImplementedError(f"fused eval {kind!r}: " + FLOAT_TODO)
+
+
+def generation_math(seed: torch.Tensor, pop: torch.Tensor,
+                    fitness: torch.Tensor, pop_size: torch.Tensor,
+                    spec: GenerationSpec):
+    """One GA generation for every island.
+
+    seed (I, 2) words, pop (I, n, L), fitness (I, n) f32, pop_size (I,)
+    int32 -> new pop (I, n, L) in ``pop.dtype``, plus the (I, n) raw fused
+    fitness when ``spec.fused_eval`` is set. Slots [0, elite) hold the
+    elite of the valid lanes; lanes >= pop_size are computed but inert."""
+    check_supported(spec)
+    n_isl, n, length = pop.shape
+    if length != spec.length:
+        raise ValueError(f"population has {length} genes, spec {spec.length}")
+    plan = selection_plan(seed, fitness, pop_size, spec, n)
+    popf = pop.to(torch.float32)
+    pa = torch.gather(popf, 1, plan.idx_a.long()[..., None].expand(-1, -1,
+                                                                   length))
+    pb = torch.gather(popf, 1, plan.idx_b.long()[..., None].expand(-1, -1,
+                                                                   length))
+    kids = child_tile_math(seed, pa, pb, plan.cut1, plan.cut2, plan.gate,
+                           spec)
+    new_pop = kids.to(pop.dtype)
+    if spec.fused_eval is not None:
+        return new_pop, fused_fitness(kids, spec.eval_spec)
+    return new_pop

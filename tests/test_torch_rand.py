@@ -1,0 +1,142 @@
+"""repro_torch.rand against the reference's streams.
+
+The GA counter RNG must equal ``repro.kernels.ga.prng`` bit for bit
+(threefry, offsets including negative ones, row strides, uniform, randint,
+bernoulli). ``normal`` goes through ``log``/``sqrt``/``cos``, whose f32
+results differ between XLA's CPU math and PyTorch's by an ulp on some
+inputs: it is held to 4e-7 absolute plus 4e-7 relative (about 3 ulp at the
+magnitudes drawn). The keyed recipes must equal ``jax.random`` bit for bit
+under ``jax_threefry_partitionable=True``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ga import prng
+from repro_torch import rand
+
+K0, K1 = 0xDEADBEEF, 12345
+NORMAL_TOL = 4e-7
+
+
+def _np(t):
+    return t.numpy()
+
+
+def test_threefry_matches_reference():
+    g = np.random.default_rng(0)
+    k = g.integers(0, 2**32, size=(2, 64), dtype=np.uint64).astype(np.uint32)
+    x = g.integers(0, 2**32, size=(2, 64), dtype=np.uint64).astype(np.uint32)
+    want = prng.threefry2x32(jnp.asarray(k[0]), jnp.asarray(k[1]),
+                             jnp.asarray(x[0]), jnp.asarray(x[1]))
+    got = rand.threefry2x32(*(torch.from_numpy(a.astype(np.int64))
+                              for a in (k[0], k[1], x[0], x[1])))
+    for w, t in zip(want, got):
+        np.testing.assert_array_equal(_np(t).astype(np.uint32), np.asarray(w))
+
+
+@pytest.mark.parametrize("offset,row_stride", [
+    ((0, 0), None), ((-3, 5), 53), ((7, -2), None), ((-2, 0), 160),
+    ((2**20, 3), 4099)])
+def test_random_bits_counters(offset, row_stride):
+    want = prng.random_bits(jnp.uint32(K0), jnp.uint32(K1), (37, 53), 0xA1,
+                            offset, row_stride)
+    got = rand.random_bits(K0, K1, (37, 53), 0xA1, offset, row_stride)
+    np.testing.assert_array_equal(_np(got).astype(np.uint32),
+                                  np.asarray(want))
+
+
+def test_uniform_randint_bernoulli_bit_equal():
+    k0, k1 = jnp.uint32(K0), jnp.uint32(K1)
+    np.testing.assert_array_equal(
+        _np(rand.uniform(K0, K1, (64, 53), 0xB2, (-1, 0), 53)),
+        np.asarray(prng.uniform(k0, k1, (64, 53), 0xB2, (-1, 0), 53)))
+    for maxval in (1, 7, 161, 257):
+        np.testing.assert_array_equal(
+            _np(rand.randint(K0, K1, (37, 3), maxval, 0xC3)),
+            np.asarray(prng.randint(k0, k1, (37, 3), maxval, 0xC3)))
+    for p in (0.5, 1.0 / 160, 0.9):
+        np.testing.assert_array_equal(
+            _np(rand.bernoulli(K0, K1, (64, 53), p, 0xE5, (-2, 0), 53)),
+            np.asarray(prng.bernoulli(k0, k1, (64, 53), p, 0xE5, (-2, 0),
+                                      53)))
+
+
+def test_batched_key_broadcasts_like_vmap():
+    seeds = np.array([[1, 2], [0xFFFFFFFF, 7], [K0, K1]], np.uint32)
+    want = jax.vmap(lambda s: prng.randint(s[0], s[1], (5, 3), 29, 0xA1))(
+        jnp.asarray(seeds))
+    t = torch.from_numpy(seeds.astype(np.int64))
+    got = rand.randint(t[:, 0].reshape(-1, 1, 1), t[:, 1].reshape(-1, 1, 1),
+                       (5, 3), 29, 0xA1)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_normal_within_stated_tolerance():
+    want = np.asarray(prng.normal(jnp.uint32(K0), jnp.uint32(K1), (64, 53),
+                                  0xF6))
+    got = _np(rand.normal(K0, K1, (64, 53), 0xF6))
+    np.testing.assert_allclose(got, want, rtol=NORMAL_TOL, atol=NORMAL_TOL)
+
+
+# ---------------------------------------------------------------------------
+# keyed recipes (jax.random, partitionable layout)
+# ---------------------------------------------------------------------------
+@pytest.fixture(autouse=True)
+def _partitionable():
+    with jax.threefry_partitionable(True):
+        yield
+
+
+def _words(k):
+    return np.asarray(jax.random.key_data(k))
+
+
+@pytest.mark.parametrize("seed", [0, 42, 2**31 - 1, -1])
+def test_key_split_fold_in(seed):
+    jk, tk = jax.random.key(seed), rand.key(seed)
+    np.testing.assert_array_equal(_np(rand.key_data(tk)), _words(jk))
+    np.testing.assert_array_equal(_np(rand.split(tk, 5)),
+                                  _words(jax.random.split(jk, 5)))
+    np.testing.assert_array_equal(_np(rand.fold_in(tk, 0xACC)),
+                                  _words(jax.random.fold_in(jk, 0xACC)))
+    # batched keys split like a vmap over keys
+    jks = jax.random.split(jk, 3)
+    np.testing.assert_array_equal(
+        _np(rand.split(rand.split(tk, 3), 2)),
+        _words(jax.vmap(lambda k: jax.random.split(k, 2))(jks)))
+
+
+@pytest.mark.parametrize("lo,hi,shape", [
+    (0, 7, ()), (128, 257, ()), (0, 1, (5,)), (3, 3, (4, 2)),
+    (-5, 100000, (6,)), (0, 2**31 - 1, (7,)), (16, 33, (2, 3))])
+def test_keyed_randint(lo, hi, shape):
+    jk = jax.random.key(42)
+    np.testing.assert_array_equal(
+        _np(rand.keyed_randint(rand.key(42), shape, lo, hi)),
+        np.asarray(jax.random.randint(jk, shape, lo, hi)))
+
+
+def test_keyed_randint_traced_maxval():
+    counts = np.array([0, 1, 2, 5, 64, 3], np.int32)
+    jks = jax.random.split(jax.random.key(9), counts.size)
+    want = jax.vmap(lambda k, m: jax.random.randint(
+        k, (), 0, jnp.maximum(m, 1)))(jks, jnp.asarray(counts))
+    got = rand.keyed_randint(rand.split(rand.key(9), counts.size), (), 0,
+                             torch.clamp(torch.from_numpy(counts), min=1))
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_keyed_uniform_bernoulli_bits():
+    jk, tk = jax.random.key(3), rand.key(3)
+    np.testing.assert_array_equal(_np(rand.keyed_uniform(tk, (9, 31))),
+                                  np.asarray(jax.random.uniform(jk, (9, 31))))
+    for p in (0.5, 0.1):
+        np.testing.assert_array_equal(
+            _np(rand.keyed_bernoulli(tk, p, (9, 31))),
+            np.asarray(jax.random.bernoulli(jk, p, (9, 31))))
+    np.testing.assert_array_equal(
+        _np(rand.keyed_bits(tk, (4, 5))).astype(np.uint32),
+        np.asarray(jax.random.bits(jk, (4, 5))))

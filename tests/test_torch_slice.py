@@ -1,0 +1,166 @@
+"""The port's island model (repro_torch) against the JAX reference, end to
+end: ``run_fused`` with the pool topology and the ``pallas_ref`` generation,
+W² on and off, on onemax and on the paper's 40-trap problem.
+
+The port starts from the reference's initial state, carried across by
+``repro_torch.convert``; a second check starts it from its own
+``init_islands`` and demands the same state. Tolerances: every field of
+the islands, the pool, the epoch count and the stats must be equal, except
+``mean_best``, an f32 mean whose summation order differs between XLA and
+PyTorch: it is held to 1e-6 relative.
+"""
+import ast
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import EAConfig as JEAConfig
+from repro.core import MigrationConfig as JMigrationConfig
+from repro.core import island as j_island
+from repro.core import make_onemax as j_onemax
+from repro.core import make_trap as j_trap
+from repro.core import pool as j_pool
+from repro.core import run_fused as j_run_fused
+from repro.core.types import ExperimentState as JExperimentState
+from repro_torch import convert, rand
+from repro_torch.core import EAConfig, MigrationConfig, island, run_fused
+from repro_torch.core import make_onemax, make_trap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG = dict(impl="pallas_ref", max_pop=32, min_pop=16, generations_per_epoch=5)
+N_ISLANDS, MAX_EPOCHS, SEED = 4, 3, 7
+MEAN_RTOL = 1e-6
+
+PROBLEMS = {
+    "onemax": (lambda: j_onemax(48), lambda: make_onemax(48)),
+    "trap": (lambda: j_trap(40, 4), lambda: make_trap(40, 4)),
+}
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _jax_islands_np(islands):
+    return _np(islands._replace(rng=jax.random.key_data(islands.rng)))
+
+
+def _assert_tree_equal(got, want, what):
+    for name, g, w in zip(want._fields, got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
+                                      err_msg=f"{what}.{name}")
+
+
+def _reference(problem, cfg, mig, w2):
+    """Initial state and result of the reference's run_fused."""
+    rng = jax.random.key(SEED)
+    k_init, k_loop = jax.random.split(rng)
+    islands0 = j_island.init_islands(k_init, N_ISLANDS, problem, cfg)
+    pool0 = j_pool.pool_init(mig.pool_capacity, problem.genome)
+    islands, pool, epochs, stats = j_run_fused(
+        problem, cfg, mig, n_islands=N_ISLANDS, max_epochs=MAX_EPOCHS,
+        rng=rng, w2=w2, return_stats=True)
+    init = JExperimentState(
+        islands=_jax_islands_np(islands0), pool=_np(pool0), astate=(),
+        key=np.asarray(jax.random.key_data(k_loop)), epoch=np.int32(0),
+        stopped=np.bool_(False), stats=(), next_uuid=np.int32(N_ISLANDS))
+    return init, (_jax_islands_np(islands), _np(pool), int(epochs),
+                  _np(stats))
+
+
+@pytest.mark.parametrize("w2", [False, True], ids=["plain", "w2"])
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+def test_run_fused_matches_reference(name, w2):
+    make_j, make_t = PROBLEMS[name]
+    with jax.threefry_partitionable(True):
+        init, (j_isl, j_pool_np, j_epochs, j_stats) = _reference(
+            make_j(), JEAConfig(**CFG), JMigrationConfig(topology="pool"),
+            w2)
+
+    problem = make_t()
+    cfg = EAConfig(**CFG)
+    mig = MigrationConfig(topology="pool")
+    state = convert.experiment_from_numpy(init)
+
+    # the port's own init walks the same streams as the reference's
+    own = island.init_islands(rand.split(rand.key(SEED), 2)[0], N_ISLANDS,
+                              problem, cfg, device="cpu")
+    _assert_tree_equal(convert.to_numpy(own), init.islands, "init")
+
+    islands, pool, epochs, stats = run_fused(
+        problem, cfg, mig, n_islands=N_ISLANDS, max_epochs=MAX_EPOCHS,
+        w2=w2, return_stats=True, device="cpu", state=state)
+    _assert_tree_equal(convert.to_numpy(islands), j_isl, "islands")
+    _assert_tree_equal(convert.to_numpy(pool), j_pool_np, "pool")
+    assert int(epochs) == j_epochs
+
+    got = convert.to_numpy(stats)
+    for field in got._fields:
+        g, w = getattr(got, field), getattr(j_stats, field)
+        if field == "mean_best":
+            np.testing.assert_allclose(g, w, rtol=MEAN_RTOL)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f"stats.{field}")
+
+    # the same seed through the port's own entry point gives the same run
+    islands2, pool2, epochs2 = run_fused(
+        problem, cfg, mig, n_islands=N_ISLANDS, max_epochs=MAX_EPOCHS,
+        rng=SEED, w2=w2, device="cpu")
+    _assert_tree_equal(convert.to_numpy(islands2), j_isl, "islands (seed)")
+    _assert_tree_equal(convert.to_numpy(pool2), j_pool_np, "pool (seed)")
+    assert int(epochs2) == j_epochs
+
+
+def test_run_fused_without_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_fused(make_onemax(8), EAConfig(**CFG), MigrationConfig(),
+                  n_islands=2, max_epochs=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        island.init_islands(rand.key(0), 2, make_onemax(8), EAConfig(**CFG))
+
+
+def test_unported_paths_raise_naming_the_roadmap():
+    cfg = EAConfig(**CFG)
+    run = dict(n_islands=2, max_epochs=1, w2=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+        run_fused(make_onemax(64), cfg, MigrationConfig(topology="ring"),
+                  **run)
+    with pytest.raises(NotImplementedError, match="Queue A item 8"):
+        run_fused(make_onemax(64), EAConfig(**dict(CFG, impl="jnp")),
+                  MigrationConfig(), **run)
+    with pytest.raises(NotImplementedError, match="Queue B item 4"):
+        run_fused(make_onemax(64), EAConfig(**dict(CFG, impl="pallas_tiled")),
+                  MigrationConfig(), **run)
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _port_files():
+    root = os.path.join(REPO, "src", "repro_torch")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    bad = []
+    for path in _port_files():
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
+    assert not bad, bad
