@@ -23,7 +23,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 It imports the port only (``src/repro_torch``), never JAX or the reference.
 Run times are wall clock around work that ends in
 ``torch.cuda.synchronize()``; kernel and plain-version times are CUDA
-events around back-to-back calls, cross-checked by ``torch.profiler``.
+events around back-to-back calls (:func:`event_ms`).
 """
 from __future__ import annotations
 
@@ -38,18 +38,27 @@ SEED = 2016
 # Bounds of the card (NVIDIA H100 SXM data sheet, at the 700 W limit):
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# int32 add/shift/logic: 64 lanes per SM per clock against 128 f32 FMA
-# lanes, and an integer op is one operation where an FMA counts two, so a
-# quarter of the f32 figure (CUDA C++ Programming Guide, arithmetic
-# instruction throughput, compute capability 9.0).
-INT32_OPS_PER_S = F32_OPS_PER_S / 4
-# int32 operations of one 20-round Threefry-2x32 as the kernel writes it:
-# 2 key adds, 20 rounds of (add, shift, shift, or, xor), 5 injections of 3
-THREEFRY_OPS = 2 + 20 * 5 + 5 * 3
-# The roulette rows may differ only where the kernel and the plain version
-# sum the CDF in different orders; both scan left to right in f32, so the
-# bound is 0.
-ROULETTE_ROW_BOUND = 0
+# int32 operations: each of an SM's 4 schedulers issues one warp
+# instruction (32 lanes) per clock, whether it goes to the integer ALU pipe
+# (add, shift, logic) or as an IMAD to the FMA pipe, so at most 128 int32
+# operations per SM per clock. At the clock of the f32 figure, which counts
+# each of 128 FMA lanes as two operations, that is half of it.
+INT32_OPS_PER_S = F32_OPS_PER_S / 2
+# int32 operations of one Threefry-2x32 draw in generation.cu, counted as
+# the compiled code runs it: only x0 is returned, a rotate by a constant is
+# one funnel shift, and the salt word's key add, its first rotate and each
+# injection's k + c are the same for every draw of a thread. So: the
+# counter's key add; round 1's add and xor; rounds 2-19 of (add, shift,
+# xor); round 20's add (its x1 is dead); 4 injections of 2 adds; the last
+# injection's add to x0.
+THREEFRY_OPS = 1 + 2 + 18 * 3 + 1 + 4 * 2 + 1
+# int32 operations of a child gene besides its draws, read from phase 2 of
+# generation.cu at their least: its counter, the mutation test (an integer
+# compare of the bits against the rate's threshold) and the flip; on a row
+# whose crossover gate is on, two cut compares and the select (two-point)
+# or one compare and the select (uniform).
+GENE_OPS = 3
+CROSS_OPS = {"two_point": 3, "uniform": 2}
 TIMED_CALLS = 50
 # head start of the timed windows: the card spins this long while the host
 # enqueues the calls (the spin is counted in clock cycles; 2 GHz is above
@@ -86,22 +95,28 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled_kernel_ms(fn, kernel: str, reps: int) -> float:
-    """The device time of the CUDA kernels named ``kernel`` per call of
-    ``fn``, from the profiler (a cross-check of :func:`event_ms`)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and kernel in e.name]
-    if not events:
-        fail(f"the profiler saw no device kernel {kernel!r}")
-    return sum(e.device_time for e in events) / reps / 1e3
+def generation_work(seed, size, fit, spec, n_isl: int, n: int):
+    """(bytes, int32 operations) that one generation kernel call needs on
+    these inputs: each input read once and each output written once, and
+    the Threefry draws and per-gene work of its child rows. Which rows cross
+    over depends on the data, so the gate is read from the plain version's
+    plan. The per-row work besides the draws (the randint modulo, the
+    tournament compares) is left out: under 0.5 % of the count."""
+    from repro_torch.kernels.ga.common import selection_plan
+    if spec.selection != "tournament":
+        raise ValueError("the bound is derived for tournament selection")
+    length, children = spec.length, n - spec.elite
+    gated = int(selection_plan(seed, fit, size, spec, n).gate.sum().item())
+    row_draws = 2 * spec.tournament_k + 1 + (
+        2 if spec.crossover == "two_point" else 0)
+    draws = (n_isl * children * (row_draws + length)
+             + (gated * length if spec.crossover == "uniform" else 0))
+    ops = (draws * THREEFRY_OPS + n_isl * children * length * GENE_OPS
+           + gated * length * CROSS_OPS[spec.crossover])
+    fused = spec.fused_eval is not None
+    nbytes = (2 * n_isl * n * length + (2 if fused else 1) * 4 * n_isl * n
+              + 2 * 8 * n_isl + 4 * n_isl)
+    return nbytes, ops
 
 
 def main() -> int:
@@ -198,10 +213,11 @@ def main() -> int:
                 log(f"[generation] {selection}/{crossover}/{fname}: "
                     f"pop bit-equal={rows == 0} differing rows={rows} "
                     f"fitness equal={fit_eq} max_abs_err={err}")
-                bound = ROULETTE_ROW_BOUND if selection == "roulette" else 0
-                if rows > bound or not fit_eq:
+                # bit equality in every case, roulette included: the kernel
+                # and the plain version both scan its f32 CDF left to right
+                if rows or not fit_eq:
                     fail(f"generation kernel differs: {selection}/"
-                         f"{crossover}/{fname}, {rows} rows (bound {bound})")
+                         f"{crossover}/{fname}, {rows} rows")
                 if (selection, crossover, fname) == ("tournament",
                                                      "two_point", "trap"):
                     main_inputs = (seed, size, pop, fit, spec)
@@ -228,8 +244,9 @@ def main() -> int:
     evals = int(islands.evaluations.sum().item())
     generations = 5 * cfg.generations_per_epoch
     log(f"[main] kernels: 8 islands x 5 epochs: {evals} evaluations in "
-        f"{wall:.3f} s = {evals / wall:.1f} evals/s; launches {launches}; "
-        f"best {islands.best_fitness.max().item()}")
+        f"{wall:.3f} s = {evals / wall:.1f} evals/s, {wall / 5:.4f} s per "
+        f"epoch; launches {launches}; best "
+        f"{islands.best_fitness.max().item()}")
     if min(launches.values()) <= 0:
         fail(f"a kernel of the main path was never launched: {launches}")
 
@@ -300,7 +317,10 @@ def main() -> int:
     (w_isl, _, _, _), w_wall = drive(problem, cfg, 132, 3, SEED)
     w_evals = int(w_isl.evaluations.sum().item())
     log(f"[wide] kernels: 132 islands x 3 epochs: {w_evals} evaluations in "
-        f"{w_wall:.3f} s = {w_evals / w_wall:.1f} evals/s")
+        f"{w_wall:.3f} s = {w_evals / w_wall:.1f} evals/s, "
+        f"{w_wall / 3:.4f} s per epoch; {w_evals / w_wall / (evals / wall):.2f}"
+        f" times paper-8's evals/s, {w_wall / 3 / (wall / 5):.2f} times its "
+        f"wall per epoch")
 
     # ---- 6: kernel times at the main-path shapes --------------------------
     seed, size, pop, fit, spec = main_inputs
@@ -320,23 +340,17 @@ def main() -> int:
     log(f"[kernels] events per call: trap {trap_ms * 1e3:.2f} us, plain "
         f"{trap_plain_ms * 1e3:.1f} us; generation {gen_ms * 1e3:.2f} us, "
         f"plain {gen_plain_ms * 1e3:.1f} us")
-    trap_prof_us = profiled_kernel_ms(trap_call, "trap_fitness_kernel",
-                                      20) * 1e3
-    gen_prof_us = profiled_kernel_ms(gen_call, "generation_kernel", 20) * 1e3
-    log(f"[kernels] profiler, the kernel alone: trap {trap_prof_us:.2f} us, "
-        f"generation {gen_prof_us:.2f} us")
     rows_n = flat.shape[0]
     trap_bytes = rows_n * length + 4 * rows_n
     trap_ops = rows_n * length + rows_n * 40 * 6
     trap_bound = max(trap_bytes / HBM_BYTES_PER_S,
                      trap_ops / F32_OPS_PER_S) * 1e3
-    children = n - spec.elite
-    tf_calls = n_isl * children * (length + 2 * spec.tournament_k + 2 + 1)
-    gen_bytes = (2 * n_isl * n * length + 2 * 4 * n_isl * n
-                 + 8 * n_isl + 4 * n_isl)
-    gen_ops = tf_calls * THREEFRY_OPS + n_isl * children * length * 6
+    gen_bytes, gen_ops = generation_work(seed, size, fit, spec, n_isl, n)
     gen_bound = max(gen_bytes / HBM_BYTES_PER_S,
                     gen_ops / INT32_OPS_PER_S) * 1e3
+    log(f"[kernels] generation work: {gen_bytes} B, {gen_ops} int32 ops "
+        f"({THREEFRY_OPS} per draw) -> bound {gen_bound * 1e3:.4f} us; "
+        f"kernel at {gen_ms / gen_bound:.1f} times its bound")
     result = {"kernels": [
         {"name": "trap_fitness", "route": "cuda",
          "source": "src/repro_torch/kernels/trap/csrc/trap.cu",

@@ -36,11 +36,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, List] = {
     # pop, out, n_rows, n_traps, l, group, a, b, z, l_minus_z, stream
     "trap_fitness_launch": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
-    # pop, fitness, seed, pop_size, new_pop, fit_out, n_islands, n, L,
-    # elite, selection, tournament_k, crossover, crossover_rate,
-    # mutation_rate, eval_kind, trap_l, trap_group, a, b, z, l_minus_z,
-    # royal_r, stream
-    "generation_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+    # pop, fitness, seed, seed_stride, pop_size, new_pop, fit_out,
+    # n_islands, n, L, elite, selection, tournament_k, crossover,
+    # crossover_rate, mutation_rate, eval_kind, trap_l, trap_group, a, b, z,
+    # l_minus_z, royal_r, stream
+    "generation_launch": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                           _I, _I, _I, _I, _F,
                           _F, _I, _I, _I, _F, _F, _F, _F,
                           _I, _P],

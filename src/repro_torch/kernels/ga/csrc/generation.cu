@@ -15,13 +15,15 @@
 //
 // Bound on the H100: integer operations. The kernel moves about 2*I*n*L
 // bytes (a population in, a population out), 0.66 MB at the main path's
-// 8 x 256 x 160, which is 0.2 us at 3.35 TB/s. It runs one Threefry (117
-// int32 operations) per child gene for the mutation draw, one more per gene
-// under uniform crossover, and 2k + 3 per child row for the plan: about
-// 38 M int32 operations at the main-path shape, 2.3 us at the card's int32
-// rate. A block per island gives only I blocks, so at 8 islands most SMs
-// idle. Measured, it takes about 0.14 ms at that shape (PERF.md), and the
-// main path around it is bound by its launches on the host.
+// 8 x 256 x 160, which is 0.2 us at 3.35 TB/s. It runs one Threefry (67
+// int32 operations as compiled: a funnel shift per rotate, the key sums
+// hoisted, the last round's x1 dead) per child gene for the mutation draw,
+// one more per gene under uniform crossover, and 2k + 3 per child row for
+// the plan: about 25 M int32 operations at the main-path shape, 0.73 us at
+// 128 int32 operations per SM per clock. A block per island gives only I
+// blocks, so at 8 islands most SMs idle. Measured, it takes about 0.14 ms
+// at that shape (PERF.md), and the main path around it is bound by its
+// launches on the host.
 //
 // Design: the island's (n, L) int8 tile and the new tile both live in
 // shared memory (2 * 40 KiB at 256 x 160), so parents are gathered from
@@ -135,7 +137,7 @@ __device__ float trap_row(const int8_t* row, const Params& p) {
 __global__ void __launch_bounds__(THREADS)
 generation_kernel(const int8_t* __restrict__ pop,
                   const float* __restrict__ fitness,
-                  const uint32_t* __restrict__ seed,
+                  const int64_t* __restrict__ seed, int seed_stride,
                   const int* __restrict__ pop_size,
                   int8_t* __restrict__ new_pop, float* __restrict__ fit_out,
                   Params p) {
@@ -153,7 +155,9 @@ generation_kernel(const int8_t* __restrict__ pop,
   int8_t* kids = tile + (size_t)n * L;
 
   const int isl = blockIdx.x;
-  const uint32_t k0 = seed[2 * isl], k1 = seed[2 * isl + 1];
+  // the key words are int64 holding 32-bit values: keep the low word
+  const int64_t* words = seed + (size_t)isl * seed_stride;
+  const uint32_t k0 = (uint32_t)words[0], k1 = (uint32_t)words[1];
   const int size = pop_size[isl];
   const uint32_t maxval = (uint32_t)max(size, 1);
   const int8_t* src = pop + (size_t)isl * n * L;
@@ -303,7 +307,7 @@ extern "C" int generation_max_smem_bytes() {
 }
 
 extern "C" int generation_launch(
-    const void* pop, const void* fitness, const void* seed,
+    const void* pop, const void* fitness, const void* seed, int seed_stride,
     const void* pop_size, void* new_pop, void* fit_out, int n_islands, int n,
     int L, int elite, int selection, int tournament_k, int crossover,
     float crossover_rate, float mutation_rate, int eval_kind, int trap_l,
@@ -321,7 +325,7 @@ extern "C" int generation_launch(
     if (err != cudaSuccess) return (int)err;
   }
   generation_kernel<<<n_islands, THREADS, smem, (cudaStream_t)stream>>>(
-      (const int8_t*)pop, (const float*)fitness, (const uint32_t*)seed,
-      (const int*)pop_size, (int8_t*)new_pop, (float*)fit_out, p);
+      (const int8_t*)pop, (const float*)fitness, (const int64_t*)seed,
+      seed_stride, (const int*)pop_size, (int8_t*)new_pop, (float*)fit_out, p);
   return (int)cudaGetLastError();
 }

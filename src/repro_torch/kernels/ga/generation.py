@@ -10,10 +10,11 @@ kernel, ROADMAP Queue B item 4, is the route for larger tiles).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ... import _build
-from ...rand import MASK32
 from .. import LAUNCHES
 from ..trap.ref import sum_group
 from . import ref as _ref
@@ -22,14 +23,16 @@ from .common import GenerationSpec, check_supported
 EVAL_KINDS = {None: 0, "trap": 1, "onemax": 2, "royal_road": 3}
 
 
-def seed_i32(seed: torch.Tensor) -> torch.Tensor:
-    """(I, 2) words -> int32 with the same bits (the kernel reads uint32)."""
-    w = seed & MASK32
-    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).contiguous()
-
-
+@functools.lru_cache(maxsize=None)
 def smem_bytes(n: int, length: int) -> int:
     return int(_build.library().generation_smem_bytes(n, length))
+
+
+@functools.lru_cache(maxsize=None)
+def max_smem_bytes(device_index: int) -> int:
+    """The card's opt-in shared memory per block, queried once per card."""
+    with torch.cuda.device(device_index):
+        return int(_build.library().generation_max_smem_bytes())
 
 
 def _check(seed, size, pop, fitness):
@@ -44,6 +47,10 @@ def _check(seed, size, pop, fitness):
                          f"{tuple(fitness.shape)}")
     if tuple(seed.shape) != (n_isl, 2) or tuple(size.shape) != (n_isl,):
         raise ValueError("generation kernel: want seed (I, 2) and size (I,)")
+    if seed.dtype != torch.int64 or seed.stride(-1) != 1:
+        raise ValueError(f"generation kernel: seed must be int64 words with "
+                         f"unit stride, got {seed.dtype} strides "
+                         f"{seed.stride()}")
     if size.dtype != torch.int32:
         raise ValueError(f"generation kernel: size must be int32, got "
                          f"{size.dtype}")
@@ -85,7 +92,7 @@ def generation_kernel(seed: torch.Tensor, size: torch.Tensor,
         raise ValueError(f"royal_road blocks of {royal_r} do not tile "
                          f"{length}")
     lib = _build.library()
-    need, limit = smem_bytes(n, length), int(lib.generation_max_smem_bytes())
+    need, limit = smem_bytes(n, length), max_smem_bytes(pop.device.index)
     if need > limit:
         raise ValueError(
             f"generation kernel: a {n}x{length} island needs {need} B of "
@@ -96,13 +103,12 @@ def generation_kernel(seed: torch.Tensor, size: torch.Tensor,
                if kind is not None else None)
     if n_isl == 0:
         return new_pop if fit_out is None else (new_pop, fit_out)
-    seed32 = seed_i32(seed)
     z = float(ev.get("z", 0.0))
     with torch.cuda.device(pop.device):
         stream = torch.cuda.current_stream(pop.device).cuda_stream
         err = lib.generation_launch(
-            pop.data_ptr(), fitness.data_ptr(), seed32.data_ptr(),
-            size.data_ptr(), new_pop.data_ptr(),
+            pop.data_ptr(), fitness.data_ptr(), seed.data_ptr(),
+            seed.stride(0), size.data_ptr(), new_pop.data_ptr(),
             None if fit_out is None else fit_out.data_ptr(),
             n_isl, n, length, spec.elite,
             0 if spec.selection == "tournament" else 1, spec.tournament_k,

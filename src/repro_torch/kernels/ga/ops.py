@@ -11,7 +11,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ...rand import MASK32
+from ... import rand
 from . import generation as _k
 from . import ref as _ref
 from .common import GenerationSpec
@@ -42,38 +42,26 @@ def _seed_words(rng: torch.Tensor) -> torch.Tensor:
     """(..., 2) key words -> the (..., 2) words seeding the counter RNG.
     A threefry key is two words already; this is the reference's
     ``key_data`` step."""
-    return rng & MASK32
+    return rand.key_data(rng)
 
 
 def _size_vec(pop_size) -> torch.Tensor:
     return torch.as_tensor(pop_size, dtype=torch.int32).reshape(-1)
 
 
-def generation(rng, pop, fitness, pop_size, cfg, genome, *, consts=None):
-    spec = make_spec(cfg, genome)
-    return _k.generation_kernel(_seed_words(rng), _size_vec(pop_size), pop,
-                                fitness, spec)
+def _entry(callee):
+    """The table's callable for one generation body: the kernel wrapper or
+    the plain version. ``fused`` is the problem's spec for
+    ``generation_eval`` and left out for ``generation``."""
+    def op(rng, pop, fitness, pop_size, cfg, genome, fused=None, *,
+           consts=None):
+        return callee(_seed_words(rng), _size_vec(pop_size), pop, fitness,
+                      make_spec(cfg, genome, fused=fused))
+    return op
 
 
-def generation_ref(rng, pop, fitness, pop_size, cfg, genome, *, consts=None):
-    spec = make_spec(cfg, genome)
-    return _ref.generation(_seed_words(rng), _size_vec(pop_size), pop,
-                           fitness, spec)
-
-
-def generation_eval(rng, pop, fitness, pop_size, cfg, genome, fused, *,
-                    consts=None):
-    spec = make_spec(cfg, genome, fused=fused)
-    return _k.generation_kernel(_seed_words(rng), _size_vec(pop_size), pop,
-                                fitness, spec)
-
-
-def generation_eval_ref(rng, pop, fitness, pop_size, cfg, genome, fused, *,
-                        consts=None):
-    spec = make_spec(cfg, genome, fused=fused)
-    return _ref.generation(_seed_words(rng), _size_vec(pop_size), pop,
-                           fitness, spec)
-
+generation = generation_eval = _entry(_k.generation_kernel)
+generation_ref = generation_eval_ref = _entry(_ref.generation)
 
 KERNELS.update({
     ("generation", "binary", "pallas"): generation,
