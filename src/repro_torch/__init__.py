@@ -1,10 +1,10 @@
 """PyTorch/CUDA port of the NodIO island model.
 
 A second package beside the JAX reference ``repro``: the same layout
-(``core/``, ``kernels/ga/``, ``kernels/trap/``) and public names, written
-as PyTorch, with the reference's Pallas kernels rewritten by hand in CUDA
-C++ for Hopper (``kernels/*/csrc``, built at first use by
-:mod:`repro_torch._build`). Each kernel has a plain PyTorch version beside
+(``core/``, ``kernels/ga/``, ``kernels/trap/``, ``kernels/rastrigin/``) and
+public names, written as PyTorch, with the reference's Pallas kernels
+rewritten by hand in CUDA C++ for Hopper (``kernels/*/csrc``, built at
+first use by :mod:`repro_torch._build`). Each kernel has a plain PyTorch version beside
 it, which its wrapper runs for CPU tensors.
 
 Entry points (:func:`repro_torch.core.run_fused`,
@@ -13,8 +13,10 @@ caller passes ``device="cpu"``, and raise when there is no card. The port
 imports neither JAX nor the reference package.
 """
 from . import rand
-from .core import EAConfig, MigrationConfig, make_onemax, make_royal_road
-from .core import make_trap, run_fused
+from .core import EAConfig, MigrationConfig, make_f15, make_onemax
+from .core import make_rastrigin, make_royal_road, make_sphere, make_trap
+from .core import run_fused
 
-__all__ = ["EAConfig", "MigrationConfig", "make_onemax", "make_royal_road",
-           "make_trap", "rand", "run_fused"]
+__all__ = ["EAConfig", "MigrationConfig", "make_f15", "make_onemax",
+           "make_rastrigin", "make_royal_road", "make_sphere", "make_trap",
+           "rand", "run_fused"]

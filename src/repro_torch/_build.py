@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-Every ``kernels/*/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-an object, all sources at once in parallel, and the objects are linked into
-one shared library under ``build/repro_torch/`` at the root of the
-checkout. The library's name carries a hash of the sources and flags, so
-an edit rebuilds and an unchanged tree reuses the last build. The build
+Every ``kernels/*/csrc/*.cu`` (with the ``*.cuh`` headers it includes) is
+compiled by ``nvcc`` for ``sm_90a`` into an object, all sources at once in
+parallel, and the objects are linked into one shared library under
+``build/repro_torch/`` at the root of the checkout. The library's name
+carries a hash of the sources, headers and flags, so an edit rebuilds and
+an unchanged tree reuses the last build. The build
 runs at first use, never on import; it needs ``nvcc`` (``$CUDA_HOME/bin``,
 ``/usr/local/cuda/bin`` or ``PATH``).
 
@@ -46,6 +47,17 @@ SIGNATURES: Dict[str, List] = {
                           _I, _P],
     "generation_smem_bytes": [_I, _I],
     "generation_max_smem_bytes": [],
+    # pop, fitness, seed, seed_stride, pop_size, o, perm, M, new_pop,
+    # fit_out, n_islands, n, L, elite, selection, tournament_k, crossover,
+    # crossover_rate, mutation_rate, sigma, low, high, blend_scale, alpha,
+    # eval_kind, sum_group, m, n_groups, k_group, stream
+    "generation_float_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I,
+                                _F, _F, _F, _F, _F, _F, _F,
+                                _I, _I, _I, _I, _I, _P],
+    "generation_float_smem_bytes": [_I, _I, _I],
+    # pop, o, perm, M, out, n_rows, D, m, G, k_group, stream
+    "f15_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -55,6 +67,10 @@ BUILD_LOG: List[str] = []
 
 def sources() -> List[Path]:
     return sorted(PKG_DIR.glob("kernels/*/csrc/*.cu"))
+
+
+def headers() -> List[Path]:
+    return sorted(PKG_DIR.glob("kernels/*/csrc/*.cuh"))
 
 
 def _nvcc() -> str:
@@ -71,7 +87,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libreprotorch-{digest.hexdigest()[:16]}.so"

@@ -4,11 +4,12 @@ The reference's state reaches this module as the same ``NamedTuple``
 with numpy leaves and its keys as their data words (the caller applies
 ``jax.random.key_data`` and ``np.asarray``; nothing here imports JAX).
 :func:`to_numpy` turns the port's state back into numpy, keys as uint32
-words, for comparison with the reference.
+words, for comparison with the reference. :func:`f15_consts_from_numpy`
+carries F15's constants across, the weights of the float problems.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -29,6 +30,17 @@ def key_from_numpy(words, device="cpu") -> torch.Tensor:
 
 def _genome_dtype(x) -> torch.dtype:
     return torch.int8 if np.asarray(x).dtype == np.int8 else torch.float32
+
+
+def f15_consts_from_numpy(consts: Mapping[str, Any],
+                          device="cpu") -> Dict[str, torch.Tensor]:
+    """F15's ``o`` (D,), ``perm`` (D,) and ``M`` (G, m, m) as contiguous
+    f32, int32 and f32 tensors on ``device`` (the kernels and
+    ``index_select`` take int32 indices)."""
+    return {"o": _tensor(consts["o"], torch.float32, device).contiguous(),
+            "perm": _tensor(consts["perm"], torch.int32,
+                            device).contiguous(),
+            "M": _tensor(consts["M"], torch.float32, device).contiguous()}
 
 
 def islands_from_numpy(isl: Any, device="cpu") -> IslandState:

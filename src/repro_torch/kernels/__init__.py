@@ -6,8 +6,9 @@ counts) and ``csrc/*.cu`` (the kernel, built by :mod:`repro_torch._build`).
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.
 
-Kernels: ``trap`` (trap fitness) and ``ga`` (one GA generation per island,
-binary genomes, optionally with the fitness fused in).
+Kernels: ``trap`` (trap fitness), ``rastrigin`` (CEC2010-F15) and ``ga``
+(one GA generation per island, optionally with the fitness fused in: one
+kernel for binary genomes, one for float genomes).
 
 :data:`LAUNCHES` counts the kernel launches of each wrapper; a run sets the
 counts to 0 with :func:`reset_launches` and reads them afterwards to show
@@ -17,7 +18,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"trap_fitness": 0, "generation": 0}
+LAUNCHES: Dict[str, int] = {"trap_fitness": 0, "generation": 0,
+                            "generation_float": 0, "f15": 0}
 
 
 def reset_launches() -> None:

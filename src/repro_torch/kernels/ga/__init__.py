@@ -1,11 +1,12 @@
-"""GA generation kernel: one fused generation per island (binary genomes).
+"""GA generation kernels: one fused generation per island.
 
 Modules:
     common.py     - the plain generation (selection plan, crossover,
                     mutation, fused fitness), batched over islands
     ref.py        - the plain version as ``impl='pallas_ref'``
-    generation.py - the CUDA kernel's wrapper (``impl='pallas'``)
-    csrc/         - the CUDA source
+    generation.py - the CUDA kernels' wrapper (``impl='pallas'``)
+    csrc/         - the CUDA sources: generation.cu (binary genomes),
+                    generation_float.cu (float genomes), threefry.cuh
     registry.py   - the (op, genome_kind, impl) table
     ops.py        - the public wrappers that fill the table
 """

@@ -1,25 +1,26 @@
-"""Plain PyTorch GA generation: the version beside the CUDA kernel.
+"""Plain PyTorch GA generation: the version beside the CUDA kernels.
 
-A port of ``repro.kernels.ga.common`` for binary genomes, batched over a
-leading island axis (the reference gets that axis from ``vmap``). Every
-random decision is a pure function of ``(seed words, salt, counter)``
-through :mod:`repro_torch.rand`, so this version, the CUDA kernel and the
+A port of ``repro.kernels.ga.common``, batched over a leading island axis
+(the reference gets that axis from ``vmap``). Every random decision is a
+pure function of ``(seed words, salt, counter)`` through
+:mod:`repro_torch.rand`, so this version, the CUDA kernels and the
 reference draw the same bits. The pipeline:
 
 * :func:`selection_plan` - elite indices (iterative masked argmax, ties to
   the lowest index), tournament or roulette parents, two-point cuts and the
   crossover gate, as five ``(I, n)`` vectors aligned with output rows;
-* :func:`child_tile_math` - crossover and mutation of each gene, drawn with
-  counter ``(r - elite) * L + c``;
-* :func:`fused_fitness` - the optional trap / royal_road / onemax fitness
-  of the new rows;
+* :func:`child_tile_math` - crossover (two-point, uniform, or blend for
+  float genomes) and mutation (bit flip, or gaussian noise and the clip to
+  the bounds) of each gene, drawn with counter ``(r - elite) * L + c``;
+* :func:`fused_fitness` - the optional trap / royal_road / onemax /
+  rastrigin / sphere / f15 fitness of the new rows;
 * :func:`generation_math` - the three composed.
 
-Two sums fix their f32 order: the roulette prefix sum is a left-to-right
-scan (the kernel scans in the same order) and the trap sum is
-:func:`repro_torch.kernels.trap.ref.ordered_sum`. Float genomes (blend
-crossover, gaussian mutation, the rastrigin/sphere/f15 evals) come with the
-next slice of the port (ROADMAP, Queue B item 2, float half).
+Every f32 sum has a fixed order, which the kernels follow: the roulette
+prefix sum is a left-to-right scan, the trap, rastrigin and sphere row sums
+and the F15 group sums are
+:func:`repro_torch.kernels.trap.ref.ordered_sum`, and the F15 rotation is
+the left-to-right sum of :mod:`repro_torch.kernels.rastrigin.ref`.
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ... import rand
+from ..rastrigin import ref as f15_ref
+from ..rastrigin.ref import rastrigin_terms
 from ..trap.ref import ordered_sum, trap_scores
 
 NEG_INF = float("-inf")
@@ -41,10 +44,6 @@ SALT_CROSSOVER = 0xC3
 SALT_CROSSOVER_GATE = 0xD4
 SALT_MUTATE = 0xE5
 SALT_MUTATE_NOISE = 0xF6
-
-FLOAT_TODO = ("float genomes are not ported yet (ROADMAP, Queue B item 2, "
-              "float half of the generation kernel)")
-SEPARABLE_EVALS = ("trap", "royal_road", "onemax")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,14 +79,26 @@ class GenerationSpec:
         return dict(self.fused_eval) if self.fused_eval is not None else None
 
 
-def check_supported(spec: GenerationSpec) -> None:
-    """Raise for what this slice does not carry."""
-    if spec.kind != "binary":
-        raise NotImplementedError(FLOAT_TODO)
-    ev = spec.eval_spec
-    if ev is not None and ev["eval"] not in SEPARABLE_EVALS:
-        raise NotImplementedError(
-            f"fused eval {ev['eval']!r}: " + FLOAT_TODO)
+def spec_needs_consts(spec: GenerationSpec) -> bool:
+    """True when the fused eval reads array constants (f15's shift,
+    permutation and rotation stack)."""
+    return spec.fused_eval is not None and spec.eval_spec["eval"] == "f15"
+
+
+def f15_consts(eval_spec: Dict[str, Any],
+               consts: Optional[Dict[str, torch.Tensor]]
+               ) -> Dict[str, torch.Tensor]:
+    """The fused f15 eval's ``o``, ``perm`` and ``M``; raise when they are
+    missing or ``M`` is not the spec's (n_groups, m, m)."""
+    if consts is None:
+        raise ValueError("fused f15 evaluation needs problem consts "
+                         "(o, perm, M)")
+    m = int(eval_spec["m"])
+    shape = (int(eval_spec["n_groups"]), m, m)
+    if tuple(consts["M"].shape) != shape:
+        raise ValueError(f"f15 spec wants M of shape {shape}, consts have "
+                         f"{tuple(consts['M'].shape)}")
+    return consts
 
 
 class SelectionPlan(NamedTuple):
@@ -190,11 +201,18 @@ def selection_plan(seed: torch.Tensor, fitness: torch.Tensor,
                          gate=cat(ez, gate))
 
 
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
 def child_tile_math(seed: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
                     cut1: torch.Tensor, cut2: torch.Tensor,
                     gate: torch.Tensor, spec: GenerationSpec) -> torch.Tensor:
     """Crossover + mutation of the whole (I, n, L) f32 parent tiles.
-    Elite rows (row < elite) pass parent A through."""
+    Elite rows (row < elite) pass parent A through; float child rows are
+    clipped to the genome's bounds. The blend ``pa + u * (pb - pa)`` and
+    the mutation ``kid + noise * sigma`` are fused multiply-adds, as XLA
+    compiles them in the reference and as the kernel computes them."""
     k0, k1 = _seed_view(seed)
     n, length = pa.shape[1], pa.shape[2]
     off = (-spec.elite, 0)
@@ -209,17 +227,30 @@ def child_tile_math(seed: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
         take = rand.bernoulli(k0, k1, (n, length), 0.5, SALT_CROSSOVER, off,
                               length)
         kids = torch.where(take, pb, pa)
-    else:
-        raise NotImplementedError(FLOAT_TODO)
+    else:  # blend (float only, checked in GenerationSpec)
+        a = spec.blend_alpha
+        u = rand.fma(rand.uniform(k0, k1, (n, length), SALT_CROSSOVER, off,
+                                  length), _f32(1.0 + 2.0 * a, pa),
+                     _f32(-a, pa))
+        kids = rand.fma(u, pb - pa, pa)
     kids = torch.where(gate[..., None] != 0, kids, pa)
 
     hits = rand.bernoulli(k0, k1, (n, length), spec.mutation_rate,
                           SALT_MUTATE, off, length) & is_child
-    return torch.where(hits, 1.0 - kids, kids)
+    if spec.kind == "binary":
+        return torch.where(hits, 1.0 - kids, kids)
+    noise = rand.normal(k0, k1, (n, length), SALT_MUTATE_NOISE, off, length)
+    kids = torch.where(hits, rand.fma(noise, _f32(spec.mutation_sigma, pa),
+                                      kids), kids)
+    return torch.where(is_child, torch.clamp(kids, spec.low, spec.high), kids)
 
 
-def fused_fitness(popf: torch.Tensor, spec: Dict[str, Any]) -> torch.Tensor:
-    """Fitness of (..., n, L) f32 genes -> (..., n), maximised."""
+def fused_fitness(popf: torch.Tensor, spec: Dict[str, Any],
+                  consts: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> torch.Tensor:
+    """Fitness of (..., n, L) f32 genes -> (..., n), maximised. ``consts``
+    carries f15's ``o``, ``perm`` and ``M`` on the genes' device; the other
+    evals ignore it."""
     kind = spec["eval"]
     lead = popf.shape[:-1]
     if kind == "trap":
@@ -234,19 +265,26 @@ def fused_fitness(popf: torch.Tensor, spec: Dict[str, Any]) -> torch.Tensor:
         return float(r) * (u >= r - 0.5).to(torch.float32).sum(-1)
     if kind == "onemax":
         return popf.sum(-1)
-    raise NotImplementedError(f"fused eval {kind!r}: " + FLOAT_TODO)
+    if kind == "rastrigin":
+        return -ordered_sum(rastrigin_terms(popf))
+    if kind == "sphere":
+        return -ordered_sum(popf * popf)
+    if kind == "f15":
+        return -f15_ref.f15(f15_consts(spec, consts), popf)
+    raise ValueError(f"unknown fused eval {kind!r}")
 
 
 def generation_math(seed: torch.Tensor, pop: torch.Tensor,
                     fitness: torch.Tensor, pop_size: torch.Tensor,
-                    spec: GenerationSpec):
+                    spec: GenerationSpec,
+                    consts: Optional[Dict[str, torch.Tensor]] = None):
     """One GA generation for every island.
 
     seed (I, 2) words, pop (I, n, L), fitness (I, n) f32, pop_size (I,)
     int32 -> new pop (I, n, L) in ``pop.dtype``, plus the (I, n) raw fused
-    fitness when ``spec.fused_eval`` is set. Slots [0, elite) hold the
-    elite of the valid lanes; lanes >= pop_size are computed but inert."""
-    check_supported(spec)
+    fitness when ``spec.fused_eval`` is set (``consts`` for f15). Slots
+    [0, elite) hold the elite of the valid lanes; lanes >= pop_size are
+    computed but inert."""
     n_isl, n, length = pop.shape
     if length != spec.length:
         raise ValueError(f"population has {length} genes, spec {spec.length}")
@@ -260,5 +298,5 @@ def generation_math(seed: torch.Tensor, pop: torch.Tensor,
                            spec)
     new_pop = kids.to(pop.dtype)
     if spec.fused_eval is not None:
-        return new_pop, fused_fitness(kids, spec.eval_spec)
+        return new_pop, fused_fitness(kids, spec.eval_spec, consts)
     return new_pop

@@ -40,13 +40,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "threefry.cuh"
+
 namespace {
 
-constexpr uint32_t SALT_SELECT_A = 0xA1u;
-constexpr uint32_t SALT_SELECT_B = 0xB2u;
-constexpr uint32_t SALT_CROSSOVER = 0xC3u;
-constexpr uint32_t SALT_CROSSOVER_GATE = 0xD4u;
-constexpr uint32_t SALT_MUTATE = 0xE5u;
 constexpr int THREADS = 256;
 
 enum EvalKind { EVAL_NONE = 0, EVAL_TRAP = 1, EVAL_ONEMAX = 2, EVAL_ROYAL = 3 };
@@ -58,53 +55,6 @@ struct Params {
   float a, b, z, l_minus_z;
   int royal_r;
 };
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-#define TF_ROUND(r)      \
-  x0 += x1;              \
-  x1 = rotl32(x1, r) ^ x0;
-
-// 20-round Threefry-2x32 of counter block (x0, x1): the first output word.
-__device__ __forceinline__ uint32_t threefry_x0(uint32_t k0, uint32_t k1,
-                                                uint32_t x0, uint32_t x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0;
-  x1 += k1;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k2;
-  return x0;
-}
-
-#undef TF_ROUND
-
-__device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1,
-                                            uint32_t ctr, uint32_t salt) {
-  const uint32_t bits = threefry_x0(k0, k1, ctr, salt);
-  return __fmul_rn((float)(bits >> 8), 1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ bool bernoulli_at(uint32_t k0, uint32_t k1,
-                                             uint32_t ctr, uint32_t salt,
-                                             float p) {
-  return uniform_at(k0, k1, ctr, salt) < p;
-}
-
-__device__ __forceinline__ int randint_at(uint32_t k0, uint32_t k1,
-                                          uint32_t ctr, uint32_t salt,
-                                          uint32_t maxval) {
-  return (int)(threefry_x0(k0, k1, ctr, salt) % maxval);
-}
 
 __host__ __device__ inline size_t smem_bytes(int n, int L) {
   // masked, cum (f32) + idx_a, idx_b, cut1, cut2, gate (i32) + two tiles

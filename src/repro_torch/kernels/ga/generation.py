@@ -1,12 +1,13 @@
-"""Generation kernel wrapper: the CUDA kernel for CUDA tensors, the plain
+"""Generation kernel wrapper: the CUDA kernels for CUDA tensors, the plain
 version for CPU tensors.
 
-Replaces ``repro/kernels/ga/generation.py::generation_kernel`` for binary
-genomes. One CUDA block runs one island; the island axis that the reference
-gets from ``vmap`` is the grid. Both of the island's tiles (the population
-and the new population) sit in shared memory, which bounds the tile: above
-the card's opt-in shared memory per block the wrapper raises (the tiled
-kernel, ROADMAP Queue B item 4, is the route for larger tiles).
+Replaces ``repro/kernels/ga/generation.py::generation_kernel``. Binary
+genomes go to ``csrc/generation.cu``: one block per island, both of the
+island's int8 tiles in shared memory, so above the card's opt-in shared
+memory per block the wrapper raises. Float genomes go to
+``csrc/generation_float.cu``: a grid of (row blocks, islands) that reads
+parents from device memory and keeps only a few rows in shared memory.
+Larger tiles are the tiled kernel's (ROADMAP, Queue B item 4).
 """
 from __future__ import annotations
 
@@ -16,16 +17,27 @@ import torch
 
 from ... import _build
 from .. import LAUNCHES
+from ..rastrigin.f15 import check_consts
 from ..trap.ref import sum_group
 from . import ref as _ref
-from .common import GenerationSpec, check_supported
+from .common import GenerationSpec, f15_consts, spec_needs_consts
 
-EVAL_KINDS = {None: 0, "trap": 1, "onemax": 2, "royal_road": 3}
+EVAL_KINDS = {None: 0, "trap": 1, "onemax": 2, "royal_road": 3,
+              "rastrigin": 4, "sphere": 5, "f15": 6}
+BINARY_EVALS = (None, "trap", "onemax", "royal_road")
+FLOAT_EVALS = (None, "rastrigin", "sphere", "f15")
+CROSSOVERS = {"two_point": 0, "uniform": 1, "blend": 2}
 
 
 @functools.lru_cache(maxsize=None)
 def smem_bytes(n: int, length: int) -> int:
     return int(_build.library().generation_smem_bytes(n, length))
+
+
+@functools.lru_cache(maxsize=None)
+def float_smem_bytes(n: int, length: int, elite: int) -> int:
+    return int(_build.library().generation_float_smem_bytes(n, length,
+                                                            elite))
 
 
 @functools.lru_cache(maxsize=None)
@@ -35,11 +47,11 @@ def max_smem_bytes(device_index: int) -> int:
         return int(_build.library().generation_max_smem_bytes())
 
 
-def _check(seed, size, pop, fitness):
+def _check(seed, size, pop, fitness, genes):
     n_isl, n, _ = pop.shape
     dev = pop.device
-    if pop.dtype != torch.int8:
-        raise ValueError(f"generation kernel: binary genomes are int8, got "
+    if pop.dtype != genes:
+        raise ValueError(f"generation kernel: want {genes} genomes, got "
                          f"{pop.dtype}")
     if fitness.dtype != torch.float32 or tuple(fitness.shape) != (n_isl, n):
         raise ValueError(f"generation kernel: fitness must be f32 "
@@ -64,24 +76,43 @@ def _check(seed, size, pop, fitness):
         raise ValueError("generation kernel: inputs must be contiguous")
 
 
+def _check_smem(need: int, limit: int, n: int, length: int) -> None:
+    if need > limit:
+        raise ValueError(
+            f"generation kernel: a {n}x{length} island needs {need} B of "
+            f"shared memory, the card allows {limit} B per block; larger "
+            "tiles go to the tiled kernel (ROADMAP, Queue B item 4)")
+
+
 def generation_kernel(seed: torch.Tensor, size: torch.Tensor,
                       pop: torch.Tensor, fitness: torch.Tensor,
-                      spec: GenerationSpec):
-    """seed (I, 2) words, size (I,) int32, pop (I, n, L) int8, fitness
-    (I, n) f32 -> new pop (I, n, L) int8 [+ (I, n) f32 raw fitness when
-    ``spec.fused_eval`` is set]."""
-    check_supported(spec)
+                      spec: GenerationSpec, consts=None):
+    """seed (I, 2) words, size (I,) int32, pop (I, n, L) int8 or f32,
+    fitness (I, n) f32 -> new pop (I, n, L) [+ (I, n) f32 raw fitness when
+    ``spec.fused_eval`` is set]. A fused f15 eval reads ``consts``
+    (``o``, ``perm``, ``M`` on the population's device)."""
     if pop.dim() != 3:
         raise ValueError(f"generation kernel: want (I, n, L), got "
                          f"{tuple(pop.shape)}")
     if pop.device.type == "cpu":
-        return _ref.generation(seed, size, pop, fitness, spec)
+        return _ref.generation(seed, size, pop, fitness, spec, consts)
     if pop.device.type != "cuda":
         raise ValueError(f"generation kernel: no kernel for {pop.device}")
-    _check(seed, size, pop, fitness)
     n_isl, n, length = pop.shape
     if length != spec.length:
         raise ValueError(f"population has {length} genes, spec {spec.length}")
+    kind = (spec.eval_spec or {}).get("eval")
+    evals = BINARY_EVALS if spec.kind == "binary" else FLOAT_EVALS
+    if kind not in evals:
+        raise ValueError(f"generation kernel: no fused {kind!r} eval for "
+                         f"{spec.kind} genomes")
+    launch = _launch_binary if spec.kind == "binary" else _launch_float
+    return launch(seed, size, pop, fitness, spec, consts)
+
+
+def _launch_binary(seed, size, pop, fitness, spec, consts):
+    _check(seed, size, pop, fitness, torch.int8)
+    n_isl, n, length = pop.shape
     ev = spec.eval_spec or {}
     kind = ev.get("eval")
     trap_l = int(ev.get("l", 1))
@@ -92,12 +123,8 @@ def generation_kernel(seed: torch.Tensor, size: torch.Tensor,
         raise ValueError(f"royal_road blocks of {royal_r} do not tile "
                          f"{length}")
     lib = _build.library()
-    need, limit = smem_bytes(n, length), max_smem_bytes(pop.device.index)
-    if need > limit:
-        raise ValueError(
-            f"generation kernel: a {n}x{length} island needs {need} B of "
-            f"shared memory, the card allows {limit} B per block; larger "
-            "tiles go to the tiled kernel (ROADMAP, Queue B item 4)")
+    _check_smem(smem_bytes(n, length), max_smem_bytes(pop.device.index), n,
+                length)
     new_pop = torch.empty_like(pop)
     fit_out = (torch.empty((n_isl, n), dtype=torch.float32, device=pop.device)
                if kind is not None else None)
@@ -112,11 +139,50 @@ def generation_kernel(seed: torch.Tensor, size: torch.Tensor,
             None if fit_out is None else fit_out.data_ptr(),
             n_isl, n, length, spec.elite,
             0 if spec.selection == "tournament" else 1, spec.tournament_k,
-            0 if spec.crossover == "two_point" else 1,
+            CROSSOVERS[spec.crossover],
             float(spec.crossover_rate), float(spec.mutation_rate),
             EVAL_KINDS[kind], trap_l, sum_group(length // trap_l),
             float(ev.get("a", 0.0)), float(ev.get("b", 0.0)), z,
             float(trap_l - z), royal_r, stream)
     _build.check(err, "generation kernel")
     LAUNCHES["generation"] += 1
+    return new_pop if fit_out is None else (new_pop, fit_out)
+
+
+def _launch_float(seed, size, pop, fitness, spec, consts):
+    _check(seed, size, pop, fitness, torch.float32)
+    n_isl, n, length = pop.shape
+    ev = spec.eval_spec or {}
+    kind = ev.get("eval")
+    m = n_groups = 1
+    o = perm = M = None
+    if spec_needs_consts(spec):
+        consts = f15_consts(ev, consts)
+        check_consts(consts, length, pop.device, "generation kernel")
+        m, n_groups = int(ev["m"]), int(ev["n_groups"])
+        o, perm, M = (consts[k].data_ptr() for k in ("o", "perm", "M"))
+    lib = _build.library()
+    _check_smem(float_smem_bytes(n, length, spec.elite),
+                max_smem_bytes(pop.device.index), n, length)
+    new_pop = torch.empty_like(pop)
+    fit_out = (torch.empty((n_isl, n), dtype=torch.float32, device=pop.device)
+               if kind is not None else None)
+    if n_isl == 0:
+        return new_pop if fit_out is None else (new_pop, fit_out)
+    a = spec.blend_alpha
+    with torch.cuda.device(pop.device):
+        stream = torch.cuda.current_stream(pop.device).cuda_stream
+        err = lib.generation_float_launch(
+            pop.data_ptr(), fitness.data_ptr(), seed.data_ptr(),
+            seed.stride(0), size.data_ptr(), o, perm, M, new_pop.data_ptr(),
+            None if fit_out is None else fit_out.data_ptr(),
+            n_isl, n, length, spec.elite,
+            0 if spec.selection == "tournament" else 1, spec.tournament_k,
+            CROSSOVERS[spec.crossover], float(spec.crossover_rate),
+            float(spec.mutation_rate), float(spec.mutation_sigma),
+            float(spec.low), float(spec.high), float(1.0 + 2.0 * a),
+            float(a), EVAL_KINDS[kind], sum_group(length), m, n_groups,
+            sum_group(m), stream)
+    _build.check(err, "generation kernel (float)")
+    LAUNCHES["generation_float"] += 1
     return new_pop if fit_out is None else (new_pop, fit_out)

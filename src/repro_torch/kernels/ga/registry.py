@@ -26,8 +26,6 @@ NOT_PORTED = {
     "pallas_tiled": "the tiled generation kernel is not ported yet "
                     "(ROADMAP, Queue B item 4)",
 }
-FLOAT_NOT_PORTED = ("float genomes are not ported yet (ROADMAP, Queue B "
-                    "item 2, float half of the generation kernel)")
 
 
 def has_kernel(op: str, genome_kind: str, impl: str) -> bool:
@@ -40,8 +38,6 @@ def get_kernel(op: str, genome_kind: str, impl: str) -> Callable:
         return KERNELS[key]
     if impl in NOT_PORTED:
         raise NotImplementedError(NOT_PORTED[impl])
-    if genome_kind == "float":
-        raise NotImplementedError(FLOAT_NOT_PORTED)
     have = sorted({i for (o, g, i) in KERNELS if o == op and g == genome_kind})
     raise KeyError(f"no {op!r} kernel for genome {genome_kind!r} impl "
                    f"{impl!r}; registered impls: {have}")

@@ -61,6 +61,23 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
     return (((x + 2**31) & MASK32) - 2**31).to(torch.int32)
 
 
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of f32 tensors with one rounding, as a fused
+    multiply-add (``__fmaf_rn`` on the card) computes it. The product is
+    exact in f64; the f64 sum is rounded to odd (TwoSum gives its error,
+    and an inexact sum with an even last bit steps one ulp toward the
+    exact value), so the final rounding to f32 is the correct one."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    bits = s.view(torch.int64)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & ((bits & 1) == 0), bits + step, bits)
+    return bits.view(torch.float64).float()
+
+
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
     return ((x << r) & MASK32) | (x >> (32 - r))
 
@@ -223,13 +240,17 @@ def keyed_randint(k: torch.Tensor, shape: Sequence[int], minval,
 def keyed_uniform(k: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
                   maxval: float = 1.0) -> torch.Tensor:
     """f32 in [minval, maxval): the top 23 bits as the mantissa of a float
-    in [1, 2), minus one, scaled."""
+    in [1, 2), minus one, scaled.
+
+    The scaling ``floats * (hi - lo) + lo`` is one fused multiply-add in
+    the reference (XLA's CPU backend contracts it), so it is :func:`fma`
+    here."""
     bits = keyed_bits(k, shape)
     fbits = (bits >> 9) | 0x3F800000
     floats = _to_i32(fbits).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return torch.maximum(lo, fma(floats, hi - lo, lo))
 
 
 def keyed_bernoulli(k: torch.Tensor, p: float,

@@ -1,0 +1,126 @@
+"""The port's CEC2010-F15 (plain version, its wrapper on CPU tensors, the
+problem and its shipped constants) against the JAX reference.
+
+The reference's F15 runs its Pallas kernel in interpret mode
+(``repro.kernels.rastrigin.ops.f15``) and its jnp ``f15_ref``, both with a
+BLAS-ordered rotation; the port sums the rotation left to right, so the
+two are held to the reference's own kernel tolerance, rtol 3e-5 and atol
+2e-2 (``tests/test_kernels.py``). The shipped constants
+``src/repro_torch/core/data/f15_d1000_m50.npz`` are the reference's
+``make_f15_consts(jax.random.key(2010), 1000, 50)``; after a deliberate
+change to that recipe, rewrite them with
+
+    PYTHONPATH=src python tests/test_torch_f15.py --regen
+"""
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.problems import f15_ref as j_f15_ref
+from repro.core.problems import make_f15_consts
+from repro.kernels.rastrigin import ops as j_f15_ops
+from repro_torch import convert
+from repro_torch.core import make_f15, make_problem
+from repro_torch.core.problems import F15_DEFAULT_CONSTS
+from repro_torch.kernels.rastrigin import f15 as t_f15
+from repro_torch.kernels.rastrigin import ref as t_ref
+
+RTOL, ATOL = 3e-5, 2e-2
+
+
+def _np_consts(consts):
+    return {k: np.asarray(v) for k, v in consts.items()}
+
+
+def _case(dim, group, n, shared=False):
+    consts = _np_consts(make_f15_consts(jax.random.key(dim + n), dim, group,
+                                        shared_rotation=shared))
+    pop = np.random.default_rng(n).uniform(-5, 5, (n, dim)).astype(
+        np.float32)
+    return consts, pop
+
+
+@pytest.mark.parametrize("dim,group,n,shared", [
+    (1000, 50, 32, False), (200, 20, 64, False), (100, 10, 100, False),
+    (64, 8, 1, False), (100, 10, 16, True)])
+def test_plain_matches_reference(dim, group, n, shared):
+    consts, pop = _case(dim, group, n, shared)
+    got = t_ref.f15(convert.f15_consts_from_numpy(consts),
+                    torch.from_numpy(pop)).numpy()
+    jc = {k: jnp.asarray(v) for k, v in consts.items()}
+    for want in (j_f15_ops.f15(jc, jnp.asarray(pop)),
+                 j_f15_ref(jc, jnp.asarray(pop))):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_wrapper_on_cpu_runs_the_plain_version_and_optimum_is_zero():
+    consts, pop = _case(200, 20, 24)
+    tc = convert.f15_consts_from_numpy(consts)
+    x = torch.from_numpy(pop)
+    assert torch.equal(t_f15.f15(tc, x), t_ref.f15(tc, x))
+    at_o = t_f15.f15(tc, tc["o"][None, :].repeat(3, 1))
+    assert torch.equal(at_o, torch.zeros(3))
+
+
+def test_shipped_constants_are_the_references_default():
+    want = _np_consts(make_f15_consts(jax.random.key(2010), 1000, 50))
+    with np.load(F15_DEFAULT_CONSTS) as got:
+        np.testing.assert_array_equal(got["perm"], want["perm"])
+        for k in ("o", "M"):
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6)
+        assert got["perm"].dtype == np.int32
+        assert got["o"].dtype == got["M"].dtype == np.float32
+
+
+def test_make_f15_carries_the_constants():
+    problem = make_f15(device="cpu")
+    assert problem.name == "f15_d1000m50"
+    assert problem.fused == {"eval": "f15", "m": 50, "n_groups": 20}
+    assert (problem.genome.kind, problem.genome.length) == ("float", 1000)
+    assert problem.consts["perm"].dtype == torch.int32
+    assert tuple(problem.consts["M"].shape) == (20, 50, 50)
+
+    consts, pop = _case(64, 8, 5)
+    plain = make_problem("f15", consts=consts, dim=64, group=8, device="cpu")
+    kernel = make_f15(consts, dim=64, group=8, impl="pallas", device="cpu")
+    x = torch.from_numpy(pop)
+    want = -t_ref.f15(plain.consts, x)
+    assert torch.equal(plain.evaluate(plain.consts, x), want)
+    assert torch.equal(kernel.evaluate(kernel.consts, x), want)
+
+    shared = _np_consts(make_f15_consts(jax.random.key(3), 64, 8,
+                                        shared_rotation=True))
+    one = dict(shared, M=shared["M"][:1])
+    a = make_f15(one, dim=64, group=8, shared_rotation=True, device="cpu")
+    b = make_f15(shared, dim=64, group=8, device="cpu")
+    assert torch.equal(a.evaluate(a.consts, x), b.evaluate(b.consts, x))
+
+
+def test_make_f15_refuses_what_it_cannot_build():
+    with pytest.raises(ValueError, match="hand them over"):
+        make_f15(dim=200, group=20, device="cpu")
+    with pytest.raises(ValueError, match="hand them over"):
+        make_f15(shared_rotation=True, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_f15()
+
+
+def _regen():
+    consts = make_f15_consts(jax.random.key(2010), 1000, 50)
+    np.savez(F15_DEFAULT_CONSTS, o=np.asarray(consts["o"], np.float32),
+             perm=np.asarray(consts["perm"], np.int32),
+             M=np.asarray(consts["M"], np.float32))
+    print(f"wrote {F15_DEFAULT_CONSTS}")
+
+
+if __name__ == "__main__":
+    if "--regen" in sys.argv:
+        _regen()
+    else:
+        sys.exit(pytest.main([__file__, "-q"]))

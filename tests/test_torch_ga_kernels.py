@@ -124,22 +124,112 @@ def dataclass_fields(spec):
 
 
 def test_registry_names_what_is_not_ported():
-    assert registry.available_impls("generation") == ["pallas", "pallas_ref"]
-    assert registry.available_impls("generation_eval") == ["pallas",
-                                                           "pallas_ref"]
-    for impl, item in (("jnp", "Queue A item 8"),
-                       ("pallas_tiled", "Queue B item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_kernel("generation", "binary", impl)
-    with pytest.raises(NotImplementedError, match="Queue B item 2"):
-        get_kernel("generation", "float", "pallas")
+    for kind in ("binary", "float"):
+        for op in ("generation", "generation_eval"):
+            assert registry.available_impls(op, kind) == ["pallas",
+                                                         "pallas_ref"]
+        for impl, item in (("jnp", "Queue A item 8"),
+                           ("pallas_tiled", "Queue B item 4")):
+            with pytest.raises(NotImplementedError, match=item):
+                get_kernel("generation", kind, impl)
     with pytest.raises(KeyError):
         get_kernel("generation", "binary", "no_such_impl")
-    with pytest.raises(NotImplementedError, match="Queue B item 2"):
+    spec = TSpec(kind="float", length=8, elite=1, selection="tournament",
+                 tournament_k=2, crossover="blend", crossover_rate=0.9,
+                 mutation_rate=0.1, mutation_sigma=0.3,
+                 fused_eval=(("eval", "f15"), ("m", 4), ("n_groups", 2)))
+    with pytest.raises(ValueError, match="needs problem consts"):
         t_ref.generation(torch.zeros((1, 2), dtype=torch.int64),
                          torch.ones(1, dtype=torch.int32),
-                         torch.zeros((1, 4, 8)), torch.zeros((1, 4)),
-                         TSpec(kind="float", length=8, elite=1,
-                               selection="tournament", tournament_k=2,
-                               crossover="blend", crossover_rate=0.9,
-                               mutation_rate=0.1, mutation_sigma=0.3))
+                         torch.zeros((1, 4, 8)), torch.zeros((1, 4)), spec)
+
+
+# ---------------------------------------------------------------------------
+# float genomes: blend crossover, gaussian mutation, the float fused evals
+# ---------------------------------------------------------------------------
+F_LEN, F_M = 64, 8
+FLOAT_FUSED = {
+    "none": None,
+    "rastrigin": (("eval", "rastrigin"),),
+    "sphere": (("eval", "sphere"),),
+    "f15": (("eval", "f15"), ("m", F_M), ("n_groups", F_LEN // F_M)),
+}
+# genes: FMA contraction and XLA's log/cos against PyTorch's (Queue C);
+# fitness: the reference's own fused-eval tolerance
+GENE_ATOL = 2e-6
+FIT_RTOL, FIT_ATOL = 2e-4, 1e-3
+
+
+def _float_spec_kwargs(selection, crossover, fused):
+    return dict(kind="float", length=F_LEN, elite=2, selection=selection,
+                tournament_k=2, crossover=crossover, crossover_rate=0.9,
+                mutation_rate=0.1, mutation_sigma=0.3, low=-5.0, high=5.0,
+                fused_eval=FLOAT_FUSED[fused])
+
+
+def _float_inputs(seed):
+    g = np.random.default_rng(seed)
+    pop = g.uniform(-5, 5, (N_ISLANDS, N, F_LEN)).astype(np.float32)
+    fit = (g.normal(size=(N_ISLANDS, N)) * 100).astype(np.float32)
+    fit[1, :3] = fit[1, 3]                       # ties at the elite
+    sizes = np.array([N, N // 2, 17], np.int32)  # padded lanes
+    seeds = g.integers(0, 2**32, size=(N_ISLANDS, 2),
+                       dtype=np.uint64).astype(np.uint32)
+    return seeds, sizes, pop, fit
+
+
+@pytest.fixture(scope="module")
+def f15_consts():
+    from repro.core.problems import make_f15_consts
+    c = make_f15_consts(jax.random.key(15), F_LEN, F_M)
+    return {k: np.asarray(v) for k, v in c.items()}
+
+
+@pytest.mark.parametrize("selection,crossover,fused", list(itertools.product(
+    ("tournament", "roulette"), ("two_point", "uniform", "blend"),
+    sorted(FLOAT_FUSED))))
+def test_plain_float_generation_matches_reference(selection, crossover,
+                                                  fused, f15_consts):
+    from repro.kernels.ga.common import selection_plan as j_plan
+    from repro_torch import convert
+    from repro_torch.kernels.ga.common import selection_plan as t_plan
+    kw = _float_spec_kwargs(selection, crossover, fused)
+    seeds, sizes, pop, fit = _float_inputs(len(selection) + len(crossover))
+    js, ts = JSpec(**kw), TSpec(**kw)
+    consts = f15_consts if fused == "f15" else None
+    jc = None if consts is None else {k: jnp.asarray(v)
+                                      for k, v in consts.items()}
+    tc = None if consts is None else convert.f15_consts_from_numpy(consts)
+    run = jax.jit(jax.vmap(lambda s, z, p, f: j_ref.generation(
+        s, z.reshape(1), p, f, js, consts=jc)))
+    want = run(jnp.asarray(seeds), jnp.asarray(sizes), jnp.asarray(pop),
+               jnp.asarray(fit))
+    want = want if isinstance(want, tuple) else (want,)
+    t_seeds = torch.from_numpy(seeds.astype(np.int64))
+    got = t_ref.generation(t_seeds, torch.from_numpy(sizes),
+                           torch.from_numpy(pop), torch.from_numpy(fit), ts,
+                           tc)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+
+    # the plan and its integer fields: exact (the plan does not depend on
+    # the fused eval, so one case of each selection x crossover holds it)
+    plan_t = t_plan(t_seeds, torch.from_numpy(fit), torch.from_numpy(sizes),
+                    ts, N)
+    if fused == "none":
+        plan_j = jax.jit(jax.vmap(lambda s, f, z: j_plan(
+            s[0], s[1], f, z, js, N)))(jnp.asarray(seeds), jnp.asarray(fit),
+                                       jnp.asarray(sizes))
+        for name, a, b in zip(plan_t._fields, plan_t, plan_j):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=f"plan.{name}")
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
+                               atol=GENE_ATOL)
+    if fused != "none":
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   rtol=FIT_RTOL, atol=FIT_ATOL)
+    # elite rows pass through; child rows stay in bounds
+    idx = plan_t.idx_a.long()[:, :2, None].expand(-1, -1, F_LEN)
+    assert torch.equal(got[0][:, :2], torch.gather(torch.from_numpy(pop), 1,
+                                                   idx))
+    assert float(got[0].abs().max()) <= 5.0

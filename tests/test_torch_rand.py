@@ -140,3 +140,39 @@ def test_keyed_uniform_bernoulli_bits():
     np.testing.assert_array_equal(
         _np(rand.keyed_bits(tk, (4, 5))).astype(np.uint32),
         np.asarray(jax.random.bits(jk, (4, 5))))
+
+
+def test_keyed_uniform_with_bounds_on_batched_keys():
+    """The float init: one key per island, genes uniform in the bounds.
+    The reference's scaling is one fused multiply-add in XLA's CPU code,
+    so this holds :func:`rand.fma` as well."""
+    n_keys = 5
+    jks = jax.random.split(jax.random.key(21), n_keys)
+    want = jax.vmap(lambda k: jax.random.uniform(
+        k, (8, 64), jnp.float32, -5.0, 5.0))(jks)
+    got = rand.keyed_uniform(rand.split(rand.key(21), n_keys), (8, 64), -5.0,
+                             5.0)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+
+
+def test_fma_rounds_once():
+    """``rand.fma`` is the exactly rounded ``a * b + c`` of an FMA: no f32
+    value lies nearer the exact result (ties to an even last bit)."""
+    from fractions import Fraction
+    g = np.random.default_rng(1)
+    n = 3000
+    a, b, c = ((g.uniform(-1, 1, n) * 2.0 ** g.integers(-30, 5, n)).astype(
+        np.float32) for _ in range(3))
+    # results far below a * b, where the rounding of a * b would show
+    c[:1000] = -(a[:1000].astype(np.float64) * b[:1000]).astype(np.float32)
+    got = _np(rand.fma(*(torch.from_numpy(v) for v in (a, b, c))))
+    for i in range(n):
+        exact = Fraction(float(a[i])) * Fraction(float(b[i])) + \
+            Fraction(float(c[i]))
+        x = got[i]
+        dx = abs(Fraction(float(x)) - exact)
+        for y in (np.nextafter(x, np.float32(-np.inf)),
+                  np.nextafter(x, np.float32(np.inf))):
+            dy = abs(Fraction(float(y)) - exact)
+            assert dy > dx or (dy == dx and int(x.view(np.int32)) % 2 == 0), \
+                (a[i], b[i], c[i], x)

@@ -1,13 +1,18 @@
 """The port's island model (repro_torch) against the JAX reference, end to
 end: ``run_fused`` with the pool topology and the ``pallas_ref`` generation,
-W² on and off, on onemax and on the paper's 40-trap problem.
+W² on and off, on onemax and on the paper's 40-trap problem; and with W² on
+the float problems, F15 (its constants carried across) and rastrigin.
 
 The port starts from the reference's initial state, carried across by
 ``repro_torch.convert``; a second check starts it from its own
 ``init_islands`` and demands the same state. Tolerances: every field of
 the islands, the pool, the epoch count and the stats must be equal, except
 ``mean_best``, an f32 mean whose summation order differs between XLA and
-PyTorch: it is held to 1e-6 relative.
+PyTorch: it is held to 1e-6 relative. On the float problems the integer
+fields (keys, pop_size, evaluations, generation, uuid, experiments, done),
+the pool's pointer and count and the initial population are exact; genes
+are held to 2e-6 and fitness to rtol 2e-4, atol 1e-3, the tolerances of
+``tests/test_torch_ga_kernels.py``.
 """
 import ast
 import os
@@ -22,12 +27,16 @@ from repro.core import MigrationConfig as JMigrationConfig
 from repro.core import island as j_island
 from repro.core import make_onemax as j_onemax
 from repro.core import make_trap as j_trap
+from repro.core.problems import make_f15 as j_f15
+from repro.core.problems import make_rastrigin as j_rastrigin
 from repro.core import pool as j_pool
 from repro.core import run_fused as j_run_fused
 from repro.core.types import ExperimentState as JExperimentState
 from repro_torch import convert, rand
 from repro_torch.core import EAConfig, MigrationConfig, island, run_fused
-from repro_torch.core import make_onemax, make_trap
+from repro_torch.core import make_f15, make_onemax, make_rastrigin
+from repro_torch.core import make_trap
+from repro_torch.kernels.ga import get_kernel
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(impl="pallas_ref", max_pop=32, min_pop=16, generations_per_epoch=5)
@@ -114,6 +123,65 @@ def test_run_fused_matches_reference(name, w2):
     assert int(epochs2) == j_epochs
 
 
+def _f15_pair():
+    ref = j_f15(jax.random.key(64), dim=64, group=8)
+    consts = {k: np.asarray(v) for k, v in ref.consts.items()}
+    return ref, make_f15(consts, dim=64, group=8, device="cpu")
+
+
+FLOAT_PROBLEMS = {
+    "f15": _f15_pair,
+    "rastrigin": lambda: (j_rastrigin(16), make_rastrigin(16)),
+}
+FLOAT_CFG = dict(CFG, crossover="blend", mutation_sigma=0.3)
+GENE_ATOL, FIT_RTOL, FIT_ATOL = 2e-6, 2e-4, 1e-3
+EXACT = {"pop_size", "rng", "generation", "evaluations", "done",
+         "experiments", "uuid", "ptr", "count", "epoch",
+         "total_evaluations", "n_done", "experiments_solved"}
+
+
+def _assert_tree_close(got, want, what):
+    for name, g, w in zip(want._fields, got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        msg = f"{what}.{name}"
+        if name in EXACT:
+            np.testing.assert_array_equal(g, w, err_msg=msg)
+        elif name in ("pop", "best_genome", "genomes"):
+            np.testing.assert_allclose(g, w, rtol=0, atol=GENE_ATOL,
+                                       err_msg=msg)
+        else:
+            np.testing.assert_allclose(g, w, rtol=FIT_RTOL, atol=FIT_ATOL,
+                                       err_msg=msg)
+
+
+@pytest.mark.parametrize("name", sorted(FLOAT_PROBLEMS))
+def test_float_run_fused_matches_reference(name):
+    with jax.threefry_partitionable(True):
+        j_problem, problem = FLOAT_PROBLEMS[name]()
+        init, (j_isl, j_pool_np, j_epochs, j_stats) = _reference(
+            j_problem, JEAConfig(**FLOAT_CFG),
+            JMigrationConfig(topology="pool"), True)
+    cfg = EAConfig(**FLOAT_CFG)
+    mig = MigrationConfig(topology="pool")
+
+    # the port's own init draws the same population; its fitness is the
+    # port's sum order
+    own = convert.to_numpy(island.init_islands(
+        rand.split(rand.key(SEED), 2)[0], N_ISLANDS, problem, cfg,
+        device="cpu"))
+    np.testing.assert_array_equal(own.pop, init.islands.pop)
+    _assert_tree_close(own, init.islands, "init")
+
+    islands, pool, epochs, stats = run_fused(
+        problem, cfg, mig, n_islands=N_ISLANDS, max_epochs=MAX_EPOCHS,
+        w2=True, return_stats=True, device="cpu",
+        state=convert.experiment_from_numpy(init))
+    _assert_tree_close(convert.to_numpy(islands), j_isl, "islands")
+    _assert_tree_close(convert.to_numpy(pool), j_pool_np, "pool")
+    _assert_tree_close(convert.to_numpy(stats), j_stats, "stats")
+    assert int(epochs) == j_epochs
+
+
 def test_run_fused_without_device_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is visible: the default device is valid here")
@@ -136,6 +204,14 @@ def test_unported_paths_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="Queue B item 4"):
         run_fused(make_onemax(64), EAConfig(**dict(CFG, impl="pallas_tiled")),
                   MigrationConfig(), **run)
+    # a float tile above the reference's 16 MiB untiled estimate is the
+    # tiled kernel's: impl="pallas" raises instead of rerouting
+    big = make_rastrigin(1000)
+    gen = get_kernel("generation_eval", "float", "pallas")
+    with pytest.raises(NotImplementedError, match="Queue B item 4"):
+        gen(rand.key(0)[None], torch.zeros((1, 800, 1000)),
+            torch.zeros((1, 800)), torch.tensor([800]),
+            EAConfig(**dict(CFG, max_pop=800)), big.genome, big.fused)
 
 
 def _imports(path):
