@@ -17,6 +17,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    selection x {two_point, uniform, blend} x {none, rastrigin, sphere,
    f15}, at 8 islands of 256 x 1000 with pop_size drawn in [128, 256] and
    the problem's fitness (bit-equal);
+3c. the tiled generation kernel and the selection-plan kernel against
+   their plain versions (bit-equal, genes and fitness): binary 2 x 2048 x
+   160 with fused trap, every selection x {two_point, uniform}; binary
+   1 x 2048 x 256, two-point, no eval; float 1 x 10,000 x 1000, every
+   selection x blend x {none, f15}; then the tiled kernel against the
+   untiled ones at the main paths' shapes, and three rows per block giving
+   identical bits;
 4. the main path: ``run_fused`` at the paper's configuration (trap 40x4,
    max_pop 256, min_pop 128, 100 generations per epoch, pool topology,
    8 islands, 5 epochs, W²) through the kernels, then again through the
@@ -26,8 +33,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    crossover, sigma 0.3, otherwise as in 4): 2 epochs through the kernels
    and through the plain versions from the same seed, which must be equal,
    then a timed 5-epoch kernel run; both of its kernels must launch;
+4c. both paths under ``impl="pallas_tiled"`` (paper-8 5 epochs, paper-f15-8
+   2 epochs): equal to the ``impl="pallas"`` runs from the same seed, the
+   tiled and plan kernels launched and the untiled ones not; a step
+   profile of each, then evals/s of both impls in turns (pallas, tiled,
+   tiled, pallas, 5 epochs each) on both paths;
+4d. Fig. 4's row (``benchmarks/fig4_f15.py``): one fused generation+F15
+   step of a 10,000 x 1000 population through ``impl="pallas"``, which
+   routes it to the tiled kernel and then the F15 kernel; bit-equal to the
+   plain version, timed as ms per 10,000 evaluations;
 5. the trap kernel run at 132 islands (one block per SM), 3 epochs;
-6. one JSON line with each kernel's launches, time, plain time and bound;
+6. each kernel's time at the main paths' shapes, the tiled kernel's swept
+   rows per block against the heuristic's, and one JSON line with each
+   kernel's launches, time, plain time and bound;
 7. the last line: ``{"ok": true, "device": {...}}``.
 
 It imports the port only (``src/repro_torch``), never JAX or the reference.
@@ -37,6 +55,7 @@ events around back-to-back calls (:func:`event_ms`).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -89,6 +108,9 @@ TIMED_CALLS = 50
 # the H100's boost clock, so the spin lasts at least this long)
 HEAD_START_S = 0.2
 SPIN_CYCLES_PER_S = 2.0e9
+# the paper's published CPU times for 10,000 F15 evaluations, in ms
+# (2015; benchmarks/fig4_f15.py PAPER_MS)
+PAPER_FIG4_MS = {"java": 991.0, "js_node": 1234.0}
 
 
 def log(*args):
@@ -143,12 +165,31 @@ def generation_work(seed, size, fit, spec, n_isl: int, n: int):
     return nbytes, ops
 
 
+def plan_draws(spec) -> int:
+    """Threefry draws of one child row's plan: k per tournament, two
+    tournaments, the gate, and two cuts under two-point crossover."""
+    return 2 * spec.tournament_k + 1 + (
+        2 if spec.crossover == "two_point" else 0)
+
+
+def plan_work(spec, n_isl: int, n: int):
+    """(bytes, int32 operations) of the plan kernel: the fitness, seed and
+    size read once and the five (I, n) int32 vectors written once; the
+    Threefry draws of every child row (tournament selection)."""
+    if spec.selection != "tournament":
+        raise ValueError("the bound is derived for tournament selection")
+    nbytes = 4 * n_isl * n + 2 * 8 * n_isl + 4 * n_isl + 5 * 4 * n_isl * n
+    return nbytes, n_isl * (n - spec.elite) * plan_draws(spec) * THREEFRY_OPS
+
+
 def float_generation_work(seed, size, fit, spec, consts, n_isl: int,
-                          n: int):
+                          n: int, plan: bool = True):
     """(bytes, int32 operations, f32 operations) that one float generation
     kernel call needs on these inputs. The gated rows and the mutation
     hits (each a Box-Muller draw) are read from the plain version's draws
-    on the same counters."""
+    on the same counters. With ``plan=False`` it is the tiled child
+    kernel's work: the plan is read (five (I, n) int32 vectors) and its
+    draws are the plan kernel's."""
     from repro_torch import rand
     from repro_torch.kernels.ga import common
     if spec.selection != "tournament":
@@ -160,17 +201,19 @@ def float_generation_work(seed, size, fit, spec, consts, n_isl: int,
     k1 = seed[:, 1].reshape(-1, 1, 1)
     hits = int(rand.bernoulli(k0, k1, (children, length), spec.mutation_rate,
                               common.SALT_MUTATE).sum().item())
-    row_draws = 2 * spec.tournament_k + 1 + (
-        2 if spec.crossover == "two_point" else 0)
     genes = n_isl * children * length
-    draws = n_isl * children * row_draws + genes + (
-        gated * length if spec.crossover != "two_point" else 0)
+    draws = ((n_isl * children * plan_draws(spec) if plan else 0) + genes
+             + (gated * length if spec.crossover != "two_point" else 0))
     int_ops = draws * THREEFRY_OPS + hits * THREEFRY2_OPS + genes * GENE_OPS
     f32_ops = (hits * NORMAL_F32 + genes * CLIP_F32
                + (gated * length * BLEND_F32
                   if spec.crossover == "blend" else 0))
-    nbytes = (2 * 4 * n_isl * n * length + 2 * 4 * n_isl * n
-              + 2 * 8 * n_isl + 4 * n_isl)
+    # the population in and out, the seed words; the fitness in and out, or
+    # the plan in and a fused fitness out
+    nbytes = (2 * 4 * n_isl * n * length + 2 * 8 * n_isl
+              + (4 * n_isl + 2 * 4 * n_isl * n if plan
+                 else 5 * 4 * n_isl * n
+                 + (4 * n_isl * n if spec.fused_eval else 0)))
     ev = spec.eval_spec or {}
     if ev.get("eval") == "f15":
         groups, m = int(ev["n_groups"]), int(ev["m"])
@@ -271,11 +314,13 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import importlib
 
-    from repro_torch import _build, convert, kernels
+    from repro_torch import _build, convert, kernels, rand
     from repro_torch.core import (EAConfig, MigrationConfig, make_f15,
                                   make_rastrigin, make_sphere, make_trap,
                                   run_fused)
     from repro_torch.core.problems import default_f15_consts
+    from repro_torch.kernels.ga import autotune as _autotune
+    from repro_torch.kernels.ga import get_kernel
     from repro_torch.kernels.ga import ref as gen_ref
     from repro_torch.kernels.ga.common import GenerationSpec
     from repro_torch.kernels.rastrigin import f15 as f15_k
@@ -451,6 +496,112 @@ def main() -> int:
                     float_inputs = (seed, size, pop, fit, spec, prob.consts)
                     float_err = err
 
+    # ---- 3c: the tiled kernel and the plan kernel -------------------------
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def random_case(kind, n_isl, n, length, selection, crossover, fused,
+                    sizes=None, fit=None):
+        spec = GenerationSpec(
+            kind=kind, length=length, elite=2, selection=selection,
+            tournament_k=2, crossover=crossover, crossover_rate=0.9,
+            mutation_rate=1.0 / length, mutation_sigma=0.3,
+            fused_eval=fused)
+        if kind == "binary":
+            pop = (torch.rand(n_isl, n, length, generator=gen) < 0.5).to(
+                torch.int8).to(dev)
+        else:
+            pop = (torch.rand(n_isl, n, length, generator=gen) * 10 - 5).to(
+                dev)
+        if fit is None:
+            fit = (torch.randn(n_isl, n, generator=gen) * 10).to(dev)
+        size = (torch.full((n_isl,), n, dtype=torch.int32) if sizes is None
+                else torch.randint(sizes[0], sizes[1] + 1, (n_isl,),
+                                   generator=gen, dtype=torch.int32)).to(dev)
+        seed = torch.randint(0, 2**32, (n_isl, 2), generator=gen,
+                             dtype=torch.int64).to(dev)
+        return (seed, size, pop, fit), spec
+
+    def tiled_check(tag, args, spec, consts=None, rows=None, plan=False):
+        """The tiled kernel (and the plan kernel) against the plain
+        version; fail unless bit-equal. Returns the kernel's output and its
+        largest difference."""
+        got = as_tuple(tiling_k.generation_tiled(*args, spec, tile_pop=rows,
+                                                 consts=consts))
+        torch.cuda.synchronize()
+        want = as_tuple(gen_ref.generation(*args, spec, consts))
+        genes = int((got[0] != want[0]).sum().item())
+        fit_eq = len(got) == 1 or torch.equal(got[1], want[1])
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        plan_eq = True
+        if plan:
+            p_seed, p_size, _, p_fit = args
+            got_p = tiling_k.plan_kernel(p_seed, p_size, p_fit, spec)
+            want_p = selection_plan(p_seed, p_fit, p_size, spec,
+                                    p_fit.shape[1])
+            plan_eq = all(torch.equal(a, b) for a, b in zip(got_p, want_p))
+            plan_errs.append(max((a - b).abs().max().item()
+                                 for a, b in zip(got_p, want_p)))
+        log(f"[tiled] {tag}: pop bit-equal={genes == 0} differing genes="
+            f"{genes} fitness equal={fit_eq}"
+            + (f" plan equal={plan_eq}" if plan else "")
+            + f" max_abs_err={err}")
+        if genes or not fit_eq or not plan_eq:
+            fail(f"tiled kernel differs from its plain version: {tag}")
+        return got, err
+
+    tiling_k = importlib.import_module("repro_torch.kernels.ga.tiling")
+    from repro_torch.kernels.ga.common import selection_plan
+    trap_fused = fused_specs["trap"]
+    tiled_err = 0.0
+    plan_errs = []
+    for selection in ("tournament", "roulette"):
+        for crossover in ("two_point", "uniform"):
+            args, spec = random_case("binary", 2, 2048, 160, selection,
+                                     crossover, trap_fused, (1024, 2048))
+            _, err = tiled_check(f"binary 2x2048x160 trap {selection}/"
+                                 f"{crossover}", args, spec, plan=True)
+            tiled_err = max(tiled_err, err)
+    args, spec = random_case("binary", 1, 2048, 256, "tournament",
+                             "two_point", None)
+    tiled_check("binary 1x2048x256 (the reference's roofline shape)", args,
+                spec)
+    f15_fused = tuple(sorted(float_problems["f15"].fused.items()))
+    tiled_fig4 = None
+    for selection in ("tournament", "roulette"):
+        for fname, fused in (("none", None), ("f15", f15_fused)):
+            args, spec = random_case("float", 1, 10000, 1000, selection,
+                                     "blend", fused)
+            got, err = tiled_check(
+                f"float 1x10000x1000 {selection}/blend/{fname}", args, spec,
+                consts=f15_consts if fused else None, plan=fname == "none")
+            tiled_err = max(tiled_err, err)
+            if (selection, fname) == ("tournament", "none"):
+                tiled_fig4 = (args, spec, got[0])
+    # the tiled kernel equals the untiled ones at the main paths' shapes
+    for tag, inputs in (("binary 8x256x160 trap", main_inputs + (None,)),
+                        ("float 8x256x1000 f15", float_inputs)):
+        *args, spec, u_consts = inputs
+        untiled = as_tuple(gen_k.generation_kernel(*args, spec, u_consts))
+        tiled = as_tuple(tiling_k.generation_tiled(*args, spec,
+                                                   consts=u_consts))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(tiled, untiled))
+        log(f"[tiled] {tag}: tiled == untiled kernel (genes and fitness) "
+            f"{same}")
+        if not same:
+            fail(f"tiled kernel differs from the untiled one: {tag}")
+    # any rows per block give the same bits
+    args, spec, base = tiled_fig4
+    for rows in (1, 7, 32):
+        other = tiling_k.generation_tiled(*args, spec, tile_pop=rows)
+        torch.cuda.synchronize()
+        log(f"[tiled] float 1x10000x1000, {rows} rows per block: identical "
+            f"to the autotuned rows {torch.equal(other, base)}")
+        if not torch.equal(other, base):
+            fail(f"tiled kernel output depends on the rows per block ({rows})")
+
     # ---- 4: the main path at the paper's configuration -------------------
     cfg = EAConfig(impl="pallas", max_pop=256, min_pop=128,
                    generations_per_epoch=100)
@@ -521,18 +672,118 @@ def main() -> int:
         f"({convert.to_numpy(f_run[3]).best_fitness.tolist()} best per "
         f"epoch)")
     kernels.reset_launches()
-    (f_isl, _, _, _), f_wall = drive(f_problem, f_cfg, 8, 5, SEED)
+    (f_isl, _, _, _), f_wall5 = drive(f_problem, f_cfg, 8, 5, SEED)
     f_launches = dict(kernels.LAUNCHES)
     f_evals = int(f_isl.evaluations.sum().item())
     log(f"[f15-main] kernels: 8 islands x 5 epochs: {f_evals} evaluations "
-        f"in {f_wall:.3f} s = {f_evals / f_wall:.1f} evals/s, "
-        f"{f_wall / 5:.4f} s per epoch; launches {f_launches}; best "
+        f"in {f_wall5:.3f} s = {f_evals / f_wall5:.1f} evals/s, "
+        f"{f_wall5 / 5:.4f} s per epoch; launches {f_launches}; best "
         f"{f_isl.best_fitness.max().item()}")
     if min(f_launches[k] for k in f_kernels) <= 0:
         fail(f"a kernel of the F15 path was never launched: {f_launches}")
     if not bool(torch.isfinite(f_isl.best_fitness).all()):
         fail("non-finite best fitness on the F15 path")
     step_profile("f15-main", f_isl, f_problem, f_cfg)
+
+    # ---- 4c: both paths under impl="pallas_tiled" --------------------------
+    tiled_kernels = ("generation_tiled", "selection_plan")
+
+    def tiled_launches_ok(tag, launches):
+        if min(launches[k] for k in tiled_kernels) <= 0 or max(
+                launches["generation"], launches["generation_float"]) != 0:
+            fail(f"{tag}: want the tiled and plan kernels only, got "
+                 f"{launches}")
+
+    t_cfg = dataclasses.replace(cfg, impl="pallas_tiled")
+    drive(problem, t_cfg, 8, 1, SEED + 1)   # warm-up, autotune sweep
+    kernels.reset_launches()
+    t_run, t_wall = drive(problem, t_cfg, 8, 5, SEED)
+    t_launches = dict(kernels.LAUNCHES)
+    tiled_launches_ok("paper-8 pallas_tiled", t_launches)
+    same_run("paper-8 pallas_tiled vs pallas", t_run, run)
+    t_evals = int(t_run[0].evaluations.sum().item())
+    log(f"[tiled-main] paper-8 pallas_tiled: {t_evals} evaluations in "
+        f"{t_wall:.3f} s = {t_evals / t_wall:.1f} evals/s (pallas "
+        f"{evals / wall:.1f}); launches {t_launches}; islands, pool, stats "
+        f"== the pallas run")
+    step_profile("tiled-main", t_run[0], problem, t_cfg)
+
+    tf_cfg = dataclasses.replace(f_cfg, impl="pallas_tiled")
+    drive(f_problem, tf_cfg, 8, 1, SEED + 1)   # warm-up, autotune sweep
+    kernels.reset_launches()
+    tf_run, tf_wall = drive(f_problem, tf_cfg, 8, 2, SEED)
+    tf_launches = dict(kernels.LAUNCHES)
+    tiled_launches_ok("paper-f15-8 pallas_tiled", tf_launches)
+    if tf_launches["f15"] <= 0:
+        fail(f"paper-f15-8 pallas_tiled: the F15 kernel never launched: "
+             f"{tf_launches}")
+    same_run("paper-f15-8 pallas_tiled vs pallas", tf_run, f_run)
+    tf_evals = int(tf_run[0].evaluations.sum().item())
+    f2_evals = int(f_run[0].evaluations.sum().item())
+    log(f"[tiled-f15-main] paper-f15-8 pallas_tiled: 8 islands x 2 epochs: "
+        f"{tf_evals} evaluations in {tf_wall:.3f} s = "
+        f"{tf_evals / tf_wall:.1f} evals/s (pallas, first 2-epoch run: "
+        f"{f2_evals / f_wall:.1f}; 5 epochs: {f_evals / f_wall5:.1f}); "
+        f"launches {tf_launches}; islands, pool, stats == the pallas run")
+    step_profile("tiled-f15-main", tf_run[0], f_problem, tf_cfg)
+
+    # evals/s of both impls in turns (pallas, tiled, tiled, pallas), 5
+    # epochs each: one call's host spread between runs is wider than the
+    # difference a single pair of runs could show
+    for tag, prob, p_cfg, p_tiled in (("paper-8", problem, cfg, t_cfg),
+                                      ("paper-f15-8", f_problem, f_cfg,
+                                       tf_cfg)):
+        rates = []
+        for c in (p_cfg, p_tiled, p_tiled, p_cfg):
+            (isl, _, _, _), w = drive(prob, c, 8, 5, SEED)
+            rates.append(f"{c.impl} {isl.evaluations.sum().item() / w:.1f}")
+        log(f"[tiled-turns] {tag} evals/s in turns: " + "; ".join(rates))
+
+    # ---- 4d: Fig. 4's row: one fused generation+F15 step, 10,000 x 1000 ---
+    fig4_problem = float_problems["f15"]
+    fig4_cfg = EAConfig(max_pop=10000, min_pop=8, crossover="blend",
+                        mutation_sigma=0.3)
+    g4 = fig4_problem.genome
+    fig4_pop = (torch.rand(1, 10000, f_len, generator=gen)
+                * (g4.high - g4.low) + g4.low).to(dev)
+    fig4_fit = fig4_problem.evaluate(fig4_problem.consts,
+                                     fig4_pop[0])[None]
+    fig4_args = (rand.key(1, device=dev)[None], fig4_pop, fig4_fit,
+                 torch.tensor([10000], dtype=torch.int32, device=dev),
+                 fig4_cfg, g4, fig4_problem.fused)
+    fig4_kern = get_kernel("generation_eval", "float", "pallas")
+
+    def fig4_call():
+        return fig4_kern(*fig4_args, consts=fig4_problem.consts)
+
+    fig4_call()                              # warm-up, autotune sweep
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    fig4_out = fig4_call()
+    torch.cuda.synchronize()
+    fig4_launches = dict(kernels.LAUNCHES)
+    want_launches = {"generation_tiled": 1, "selection_plan": 1, "f15": 1,
+                     "generation_float": 0, "generation": 0}
+    if any(fig4_launches[k] != v for k, v in want_launches.items()):
+        fail(f"Fig. 4's row did not take the tiled path: {fig4_launches}")
+    fig4_want = get_kernel("generation_eval", "float", "pallas_ref")(
+        *fig4_args, consts=fig4_problem.consts)
+    fig4_eq = all(torch.equal(a, b) for a, b in zip(fig4_out, fig4_want))
+    fig4_err = max((a - b).abs().max().item()
+                   for a, b in zip(fig4_out, fig4_want))
+    log(f"[fig4] generation_eval float pallas at 1x10000x1000 (F15, blend, "
+        f"sigma 0.3): launches {fig4_launches}; bit-equal to the plain "
+        f"version {fig4_eq} (max_abs_err {fig4_err})")
+    if not fig4_eq:
+        fail("Fig. 4's row differs from its plain version")
+    if not bool(torch.isfinite(fig4_out[1]).all()):
+        fail("Fig. 4's row: non-finite fitness")
+    fig4_step_ms = event_ms(fig4_call, TIMED_CALLS)
+    log(f"[fig4] {fig4_step_ms:.4f} ms per 10,000 evaluations (one fused "
+        f"generation+F15 step, CUDA events, {card}); the paper's published "
+        f"2015 CPU figures for 10,000 F15 evaluations "
+        f"(benchmarks/fig4_f15.py): Java {PAPER_FIG4_MS['java']} ms, "
+        f"Node {PAPER_FIG4_MS['js_node']} ms")
 
     # ---- 5: one block per SM ---------------------------------------------
     drive(problem, cfg, 132, 1, SEED + 2)            # warm-up
@@ -582,6 +833,70 @@ def main() -> int:
     zg = f15_ref.shift_permute(fig4_x, fig4_c["o"], fig4_c["perm"]).reshape(
         -1, groups, m).transpose(0, 1).contiguous()
     bmm_ms = event_ms(lambda: torch.bmm(zg, fig4_c["M"]), TIMED_CALLS)
+    # the tiled kernel and the plan kernel at Fig. 4's 10,000 x 1000
+    # (tournament, blend, no fused eval), each alone
+    (t_seed, t_size, t_pop, t_fit), t_spec, _ = tiled_fig4
+    t_n = t_pop.shape[1]
+    t_plan = tiling_k.plan_buffer(t_seed, t_size, t_fit, t_spec)
+    tiled_ms = event_ms(lambda: tiling_k.child_kernel(t_seed, t_pop, t_plan,
+                                                      t_spec), TIMED_CALLS)
+    tiled_plain_ms = event_ms(lambda: gen_ref.generation(
+        t_seed, t_size, t_pop, t_fit, t_spec), 3)
+    plan_ms = event_ms(lambda: tiling_k.plan_buffer(t_seed, t_size, t_fit,
+                                                    t_spec), TIMED_CALLS)
+    plan_plain_ms = event_ms(lambda: selection_plan(t_seed, t_fit, t_size,
+                                                    t_spec, t_n), 3)
+    # the gather of both parents by one PyTorch call each: the yardstick of
+    # the child kernel's bytes (the port does not call it)
+    gather_ms = event_ms(lambda: (
+        torch.index_select(t_pop[0], 0, t_plan[0, 0]),
+        torch.index_select(t_pop[0], 0, t_plan[1, 0])), TIMED_CALLS)
+    tl_bytes, tl_int, tl_f32 = float_generation_work(
+        t_seed, t_size, t_fit, t_spec, None, 1, t_n, plan=False)
+    tiled_bound, tiled_by = bound_of(tl_bytes, tl_int, tl_f32)
+    pl_bytes, pl_ops = plan_work(t_spec, 1, t_n)
+    plan_bound, plan_by = bound_of(pl_bytes, int_ops=pl_ops)
+    t_rows = tiling_k.max_rows(f_len, t_spec, gen_k.max_smem_bytes(0))
+    log(f"[kernels] generation_tiled at 1x{t_n}x{f_len} (tournament, blend):"
+        f" {tiled_ms * 1e3:.2f} us, plain {tiled_plain_ms * 1e3:.1f} us, "
+        f"bound {tiled_bound * 1e3:.3f} us ({tiled_by}: {tl_bytes} B, "
+        f"{tl_int} int32 ops, {tl_f32} f32 ops), {tiled_ms / tiled_bound:.1f}"
+        f" times it; index_select of both parents {gather_ms * 1e3:.2f} us; "
+        f"selection_plan {plan_ms * 1e3:.2f} us, plain "
+        f"{plan_plain_ms * 1e3:.1f} us, bound {plan_bound * 1e3:.4f} us "
+        f"({plan_by}: {pl_bytes} B, {pl_ops} int32 ops); rows per block "
+        f"{_autotune.load_cache().get(torch.cuda.get_device_name(), {})}"
+        f" (shared memory holds {t_rows})")
+    # the child kernel at paper-8's shape (8 x 256 x 160, fused trap), the
+    # shape of its 500 launches in 4c
+    m_plan = tiling_k.plan_buffer(seed, size, fit, spec)
+    tiled_main_ms = event_ms(lambda: tiling_k.child_kernel(seed, pop, m_plan,
+                                                           spec), TIMED_CALLS)
+    plan_main_ms = event_ms(lambda: tiling_k.plan_buffer(seed, size, fit,
+                                                         spec), TIMED_CALLS)
+    log(f"[kernels] at paper-8's ({n_isl}, {n}, {length}) fused trap: "
+        f"generation_tiled {tiled_main_ms * 1e3:.2f} us, selection_plan "
+        f"{plan_main_ms * 1e3:.2f} us (the untiled generation kernel below)")
+    # the swept rows per block against the heuristic's, in turns (swept,
+    # heuristic, heuristic, swept) at both shapes: whether the sweep earns
+    # its keep
+    for tag, (r_seed, r_pop, r_plan, r_spec) in (
+            ("paper-8 8x256x160 trap", (seed, pop, m_plan, spec)),
+            ("Fig. 4 1x10000x1000", (t_seed, t_pop, t_plan, t_spec))):
+        r_isl, r_n, r_len = r_pop.shape
+        cap = tiling_k.max_rows(r_len, r_spec, gen_k.max_smem_bytes(0))
+        swept = min(_autotune.best_tiles(r_n, r_len, r_spec.kind,
+                                         n_islands=r_isl, spec=r_spec)[0],
+                    cap)
+        rule = min(_autotune.heuristic_rows(r_len), cap)
+        turns = []
+        for rows in (swept, rule, rule, swept):
+            turns.append(event_ms(lambda: tiling_k.child_kernel(
+                r_seed, r_pop, r_plan, r_spec, rows), TIMED_CALLS))
+        log(f"[autotune] {tag}: swept {swept} rows per block "
+            f"{turns[0] * 1e3:.2f} / {turns[3] * 1e3:.2f} us, heuristic "
+            f"{rule} rows {turns[1] * 1e3:.2f} / {turns[2] * 1e3:.2f} us "
+            f"(in turns, CUDA events, {card})")
     log(f"[kernels] events per call: trap {trap_ms * 1e3:.2f} us, plain "
         f"{trap_plain_ms * 1e3:.1f} us; generation {gen_ms * 1e3:.2f} us, "
         f"plain {gen_plain_ms * 1e3:.1f} us; generation_float "
@@ -640,11 +955,27 @@ def main() -> int:
          "launches": f_launches["f15"], "max_abs_err": f15_err,
          "ms": f15_ms, "plain_ms": f15_plain_ms, "bound_ms": f15_bound,
          "bound_by": f15_by, "library_ms": None},
+        {"name": "generation_tiled", "route": "cuda",
+         "source": "src/repro_torch/kernels/ga/csrc/generation_tiled.cu",
+         "replaces": "src/repro/kernels/ga/tiling.py:133",
+         "launches": fig4_launches["generation_tiled"],
+         "max_abs_err": tiled_err, "ms": tiled_ms,
+         "plain_ms": tiled_plain_ms, "bound_ms": tiled_bound,
+         "bound_by": tiled_by, "library_ms": gather_ms},
+        {"name": "selection_plan", "route": "cuda",
+         "source": "src/repro_torch/kernels/ga/csrc/plan.cu",
+         "replaces": "src/repro/kernels/ga/tiling.py:168",
+         "launches": fig4_launches["selection_plan"],
+         "max_abs_err": max(plan_errs), "ms": plan_ms,
+         "plain_ms": plan_plain_ms, "bound_ms": plan_bound,
+         "bound_by": plan_by, "library_ms": None},
     ]}
     log(f"[kernels] shapes: trap ({rows_n}, {length}); generation "
         f"({n_isl}, {n}, {length}) fused trap, tournament, two_point; "
         f"generation_float ({n_isl}, {n}, {f_len}) fused f15, tournament, "
-        f"blend; f15 ({f15_x.shape[0]}, {f_len}, m 50); card {card}")
+        f"blend; f15 ({f15_x.shape[0]}, {f_len}, m 50); generation_tiled "
+        f"and selection_plan (1, {t_n}, {f_len}) tournament, blend, no eval, "
+        f"launches from Fig. 4's row (4d); card {card}")
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

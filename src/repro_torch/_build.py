@@ -58,6 +58,20 @@ SIGNATURES: Dict[str, List] = {
     "generation_float_smem_bytes": [_I, _I, _I],
     # pop, o, perm, M, out, n_rows, D, m, G, k_group, stream
     "f15_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # fitness, seed, seed_stride, pop_size, masked, cum, plan, n_islands, n,
+    # L, elite, selection, tournament_k, crossover, crossover_rate, stream
+    "selection_plan_launch": [_P, _P, _I, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _I, _F, _P],
+    # pop, plan, seed, seed_stride, new_pop, fit_out, float_genes,
+    # n_islands, n, L, elite, rows, crossover, mutation_rate, sigma, low,
+    # high, blend_scale, alpha, eval_kind, sum_group, trap_l, trap_group, a,
+    # b, z, l_minus_z, royal_r, stream
+    "generation_tiled_launch": [_P, _P, _P, _I, _P, _P, _I,
+                                _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                                _F, _F, _F, _I, _I, _I, _I, _F,
+                                _F, _F, _F, _I, _P],
+    # rows, L, float_genes, eval_kind, sum_group
+    "generation_tiled_smem_bytes": [_I, _I, _I, _I, _I],
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,8 @@ launches the kernel or raises.
 
 Kernels: ``trap`` (trap fitness), ``rastrigin`` (CEC2010-F15) and ``ga``
 (one GA generation per island, optionally with the fitness fused in: one
-kernel for binary genomes, one for float genomes).
+untiled kernel for binary genomes, one for float genomes, and the tiled
+kernel for both, which runs after the selection-plan kernel).
 
 :data:`LAUNCHES` counts the kernel launches of each wrapper; a run sets the
 counts to 0 with :func:`reset_launches` and reads them afterwards to show
@@ -19,7 +20,8 @@ from __future__ import annotations
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"trap_fitness": 0, "generation": 0,
-                            "generation_float": 0, "f15": 0}
+                            "generation_float": 0, "f15": 0,
+                            "generation_tiled": 0, "selection_plan": 0}
 
 
 def reset_launches() -> None:

@@ -40,48 +40,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "plan_rows.cuh"
+#include "row_evals.cuh"
 #include "threefry.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 
-enum EvalKind { EVAL_NONE = 0, EVAL_TRAP = 1, EVAL_ONEMAX = 2, EVAL_ROYAL = 3 };
-
 struct Params {
   int n, L, elite, selection, tournament_k, crossover;
   float crossover_rate, mutation_rate;
-  int eval_kind, trap_l, trap_group;
-  float a, b, z, l_minus_z;
-  int royal_r;
+  BinaryEval ev;
 };
 
 __host__ __device__ inline size_t smem_bytes(int n, int L) {
   // masked, cum (f32) + idx_a, idx_b, cut1, cut2, gate (i32) + two tiles
   return (size_t)n * 7 * 4 + 2 * (size_t)n * (size_t)L;
-}
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-__device__ float trap_row(const int8_t* row, const Params& p) {
-  const int n_traps = p.L / p.trap_l;
-  float total = 0.0f;
-  for (int g0 = 0; g0 < n_traps; g0 += p.trap_group) {
-    const int g1 = min(g0 + p.trap_group, n_traps);
-    float part = 0.0f;
-    for (int t = g0; t < g1; ++t) {
-      int u = 0;
-      for (int j = 0; j < p.trap_l; ++j) u += row[t * p.trap_l + j];
-      const float uf = (float)u;
-      const float f =
-          uf <= p.z ? __fdiv_rn(__fmul_rn(p.a, __fsub_rn(p.z, uf)), p.z)
-                    : __fdiv_rn(__fmul_rn(p.b, __fsub_rn(uf, p.z)),
-                                p.l_minus_z);
-      part = __fadd_rn(part, f);
-    }
-    total = __fadd_rn(total, part);
-  }
-  return total;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -137,61 +112,21 @@ generation_kernel(const int8_t* __restrict__ pop,
       cut1[e] = cut2[e] = gate[e] = 0;
     }
   } else if (threadIdx.x == 32 && p.selection == 1) {
-    float lo = __int_as_float(0x7f800000);
-    for (int r = 0; r < n; ++r)
-      if (isfinite(masked[r])) lo = fminf(lo, masked[r]);
-    float acc = 0.0f;
-    for (int r = 0; r < n; ++r) {
-      const float m = masked[r];
-      const float w = isfinite(m) ? __fadd_rn(__fsub_rn(m, lo), 1e-6f) : 0.0f;
-      acc = __fadd_rn(acc, w);
-      cum[r] = acc;
-    }
+    roulette_cdf(masked, n, finite_min(masked, n), cum);
   }
   __syncthreads();
 
   // ---- phase 1b: parents, cuts and gate of each child row
   for (int c = threadIdx.x; c < n_children; c += blockDim.x) {
     const int row = elite + c;
-    int par[2];
-    const uint32_t salts[2] = {SALT_SELECT_A, SALT_SELECT_B};
-    for (int s = 0; s < 2; ++s) {
-      if (p.selection == 0) {
-        float best = 0.0f;
-        int win = 0;
-        for (int j = 0; j < p.tournament_k; ++j) {
-          const int cand = randint_at(
-              k0, k1, (uint32_t)c * (uint32_t)p.tournament_k + (uint32_t)j,
-              salts[s], maxval);
-          const float f = masked[cand];
-          if (j == 0 || f > best) {
-            best = f;
-            win = cand;
-          }
-        }
-        par[s] = win;
-      } else {
-        const float u =
-            __fmul_rn(uniform_at(k0, k1, (uint32_t)c, salts[s]), cum[n - 1]);
-        int idx = 0;
-        for (int j = 0; j < n; ++j) idx += cum[j] <= u;
-        par[s] = min(idx, (int)maxval - 1);
-      }
-    }
-    idx_a[row] = par[0];
-    idx_b[row] = par[1];
-    if (p.crossover == 0) {
-      const uint32_t span = (uint32_t)L + 1u;
-      const int x = randint_at(k0, k1, (uint32_t)c * 2u, SALT_CROSSOVER, span);
-      const int y =
-          randint_at(k0, k1, (uint32_t)c * 2u + 1u, SALT_CROSSOVER, span);
-      cut1[row] = min(x, y);
-      cut2[row] = max(x, y);
-    } else {
-      cut1[row] = cut2[row] = 0;
-    }
-    gate[row] = bernoulli_at(k0, k1, (uint32_t)c, SALT_CROSSOVER_GATE,
-                             p.crossover_rate);
+    const RowPlan rp = child_row_plan(k0, k1, c, masked, cum, n, maxval,
+                                      p.selection, p.tournament_k,
+                                      p.crossover, L, p.crossover_rate);
+    idx_a[row] = rp.a;
+    idx_b[row] = rp.b;
+    cut1[row] = rp.cut1;
+    cut2[row] = rp.cut2;
+    gate[row] = rp.gate;
   }
   __syncthreads();
 
@@ -219,26 +154,11 @@ generation_kernel(const int8_t* __restrict__ pop,
   }
 
   // ---- phase 3: fused fitness of the new rows
-  if (p.eval_kind == EVAL_NONE) return;
+  if (p.ev.kind == EVAL_NONE) return;
   __syncthreads();
-  for (int r = threadIdx.x; r < n; r += blockDim.x) {
-    const int8_t* row = kids + (size_t)r * L;
-    float v = 0.0f;
-    if (p.eval_kind == EVAL_TRAP) {
-      v = trap_row(row, p);
-    } else if (p.eval_kind == EVAL_ONEMAX) {
-      for (int j = 0; j < L; ++j) v = __fadd_rn(v, (float)row[j]);
-    } else {
-      int full = 0;
-      for (int b0 = 0; b0 < L; b0 += p.royal_r) {
-        int u = 0;
-        for (int j = 0; j < p.royal_r; ++j) u += row[b0 + j];
-        full += u >= p.royal_r;
-      }
-      v = __fmul_rn((float)p.royal_r, (float)full);
-    }
-    fit_out[(size_t)isl * n + r] = v;
-  }
+  for (int r = threadIdx.x; r < n; r += blockDim.x)
+    fit_out[(size_t)isl * n + r] =
+        binary_row_fitness(kids + (size_t)r * L, p.ev);
 }
 
 }  // namespace
@@ -263,10 +183,10 @@ extern "C" int generation_launch(
     float crossover_rate, float mutation_rate, int eval_kind, int trap_l,
     int trap_group, float a, float b, float z, float l_minus_z, int royal_r,
     void* stream) {
-  const Params p{n,         L,           elite,        selection,
-                 tournament_k, crossover, crossover_rate, mutation_rate,
-                 eval_kind, trap_l,      trap_group,   a,
-                 b,         z,           l_minus_z,    royal_r};
+  const BinaryEval ev{eval_kind, L, trap_l, trap_group, a, b, z, l_minus_z,
+                      royal_r};
+  const Params p{n,         L,           elite,          selection,
+                 tournament_k, crossover, crossover_rate, mutation_rate, ev};
   const size_t smem = smem_bytes(n, L);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -43,15 +43,14 @@
 #include <stdint.h>
 
 #include "../../rastrigin/csrc/f15_rows.cuh"
+#include "plan_rows.cuh"
+#include "row_evals.cuh"
 #include "threefry.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int ROWS = 4;
-
-enum FloatEval { EVAL_NONE = 0, EVAL_RASTRIGIN = 4, EVAL_SPHERE = 5,
-                 EVAL_F15 = 6 };
 
 struct FloatParams {
   int n, L, elite, selection, tournament_k, crossover;
@@ -65,8 +64,6 @@ __host__ __device__ inline size_t float_smem_bytes(int n, int L, int elite) {
   return ((size_t)2 * n + elite + 5 * ROWS) * 4 +
          2 * (size_t)ROWS * (size_t)L * 4;
 }
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 __global__ void __launch_bounds__(THREADS)
 generation_float_kernel(const float* __restrict__ pop,
@@ -124,16 +121,7 @@ generation_float_kernel(const float* __restrict__ pop,
       elite_idx[e] = best_i;
     }
   } else if (threadIdx.x == 32 && p.selection == 1) {
-    float lo = __int_as_float(0x7f800000);
-    for (int r = 0; r < n; ++r)
-      if (isfinite(masked[r])) lo = fminf(lo, masked[r]);
-    float acc = 0.0f;
-    for (int r = 0; r < n; ++r) {
-      const float v = masked[r];
-      const float w = isfinite(v) ? __fadd_rn(__fsub_rn(v, lo), 1e-6f) : 0.0f;
-      acc = __fadd_rn(acc, w);
-      cum[r] = acc;
-    }
+    roulette_cdf(masked, n, finite_min(masked, n), cum);
   }
   __syncthreads();
 
@@ -144,46 +132,14 @@ generation_float_kernel(const float* __restrict__ pop,
       idx_a[t] = idx_b[t] = elite_idx[row];
       cut1[t] = cut2[t] = gate[t] = 0;
     } else {
-      const int c = row - elite;
-      int par[2];
-      const uint32_t salts[2] = {SALT_SELECT_A, SALT_SELECT_B};
-      for (int s = 0; s < 2; ++s) {
-        if (p.selection == 0) {
-          float best = 0.0f;
-          int win = 0;
-          for (int j = 0; j < p.tournament_k; ++j) {
-            const int cand = randint_at(
-                k0, k1, (uint32_t)c * (uint32_t)p.tournament_k + (uint32_t)j,
-                salts[s], maxval);
-            const float f = masked[cand];
-            if (j == 0 || f > best) {
-              best = f;
-              win = cand;
-            }
-          }
-          par[s] = win;
-        } else {
-          const float u = __fmul_rn(uniform_at(k0, k1, (uint32_t)c, salts[s]),
-                                    cum[n - 1]);
-          int idx = 0;
-          for (int j = 0; j < n; ++j) idx += cum[j] <= u;
-          par[s] = min(idx, (int)maxval - 1);
-        }
-      }
-      idx_a[t] = par[0];
-      idx_b[t] = par[1];
-      if (p.crossover == 0) {
-        const uint32_t span = (uint32_t)L + 1u;
-        const int x = randint_at(k0, k1, (uint32_t)c * 2u, SALT_CROSSOVER, span);
-        const int y =
-            randint_at(k0, k1, (uint32_t)c * 2u + 1u, SALT_CROSSOVER, span);
-        cut1[t] = min(x, y);
-        cut2[t] = max(x, y);
-      } else {
-        cut1[t] = cut2[t] = 0;
-      }
-      gate[t] = bernoulli_at(k0, k1, (uint32_t)c, SALT_CROSSOVER_GATE,
-                             p.crossover_rate);
+      const RowPlan rp = child_row_plan(
+          k0, k1, row - elite, masked, cum, n, maxval, p.selection,
+          p.tournament_k, p.crossover, L, p.crossover_rate);
+      idx_a[t] = rp.a;
+      idx_b[t] = rp.b;
+      cut1[t] = rp.cut1;
+      cut2[t] = rp.cut2;
+      gate[t] = rp.gate;
     }
   }
   __syncthreads();
@@ -237,22 +193,7 @@ generation_float_kernel(const float* __restrict__ pop,
                                             : __fmul_rn(x, x);
   }
   __syncthreads();
-  // the grouped order of ordered_sum: group partials in parallel, then one
-  // thread per row adds them to 0 in order
-  const int n_parts = (L + p.sum_group - 1) / p.sum_group;
-  for (int i = threadIdx.x; i < rows * n_parts; i += blockDim.x) {
-    const int t = i / n_parts, g = i - t * n_parts;
-    const int g0 = g * p.sum_group, g1 = min(g0 + p.sum_group, L);
-    float part = 0.0f;
-    for (int j = g0; j < g1; ++j) part = __fadd_rn(part, buf1[(size_t)t * L + j]);
-    buf0[i] = part;
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < rows; t += blockDim.x) {
-    float total = 0.0f;
-    for (int g = 0; g < n_parts; ++g) total = __fadd_rn(total, buf0[t * n_parts + g]);
-    out[t] = -total;
-  }
+  neg_grouped_row_sums(buf1, buf0, rows, L, p.sum_group, out);
 }
 
 }  // namespace

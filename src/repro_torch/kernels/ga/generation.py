@@ -7,7 +7,8 @@ island's int8 tiles in shared memory, so above the card's opt-in shared
 memory per block the wrapper raises. Float genomes go to
 ``csrc/generation_float.cu``: a grid of (row blocks, islands) that reads
 parents from device memory and keeps only a few rows in shared memory.
-Larger tiles are the tiled kernel's (ROADMAP, Queue B item 4).
+Larger islands are the tiled kernel's (:mod:`.tiling`), where
+``ops.route`` sends ``impl='pallas'``.
 """
 from __future__ import annotations
 
@@ -29,15 +30,20 @@ FLOAT_EVALS = (None, "rastrigin", "sphere", "f15")
 CROSSOVERS = {"two_point": 0, "uniform": 1, "blend": 2}
 
 
-@functools.lru_cache(maxsize=None)
-def smem_bytes(n: int, length: int) -> int:
-    return int(_build.library().generation_smem_bytes(n, length))
+# the float kernel's rows per block (csrc/generation_float.cu, ROWS)
+FLOAT_ROWS = 4
 
 
-@functools.lru_cache(maxsize=None)
-def float_smem_bytes(n: int, length: int, elite: int) -> int:
-    return int(_build.library().generation_float_smem_bytes(n, length,
-                                                            elite))
+def untiled_smem_bytes(n: int, length: int, spec: GenerationSpec) -> int:
+    """Shared memory of one block of the untiled kernel for an (n, L)
+    island, as the C launchers size it (``generation_smem_bytes``,
+    ``generation_float_smem_bytes``): the binary kernel holds the plan
+    vectors and both int8 tiles, the float one the masked fitness, CDF,
+    elite and plan and two buffers of a few rows."""
+    if spec.kind == "binary":
+        return n * 7 * 4 + 2 * n * length
+    return ((2 * n + spec.elite + 5 * FLOAT_ROWS) * 4
+            + 2 * FLOAT_ROWS * length * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,16 +53,13 @@ def max_smem_bytes(device_index: int) -> int:
         return int(_build.library().generation_max_smem_bytes())
 
 
-def _check(seed, size, pop, fitness, genes):
-    n_isl, n, _ = pop.shape
-    dev = pop.device
-    if pop.dtype != genes:
-        raise ValueError(f"generation kernel: want {genes} genomes, got "
-                         f"{pop.dtype}")
-    if fitness.dtype != torch.float32 or tuple(fitness.shape) != (n_isl, n):
-        raise ValueError(f"generation kernel: fitness must be f32 "
-                         f"{(n_isl, n)}, got {fitness.dtype} "
-                         f"{tuple(fitness.shape)}")
+def check_plan_inputs(seed, size, fitness):
+    """Raise unless seed (I, 2) int64 words with unit stride, size (I,)
+    int32 and fitness (I, n) f32 lie contiguous on one device."""
+    n_isl = fitness.shape[0]
+    if fitness.dtype != torch.float32 or fitness.dim() != 2:
+        raise ValueError(f"generation kernel: fitness must be f32 (I, n), "
+                         f"got {fitness.dtype} {tuple(fitness.shape)}")
     if tuple(seed.shape) != (n_isl, 2) or tuple(size.shape) != (n_isl,):
         raise ValueError("generation kernel: want seed (I, 2) and size (I,)")
     if seed.dtype != torch.int64 or seed.stride(-1) != 1:
@@ -66,22 +69,39 @@ def _check(seed, size, pop, fitness, genes):
     if size.dtype != torch.int32:
         raise ValueError(f"generation kernel: size must be int32, got "
                          f"{size.dtype}")
-    for name, t in (("seed", seed), ("size", size), ("pop", pop),
-                    ("fitness", fitness)):
-        if t.device != dev:
+    for name, t in (("seed", seed), ("size", size)):
+        if t.device != fitness.device:
             raise ValueError(f"generation kernel: {name} is on {t.device}, "
-                             f"pop on {dev}")
-    if not (pop.is_contiguous() and fitness.is_contiguous()
-            and size.is_contiguous()):
+                             f"fitness on {fitness.device}")
+    if not (fitness.is_contiguous() and size.is_contiguous()):
         raise ValueError("generation kernel: inputs must be contiguous")
+
+
+def check_inputs(seed, size, pop, fitness, genes):
+    """:func:`check_plan_inputs`, and pop (I, n, L) of ``genes`` beside
+    them."""
+    n_isl, n, _ = pop.shape
+    if pop.dtype != genes:
+        raise ValueError(f"generation kernel: want {genes} genomes, got "
+                         f"{pop.dtype}")
+    if tuple(fitness.shape) != (n_isl, n):
+        raise ValueError(f"generation kernel: fitness must be "
+                         f"{(n_isl, n)}, got {tuple(fitness.shape)}")
+    if fitness.device != pop.device:
+        raise ValueError(f"generation kernel: fitness is on "
+                         f"{fitness.device}, pop on {pop.device}")
+    if not pop.is_contiguous():
+        raise ValueError("generation kernel: inputs must be contiguous")
+    check_plan_inputs(seed, size, fitness)
 
 
 def _check_smem(need: int, limit: int, n: int, length: int) -> None:
     if need > limit:
         raise ValueError(
             f"generation kernel: a {n}x{length} island needs {need} B of "
-            f"shared memory, the card allows {limit} B per block; larger "
-            "tiles go to the tiled kernel (ROADMAP, Queue B item 4)")
+            f"shared memory, the card allows {limit} B per block; "
+            "impl='pallas' routes such islands to the tiled kernel "
+            "(tiling.py)")
 
 
 def generation_kernel(seed: torch.Tensor, size: torch.Tensor,
@@ -111,7 +131,7 @@ def generation_kernel(seed: torch.Tensor, size: torch.Tensor,
 
 
 def _launch_binary(seed, size, pop, fitness, spec, consts):
-    _check(seed, size, pop, fitness, torch.int8)
+    check_inputs(seed, size, pop, fitness, torch.int8)
     n_isl, n, length = pop.shape
     ev = spec.eval_spec or {}
     kind = ev.get("eval")
@@ -123,8 +143,8 @@ def _launch_binary(seed, size, pop, fitness, spec, consts):
         raise ValueError(f"royal_road blocks of {royal_r} do not tile "
                          f"{length}")
     lib = _build.library()
-    _check_smem(smem_bytes(n, length), max_smem_bytes(pop.device.index), n,
-                length)
+    _check_smem(untiled_smem_bytes(n, length, spec),
+                max_smem_bytes(pop.device.index), n, length)
     new_pop = torch.empty_like(pop)
     fit_out = (torch.empty((n_isl, n), dtype=torch.float32, device=pop.device)
                if kind is not None else None)
@@ -150,7 +170,7 @@ def _launch_binary(seed, size, pop, fitness, spec, consts):
 
 
 def _launch_float(seed, size, pop, fitness, spec, consts):
-    _check(seed, size, pop, fitness, torch.float32)
+    check_inputs(seed, size, pop, fitness, torch.float32)
     n_isl, n, length = pop.shape
     ev = spec.eval_spec or {}
     kind = ev.get("eval")
@@ -162,7 +182,7 @@ def _launch_float(seed, size, pop, fitness, spec, consts):
         m, n_groups = int(ev["m"]), int(ev["n_groups"])
         o, perm, M = (consts[k].data_ptr() for k in ("o", "perm", "M"))
     lib = _build.library()
-    _check_smem(float_smem_bytes(n, length, spec.elite),
+    _check_smem(untiled_smem_bytes(n, length, spec),
                 max_smem_bytes(pop.device.index), n, length)
     new_pop = torch.empty_like(pop)
     fit_out = (torch.empty((n_isl, n), dtype=torch.float32, device=pop.device)

@@ -10,10 +10,11 @@ per-island callables; here one call serves every island):
   raw_fitness)``, the problem's fitness fused in.
 
 The impl names mean what they mean in the reference: ``pallas`` is the
-hand-written kernel (its plain version for CPU tensors) and ``pallas_ref``
-always the plain version. :mod:`.ops` fills :data:`KERNELS`. What this
-slice of the port does not carry raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+hand-written untiled kernel, routed to the tiled one for large islands,
+``pallas_tiled`` the tiled kernel (both their plain version for CPU
+tensors) and ``pallas_ref`` always the plain version. :mod:`.ops` fills
+:data:`KERNELS`. What the port does not carry yet raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -23,8 +24,6 @@ KERNELS: Dict[Tuple[str, str, str], Callable] = {}
 
 NOT_PORTED = {
     "jnp": "the classic impl is not ported yet (ROADMAP, Queue A item 8)",
-    "pallas_tiled": "the tiled generation kernel is not ported yet "
-                    "(ROADMAP, Queue B item 4)",
 }
 
 

@@ -115,3 +115,117 @@ def test_float_generation_kernel_bit_equal(card, selection, crossover, fused):
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the tiled generation kernel and the selection-plan kernel
+# ---------------------------------------------------------------------------
+TILED_EVALS = {"binary": {"none": None,
+                          "trap": (("a", 1.0), ("b", 2.0), ("eval", "trap"),
+                                   ("l", 4), ("z", 3.0)),
+                          "onemax": (("eval", "onemax"),),
+                          "royal_road": (("eval", "royal_road"), ("r", 8))},
+               "float": FLOAT_EVALS}
+
+
+def _tiled_case(kind, selection, crossover, fused, n_isl, n, length, seed):
+    g = torch.Generator().manual_seed(seed)
+    spec = GenerationSpec(
+        kind=kind, length=length, elite=2, selection=selection,
+        tournament_k=2, crossover=crossover, crossover_rate=0.9,
+        mutation_rate=0.05, mutation_sigma=0.3, low=-5.0, high=5.0,
+        fused_eval=TILED_EVALS[kind][fused])
+    if kind == "binary":
+        pop = (torch.rand(n_isl, n, length, generator=g) < 0.5).to(
+            torch.int8)
+    else:
+        pop = torch.rand(n_isl, n, length, generator=g) * 10 - 5
+    fit = torch.randn(n_isl, n, generator=g) * 10
+    size = torch.randint(n // 2, n + 1, (n_isl,), generator=g,
+                         dtype=torch.int32)
+    seed_w = torch.randint(0, 2**32, (n_isl, 2), generator=g,
+                           dtype=torch.int64)
+    return spec, (seed_w, size, pop, fit), g
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("selection", ["tournament", "roulette"])
+@pytest.mark.parametrize("crossover", ["two_point", "uniform"])
+@pytest.mark.parametrize("n", [64, 5000])
+def test_plan_kernel_bit_equal(card, selection, crossover, n):
+    from repro_torch.kernels.ga import tiling
+    from repro_torch.kernels.ga.common import selection_plan
+    spec, (seed, size, _, fit), _ = _tiled_case(
+        "binary", selection, crossover, "none", 3, n, 40, n)
+    fit[0, :5] = fit[0, 5]                       # ties at the elite
+    args = [t.to(card) for t in (seed, size, fit)]
+    got = tiling.plan_kernel(*args, spec)
+    want = selection_plan(args[0], args[2], args[1], spec, n)
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("kind,selection,crossover,fused", [
+    ("binary", "tournament", "two_point", "trap"),
+    ("binary", "roulette", "uniform", "onemax"),
+    ("binary", "tournament", "uniform", "royal_road"),
+    ("binary", "roulette", "two_point", "none"),
+    ("float", "tournament", "blend", "rastrigin"),
+    ("float", "roulette", "blend", "f15"),
+    ("float", "tournament", "uniform", "sphere"),
+    ("float", "roulette", "two_point", "none")])
+def test_tiled_kernel_bit_equal(card, kind, selection, crossover, fused):
+    """The tiled kernel equals its plain version and the untiled kernel,
+    genes and fitness, for every rows per block."""
+    gen_k = importlib.import_module("repro_torch.kernels.ga.generation")
+    from repro_torch.kernels.ga import tiling
+    length = 160 if kind == "binary" else 100
+    spec, args, g = _tiled_case(kind, selection, crossover, fused, 4, 64,
+                                length, 17)
+    consts = _f15_consts(length, 10, g, card) if fused == "f15" else None
+    args = [t.to(card) for t in args]
+    want = _as_tuple(gen_ref.generation(*args, spec, consts))
+    untiled = _as_tuple(gen_k.generation_kernel(*args, spec, consts))
+    for rows in (1, 3, 8, 64):
+        got = _as_tuple(tiling.generation_tiled(*args, spec, tile_pop=rows,
+                                                consts=consts))
+        assert len(got) == len(want)
+        for a, b, c in zip(got, want, untiled):
+            assert torch.equal(a, b) and torch.equal(a, c), rows
+
+
+def test_untiled_smem_formula_is_the_kernels(card):
+    """The routing's shared-memory formula is the C launchers' own."""
+    from repro_torch import _build
+    gen_k = importlib.import_module("repro_torch.kernels.ga.generation")
+    lib = _build.library()
+    for kind, n, length in (("binary", 256, 160), ("binary", 668, 160),
+                            ("float", 256, 1000), ("float", 37, 64)):
+        spec, _, _ = _tiled_case(kind, "tournament", "two_point", "none", 1,
+                                 n, length, 0)
+        want = (lib.generation_smem_bytes(n, length) if kind == "binary"
+                else lib.generation_float_smem_bytes(n, length, spec.elite))
+        assert gen_k.untiled_smem_bytes(n, length, spec) == want
+
+
+def test_pallas_routes_large_binary_islands_to_the_tiled_kernel(card):
+    """668 rows of 160 genes overflow the binary kernel's shared memory:
+    impl='pallas' runs them tiled, equal to the plain version."""
+    from repro_torch import kernels
+    from repro_torch.kernels.ga import ops
+    spec, args, _ = _tiled_case("binary", "tournament", "two_point", "trap",
+                                2, 668, 160, 3)
+    args = [t.to(card) for t in args]
+    limit = importlib.import_module(
+        "repro_torch.kernels.ga.generation").max_smem_bytes(card.index or 0)
+    assert ops.route(668, 160, spec, limit) == "tiled"
+    kernels.reset_launches()
+    got = ops._pallas(*args, spec, None)
+    assert kernels.LAUNCHES["generation"] == 0
+    assert kernels.LAUNCHES["generation_tiled"] == 1
+    assert kernels.LAUNCHES["selection_plan"] == 1
+    for a, b in zip(got, gen_ref.generation(*args, spec)):
+        assert torch.equal(a, b)

@@ -37,6 +37,7 @@ from repro_torch.core import EAConfig, MigrationConfig, island, run_fused
 from repro_torch.core import make_f15, make_onemax, make_rastrigin
 from repro_torch.core import make_trap
 from repro_torch.kernels.ga import get_kernel
+from repro_torch.kernels.ga import ops as ga_ops
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(impl="pallas_ref", max_pop=32, min_pop=16, generations_per_epoch=5)
@@ -201,17 +202,29 @@ def test_unported_paths_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="Queue A item 8"):
         run_fused(make_onemax(64), EAConfig(**dict(CFG, impl="jnp")),
                   MigrationConfig(), **run)
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        run_fused(make_onemax(64), EAConfig(**dict(CFG, impl="pallas_tiled")),
-                  MigrationConfig(), **run)
+    # impl="pallas_tiled" runs, and equals impl="pallas" from the same seed
+    runs = [run_fused(make_onemax(64), EAConfig(**dict(CFG, impl=impl)),
+                      MigrationConfig(), rng=SEED, **run)
+            for impl in ("pallas_tiled", "pallas")]
+    for a, b in zip(runs[0][:2], runs[1][:2]):
+        _assert_tree_equal(convert.to_numpy(a), convert.to_numpy(b),
+                           "pallas_tiled vs pallas")
     # a float tile above the reference's 16 MiB untiled estimate is the
-    # tiled kernel's: impl="pallas" raises instead of rerouting
+    # tiled kernel's: impl="pallas" routes it there and it runs
     big = make_rastrigin(1000)
-    gen = get_kernel("generation_eval", "float", "pallas")
-    with pytest.raises(NotImplementedError, match="Queue B item 4"):
-        gen(rand.key(0)[None], torch.zeros((1, 800, 1000)),
-            torch.zeros((1, 800)), torch.tensor([800]),
-            EAConfig(**dict(CFG, max_pop=800)), big.genome, big.fused)
+    big_cfg = EAConfig(**dict(CFG, max_pop=800))
+    assert ga_ops.route(800, 1000, ga_ops.make_spec(big_cfg, big.genome,
+                                                    big.fused)) == "tiled"
+    pop = torch.rand((1, 800, 1000), generator=torch.Generator().manual_seed(
+        0)) * 10 - 5
+    args = (rand.key(0)[None], pop, torch.zeros((1, 800)),
+            torch.tensor([800]), big_cfg, big.genome, big.fused)
+    new_pop, fit = get_kernel("generation_eval", "float", "pallas")(*args)
+    want_pop, want_fit = get_kernel("generation_eval", "float",
+                                    "pallas_ref")(*args)
+    assert new_pop.shape == (1, 800, 1000) and fit.shape == (1, 800)
+    assert torch.equal(new_pop, want_pop) and torch.equal(fit, want_fit)
+    assert bool(torch.isfinite(fit).all())
 
 
 def _imports(path):
