@@ -44,9 +44,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    plain version, timed as ms per 10,000 evaluations;
 5. the trap kernel run at 132 islands (one block per SM), 3 epochs;
 6. each kernel's time at the main paths' shapes, the tiled kernel's swept
-   rows per block against the heuristic's, and one JSON line with each
-   kernel's launches, time, plain time and bound;
-7. the last line: ``{"ok": true, "device": {...}}``.
+   rows per block against the heuristic's;
+7a. the WKV6 kernel through ``kernels/rwkv6/ops.wkv`` against its plain
+   chunked version and the sequential recurrence: the four shapes of
+   ``tests/test_kernels.py`` (S = 37 through the padding), the state-carry
+   composition, and the serve shape (4, 1024, 40, 64) with RWKV's decays
+   and with strong ones; its time at the serve shape against its bound;
+7b. the model-land path: rwkv6-3b at its published size (32 layers,
+   d 2560, bf16, random weights from the seed with the decay and mixing
+   LoRAs drawn too) served by ``launch.serve.generate``: a prefill of 4 x
+   1024 tokens through the kernel (one launch per layer, none in decode),
+   32 greedy tokens; the prefill through the plain recurrence must agree:
+   layer by layer from the same input, in f32 end to end (the same
+   weights), and in bf16 end to end within fixed limits; prefill and
+   decode rates, a device profile of each, peak memory;
+8. one JSON line with each kernel's launches, time, plain time and bound,
+   then the last line: ``{"ok": true, "device": {...}}``.
 
 It imports the port only (``src/repro_torch``), never JAX or the reference.
 Run times are wall clock around work that ends in
@@ -111,6 +124,33 @@ SPIN_CYCLES_PER_S = 2.0e9
 # the paper's published CPU times for 10,000 F15 evaluations, in ms
 # (2015; benchmarks/fig4_f15.py PAPER_MS)
 PAPER_FIG4_MS = {"java": 991.0, "js_node": 1234.0}
+# the WKV6 cases of phase 7a: (B, S, H, hd, chunk, decays); the first four
+# are tests/test_kernels.py's, the last two the serve shape
+WKV_CASES = [(2, 64, 3, 16, 32, "rwkv"), (1, 128, 2, 64, 32, "rwkv"),
+             (2, 37, 1, 8, 32, "rwkv"), (1, 32, 4, 32, 8, "rwkv"),
+             (4, 1024, 40, 64, 32, "rwkv"), (4, 1024, 40, 64, 32, "strong")]
+# w = exp(-exp(U(lo, hi))): RWKV's range (test_kernels.py) and strong decays
+WKV_DECAYS = {"rwkv": (-4.0, 1.0), "strong": (2.0, 4.0)}
+# the reference's kernel tolerance; with strong decays the chunk's cumsum
+# of log w reaches about -1760, where an f32 ulp is 1.2e-4, so the
+# pairwise exponents of the chunked form carry that much error
+WKV_TOL = {"rwkv": dict(atol=1e-3, rtol=2e-3),
+           "strong": dict(atol=1e-2, rtol=2e-3)}
+# phase 7b: the rwkv6-3b serve cell
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
+# kernel route against plain route at full size, relative L2. In f32 (the
+# served weights in f32, activations f32) the WKV is the only difference:
+# last-position logits and the wkv states of all layers within 1e-3. In
+# bf16, layer by layer from the same input, each layer's output within
+# 1e-2 (the routes' f32 y rounds to bf16 apart now and then) and its wkv
+# state within 1e-5. End to end in bf16, bf16 rounding of the WKV output
+# is amplified through 32 random layers: on an H100 (PERF.md) the
+# routes lay 0.1414 (logits) and 0.1138 (states) apart, while the bf16
+# plain route lay 0.2744 and 0.2221 from the f32 plain route. The limits
+# sit between those readings.
+SERVE_F32_TOL = 1e-3
+SERVE_LAYER_TOL = {"out": 1e-2, "state": 1e-5}
+SERVE_BF16_TOL = {"logits": 0.2, "state": 0.17}
 
 
 def log(*args):
@@ -304,6 +344,99 @@ def same_run(tag: str, a, b):
                      f"and the plain run")
     if int(a[2]) != int(b[2]):
         fail(f"{tag}: epoch counts differ")
+
+
+def wkv_work(bh: int, seq: int, d: int, chunk: int):
+    """(bytes, f32 operations) of one WKV call: r, k, v, w and y (BH, S, D)
+    f32 each read or written once, u, s0 and s_out once; the operations of
+    the chunked form counted once per head (the kernel's blocks recompute
+    a head's pairwise terms per column block; that is its overhead, not
+    the function's work). Per chunk of T with K = V = D: 8 per (t, k) for
+    log, cumsum, L_prev, r~ and k^ (a transcendental counts one); 2TKV for
+    r~ S and again for k^T v; 5 per strictly lower pair and k for the
+    pairwise scores; 2 per pair and v for scores v; 3TK for the bonus
+    diagonal and 3TV to add the three terms; K exps and 2KV for the decay
+    of S."""
+    t, k = chunk, d
+    pairs = t * (t - 1) // 2
+    per_chunk = (8 * t * k + 4 * t * k * k + 5 * pairs * k + 2 * pairs * k
+                 + 3 * t * k + 3 * t * k + k + 2 * k * k)
+    nbytes = 4 * (5 * bh * seq * d + bh * d + 2 * bh * d * d)
+    return nbytes, bh * (seq // chunk) * per_chunk
+
+
+def wkv_inputs(gen, b, s, h, hd, decays, dev):
+    """r, k, v ~ N(0, 1), w = exp(-exp(U(lo, hi))), u ~ 0.5 N(0, 1), s0 ~
+    0.1 N(0, 1), as tests/test_kernels.py draws them, in the model's
+    layout on the card."""
+    import torch
+    lo, hi = WKV_DECAYS[decays]
+    r, k, v = (torch.randn(b, s, h, hd, generator=gen) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand(b, s, h, hd, generator=gen)
+                             * (hi - lo) + lo))
+    u = torch.randn(h, hd, generator=gen) * 0.5
+    s0 = torch.randn(b, h, hd, hd, generator=gen) * 0.1
+    return [a.to(dev) for a in (r, k, v, w, u, s0)]
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b||, in f32."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def randomize_decay_lora(model, gen) -> None:
+    """Draw ``mix_B``, ``decay_B`` (0.1 N(0, 1)) and ``decay_base``
+    (U(-5, 1)) of every layer, as the CPU tests do: the init leaves them
+    zero, so a served model would never run the mixing LoRA or a varying
+    decay."""
+    import torch
+    with torch.no_grad():
+        for layer in model.segments[0]:
+            tm = layer[0].mixer
+            for p, draw in ((tm.mix_B, "normal"), (tm.decay_B, "normal"),
+                            (tm.decay_base, "uniform")):
+                x = torch.empty(p.shape, dtype=torch.float32,
+                                device=p.device)
+                if draw == "normal":
+                    x.normal_(0.0, 0.1, generator=gen)
+                else:
+                    x.uniform_(-5.0, 1.0, generator=gen)
+                p.copy_(x.to(p.dtype))
+
+
+def device_profile(tag: str, fn, card: str, top: int = 6):
+    """Device time of one call of ``fn`` by kernel (profiler), against the
+    wall time of the same call unprofiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        log(f"[{tag}] device time: not measured (the profiler saw no "
+            f"device events); wall {wall_ms:.3f} ms, {card}")
+        return
+    by_name = {}
+    for e in dev_events:
+        cnt, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (cnt + 1, us + e.device_time)
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    log(f"[{tag}] wall {wall_ms:.3f} ms (unprofiled); device busy "
+        f"{busy_ms:.3f} ms = {busy_ms / wall_ms:.3f} of it; "
+        f"{len(dev_events)} kernels; {card}")
+    for name, (cnt, us) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][1])[:top]:
+        log(f"[{tag}]   {us / 1e3:9.3f} ms {us / 1e3 / busy_ms:6.3f} of "
+            f"busy  {cnt:5d} launches  {name[:90]}")
 
 
 def main() -> int:
@@ -929,6 +1062,202 @@ def main() -> int:
         f"{fig4_ms * 1e3:.2f} us, plain {fig4_plain_ms * 1e3:.1f} us, bound "
         f"{fig4_bound * 1e3:.3f} us ({fig4_bytes} B, {fig4_ops} f32 ops); "
         f"the rotation alone by torch.bmm (TF32 off) {bmm_ms * 1e3:.2f} us")
+
+    # ---- 7a: the WKV6 kernel against its plain versions ------------------
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    from repro_torch.kernels.rwkv6 import rwkv6 as wkv_k
+
+    def wkv_max_err(got, want):
+        return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+    def wkv_close(got, want, tol):
+        return all(torch.allclose(a, b, **tol) for a, b in zip(got, want))
+
+    wkv_err = 0.0
+    for b, s, h, hd, chunk, decays in WKV_CASES:
+        args = wkv_inputs(gen, b, s, h, hd, decays, dev)
+        got = wkv_ops.wkv(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        # the kernel's plain version (wkv_chunked) through the same layout
+        # and padding, on the same values
+        chunked = [t.to(dev) for t in wkv_ops.wkv(*(a.cpu() for a in args),
+                                                   chunk=chunk)]
+        seq = wkv_ref.wkv(*args)
+        tol = WKV_TOL[decays]
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        ok = finite and wkv_close(got, chunked, tol) and wkv_close(got, seq,
+                                                                  tol)
+        err_c, err_s = wkv_max_err(got, chunked), wkv_max_err(got, seq)
+        log(f"[wkv] ({b}, {s}, {h}, {hd}) chunk {chunk}, {decays} decays: "
+            f"max_abs_err {err_c} against wkv_chunked, {err_s} against the "
+            f"sequential recurrence (|y| <= {got[0].abs().max().item():.1f})"
+            f"; finite {finite}; within atol {tol['atol']} rtol "
+            f"{tol['rtol']}: {ok}")
+        if not ok:
+            fail(f"WKV kernel differs from its plain versions at ({b}, {s}, "
+                 f"{h}, {hd}), {decays} decays")
+        if decays == "rwkv":
+            wkv_err = max(wkv_err, err_c)
+        if (s, decays) == (SERVE_PROMPT, "rwkv"):
+            wkv_serve = args
+    # the state carried across two calls equals one call (S 64 in halves)
+    r, k, v, w, u, s0 = wkv_inputs(gen, 1, 64, 2, 16, "rwkv", dev)
+    whole = wkv_ops.wkv(r, k, v, w, u, s0)
+    y1, s1 = wkv_ops.wkv(r[:, :32], k[:, :32], v[:, :32], w[:, :32], u, s0)
+    y2, s2 = wkv_ops.wkv(r[:, 32:], k[:, 32:], v[:, 32:], w[:, 32:], u, s1)
+    halves = (torch.cat([y1, y2], 1), s2)
+    log(f"[wkv] state carry (1, 64, 2, 16) in two halves: max_abs_err "
+        f"{wkv_max_err(halves, whole)} against one call")
+    if not wkv_close(halves, whole, WKV_TOL["rwkv"]):
+        fail("WKV kernel: the state carried across calls differs")
+    # the kernel alone at the serve shape, in its own layout
+    sr, sk, sv, sw, su, ss0 = wkv_serve
+    s_b, s_len, s_h, s_hd = sr.shape
+    bh_args = [a.transpose(1, 2).reshape(s_b * s_h, s_len, s_hd).contiguous()
+               for a in (sr, sk, sv, sw)]
+    bh_args += [su[None].expand(s_b, s_h, s_hd).reshape(s_b * s_h,
+                                                        s_hd).contiguous(),
+                ss0.reshape(s_b * s_h, s_hd, s_hd).contiguous()]
+    wkv_ms = event_ms(lambda: wkv_k.wkv_kernel(*bh_args), TIMED_CALLS)
+    wkv_plain_ms = event_ms(lambda: wkv_ref.wkv_chunked(
+        *bh_args, chunk=wkv_k.CHUNK), 3)
+    wkv_bytes, wkv_ops_n = wkv_work(s_b * s_h, s_len, s_hd, wkv_k.CHUNK)
+    wkv_bound, wkv_by = bound_of(wkv_bytes, f32_ops=wkv_ops_n)
+    log(f"[wkv] at the serve shape (BH {s_b * s_h}, S {s_len}, D {s_hd}, "
+        f"chunk {wkv_k.CHUNK}, 32 columns per block): "
+        f"{wkv_ms:.4f} ms per call, wkv_chunked {wkv_plain_ms:.3f} ms, "
+        f"bound {wkv_bound:.4f} ms ({wkv_by}: {wkv_bytes} B, {wkv_ops_n} "
+        f"f32 ops), {wkv_ms / wkv_bound:.1f} times it; no single PyTorch "
+        f"call computes WKV6; {card}")
+
+    # ---- 7b: rwkv6-3b served at full size ----------------------------------
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model, transformer
+    lm_cfg = get_config("rwkv6-3b")
+    lm_gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = build_model(lm_cfg, dev, lm_gen)
+    randomize_decay_lora(model, lm_gen)
+    torch.cuda.synchronize()
+    log(f"[serve] rwkv6-3b: {model.param_count()} parameters ({lm_cfg.n_layers}"
+        f" layers, d {lm_cfg.d_model}, {lm_cfg.n_heads} heads of "
+        f"{lm_cfg.hd}, d_ff {lm_cfg.d_ff}, vocab {lm_cfg.vocab_size}, "
+        f"{lm_cfg.param_dtype}) drawn in {time.perf_counter() - t:.2f} s")
+    prompts = torch.randint(0, lm_cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=lm_gen, device=dev)
+    generate(model, prompts, 2)                      # warm-up, not counted
+    kernels.reset_launches()
+    toks, times = generate(model, prompts, SERVE_NEW)
+    serve_launches = dict(kernels.LAUNCHES)
+    others = {k: n for k, n in serve_launches.items() if k != "wkv" and n}
+    if serve_launches["wkv"] != lm_cfg.n_layers or others:
+        fail(f"the served prefill should launch the WKV kernel once per "
+             f"layer and nothing else: {serve_launches}")
+    if toks.shape != (SERVE_BATCH, SERVE_NEW) or not bool(
+            ((toks >= 0) & (toks < lm_cfg.vocab_size)).all()):
+        fail(f"served tokens: shape {tuple(toks.shape)} or out of range")
+    n_prompt = SERVE_BATCH * SERVE_PROMPT
+    steps = times["decode_steps"]
+    log(f"[serve] generate: prefill {SERVE_BATCH} x {SERVE_PROMPT} in "
+        f"{times['prefill_s'] * 1e3:.3f} ms = "
+        f"{n_prompt / times['prefill_s']:.1f} tokens/s; decode {steps} "
+        f"steps in {times['decode_s'] * 1e3:.3f} ms = "
+        f"{times['decode_s'] / steps * 1e3:.3f} ms per step = "
+        f"{SERVE_BATCH * steps / times['decode_s']:.1f} tokens/s; launches "
+        f"{serve_launches}; {card}")
+    log(f"[serve] sample: {toks[0, :12].tolist()}; peak device memory of "
+        f"the weights and one generate {torch.cuda.max_memory_allocated()} "
+        f"B ({card})")
+    # the prefill through each route, and decode alone
+    kernels.reset_launches()
+    logits_k, caches_k = make_prefill_step(model, use_rwkv_kernel=True)(
+        {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_launches = kernels.LAUNCHES["wkv"]
+    kernels.reset_launches()
+    decode = make_decode_step(model)
+    tok, caches = logits_k.argmax(-1)[:, None], caches_k
+    for step in range(4):
+        logits_d, caches = decode({"token": tok, "index": SERVE_PROMPT + step,
+                                   "caches": caches})
+        tok = logits_d.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    decode_launches = kernels.LAUNCHES["wkv"]
+    t = time.perf_counter()
+    logits_p, caches_p = make_prefill_step(model, use_rwkv_kernel=False)(
+        {"tokens": prompts})
+    torch.cuda.synchronize()
+    plain_prefill_s = time.perf_counter() - t
+    if (prefill_launches, decode_launches, kernels.LAUNCHES["wkv"]) != (
+            lm_cfg.n_layers, 0, 0):
+        fail(f"WKV launches: prefill {prefill_launches}, decode "
+             f"{decode_launches}, plain prefill {kernels.LAUNCHES['wkv']}")
+    state_k, state_p = caches_k[0][0]["wkv"], caches_p[0][0]["wkv"]
+    rel_logits, rel_state = rel_l2(logits_k, logits_p), rel_l2(state_k,
+                                                               state_p)
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        logits_k, state_k, logits_d))
+    same_next = (logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean()
+    log(f"[serve] bf16 prefill through the kernel against the plain "
+        f"recurrence: last-position logits relative L2 {rel_logits:.4e} "
+        f"(limit {SERVE_BF16_TOL['logits']}) "
+        f"(max abs {(logits_k - logits_p).abs().max().item():.4f} of "
+        f"{logits_p.abs().max().item():.3f}), wkv states of all "
+        f"{lm_cfg.n_layers} layers {rel_state:.4e} (limit "
+        f"{SERVE_BF16_TOL['state']}); next token equal in "
+        f"{same_next.item():.2f} of rows; finite {finite}; WKV launches "
+        f"prefill {prefill_launches}, decode 0; plain prefill "
+        f"{plain_prefill_s * 1e3:.1f} ms")
+    # layer by layer from the same input: the routes differ in the WKV only
+    layer_out = layer_state = 0.0
+    with torch.inference_mode():
+        x = model._embed(prompts)
+        for layer in model.segments[0]:
+            p, bc = layer[0].tree(), model.plan[0].pattern[0]
+            out_k, c_k = transformer.block_apply(
+                bc, lm_cfg, p, x, mode="prefill", use_rwkv_kernel=True)
+            out_p, c_p = transformer.block_apply(
+                bc, lm_cfg, p, x, mode="prefill", use_rwkv_kernel=False)
+            layer_out = max(layer_out, rel_l2(out_k, out_p))
+            layer_state = max(layer_state, rel_l2(c_k["wkv"], c_p["wkv"]))
+            x = out_k
+    # the f32 twin: the same weights, f32 parameters and activations
+    twin = build_model(dataclasses.replace(
+        lm_cfg, param_dtype=torch.float32, activation_dtype=torch.float32),
+        "meta").to_empty(device=dev)
+    with torch.no_grad():
+        for p16, p32 in zip(model.parameters(), twin.parameters()):
+            p32.copy_(p16.float())
+    tw_logits_k, tw_caches_k = make_prefill_step(twin, use_rwkv_kernel=True)(
+        {"tokens": prompts})
+    tw_logits_p, tw_caches_p = make_prefill_step(twin)({"tokens": prompts})
+    f32_logits = rel_l2(tw_logits_k, tw_logits_p)
+    f32_state = rel_l2(tw_caches_k[0][0]["wkv"], tw_caches_p[0][0]["wkv"])
+    bf16_logits = rel_l2(logits_p, tw_logits_p)
+    bf16_state = rel_l2(state_p, tw_caches_p[0][0]["wkv"])
+    log(f"[serve] layer by layer from the same input (bf16): each layer's "
+        f"output within relative L2 {layer_out:.4e}, its wkv state within "
+        f"{layer_state:.4e}; the f32 twin, kernel against plain: logits "
+        f"{f32_logits:.4e}, wkv states {f32_state:.4e}; the bf16 plain "
+        f"route against the f32 plain route: logits {bf16_logits:.4e}, wkv "
+        f"states {bf16_state:.4e} (bf16's own distance, no gate)")
+    if not finite or layer_out > SERVE_LAYER_TOL["out"] \
+            or layer_state > SERVE_LAYER_TOL["state"] \
+            or max(f32_logits, f32_state) > SERVE_F32_TOL \
+            or rel_logits > SERVE_BF16_TOL["logits"] \
+            or rel_state > SERVE_BF16_TOL["state"]:
+        fail("rwkv6-3b prefill: the kernel route and the plain route "
+             "disagree beyond the stated tolerances, or non-finite values")
+    del twin, tw_caches_k, tw_caches_p, caches_p, logits_p, caches
+    device_profile("serve-prefill", lambda: make_prefill_step(
+        model, use_rwkv_kernel=True)({"tokens": prompts}), card)
+    device_profile("serve-decode", lambda: decode(
+        {"token": tok, "index": SERVE_PROMPT, "caches": caches_k}), card)
+
     result = {"kernels": [
         {"name": "trap_fitness", "route": "cuda",
          "source": "src/repro_torch/kernels/trap/csrc/trap.cu",
@@ -969,13 +1298,21 @@ def main() -> int:
          "max_abs_err": max(plan_errs), "ms": plan_ms,
          "plain_ms": plan_plain_ms, "bound_ms": plan_bound,
          "bound_by": plan_by, "library_ms": None},
+        {"name": "wkv", "route": "cuda",
+         "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
+         "replaces": "src/repro/kernels/rwkv6/rwkv6.py:88",
+         "launches": serve_launches["wkv"], "max_abs_err": wkv_err,
+         "ms": wkv_ms, "plain_ms": wkv_plain_ms, "bound_ms": wkv_bound,
+         "bound_by": wkv_by, "library_ms": None},
     ]}
     log(f"[kernels] shapes: trap ({rows_n}, {length}); generation "
         f"({n_isl}, {n}, {length}) fused trap, tournament, two_point; "
         f"generation_float ({n_isl}, {n}, {f_len}) fused f15, tournament, "
         f"blend; f15 ({f15_x.shape[0]}, {f_len}, m 50); generation_tiled "
         f"and selection_plan (1, {t_n}, {f_len}) tournament, blend, no eval, "
-        f"launches from Fig. 4's row (4d); card {card}")
+        f"launches from Fig. 4's row (4d); wkv ({SERVE_BATCH * lm_cfg.n_heads}, "
+        f"{SERVE_PROMPT}, 64), launches from one rwkv6-3b prefill (7b); "
+        f"card {card}")
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

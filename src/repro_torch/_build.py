@@ -72,6 +72,8 @@ SIGNATURES: Dict[str, List] = {
                                 _F, _F, _F, _I, _P],
     # rows, L, float_genes, eval_kind, sum_group
     "generation_tiled_smem_bytes": [_I, _I, _I, _I, _I],
+    # r, k, v, w, u, s0, y, s_out, bh, seq, d, chunk, vb, stream
+    "wkv_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

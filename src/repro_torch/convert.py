@@ -6,10 +6,17 @@ with numpy leaves and its keys as their data words (the caller applies
 :func:`to_numpy` turns the port's state back into numpy, keys as uint32
 words, for comparison with the reference. :func:`f15_consts_from_numpy`
 carries F15's constants across, the weights of the float problems.
+
+For the models, :func:`model_params_from_numpy` loads the reference's
+parameter tree (numpy leaves, each segment's blocks stacked on a leading
+``layers`` axis) into a port :class:`~repro_torch.models.Model`, and
+:func:`rwkv_caches_to_numpy` / :func:`rwkv_caches_from_numpy` carry the
+RWKV decode caches (per segment, a tuple of dicts of stacked arrays) both
+ways. bf16 leaves go through f32, which holds them exactly.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -100,3 +107,59 @@ def to_numpy(tree: Any) -> Any:
     if isinstance(tree, tuple):
         return tuple(to_numpy(v) for v in tree)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# Models
+# ---------------------------------------------------------------------------
+def _from_numpy(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(a).astype(np.float32))).to(dtype=dtype, device=device)
+
+
+def _load(dst: Any, src: Any, layer: Optional[int], where: str) -> None:
+    if isinstance(dst, torch.Tensor):
+        a = np.asarray(src)
+        if layer is not None:
+            a = a[layer]
+        if tuple(a.shape) != tuple(dst.shape):
+            raise ValueError(f"{where}: shape {a.shape}, want "
+                             f"{tuple(dst.shape)}")
+        with torch.no_grad():
+            dst.copy_(_from_numpy(a, dst.dtype, dst.device))
+        return
+    if set(dst) != set(src):
+        raise ValueError(f"{where}: keys {sorted(src)}, want {sorted(dst)}")
+    for key in dst:
+        _load(dst[key], src[key], layer, f"{where}.{key}")
+
+
+def model_params_from_numpy(model, tree: Mapping[str, Any]) -> None:
+    """Copy the reference's parameters (``Model.init``'s tree with numpy
+    leaves) into ``model`` in place, layer by layer."""
+    dst = model.tree()
+    for key in dst:
+        if key != "segments":
+            _load(dst[key], tree[key], None, key)
+    for si, seg in enumerate(dst["segments"]):
+        for layer, blocks in enumerate(seg):
+            for j, block in enumerate(blocks):
+                _load(block, tree["segments"][si][j], layer,
+                      f"segments[{si}][{j}][layer {layer}]")
+
+
+def rwkv_caches_to_numpy(caches: List) -> List:
+    """The port's caches as numpy (bf16 as f32), in the reference's
+    layout."""
+    return [tuple({k: v.detach().float().cpu().numpy() if v.dtype ==
+                   torch.bfloat16 else v.detach().cpu().numpy()
+                   for k, v in c.items()} for c in seg) for seg in caches]
+
+
+def rwkv_caches_from_numpy(caches: List, activation_dtype: torch.dtype,
+                           device="cpu") -> List:
+    """The reference's caches as tensors: ``wkv`` f32, ``tm_prev`` and
+    ``cm_prev`` in ``activation_dtype``."""
+    return [tuple({k: _from_numpy(v, torch.float32 if k == "wkv"
+                                  else activation_dtype, device)
+                   for k, v in c.items()} for c in seg) for seg in caches]

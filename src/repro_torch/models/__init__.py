@@ -1,0 +1,6 @@
+"""repro_torch.models: the LM substrate (the ``ssm`` family, RWKV6, so
+far)."""
+from .common import ModelConfig
+from .model import Model, build_model
+
+__all__ = ["ModelConfig", "Model", "build_model"]

@@ -1,0 +1,128 @@
+"""Model facade: embedding, block plan and head, with forward, prefill and
+decode.
+
+Port of ``repro/models/model.py`` for the ``ssm`` family. The parameters
+live in the module (built on ``device`` from ``generator`` when the model
+is made), so the methods take the batch alone:
+
+    forward:  {'tokens': (B, S) int} -> logits (B, S, V) f32
+    prefill:  {'tokens': (B, S) int} -> (last-position logits (B, V) f32,
+                                          caches)
+    decode:   token (B, 1) int, index, caches -> (logits (B, V), caches)
+
+``prefill`` and ``decode`` run under ``torch.inference_mode``. The loss
+and the train step are not ported yet (ROADMAP 'Next, in order' item 2).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .._device import DeviceLike, resolve_device
+from . import transformer
+from .common import ModelConfig, init_maker, meta_maker, rmsnorm
+from .transformer import Segment, make_plan
+
+
+class Model(nn.Module):
+    """``Model(cfg)`` builds its parameters on the card (it raises where
+    there is none); ``device="cpu"`` builds them on the CPU and
+    ``device="meta"`` only their shapes. ``generator`` (on that device)
+    draws them; by default a generator seeded 0."""
+
+    def __init__(self, cfg: ModelConfig, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.plan: List[Segment] = make_plan(cfg)
+        dev = resolve_device(device)
+        if dev.type == "meta":
+            mk = meta_maker(cfg.param_dtype)
+        else:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            mk = init_maker(generator, cfg.param_dtype, dev)
+        d = cfg.d_model
+        self.embed = nn.Parameter(mk("embed", (cfg.padded_vocab, d), 0.02))
+        self.segments = transformer.plan_params(cfg, self.plan, mk, "dec")
+        self.final_norm = nn.Parameter(mk("final.norm.scale", (d,), 1.0))
+        self.unembed = (None if cfg.tie_embeddings else nn.Parameter(
+            mk("unembed", (d, cfg.padded_vocab), 0.02)))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def tree(self) -> Dict:
+        """The parameters under the reference's keys and nesting, each
+        segment's blocks as a list over its layers."""
+        t = {"embed": self.embed,
+             "segments": [[[b.tree() for b in layer] for layer in seg]
+                          for seg in self.segments],
+             "final_norm": {"scale": self.final_norm}}
+        if self.unembed is not None:
+            t["unembed"] = self.unembed
+        return t
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    # ------------------------------------------------------------------ embed
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed[tokens].to(self.cfg.activation_dtype)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = rmsnorm(self.final_norm, x, self.cfg.norm_eps)
+        w = self.embed.T if self.unembed is None else self.unembed
+        return (x @ w.to(x.dtype)).float()
+
+    # ------------------------------------------------------------------ train
+    def forward(self, batch: Dict[str, torch.Tensor], *,
+                use_rwkv_kernel: bool = False) -> torch.Tensor:
+        """Logits (B, S, V) f32 at every position."""
+        x = self._embed(batch["tokens"])
+        x, _ = transformer.plan_apply(self.cfg, self.plan, self.segments, x,
+                                      mode="train",
+                                      use_rwkv_kernel=use_rwkv_kernel)
+        return self._logits(x)
+
+    # ------------------------------------------------------------------ serve
+    @torch.inference_mode()
+    def prefill(self, batch: Dict[str, torch.Tensor], *,
+                use_rwkv_kernel: bool = False,
+                max_seq: Optional[int] = None) -> Tuple[torch.Tensor, List]:
+        """Full-sequence pass building the decode state from
+        :meth:`blank_caches`. ``max_seq`` is the decode budget of attention
+        caches; the RWKV state does not grow with it. Returns
+        (last-position logits (B, V) f32, caches)."""
+        tokens = batch["tokens"]
+        x = self._embed(tokens)
+        x, caches = transformer.plan_apply(
+            self.cfg, self.plan, self.segments, x, mode="prefill",
+            caches=self.blank_caches(tokens.shape[0],
+                                     max_seq or tokens.shape[1]),
+            use_rwkv_kernel=use_rwkv_kernel)
+        return self._logits(x[:, -1:])[:, 0], caches
+
+    @torch.inference_mode()
+    def decode(self, token: torch.Tensor, index, caches: List
+               ) -> Tuple[torch.Tensor, List]:
+        """One token step. token: (B, 1); ``index``, the position of this
+        token, is not read by the RWKV blocks."""
+        x = self._embed(token)
+        x, caches = transformer.plan_apply(self.cfg, self.plan,
+                                           self.segments, x, mode="decode",
+                                           caches=caches)
+        return self._logits(x)[:, 0], caches
+
+    # ------------------------------------------------------------ decode state
+    def blank_caches(self, batch: int, max_seq: int) -> List:
+        return transformer.blank_plan_cache(self.cfg, self.plan, batch,
+                                            max_seq, self.device)
+
+
+def build_model(cfg: ModelConfig, device: DeviceLike = None,
+                generator: Optional[torch.Generator] = None) -> Model:
+    return Model(cfg, device, generator)

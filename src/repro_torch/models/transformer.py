@@ -1,0 +1,160 @@
+"""Layer-stack assembly: the block plan, its parameters, caches and
+application.
+
+Port of ``repro/models/transformer.py`` for the ``ssm`` family: one
+:class:`Segment` of ``n_layers`` blocks, each an RWKV6 TimeMix (mixer
+``rwkv``) and ChannelMix (FFN ``rwkv_cm``), pre-norm residual. The other
+families raise ``NotImplementedError`` naming the ROADMAP item that brings
+their layers. Parameters are one :class:`Block` per layer (the reference
+stacks them on a leading ``layers`` axis and scans); caches keep the
+reference's stacked layout, per segment a tuple (one entry per pattern
+position) of dicts of (L, ...) tensors. :func:`plan_apply` is a loop over
+the layers: no remat, no scan. ``mode`` is train | prefill | decode.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from . import rwkv
+from .common import Maker, ModelConfig, rmsnorm
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockCfg:
+    mixer: str = "attn"        # attn | bidir | cross | rwkv | hybrid
+    window: int = 0            # sliding window (0 = full)
+    ffn: str = "mlp"           # mlp | moe | rwkv_cm
+    has_cross: bool = False    # enc-dec decoder block
+    use_rope: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    pattern: Tuple[BlockCfg, ...]
+    n: int
+
+
+_UNPORTED = ("ROADMAP 'Next, in order' item 1 (models/attention.py with "
+             "flash attention, Queue B item 6) and Queue A item 14")
+
+
+def make_plan(cfg: ModelConfig) -> List[Segment]:
+    """Decoder plan for the configured family (``ssm`` only so far)."""
+    if cfg.family == "ssm":
+        return [Segment((BlockCfg(mixer="rwkv", ffn="rwkv_cm"),),
+                        cfg.n_layers)]
+    raise NotImplementedError(f"the {cfg.family} family is not ported yet: "
+                              f"{_UNPORTED}")
+
+
+def plan_layers(plan: List[Segment]) -> int:
+    return sum(len(s.pattern) * s.n for s in plan)
+
+
+def _check_block(bc: BlockCfg) -> None:
+    if bc.mixer != "rwkv" or bc.ffn != "rwkv_cm" or bc.has_cross:
+        raise NotImplementedError(f"block {bc} is not ported yet: "
+                                  f"{_UNPORTED}")
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+class Block(nn.Module):
+    """The parameters of one pre-norm residual block (ln1, mixer, ln2,
+    ffn); :func:`block_apply` computes it from :meth:`tree`."""
+
+    def __init__(self, cfg: ModelConfig, bc: BlockCfg, mk: Maker,
+                 prefix: str):
+        super().__init__()
+        _check_block(bc)
+        d = cfg.d_model
+        self.ln1 = nn.Parameter(mk(f"{prefix}.ln1.norm.scale", (d,), 1.0))
+        self.mixer = rwkv.TimeMix(cfg, mk, f"{prefix}.tm")
+        self.ln2 = nn.Parameter(mk(f"{prefix}.ln2.norm.scale", (d,), 1.0))
+        self.ffn = rwkv.ChannelMix(cfg, mk, f"{prefix}.cm")
+
+    def tree(self) -> Dict[str, Any]:
+        """The parameters under the reference's keys."""
+        return {"ln1": {"scale": self.ln1}, "mixer": self.mixer.tree(),
+                "ln2": {"scale": self.ln2}, "ffn": self.ffn.tree()}
+
+
+def plan_params(cfg: ModelConfig, plan: List[Segment], mk: Maker,
+                prefix: str) -> nn.ModuleList:
+    """Per segment, per layer, per pattern position: a :class:`Block`."""
+    return nn.ModuleList(
+        nn.ModuleList(
+            nn.ModuleList(Block(cfg, bc, mk, f"{prefix}.seg{i}.pos{j}")
+                          for j, bc in enumerate(seg.pattern))
+            for _ in range(seg.n))
+        for i, seg in enumerate(plan))
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+def blank_plan_cache(cfg: ModelConfig, plan: List[Segment], batch: int,
+                     max_seq: int, device) -> List[Tuple[Any, ...]]:
+    """Decode caches mirroring the plan (stacked per segment). ``max_seq``
+    sizes attention caches; the RWKV state does not grow with it."""
+    return [tuple(rwkv.blank_state(cfg, batch, seg.n, device)
+                  for _ in seg.pattern) for seg in plan]
+
+
+# ---------------------------------------------------------------------------
+# Application
+# ---------------------------------------------------------------------------
+def block_apply(bc: BlockCfg, cfg: ModelConfig, p: Dict[str, Any],
+                x: torch.Tensor, *, mode: str, cache: Any = None,
+                use_rwkv_kernel: bool = False) -> Tuple[torch.Tensor, Any]:
+    """Apply one block given its parameter tree. Returns (x, new_cache).
+
+    Decode runs the time mix one step in plain PyTorch, as the reference
+    does; train and prefill start from ``cache`` or a blank state and take
+    the kernel when ``use_rwkv_kernel``."""
+    _check_block(bc)
+    h = rmsnorm(p["ln1"]["scale"], x, cfg.norm_eps)
+    if mode == "decode":
+        o, new_cache = rwkv.tm_apply(p["mixer"], cfg, h, cache,
+                                     use_kernel=False)
+    else:
+        state = cache if cache is not None else rwkv.blank_state(
+            cfg, h.shape[0], None, h.device)
+        o, new_cache = rwkv.tm_apply(p["mixer"], cfg, h, state,
+                                     use_kernel=use_rwkv_kernel)
+    x = x + o
+    h = rmsnorm(p["ln2"]["scale"], x, cfg.norm_eps)
+    o, new_cache = rwkv.cm_apply(p["ffn"], cfg, h, new_cache)
+    return x + o, new_cache
+
+
+def plan_apply(cfg: ModelConfig, plan: List[Segment], segments: nn.ModuleList,
+               x: torch.Tensor, *, mode: str,
+               caches: Optional[List] = None,
+               use_rwkv_kernel: bool = False
+               ) -> Tuple[torch.Tensor, Optional[List]]:
+    """Run x through every layer. Returns (x, new caches): the caches in
+    decode and prefill, None in train."""
+    new_caches: List = []
+    for si, seg in enumerate(plan):
+        per_pos: List[List[Dict[str, torch.Tensor]]] = [[] for _ in
+                                                         seg.pattern]
+        for layer in range(seg.n):
+            for j, bc in enumerate(seg.pattern):
+                cache = None if caches is None else {
+                    key: val[layer] for key, val in caches[si][j].items()}
+                x, cache = block_apply(
+                    bc, cfg, segments[si][layer][j].tree(), x, mode=mode,
+                    cache=cache, use_rwkv_kernel=use_rwkv_kernel)
+                if mode != "train":
+                    per_pos[j].append(cache)
+        if mode != "train":
+            new_caches.append(tuple(
+                {key: torch.stack([c[key] for c in layers])
+                 for key in layers[0]} for layers in per_pos))
+    return x, (new_caches if mode != "train" else None)

@@ -229,3 +229,99 @@ def test_pallas_routes_large_binary_islands_to_the_tiled_kernel(card):
     assert kernels.LAUNCHES["selection_plan"] == 1
     for a, b in zip(got, gen_ref.generation(*args, spec)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the WKV6 kernel
+# ---------------------------------------------------------------------------
+def _wkv_inputs(bh, seq, d, g, lo=-4.0, hi=1.0):
+    """r, k, v ~ N(0, 1), w = exp(-exp(U(lo, hi))), u ~ 0.5 N(0, 1), s0 ~
+    0.1 N(0, 1), as the reference's kernel test draws them."""
+    r, k, v = (torch.randn(bh, seq, d, generator=g) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand(bh, seq, d, generator=g)
+                             * (hi - lo) + lo))
+    u = torch.randn(bh, d, generator=g) * 0.5
+    s0 = torch.randn(bh, d, d, generator=g) * 0.1
+    return r, k, v, w, u, s0
+
+
+# (BH, S, D, chunk): the shapes of tests/test_kernels.py's WKV6 test in
+# the kernel's layout (S = 37 padded to 64), a strong-decay case, and one
+# head of the serve shape at full length
+WKV_SHAPES = [(6, 64, 16, 32), (2, 128, 64, 32), (2, 64, 8, 32),
+              (4, 32, 32, 8), (3, 1024, 64, 32)]
+
+
+@pytest.mark.parametrize("bh,seq,d,chunk", WKV_SHAPES)
+@pytest.mark.parametrize("decay", ["rwkv", "strong"])
+def test_wkv_kernel_matches_plain(card, bh, seq, d, chunk, decay):
+    """The kernel against wkv_chunked and the sequential oracle. With
+    RWKV's decays, at the reference's kernel tolerance (atol 1e-3, rtol
+    2e-3): the same f32 algorithm, summed in another order. With strong
+    decays the chunk's cumsum of log w reaches about -1760, where an f32
+    ulp is 1.2e-4, so the pairwise exponents L_prev - L carry that much
+    absolute error in the reference's own formulation (on the CPU,
+    wkv_chunked is 2.7e-3 from an f64 oracle where the sequential
+    recurrence is 3.7e-5): atol 1e-2 there."""
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    from repro_torch.kernels.rwkv6 import rwkv6 as wkv_k
+    lo, hi = (-4.0, 1.0) if decay == "rwkv" else (2.0, 4.0)
+    tol = dict(atol=1e-3 if decay == "rwkv" else 1e-2, rtol=2e-3)
+    args = [t.to(card) for t in _wkv_inputs(bh, seq, d,
+                                            torch.Generator().manual_seed(
+                                                seq + d), lo, hi)]
+    y, s = wkv_k.wkv_kernel(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    y_c, s_c = wkv_ref.wkv_chunked(*args, chunk=chunk)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    torch.testing.assert_close(y, y_c, **tol)
+    torch.testing.assert_close(s, s_c, **tol)
+    # the sequential oracle in the model's layout: one batch row, BH heads
+    r, k, v, w, u, s0 = args
+    y_o, s_o = wkv_ref.wkv(*(a.transpose(0, 1)[None] for a in (r, k, v, w)),
+                           u, s0[None])
+    torch.testing.assert_close(y, y_o[0].transpose(0, 1), **tol)
+    torch.testing.assert_close(s, s_o[0], **tol)
+
+
+def test_wkv_state_carry_composes(card):
+    """Two halves run back to back through the kernel equal one run."""
+    from repro_torch.kernels.rwkv6 import rwkv6 as wkv_k
+    r, k, v, w, u, s0 = [t.to(card) for t in _wkv_inputs(
+        2, 64, 16, torch.Generator().manual_seed(7))]
+    y, s = wkv_k.wkv_kernel(r, k, v, w, u, s0)
+    halves = [a[:, :32].contiguous() for a in (r, k, v, w)], \
+        [a[:, 32:].contiguous() for a in (r, k, v, w)]
+    y1, s1 = wkv_k.wkv_kernel(*halves[0], u, s0)
+    y2, s2 = wkv_k.wkv_kernel(*halves[1], u, s1)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=1e-3,
+                               rtol=2e-3)
+    torch.testing.assert_close(s2, s, atol=1e-3, rtol=2e-3)
+
+
+def test_wkv_launches_once_per_layer_of_a_prefill(card):
+    """One prefill through the kernel launches it once per layer, decode
+    never; the plain route agrees (f32 reduced config, S = 37 padded)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("rwkv6-3b", smoke=True)
+    model = Model(cfg, device=card,
+                  generator=torch.Generator(device=card).manual_seed(0))
+    with torch.no_grad():
+        for block in model.segments[0]:
+            tm = block[0].mixer
+            tm.mix_B.normal_(0.0, 0.1)
+            tm.decay_B.normal_(0.0, 0.1)
+            tm.decay_base.uniform_(-5.0, 1.0)
+    tok = torch.randint(0, cfg.vocab_size, (2, 37), device=card)
+    kernels.reset_launches()
+    logits, caches = model.prefill({"tokens": tok}, use_rwkv_kernel=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["wkv"] == cfg.n_layers
+    want, want_caches = model.prefill({"tokens": tok})
+    model.decode(logits.argmax(-1)[:, None], 37, caches)
+    assert kernels.LAUNCHES["wkv"] == cfg.n_layers
+    torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(caches[0][0]["wkv"], want_caches[0][0]["wkv"],
+                               atol=1e-3, rtol=2e-3)

@@ -253,3 +253,13 @@ def test_port_imports_neither_jax_nor_the_reference():
             if top in ("jax", "jaxlib", "repro"):
                 bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
     assert not bad, bad
+
+
+def test_import_scan_covers_every_subpackage():
+    """The scan above walks the model-land subpackages too."""
+    walked = {os.path.relpath(os.path.dirname(p), os.path.join(
+        REPO, "src", "repro_torch")) for p in _port_files()}
+    for sub in ("models", "configs", "launch", os.path.join("kernels",
+                                                            "rwkv6"),
+                "core", os.path.join("kernels", "ga")):
+        assert sub in walked, sub
