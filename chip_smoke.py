@@ -58,7 +58,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    layer by layer from the same input, in f32 end to end (the same
    weights), and in bf16 end to end within fixed limits; prefill and
    decode rates, a device profile of each, peak memory;
-8. one JSON line with each kernel's launches, time, plain time and bound,
+8a. the flash-attention kernel against its plain version
+   (``kernels/flash_attention/ref.attention``): the five shapes of
+   ``tests/test_kernels.py`` in f32 and bf16 and the yi-9b serve shape
+   (4, 2048, 32 heads over 4, 128) in both; its time at the serve shape in
+   bf16 against its bound, the plain version's and SDPA's (a yardstick the
+   port never calls);
+8b. the dense path: yi-9b at its published size (48 layers, d 4096, GQA
+   32 / 4, bf16, random weights from the seed) served by
+   ``launch.serve.generate``: a prefill of 4 x 2048 tokens through the
+   flash kernel (one launch per layer, none in decode), 32 greedy tokens;
+   the prefill through the plain (q-chunked) attention must agree: each
+   layer's attention output from the same bf16 input, an f32 twin of the
+   whole model end to end, and the bf16 model end to end within fixed
+   limits; prefill and decode rates, a device profile of each, peak
+   memory;
+9. one JSON line with each kernel's launches, time, plain time and bound,
    then the last line: ``{"ok": true, "device": {...}}``.
 
 It imports the port only (``src/repro_torch``), never JAX or the reference.
@@ -69,6 +84,8 @@ events around back-to-back calls (:func:`event_ms`).
 from __future__ import annotations
 
 import dataclasses
+import gc
+import itertools
 import json
 import os
 import subprocess
@@ -151,6 +168,33 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
 SERVE_F32_TOL = 1e-3
 SERVE_LAYER_TOL = {"out": 1e-2, "state": 1e-5}
 SERVE_BF16_TOL = {"logits": 0.2, "state": 0.17}
+# bf16 tensor cores, dense (the H100 SXM data sheet): the bound of the
+# flash-attention row, whose work a tensor-core kernel does in bf16
+BF16_OPS_PER_S = 989e12
+# phase 8a: (B, S, H, Kv, hd), tests/test_kernels.py's five shapes, and
+# the yi-9b serve shape last; the reference's tolerances (atol, rtol)
+FLASH_CASES = [(1, 64, 4, 4, 16), (2, 96, 8, 2, 32), (1, 64, 4, 1, 16),
+               (1, 50, 4, 2, 16), (2, 64, 6, 3, 64), (4, 2048, 32, 4, 128)]
+FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# phase 8b: the yi-9b serve cell
+DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 4, 2048, 32
+# kernel route against plain route, relative L2, set before the first run
+# of this phase. Layer by layer from the same bf16 input: the kernel keeps
+# p in f32 where the plain route rounds it to bf16 (2^-9 relative, about
+# 1e-3 on the weighted sum), then both round the output to bf16:
+# predicted 2e-3 to 5e-3, limit 1e-2 (phase 7b's). The f32 twin (the same
+# weights in f32, all 48 layers) differs in summation order only:
+# predicted 1e-6 to 1e-4 on last-position logits, limit 1e-3. End to end
+# in bf16 the per-layer differences were predicted to grow through 48
+# random layers, as phase 7b's do through 32, to 0.05-0.3 (first limit
+# 0.3). On an H100 (PERF.md) they grew far less: 2.1135e-2 on logits,
+# beside 3.2793e-3 layer by layer, 4.2144e-6 in f32, and 1.8980e-2 between
+# the bf16 and the f32 plain routes. The limit is now 5e-2: about 2.4
+# times the reading, and the kernel route no farther from the plain one
+# than 2.6 times bf16's own distance from f32.
+DENSE_LAYER_TOL = 1e-2
+DENSE_F32_TOL = 1e-3
+DENSE_BF16_TOL = 5e-2
 
 
 def log(*args):
@@ -277,11 +321,13 @@ def f15_work(consts, rows: int):
     return nbytes, rows * (groups * m * m * 2 + dim * F15_GENE_F32)
 
 
-def bound_of(nbytes: int, int_ops: int = 0, f32_ops: int = 0):
+def bound_of(nbytes: int, int_ops: int = 0, f32_ops: int = 0,
+             bf16_ops: int = 0):
     """(bound in ms, "bytes" or "operations"): the larger of the bytes
     over the memory rate and the operations over their rates."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = int_ops / INT32_OPS_PER_S + f32_ops / F32_OPS_PER_S
+    t_ops = (int_ops / INT32_OPS_PER_S + f32_ops / F32_OPS_PER_S
+             + bf16_ops / BF16_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -365,6 +411,19 @@ def wkv_work(bh: int, seq: int, d: int, chunk: int):
     return nbytes, bh * (seq // chunk) * per_chunk
 
 
+def flash_work(q, k, causal: bool = True):
+    """(bytes, operations) of one attention call: q, k, v read once and o
+    written once; the two products (2 operations per multiply-add) over the
+    visible (row, key) pairs only, S(S + 1) / 2 per head when causal with
+    Sq = Sk. The softmax's exps and sums are left out (under 1 % of it)."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    nbytes = q.element_size() * (2 * b * sq * h * hd + 2 * b * sk * kv * hd)
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+             else sq * sk)
+    return nbytes, 4 * b * h * hd * pairs
+
+
 def wkv_inputs(gen, b, s, h, hd, decays, dev):
     """r, k, v ~ N(0, 1), w = exp(-exp(U(lo, hi))), u ~ 0.5 N(0, 1), s0 ~
     0.1 N(0, 1), as tests/test_kernels.py draws them, in the model's
@@ -444,6 +503,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    from torch.nn import functional as F
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import importlib
 
@@ -1135,7 +1195,8 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models import build_model, transformer
+    from repro_torch.models import attention, build_model, transformer
+    from repro_torch.models.common import rmsnorm
     lm_cfg = get_config("rwkv6-3b")
     lm_gen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.reset_peak_memory_stats()
@@ -1258,6 +1319,191 @@ def main() -> int:
     device_profile("serve-decode", lambda: decode(
         {"token": tok, "index": SERVE_PROMPT, "caches": caches_k}), card)
 
+    # free rwkv6-3b before the dense phases
+    del model, decode, caches_k, logits_k, logits_d, tok, wkv_serve, bh_args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 8a: the flash-attention kernel against its plain version --------
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    flash_err = 0.0
+    for (b, s, h, kv, hd), dtype in itertools.product(
+            FLASH_CASES, (torch.float32, torch.bfloat16)):
+        q, k, v = (torch.randn(shape, generator=gen).to(dtype).to(dev)
+                   for shape in ((b, s, h, hd), (b, s, kv, hd),
+                                 (b, s, kv, hd)))
+        scale = 1.0 / hd ** 0.5
+        got = fa_k.flash_attention_kernel(q, k, v, scale=scale, causal=True)
+        torch.cuda.synchronize()
+        want = fa_ref.attention(q, k, v, causal=True, scale=scale)
+        atol, rtol = FLASH_TOL[str(dtype).split(".")[-1]]
+        err = (got.float() - want.float()).abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        ok = finite and torch.allclose(got.float(), want.float(), atol=atol,
+                                       rtol=rtol)
+        log(f"[flash] ({b}, {s}, {h}, {kv}, {hd}) {dtype}: max_abs_err "
+            f"{err} against ref.attention (|o| <= "
+            f"{want.float().abs().max().item():.3f}); finite {finite}; "
+            f"within atol {atol} rtol {rtol}: {ok}")
+        if not ok:
+            fail(f"flash kernel differs from its plain version at ({b}, {s}, "
+                 f"{h}, {kv}, {hd}) {dtype}")
+        if dtype == torch.float32:
+            flash_err = max(flash_err, err)
+    # the serve shape in bf16 (the last case): the kernel, the plain
+    # version and SDPA on the same tensors
+    fq, fk, fv = q, k, v
+    f_scale = 1.0 / fq.shape[-1] ** 0.5
+    flash_ms = event_ms(lambda: fa_k.flash_attention_kernel(
+        fq, fk, fv, scale=f_scale, causal=True), TIMED_CALLS)
+    flash_plain_ms = event_ms(lambda: fa_ref.attention(
+        fq, fk, fv, causal=True, scale=f_scale), 3)
+    sq_, sk_, sv_ = (a.transpose(1, 2).contiguous() for a in (fq, fk, fv))
+    sdpa_ms = event_ms(lambda: F.scaled_dot_product_attention(
+        sq_, sk_, sv_, is_causal=True, scale=f_scale, enable_gqa=True),
+        TIMED_CALLS)
+    flash_bytes, flash_ops = flash_work(fq, fk)
+    flash_bound, flash_by = bound_of(flash_bytes, bf16_ops=flash_ops)
+    log(f"[flash] at the serve shape {tuple(fq.shape)} q, {tuple(fk.shape)} "
+        f"k and v, bf16, causal: {flash_ms:.4f} ms per call, "
+        f"ref.attention {flash_plain_ms:.3f} ms, SDPA (is_causal, "
+        f"enable_gqa; never called by the port) {sdpa_ms:.4f} ms; bound "
+        f"{flash_bound:.4f} ms ({flash_by}: {flash_bytes} B, {flash_ops} "
+        f"ops at the bf16 tensor cores' rate), {flash_ms / flash_bound:.1f} "
+        f"times it; f32 CUDA cores' floor for the same operations "
+        f"{flash_ops / F32_OPS_PER_S * 1e3:.4f} ms; {card}")
+    del q, k, v, got, want, fq, fk, fv, sq_, sk_, sv_
+
+    # ---- 8b: yi-9b served at full size -----------------------------------
+    d_cfg = get_config("yi-9b")
+    d_gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    dense = build_model(d_cfg, dev, d_gen)
+    torch.cuda.synchronize()
+    log(f"[dense] yi-9b: {dense.param_count()} parameters ({d_cfg.n_layers}"
+        f" layers, d {d_cfg.d_model}, {d_cfg.n_heads} heads over "
+        f"{d_cfg.n_kv_heads} of {d_cfg.hd}, d_ff {d_cfg.d_ff}, vocab "
+        f"{d_cfg.vocab_size}, {d_cfg.param_dtype}) drawn in "
+        f"{time.perf_counter() - t:.2f} s")
+    d_prompts = torch.randint(0, d_cfg.vocab_size, (DENSE_BATCH,
+                                                    DENSE_PROMPT),
+                              generator=d_gen, device=dev)
+    generate(dense, d_prompts, 2)                    # warm-up, not counted
+    kernels.reset_launches()
+    d_toks, d_times = generate(dense, d_prompts, DENSE_NEW)
+    dense_launches = dict(kernels.LAUNCHES)
+    others = {k: n for k, n in dense_launches.items()
+              if k != "flash_attention" and n}
+    if dense_launches["flash_attention"] != d_cfg.n_layers or others:
+        fail(f"the served prefill should launch the flash kernel once per "
+             f"layer and nothing else: {dense_launches}")
+    if d_toks.shape != (DENSE_BATCH, DENSE_NEW) or not bool(
+            ((d_toks >= 0) & (d_toks < d_cfg.vocab_size)).all()):
+        fail(f"served tokens: shape {tuple(d_toks.shape)} or out of range")
+    n_prompt = DENSE_BATCH * DENSE_PROMPT
+    steps = d_times["decode_steps"]
+    log(f"[dense] generate: prefill {DENSE_BATCH} x {DENSE_PROMPT} in "
+        f"{d_times['prefill_s'] * 1e3:.3f} ms = "
+        f"{n_prompt / d_times['prefill_s']:.1f} tokens/s; decode {steps} "
+        f"steps in {d_times['decode_s'] * 1e3:.3f} ms = "
+        f"{d_times['decode_s'] / steps * 1e3:.3f} ms per step = "
+        f"{DENSE_BATCH * steps / d_times['decode_s']:.1f} tokens/s; "
+        f"launches {dense_launches}; {card}")
+    log(f"[dense] sample: {d_toks[0, :12].tolist()}; peak device memory of "
+        f"the weights and one generate {torch.cuda.max_memory_allocated()} "
+        f"B ({card})")
+    # the prefill through each route, and decode alone
+    budget = DENSE_PROMPT + DENSE_NEW
+    kernels.reset_launches()
+    d_logits_k, d_caches_k = make_prefill_step(
+        dense, max_seq=budget, use_flash=True)({"tokens": d_prompts})
+    torch.cuda.synchronize()
+    prefill_launches = kernels.LAUNCHES["flash_attention"]
+    kernels.reset_launches()
+    t = time.perf_counter()
+    d_logits_p, _ = make_prefill_step(dense, max_seq=budget)(
+        {"tokens": d_prompts})
+    torch.cuda.synchronize()
+    d_plain_prefill_s = time.perf_counter() - t
+    plain_launches = kernels.LAUNCHES["flash_attention"]
+    d_decode = make_decode_step(dense)
+    d_tok = d_logits_k.argmax(-1)[:, None]
+    for step in range(4):
+        d_logits_d, d_caches_k = d_decode(
+            {"token": d_tok, "index": DENSE_PROMPT + step,
+             "caches": d_caches_k})
+        d_tok = d_logits_d.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    decode_launches = kernels.LAUNCHES["flash_attention"]
+    if (prefill_launches, plain_launches, decode_launches) != (
+            d_cfg.n_layers, 0, 0):
+        fail(f"flash launches: prefill {prefill_launches}, plain prefill "
+             f"{plain_launches}, decode {decode_launches}")
+    d_finite = all(bool(torch.isfinite(t).all()) for t in (
+        d_logits_k, d_logits_p, d_logits_d))
+    d_rel = rel_l2(d_logits_k, d_logits_p)
+    d_same = (d_logits_k.argmax(-1) == d_logits_p.argmax(-1)).float().mean()
+    log(f"[dense] bf16 prefill through the flash kernel against the plain "
+        f"(q-chunked) attention: last-position logits relative L2 "
+        f"{d_rel:.4e} (limit {DENSE_BF16_TOL}) (max abs "
+        f"{(d_logits_k - d_logits_p).abs().max().item():.4f} of "
+        f"{d_logits_p.abs().max().item():.3f}); next token equal in "
+        f"{d_same.item():.2f} of rows; finite {d_finite}; flash launches "
+        f"prefill {prefill_launches}, plain prefill 0, decode 0; plain "
+        f"prefill {d_plain_prefill_s * 1e3:.1f} ms")
+    # layer by layer from the same input: the routes differ in attention
+    d_layer = 0.0
+    d_bc = dense.plan[0].pattern[0]
+    with torch.inference_mode():
+        x = dense._embed(d_prompts)
+        pos = torch.arange(DENSE_PROMPT, dtype=torch.int32, device=dev)
+        for layer in dense.segments[0]:
+            p = layer[0].tree()
+            h = rmsnorm(p["ln1"]["scale"], x, d_cfg.norm_eps)
+            o_k, _ = attention.attend(p["mixer"], d_cfg, h, positions=pos,
+                                      use_flash=True)
+            o_p, _ = attention.attend(p["mixer"], d_cfg, h, positions=pos)
+            d_layer = max(d_layer, rel_l2(o_k, o_p))
+            x, _ = transformer.block_apply(d_bc, d_cfg, p, x, mode="train",
+                                           positions=pos, use_flash=True)
+        del x, h, o_k, o_p
+    # the f32 twin: the same weights, f32 parameters and activations, all
+    # 48 layers (35.3 GB beside the 17.7 GB of bf16 weights)
+    del d_caches_k
+    twin = build_model(dataclasses.replace(
+        d_cfg, param_dtype=torch.float32, activation_dtype=torch.float32),
+        "meta").to_empty(device=dev)
+    with torch.no_grad():
+        for p16, p32 in zip(dense.parameters(), twin.parameters()):
+            p32.copy_(p16.float())
+    tw_k, _ = make_prefill_step(twin, use_flash=True)({"tokens": d_prompts})
+    tw_p, _ = make_prefill_step(twin)({"tokens": d_prompts})
+    d_f32 = rel_l2(tw_k, tw_p)
+    d_bf16_f32 = rel_l2(d_logits_p, tw_p)
+    log(f"[dense] layer by layer from the same input (bf16): each layer's "
+        f"attention output within relative L2 {d_layer:.4e} (limit "
+        f"{DENSE_LAYER_TOL}); the f32 twin ({d_cfg.n_layers} layers), flash "
+        f"against plain: logits {d_f32:.4e} (limit {DENSE_F32_TOL}); the "
+        f"bf16 plain "
+        f"route against the f32 plain route: logits {d_bf16_f32:.4e} "
+        f"(bf16's own distance, no gate); peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B ({card})")
+    if not d_finite or d_layer > DENSE_LAYER_TOL or d_f32 > DENSE_F32_TOL \
+            or d_rel > DENSE_BF16_TOL:
+        fail("yi-9b prefill: the flash route and the plain route disagree "
+             "beyond the stated tolerances, or non-finite values")
+    del twin, tw_k, tw_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, d_caches = make_prefill_step(dense, max_seq=budget, use_flash=True)(
+        {"tokens": d_prompts})
+    device_profile("dense-prefill", lambda: make_prefill_step(
+        dense, max_seq=budget, use_flash=True)({"tokens": d_prompts}), card)
+    device_profile("dense-decode", lambda: d_decode(
+        {"token": d_tok, "index": DENSE_PROMPT, "caches": d_caches}), card)
+
     result = {"kernels": [
         {"name": "trap_fitness", "route": "cuda",
          "source": "src/repro_torch/kernels/trap/csrc/trap.cu",
@@ -1304,6 +1550,14 @@ def main() -> int:
          "launches": serve_launches["wkv"], "max_abs_err": wkv_err,
          "ms": wkv_ms, "plain_ms": wkv_plain_ms, "bound_ms": wkv_bound,
          "bound_by": wkv_by, "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+         "replaces":
+             "src/repro/kernels/flash_attention/flash_attention.py:74",
+         "launches": dense_launches["flash_attention"],
+         "max_abs_err": flash_err, "ms": flash_ms,
+         "plain_ms": flash_plain_ms, "bound_ms": flash_bound,
+         "bound_by": flash_by, "library_ms": sdpa_ms},
     ]}
     log(f"[kernels] shapes: trap ({rows_n}, {length}); generation "
         f"({n_isl}, {n}, {length}) fused trap, tournament, two_point; "
@@ -1312,6 +1566,8 @@ def main() -> int:
         f"and selection_plan (1, {t_n}, {f_len}) tournament, blend, no eval, "
         f"launches from Fig. 4's row (4d); wkv ({SERVE_BATCH * lm_cfg.n_heads}, "
         f"{SERVE_PROMPT}, 64), launches from one rwkv6-3b prefill (7b); "
+        f"flash_attention (4, 2048, 32 over 4, 128) bf16 causal, launches "
+        f"from one yi-9b prefill (8b), library_ms SDPA; "
         f"card {card}")
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,11 @@ SIGNATURES: Dict[str, List] = {
     "generation_tiled_smem_bytes": [_I, _I, _I, _I, _I],
     # r, k, v, w, u, s0, y, s_out, bh, seq, d, chunk, vb, stream
     "wkv_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, o, B, H, Kv, Sq, Sk, hd, the strides of q, k and v (batch,
+    # seq, head), scale, causal, bf16, stream
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -10,9 +10,10 @@ carries F15's constants across, the weights of the float problems.
 For the models, :func:`model_params_from_numpy` loads the reference's
 parameter tree (numpy leaves, each segment's blocks stacked on a leading
 ``layers`` axis) into a port :class:`~repro_torch.models.Model`, and
-:func:`rwkv_caches_to_numpy` / :func:`rwkv_caches_from_numpy` carry the
-RWKV decode caches (per segment, a tuple of dicts of stacked arrays) both
-ways. bf16 leaves go through f32, which holds them exactly.
+:func:`caches_to_numpy` / :func:`caches_from_numpy` carry the decode
+caches (per segment, a tuple of dicts of stacked arrays: RWKV states and
+attention ring caches) both ways, each leaf's dtype set by its name. bf16
+leaves go through f32, which holds them exactly.
 """
 from __future__ import annotations
 
@@ -148,18 +149,30 @@ def model_params_from_numpy(model, tree: Mapping[str, Any]) -> None:
                       f"segments[{si}][{j}][layer {layer}]")
 
 
-def rwkv_caches_to_numpy(caches: List) -> List:
+# cache leaves whose dtype is not the activations': the RWKV state and the
+# ring caches' positions
+CACHE_DTYPES = {"wkv": torch.float32, "pos": torch.int32}
+
+
+def caches_to_numpy(caches: List) -> List:
     """The port's caches as numpy (bf16 as f32), in the reference's
     layout."""
-    return [tuple({k: v.detach().float().cpu().numpy() if v.dtype ==
-                   torch.bfloat16 else v.detach().cpu().numpy()
+    return [tuple({k: (v.detach().float() if v.dtype == torch.bfloat16
+                       else v.detach()).cpu().numpy()
                    for k, v in c.items()} for c in seg) for seg in caches]
 
 
-def rwkv_caches_from_numpy(caches: List, activation_dtype: torch.dtype,
-                           device="cpu") -> List:
-    """The reference's caches as tensors: ``wkv`` f32, ``tm_prev`` and
-    ``cm_prev`` in ``activation_dtype``."""
-    return [tuple({k: _from_numpy(v, torch.float32 if k == "wkv"
-                                  else activation_dtype, device)
-                   for k, v in c.items()} for c in seg) for seg in caches]
+def caches_from_numpy(caches: List, activation_dtype: torch.dtype,
+                      device="cpu") -> List:
+    """The reference's caches as tensors: ``wkv`` f32, ``pos`` int32, the
+    others (``k``, ``v``, ``tm_prev``, ``cm_prev``) in
+    ``activation_dtype``."""
+    def leaf(key, a) -> torch.Tensor:
+        dtype = CACHE_DTYPES.get(key, activation_dtype)
+        a = np.asarray(a).astype(np.float32 if dtype.is_floating_point
+                                 else np.int32)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype=dtype,
+                                                             device=device)
+
+    return [tuple({k: leaf(k, v) for k, v in c.items()} for c in seg)
+            for seg in caches]

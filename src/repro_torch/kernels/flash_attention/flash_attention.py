@@ -1,0 +1,79 @@
+"""Flash-attention kernel wrapper: the CUDA kernel for CUDA tensors, the
+plain version for CPU tensors.
+
+Replaces ``repro/kernels/flash_attention/flash_attention.py
+::flash_attention_kernel``. The kernel (``csrc/flash.cu``) reads the
+model's layout, q (B, Sq, H, hd) and k, v (B, Sk, Kv, hd), through their
+strides and writes o (B, Sq, H, hd) contiguous in q's dtype: no
+transposes and no padding. A block owns one (b, h, 64-row q tile) and
+loops over the 64-key tiles up to the causal frontier; the query head h
+reads KV head h // (H / Kv).
+"""
+from __future__ import annotations
+
+import torch
+
+from ... import _build
+from .. import LAUNCHES
+from . import ref as _ref
+
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be 4-D, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != q.dtype or t.dtype not in DTYPES:
+            raise ValueError(f"flash_attention: q, k and v must share one "
+                             f"dtype of {DTYPES}, got {q.dtype}, {k.dtype}, "
+                             f"{v.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, q "
+                             f"on {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name}'s last dim must be "
+                             f"contiguous")
+    b, sq, h, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: want k and v of (B, Sk, Kv, "
+                         f"{hd}) with B = {b}, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    kv = k.shape[2]
+    if kv == 0 or h % kv:
+        raise ValueError(f"flash_attention: {h} query heads do not group "
+                         f"over {kv} KV heads")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head size {hd} is not one of "
+                         f"{HEAD_DIMS}")
+    if sq == 0 or k.shape[1] == 0:
+        raise ValueError("flash_attention: empty sequence")
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, scale: float,
+                           causal: bool) -> torch.Tensor:
+    """q (B, Sq, H, hd), k and v (B, Sk, Kv, hd), f32 or bf16 with the last
+    dim contiguous, on one device -> (B, Sq, H, hd) in q's dtype. The
+    causal mask is qpos >= kpos with both counted from 0."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return _ref.attention(q, k, v, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, kv,
+            sq, sk, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(scale), int(causal), int(q.dtype == torch.bfloat16),
+            stream)
+    _build.check(err, "flash_attention_kernel")
+    LAUNCHES["flash_attention"] += 1
+    return o

@@ -2,15 +2,18 @@
 
 Port of ``repro/launch/serve.py``. On the card, at the published size:
 
-    python -m repro_torch.launch.serve --full
+    python -m repro_torch.launch.serve --arch yi-9b --full
 
 and on the CPU, at the reduced size:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --device cpu
 
-The prefill runs every layer's WKV through the CUDA kernel
-(``serve(use_rwkv_kernel=False)`` runs the plain recurrence instead);
-decode always steps in plain PyTorch, as the reference does.
+The ported archs are rwkv6-3b (the default) and the dense ones (yi-9b,
+qwen3-32b, granite-34b, minicpm-2b). The prefill runs every attention
+layer through the flash-attention kernel and every RWKV layer's WKV
+through its kernel (``serve(use_flash=False, use_rwkv_kernel=False)``
+runs the plain versions instead); decode steps in plain PyTorch, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(model: Model, prompts: torch.Tensor, new_tokens: int, *,
-             use_rwkv_kernel: bool = True
+             use_flash: bool = True, use_rwkv_kernel: bool = True
              ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """Prefill ``prompts`` (B, S) and decode ``new_tokens`` greedily (the
     first from the prefill's logits). Returns the tokens (B, new_tokens)
@@ -40,6 +43,7 @@ def generate(model: Model, prompts: torch.Tensor, new_tokens: int, *,
     ending in a device synchronise."""
     batch, prompt_len = prompts.shape
     prefill = make_prefill_step(model, max_seq=prompt_len + new_tokens,
+                                use_flash=use_flash,
                                 use_rwkv_kernel=use_rwkv_kernel)
     decode = make_decode_step(model)
     dev = prompts.device
@@ -65,7 +69,7 @@ def generate(model: Model, prompts: torch.Tensor, new_tokens: int, *,
 def serve(arch: str = "rwkv6-3b", smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, new_tokens: int = 16, seed: int = 0,
           greedy: bool = True, verbose: bool = True,
-          device: DeviceLike = None,
+          device: DeviceLike = None, use_flash: bool = True,
           use_rwkv_kernel: bool = True) -> torch.Tensor:
     """Weights from a generator seeded ``seed``, prompts from one seeded
     ``seed + 1``; returns the (B, new_tokens) greedy tokens."""
@@ -80,7 +84,7 @@ def serve(arch: str = "rwkv6-3b", smoke: bool = True, batch: int = 4,
                             generator=torch.Generator(
                                 device=dev).manual_seed(seed + 1),
                             device=dev)
-    toks, t = generate(model, prompts, new_tokens,
+    toks, t = generate(model, prompts, new_tokens, use_flash=use_flash,
                        use_rwkv_kernel=use_rwkv_kernel)
     if verbose:
         steps = t["decode_steps"]

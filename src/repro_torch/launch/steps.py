@@ -14,13 +14,17 @@ from ..models import Model
 
 
 def make_prefill_step(model: Model, *, max_seq: Optional[int] = None,
+                      use_flash: bool = False,
                       use_rwkv_kernel: bool = False
                       ) -> Callable[[Dict], Tuple[torch.Tensor, List]]:
-    """prefill(batch) -> (last-position logits (B, V), caches); with
-    ``use_rwkv_kernel`` every layer's WKV runs through the CUDA kernel."""
+    """prefill(batch) -> (last-position logits (B, V), caches). With
+    ``use_flash`` every attention layer runs the flash-attention kernel,
+    with ``use_rwkv_kernel`` every RWKV layer the WKV kernel; each is
+    ignored by the blocks without its mixer."""
 
     def prefill(batch: Dict) -> Tuple[torch.Tensor, List]:
-        return model.prefill(batch, use_rwkv_kernel=use_rwkv_kernel,
+        return model.prefill(batch, use_flash=use_flash,
+                             use_rwkv_kernel=use_rwkv_kernel,
                              max_seq=max_seq)
 
     return prefill

@@ -1,0 +1,252 @@
+"""Attention: GQA, MQA and MHA, qk-norm, sliding windows, the ring-buffer
+KV cache.
+
+Port of ``repro/models/attention.py``. GQA groups the query heads as
+(B, S, Kv, G, hd), G = H / Kv; the query head h reads KV head h // G.
+:class:`Attention` holds the parameters under the reference's keys;
+:func:`attend` (a full sequence) and :func:`decode_step` (one token over
+the ring cache) compute from its ``tree()``.
+
+The causal full-sequence path goes through the flash-attention kernel
+with ``use_flash=True`` (:mod:`repro_torch.kernels.flash_attention`), as
+the reference routes it (``attention.py:251``): causal, self-attention,
+no window. Otherwise sequences of ``CHUNKED_THRESHOLD`` or more tokens
+take the q-chunked path and shorter ones the whole score matrix.
+
+The ring cache: slot = position % W, with ``pos`` holding each slot's
+position (-1 for an empty slot), so the mask is exact; full attention is
+W = max_seq. Unlike the reference, which returns a new cache,
+:func:`decode_step` writes the new key and value into the cache in place
+and returns it: a new cache would copy every layer's keys and values per
+token. Cross-attention is not ported (ROADMAP Queue A item 14).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..kernels.flash_attention import ops as flash_ops
+from .common import Maker, ModelConfig, Params, Tree, rmsnorm_1d
+from .rope import apply_rope, rope_angles
+
+NEG = -1e30
+# Sequences at or above this length take the q-chunked path, whose score
+# memory is (B, Kv, G, Q_CHUNK, Sk) rather than (B, Kv, G, Sq, Sk).
+CHUNKED_THRESHOLD = 2048
+Q_CHUNK = 512
+_CROSS = ("cross-attention is not ported yet: ROADMAP Queue A item 14 "
+          "(the encoder-decoder and vision plans)")
+
+
+class Attention(Params):
+    def __init__(self, cfg: ModelConfig, mk: Maker, prefix: str):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.hd
+        h, kv = cfg.n_heads, cfg.n_kv_heads
+        self._param("wq", mk(f"{prefix}.wq", (d, h * hd)))
+        self._param("wk", mk(f"{prefix}.wk", (d, kv * hd)))
+        self._param("wv", mk(f"{prefix}.wv", (d, kv * hd)))
+        self._param("wo", mk(f"{prefix}.wo", (h * hd, d)))
+        if cfg.qk_norm:
+            self._param("q_norm.scale", mk(f"{prefix}.q_norm.scale", (hd,),
+                                           1.0))
+            self._param("k_norm.scale", mk(f"{prefix}.k_norm.scale", (hd,),
+                                           1.0))
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+def blank_cache(cfg: ModelConfig, batch: int, cache_window: int,
+                layers: Optional[int], device) -> Tree:
+    """Empty ring cache: ``k`` and ``v`` (B, W, Kv, hd) zeros in the
+    activations' dtype, ``pos`` (W,) int32 -1, with a leading layer axis
+    when ``layers`` is given."""
+    lead = () if layers is None else (layers,)
+    shape = lead + (batch, cache_window, cfg.n_kv_heads, cfg.hd)
+    act = cfg.activation_dtype
+    return {"k": torch.zeros(shape, dtype=act, device=device),
+            "v": torch.zeros(shape, dtype=act, device=device),
+            "pos": torch.full(lead + (cache_window,), -1, dtype=torch.int32,
+                              device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Masks
+# ---------------------------------------------------------------------------
+def _slot(pos, W: int, n_meta: int):
+    """Ring slot of a position (an int or an int tensor). Meta tokens are
+    pinned in slots [0, n_meta); the others ring over the remaining
+    W - n_meta slots, so the meta tokens are never evicted."""
+    if n_meta <= 0:
+        return pos % W
+    if isinstance(pos, torch.Tensor):
+        return torch.where(pos < n_meta, pos,
+                           n_meta + (pos - n_meta) % (W - n_meta))
+    return pos if pos < n_meta else n_meta + (pos - n_meta) % (W - n_meta)
+
+
+def _mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+          window: int, n_meta: int) -> torch.Tensor:
+    """(Sq, Sk) bool validity from integer positions: window 0 is
+    unlimited, kv_pos < 0 an empty slot, kv_pos < n_meta always visible.
+    (The reference's ``k_pos``: the repo's lint reads ``k_*`` names as
+    PRNG keys.)"""
+    qp, kp = q_pos[:, None], kv_pos[None, :]
+    ok = kp >= 0
+    if causal:
+        ok = ok & (kp <= qp)
+    if window > 0:
+        in_window = kp > qp - window
+        if n_meta > 0:
+            in_window = in_window | (kp < n_meta)
+        ok = ok & in_window
+    return ok
+
+
+def _scores(qg: torch.Tensor, k: torch.Tensor, mask: torch.Tensor,
+            scale: float) -> torch.Tensor:
+    """Softmax probabilities (B, Kv, G, Sq, Sk) in f32 of the grouped
+    queries qg (B, Sq, Kv, G, hd) over k (B, Sk, Kv, hd)."""
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
+    logits = torch.where(mask, logits, torch.full((), NEG,
+                                                  device=logits.device))
+    return torch.softmax(logits, dim=-1)
+
+
+def _weighted(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, Sq, Kv, G, hd) f32: the probabilities rounded to v's dtype, as
+    the reference rounds them, times v, summed in f32."""
+    return torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype).float(),
+                        v.float())
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """Grouped scaled-dot-product attention. q (B, Sq, H, hd), k and v
+    (B, Sk, Kv, hd), mask (Sq, Sk) -> (B, Sq, H, hd) in q's dtype."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, hd)
+    out = _weighted(_scores(qg, k, mask, scale), v)
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+                  window: int, n_meta: int, scale: float,
+                  chunk: int = Q_CHUNK) -> torch.Tensor:
+    """The same attention over query chunks of ``chunk`` rows: the score
+    memory peaks at (B, Kv, G, chunk, Sk). The reference pads the last
+    chunk; a shorter last chunk gives the same rows."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    out = []
+    for start in range(0, sq, chunk):
+        qb = q[:, start:start + chunk]
+        qg = qb.reshape(b, qb.shape[1], kv, h // kv, hd)
+        mask = _mask(q_pos[start:start + chunk], kv_pos, causal, window,
+                     n_meta)
+        ob = _weighted(_scores(qg, k, mask, scale), v)
+        out.append(ob.reshape(b, qb.shape[1], h, hd).to(q.dtype))
+    return torch.cat(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Projections
+# ---------------------------------------------------------------------------
+def _project_qkv(p: Tree, cfg: ModelConfig, x: torch.Tensor,
+                 q_pos: torch.Tensor, kv_pos: torch.Tensor, use_rope: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    k = (x @ p["wk"]).reshape(b, s, kv, hd)
+    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm_1d(p["q_norm.scale"], q, cfg.norm_eps)
+        k = rmsnorm_1d(p["k_norm.scale"], k, cfg.norm_eps)
+    if use_rope:
+        q_angles = rope_angles(q_pos, hd, cfg.rope_theta)
+        # self-attention: the reference computes the same table twice
+        k_angles = (q_angles if kv_pos is q_pos
+                    else rope_angles(kv_pos, hd, cfg.rope_theta))
+        q = apply_rope(q, *q_angles)
+        k = apply_rope(k, *k_angles)
+    return q, k, v
+
+
+def _out(p: Tree, y: torch.Tensor) -> torch.Tensor:
+    b, s, h, hd = y.shape
+    return y.reshape(b, s, h * hd) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention (train and prefill)
+# ---------------------------------------------------------------------------
+def attend(p: Tree, cfg: ModelConfig, x: torch.Tensor, *,
+           causal: bool = True, window: int = 0, n_meta: int = 0,
+           positions: Optional[torch.Tensor] = None,
+           cross_src: Optional[torch.Tensor] = None, use_rope: bool = True,
+           use_flash: bool = False, make_cache: int = 0
+           ) -> Tuple[torch.Tensor, Optional[Tree]]:
+    """Self-attention over x (B, S, d). ``make_cache`` > 0 also returns a
+    ring cache of that window holding the last positions (prefill).
+    Returns (out, cache or None)."""
+    if cross_src is not None:
+        raise NotImplementedError(_CROSS)
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, cfg, x, positions, positions, use_rope)
+    scale = 1.0 / cfg.hd ** 0.5
+    if use_flash and causal and window == 0:
+        y = flash_ops.flash_attention(q, k, v, causal=True, scale=scale)
+    elif s >= CHUNKED_THRESHOLD:
+        y = _sdpa_chunked(q, k, v, q_pos=positions, kv_pos=positions,
+                          causal=causal, window=window, n_meta=n_meta,
+                          scale=scale)
+    else:
+        y = _sdpa(q, k, v, _mask(positions, positions, causal, window,
+                                 n_meta), scale)
+    out = _out(p, y)
+    if not make_cache:
+        return out, None
+    W = make_cache
+    if s <= W:
+        keep = torch.arange(s, device=x.device)
+    else:   # the meta tokens, and the last W - n_meta positions
+        keep = torch.cat([torch.arange(n_meta, device=x.device),
+                          torch.arange(s - (W - n_meta), s,
+                                       device=x.device)])
+    slots = _slot(keep, W, n_meta)
+    cache = blank_cache(cfg, b, W, None, x.device)
+    cache["k"][:, slots] = k[:, keep].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, keep].to(cache["v"].dtype)
+    cache["pos"][slots] = keep.to(torch.int32)
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Single-token decode over the ring cache
+# ---------------------------------------------------------------------------
+def decode_step(p: Tree, cfg: ModelConfig, x: torch.Tensor, cache: Tree,
+                index, *, window: int = 0, n_meta: int = 0,
+                cross_cache: Optional[Dict] = None, use_rope: bool = True
+                ) -> Tuple[torch.Tensor, Tree]:
+    """One decode step. x (B, 1, d); ``index`` (an int or a 0-d int
+    tensor) the position of this token. Writes its key and value into
+    ``cache`` in place and returns (out, cache)."""
+    if cross_cache is not None:
+        raise NotImplementedError(_CROSS)
+    index = int(index)
+    pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, pos, pos, use_rope)
+    slot = _slot(index, cache["k"].shape[1], n_meta)
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    cache["pos"][slot] = index
+    mask = _mask(pos, cache["pos"], True, window, n_meta)
+    y = _sdpa(q, cache["k"], cache["v"], mask, 1.0 / cfg.hd ** 0.5)
+    return _out(p, y), cache

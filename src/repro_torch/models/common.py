@@ -2,9 +2,11 @@
 
 Port of ``repro/models/common.py``: :class:`ModelConfig` with every field
 of the reference (its dtypes as torch dtypes), the makers that build a
-parameter, and ``rmsnorm``, ``rmsnorm_1d`` and ``groupnorm_heads``. The
-sharding machinery (``constrain``, the axes makers) is not ported: the
-port runs on one card.
+parameter, ``rmsnorm``, ``rmsnorm_1d`` and ``groupnorm_heads``, and what
+the blocks share: :class:`Params`, which holds a block's parameters under
+the reference's keys, and :func:`sigmoid` as the reference rounds it in
+bf16. The sharding machinery (``constrain``, the axes makers) is not
+ported: the port runs on one card.
 
 A maker is called as ``mk(name, shape, scale)`` by the modules'
 constructors. :func:`init_maker` draws like the reference's
@@ -20,11 +22,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch import nn
 
 Maker = Callable[..., torch.Tensor]
+Tree = Dict[str, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,3 +220,30 @@ def groupnorm_heads(scale: torch.Tensor, x: torch.Tensor, n_heads: int,
     var = ((xf - mean) ** 2).mean(-1, keepdim=True)
     y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(*lead, d)
     return (y * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Parameter holders and the reference's bf16 sigmoid
+# ---------------------------------------------------------------------------
+class Params(nn.Module):
+    """Parameters registered under the reference's keys (a dot in a key is
+    an underscore in the attribute name)."""
+
+    def __init__(self):
+        super().__init__()
+        self._keys: List[str] = []
+
+    def _param(self, key: str, value: torch.Tensor) -> None:
+        self.register_parameter(key.replace(".", "_"), nn.Parameter(value))
+        self._keys.append(key)
+
+    def tree(self) -> Tree:
+        """The parameters as a dict with the reference's keys."""
+        return {k: getattr(self, k.replace(".", "_")) for k in self._keys}
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))``, one rounding per operation: how the reference
+    lowers ``jax.nn.sigmoid``, which in bf16 rounds differently from
+    ``torch.sigmoid`` in about a third of the values."""
+    return 1 / (1 + torch.exp(-x))

@@ -1,7 +1,8 @@
 """Model facade: embedding, block plan and head, with forward, prefill and
 decode.
 
-Port of ``repro/models/model.py`` for the ``ssm`` family. The parameters
+Port of ``repro/models/model.py`` for the ``ssm`` and ``dense`` families
+(no meta tokens, encoder or vision inputs yet). The parameters
 live in the module (built on ``device`` from ``generator`` when the model
 is made), so the methods take the batch alone:
 
@@ -80,42 +81,47 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------ train
     def forward(self, batch: Dict[str, torch.Tensor], *,
+                use_flash: bool = False,
                 use_rwkv_kernel: bool = False) -> torch.Tensor:
         """Logits (B, S, V) f32 at every position."""
         x = self._embed(batch["tokens"])
-        x, _ = transformer.plan_apply(self.cfg, self.plan, self.segments, x,
-                                      mode="train",
-                                      use_rwkv_kernel=use_rwkv_kernel)
+        x, _ = transformer.plan_apply(
+            self.cfg, self.plan, self.segments, x, mode="train",
+            positions=self._positions(x), use_flash=use_flash,
+            use_rwkv_kernel=use_rwkv_kernel)
         return self._logits(x)
 
     # ------------------------------------------------------------------ serve
     @torch.inference_mode()
     def prefill(self, batch: Dict[str, torch.Tensor], *,
-                use_rwkv_kernel: bool = False,
+                use_flash: bool = False, use_rwkv_kernel: bool = False,
                 max_seq: Optional[int] = None) -> Tuple[torch.Tensor, List]:
-        """Full-sequence pass building the decode state from
-        :meth:`blank_caches`. ``max_seq`` is the decode budget of attention
-        caches; the RWKV state does not grow with it. Returns
-        (last-position logits (B, V) f32, caches)."""
-        tokens = batch["tokens"]
-        x = self._embed(tokens)
+        """Full-sequence pass building the decode state: attention ring
+        caches of ``max_seq`` slots (the decode budget, by default the
+        prompt length; a window caps them), the RWKV state from zero.
+        Returns (last-position logits (B, V) f32, caches)."""
+        x = self._embed(batch["tokens"])
         x, caches = transformer.plan_apply(
             self.cfg, self.plan, self.segments, x, mode="prefill",
-            caches=self.blank_caches(tokens.shape[0],
-                                     max_seq or tokens.shape[1]),
-            use_rwkv_kernel=use_rwkv_kernel)
+            positions=self._positions(x), use_flash=use_flash,
+            use_rwkv_kernel=use_rwkv_kernel, cache_len=max_seq)
         return self._logits(x[:, -1:])[:, 0], caches
 
     @torch.inference_mode()
     def decode(self, token: torch.Tensor, index, caches: List
                ) -> Tuple[torch.Tensor, List]:
-        """One token step. token: (B, 1); ``index``, the position of this
-        token, is not read by the RWKV blocks."""
+        """One token step. token: (B, 1); ``index`` (an int or a 0-d
+        tensor) is the position of this token. The attention caches are
+        updated in place."""
         x = self._embed(token)
         x, caches = transformer.plan_apply(self.cfg, self.plan,
                                            self.segments, x, mode="decode",
-                                           caches=caches)
+                                           caches=caches, index=index)
         return self._logits(x)[:, 0], caches
+
+    @staticmethod
+    def _positions(x: torch.Tensor) -> torch.Tensor:
+        return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
     # ------------------------------------------------------------ decode state
     def blank_caches(self, batch: int, max_seq: int) -> List:

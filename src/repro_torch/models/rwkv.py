@@ -21,44 +21,17 @@ output cast back to the activations' dtype before the group norm.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
-from torch import nn
 
 from ..kernels.rwkv6 import ops as rwkv_ops
 from ..kernels.rwkv6 import ref as rwkv_ref
-from .common import Maker, ModelConfig, groupnorm_heads
+from .common import (Maker, ModelConfig, Params, Tree, groupnorm_heads,
+                     sigmoid)
 
 # Five mixing targets in TimeMix: r, k, v, g(ate), w(decay)
 _MIX = ("r", "k", "v", "g", "w")
-
-Tree = Dict[str, torch.Tensor]
-
-
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``1 / (1 + exp(-x))``, one rounding per operation: how the reference
-    lowers ``jax.nn.sigmoid``, which in bf16 rounds differently from
-    ``torch.sigmoid`` in about a third of the values."""
-    return 1 / (1 + torch.exp(-x))
-
-
-class Params(nn.Module):
-    """Parameters registered under the reference's keys (a dot in a key is
-    an underscore in the attribute name)."""
-
-    def __init__(self):
-        super().__init__()
-        self._keys: List[str] = []
-
-    def _param(self, key: str, value: torch.Tensor) -> None:
-        self.register_parameter(key.replace(".", "_"), nn.Parameter(value))
-        self._keys.append(key)
-
-    def tree(self) -> Tree:
-        """The parameters as a dict with the reference's keys."""
-        return {k: getattr(self, k.replace(".", "_")) for k in self._keys}
-
 
 class TimeMix(Params):
     def __init__(self, cfg: ModelConfig, mk: Maker, prefix: str):
@@ -135,7 +108,7 @@ def _tm_project(p: Tree, cfg: ModelConfig, x: torch.Tensor,
     k = (xk @ p["wk"]).reshape(b, seq, h, hd)
     v = (xv @ p["wv"]).reshape(b, seq, h, hd)
     gate = xg @ p["wg"]
-    g = gate * _sigmoid(gate)               # jax.nn.silu
+    g = gate * sigmoid(gate)               # jax.nn.silu
     logw = p["decay_base"] + torch.tanh(xw @ p["decay_A"]) @ p["decay_B"]
     w = torch.exp(-torch.exp(logw.float())).reshape(b, seq, h, hd)
     u = p["bonus_u"].reshape(h, hd)
@@ -175,5 +148,5 @@ def cm_apply(p: Tree, cfg: ModelConfig, x: torch.Tensor,
     xk = x + (xs - x) * p["mix_k"]
     xr = x + (xs - x) * p["mix_r"]
     k = torch.square(torch.relu(xk @ p["wk"]))
-    out = _sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    out = sigmoid(xr @ p["wr"]) * (k @ p["wv"])
     return out, dict(state, cm_prev=x[:, -1])

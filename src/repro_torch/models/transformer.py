@@ -1,15 +1,18 @@
 """Layer-stack assembly: the block plan, its parameters, caches and
 application.
 
-Port of ``repro/models/transformer.py`` for the ``ssm`` family: one
-:class:`Segment` of ``n_layers`` blocks, each an RWKV6 TimeMix (mixer
-``rwkv``) and ChannelMix (FFN ``rwkv_cm``), pre-norm residual. The other
-families raise ``NotImplementedError`` naming the ROADMAP item that brings
-their layers. Parameters are one :class:`Block` per layer (the reference
-stacks them on a leading ``layers`` axis and scans); caches keep the
-reference's stacked layout, per segment a tuple (one entry per pattern
-position) of dicts of (L, ...) tensors. :func:`plan_apply` is a loop over
-the layers: no remat, no scan. ``mode`` is train | prefill | decode.
+Port of ``repro/models/transformer.py`` for the ``ssm`` and ``dense``
+families. An ``ssm`` plan is one :class:`Segment` of ``n_layers`` blocks,
+each an RWKV6 TimeMix (mixer ``rwkv``) and ChannelMix (FFN ``rwkv_cm``); a
+``dense`` plan one segment of causal self-attention (mixer ``attn``,
+window ``sliding_window``) and an MLP (FFN ``mlp``). Every block is
+pre-norm residual. The other families raise ``NotImplementedError``
+naming the ROADMAP item that brings their layers. Parameters are one
+:class:`Block` per layer (the reference stacks them on a leading
+``layers`` axis and scans); caches keep the reference's stacked layout,
+per segment a tuple (one entry per pattern position) of dicts of (L, ...)
+tensors. :func:`plan_apply` is a loop over the layers: no remat, no scan.
+``mode`` is train | prefill | decode.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from . import rwkv
+from . import attention, mlp, rwkv
 from .common import Maker, ModelConfig, rmsnorm
 
 
@@ -38,17 +41,28 @@ class Segment:
     n: int
 
 
-_UNPORTED = ("ROADMAP 'Next, in order' item 1 (models/attention.py with "
-             "flash attention, Queue B item 6) and Queue A item 14")
+_UNPORTED = {
+    "moe": "ROADMAP Queue A item 14: models/moe.py",
+    "hybrid": "ROADMAP Queue A item 14: models/ssm.py and the hybrid plan",
+    "vlm": "ROADMAP Queue A item 14: the cross-attention plan",
+    "encdec": "ROADMAP Queue A item 14: the encoder-decoder plan",
+}
+_BLOCKS = {("rwkv", "rwkv_cm"), ("attn", "mlp")}
 
 
 def make_plan(cfg: ModelConfig) -> List[Segment]:
-    """Decoder plan for the configured family (``ssm`` only so far)."""
+    """Decoder plan for the configured family (``ssm`` and ``dense``)."""
     if cfg.family == "ssm":
         return [Segment((BlockCfg(mixer="rwkv", ffn="rwkv_cm"),),
                         cfg.n_layers)]
-    raise NotImplementedError(f"the {cfg.family} family is not ported yet: "
-                              f"{_UNPORTED}")
+    if cfg.family == "dense" and not cfg.is_moe:
+        return [Segment((BlockCfg(mixer="attn", ffn="mlp",
+                                  window=cfg.sliding_window),),
+                        cfg.n_layers)]
+    family = "moe" if cfg.is_moe else cfg.family
+    where = _UNPORTED.get(family, "ROADMAP Queue A item 14")
+    raise NotImplementedError(f"the {family} family is not ported yet: "
+                              f"{where}")
 
 
 def plan_layers(plan: List[Segment]) -> int:
@@ -56,9 +70,9 @@ def plan_layers(plan: List[Segment]) -> int:
 
 
 def _check_block(bc: BlockCfg) -> None:
-    if bc.mixer != "rwkv" or bc.ffn != "rwkv_cm" or bc.has_cross:
-        raise NotImplementedError(f"block {bc} is not ported yet: "
-                                  f"{_UNPORTED}")
+    if (bc.mixer, bc.ffn) not in _BLOCKS or bc.has_cross:
+        raise NotImplementedError(f"block {bc} is not ported yet: ROADMAP "
+                                  f"Queue A item 14")
 
 
 # ---------------------------------------------------------------------------
@@ -74,9 +88,15 @@ class Block(nn.Module):
         _check_block(bc)
         d = cfg.d_model
         self.ln1 = nn.Parameter(mk(f"{prefix}.ln1.norm.scale", (d,), 1.0))
-        self.mixer = rwkv.TimeMix(cfg, mk, f"{prefix}.tm")
+        if bc.mixer == "rwkv":
+            self.mixer = rwkv.TimeMix(cfg, mk, f"{prefix}.tm")
+        else:
+            self.mixer = attention.Attention(cfg, mk, f"{prefix}.attn")
         self.ln2 = nn.Parameter(mk(f"{prefix}.ln2.norm.scale", (d,), 1.0))
-        self.ffn = rwkv.ChannelMix(cfg, mk, f"{prefix}.cm")
+        if bc.ffn == "rwkv_cm":
+            self.ffn = rwkv.ChannelMix(cfg, mk, f"{prefix}.cm")
+        else:
+            self.ffn = mlp.MLP(cfg, mk, f"{prefix}.mlp")
 
     def tree(self) -> Dict[str, Any]:
         """The parameters under the reference's keys."""
@@ -98,12 +118,30 @@ def plan_params(cfg: ModelConfig, plan: List[Segment], mk: Maker,
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
+def _cache_window(bc: BlockCfg, cfg: ModelConfig, max_seq: int) -> int:
+    if bc.window > 0:
+        return min(bc.window + cfg.n_meta_tokens, max_seq)
+    return max_seq
+
+
 def blank_plan_cache(cfg: ModelConfig, plan: List[Segment], batch: int,
                      max_seq: int, device) -> List[Tuple[Any, ...]]:
-    """Decode caches mirroring the plan (stacked per segment). ``max_seq``
-    sizes attention caches; the RWKV state does not grow with it."""
-    return [tuple(rwkv.blank_state(cfg, batch, seg.n, device)
-                  for _ in seg.pattern) for seg in plan]
+    """Decode caches mirroring the plan (stacked per segment): ring caches
+    of ``max_seq`` slots (or the window) for attention, the recurrent
+    state for RWKV."""
+    out = []
+    for seg in plan:
+        caches = []
+        for bc in seg.pattern:
+            _check_block(bc)
+            if bc.mixer == "attn":
+                caches.append(attention.blank_cache(
+                    cfg, batch, _cache_window(bc, cfg, max_seq), seg.n,
+                    device))
+            else:
+                caches.append(rwkv.blank_state(cfg, batch, seg.n, device))
+        out.append(tuple(caches))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -111,14 +149,38 @@ def blank_plan_cache(cfg: ModelConfig, plan: List[Segment], batch: int,
 # ---------------------------------------------------------------------------
 def block_apply(bc: BlockCfg, cfg: ModelConfig, p: Dict[str, Any],
                 x: torch.Tensor, *, mode: str, cache: Any = None,
-                use_rwkv_kernel: bool = False) -> Tuple[torch.Tensor, Any]:
+                index=None, positions: Optional[torch.Tensor] = None,
+                use_flash: bool = False, use_rwkv_kernel: bool = False,
+                cache_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Any]:
     """Apply one block given its parameter tree. Returns (x, new_cache).
 
-    Decode runs the time mix one step in plain PyTorch, as the reference
-    does; train and prefill start from ``cache`` or a blank state and take
-    the kernel when ``use_rwkv_kernel``."""
+    Attention: decode steps over the ring cache ``cache`` at position
+    ``index`` (updating it in place); train and prefill attend over the
+    sequence at ``positions``, through the flash kernel when
+    ``use_flash``, and prefill builds a ring cache of ``cache_len`` slots
+    (by default the prompt length). RWKV: decode runs the time mix one
+    step in plain PyTorch, as the reference does; train and prefill start
+    from ``cache`` or a blank state and take the kernel when
+    ``use_rwkv_kernel``."""
     _check_block(bc)
     h = rmsnorm(p["ln1"]["scale"], x, cfg.norm_eps)
+    if bc.mixer == "attn":
+        n_meta = cfg.n_meta_tokens if bc.window > 0 else 0
+        if mode == "decode":
+            o, new_cache = attention.decode_step(
+                p["mixer"], cfg, h, cache, index, window=bc.window,
+                n_meta=n_meta, use_rope=bc.use_rope)
+        else:
+            o, new_cache = attention.attend(
+                p["mixer"], cfg, h, causal=True, window=bc.window,
+                n_meta=n_meta, positions=positions, use_rope=bc.use_rope,
+                use_flash=use_flash,
+                make_cache=_cache_window(bc, cfg, cache_len or h.shape[1])
+                if mode == "prefill" else 0)
+        x = x + o
+        h = rmsnorm(p["ln2"]["scale"], x, cfg.norm_eps)
+        return x + mlp.apply(p["ffn"], cfg, h), new_cache
     if mode == "decode":
         o, new_cache = rwkv.tm_apply(p["mixer"], cfg, h, cache,
                                      use_kernel=False)
@@ -135,11 +197,14 @@ def block_apply(bc: BlockCfg, cfg: ModelConfig, p: Dict[str, Any],
 
 def plan_apply(cfg: ModelConfig, plan: List[Segment], segments: nn.ModuleList,
                x: torch.Tensor, *, mode: str,
-               caches: Optional[List] = None,
-               use_rwkv_kernel: bool = False
+               caches: Optional[List] = None, index=None,
+               positions: Optional[torch.Tensor] = None,
+               use_flash: bool = False, use_rwkv_kernel: bool = False,
+               cache_len: Optional[int] = None
                ) -> Tuple[torch.Tensor, Optional[List]]:
     """Run x through every layer. Returns (x, new caches): the caches in
-    decode and prefill, None in train."""
+    decode and prefill, None in train. In decode the attention caches are
+    updated in place and returned as they came."""
     new_caches: List = []
     for si, seg in enumerate(plan):
         per_pos: List[List[Dict[str, torch.Tensor]]] = [[] for _ in
@@ -150,11 +215,16 @@ def plan_apply(cfg: ModelConfig, plan: List[Segment], segments: nn.ModuleList,
                     key: val[layer] for key, val in caches[si][j].items()}
                 x, cache = block_apply(
                     bc, cfg, segments[si][layer][j].tree(), x, mode=mode,
-                    cache=cache, use_rwkv_kernel=use_rwkv_kernel)
+                    cache=cache, index=index, positions=positions,
+                    use_flash=use_flash, use_rwkv_kernel=use_rwkv_kernel,
+                    cache_len=cache_len)
                 if mode != "train":
                     per_pos[j].append(cache)
         if mode != "train":
             new_caches.append(tuple(
-                {key: torch.stack([c[key] for c in layers])
-                 for key in layers[0]} for layers in per_pos))
+                caches[si][j] if mode == "decode" and bc.mixer == "attn"
+                else {key: torch.stack([c[key] for c in layers])
+                      for key in layers[0]}
+                for j, (bc, layers) in enumerate(zip(seg.pattern,
+                                                     per_pos))))
     return x, (new_caches if mode != "train" else None)

@@ -5,8 +5,9 @@ inside the ``card`` fixture, never at import). On a machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Every kernel must be bit-equal to its plain version: trap fitness, F15,
-and the generation kernel on binary and on float genomes.
+The island kernels must be bit-equal to their plain versions: trap
+fitness, F15, and the generation kernels on binary and on float genomes.
+WKV6 and flash attention are held to the reference's kernel tolerances.
 """
 import importlib
 import itertools
@@ -325,3 +326,84 @@ def test_wkv_launches_once_per_layer_of_a_prefill(card):
     torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(caches[0][0]["wkv"], want_caches[0][0]["wkv"],
                                atol=1e-3, rtol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention kernel
+# ---------------------------------------------------------------------------
+# (B, S, H, Kv, hd): tests/test_kernels.py's five shapes (MHA, GQA 4:1,
+# MQA, S = 50 ragged, hd 64), and the yi-9b serve shape
+FLASH_SHAPES = [(1, 64, 4, 4, 16), (2, 96, 8, 2, 32), (1, 64, 4, 1, 16),
+                (1, 50, 4, 2, 16), (2, 64, 6, 3, 64), (4, 2048, 32, 4, 128)]
+# the reference's tolerances (tests/test_kernels.py)
+FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-4),
+             torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _flash_inputs(b, sq, sk, h, kv, hd, dtype, card, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype).to(card)
+            for shape in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(card, b, s, h, kv, hd, dtype):
+    """The kernel against ref.attention on the card, causal. The kernel
+    keeps p in f32 where the plain version rounds it to v's dtype: in
+    bf16 that is the reference's own 2e-2."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    q, k, v = _flash_inputs(b, s, s, h, kv, hd, dtype, card, s + h + kv)
+    scale = 1.0 / hd ** 0.5
+    before = kernels.LAUNCHES["flash_attention"]
+    got = fa_k.flash_attention_kernel(q, k, v, scale=scale, causal=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    want = fa_ref.attention(q, k, v, causal=True, scale=scale)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(50, 50), (17, 200), (200, 17), (129, 65)])
+def test_flash_kernel_ragged_and_noncausal(card, causal, sq, sk):
+    """Sq != Sk and lengths off the 64-row tiles: the kernel masks the
+    ragged edges itself; strided (B, S, H, hd) views are read in place."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    q, k, v = _flash_inputs(2, sq, sk, 8, 2, 32, torch.float32, card,
+                            sq + sk)
+    got = fa_k.flash_attention_kernel(q, k, v, scale=0.2, causal=causal)
+    want = fa_ref.attention(q, k, v, causal=causal, scale=0.2)
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+    qs = torch.randn(2, sq, 8, 64, device=card)[..., 16:48]
+    wide = torch.randn(2, sk, 2, 64, device=card)
+    kt, vt = wide[..., :32], wide[..., 32:]          # last dim contiguous
+    got = fa_k.flash_attention_kernel(qs, kt, vt, scale=0.2, causal=causal)
+    want = fa_ref.attention(qs, kt, vt, causal=causal, scale=0.2)
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+
+
+def test_flash_launches_once_per_layer_of_a_dense_prefill(card):
+    """One prefill through the kernel launches it once per layer, decode
+    never; the plain route agrees (f32 reduced yi-9b, S = 37)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("yi-9b", smoke=True)
+    model = Model(cfg, device=card,
+                  generator=torch.Generator(device=card).manual_seed(0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 37), device=card)
+    kernels.reset_launches()
+    logits, caches = model.prefill({"tokens": tok}, use_flash=True,
+                                   max_seq=40)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == cfg.n_layers
+    want, want_caches = model.prefill({"tokens": tok}, max_seq=40)
+    torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(caches[0][0]["k"], want_caches[0][0]["k"])
+    model.decode(logits.argmax(-1)[:, None], 37, caches)
+    assert kernels.LAUNCHES["flash_attention"] == cfg.n_layers

@@ -97,7 +97,7 @@ def _check(dtype, got, want, kind):
 
 
 def _check_caches(dtype, got, want):
-    got = convert.rwkv_caches_to_numpy(got)
+    got = convert.caches_to_numpy(got)
     assert len(got) == len(want)
     for g_seg, w_seg in zip(got, want):
         for g_c, w_c in zip(g_seg, w_seg):
@@ -156,9 +156,15 @@ def test_model_tree_has_the_references_shapes():
         assert _shapes(layer[0]) == want_block
 
 
-@pytest.mark.parametrize("arch", [a for a in J_ARCHS if a != ARCH])
+# the archs whose layers are not ported yet (the dense family is, in
+# tests/test_torch_dense.py)
+UNPORTED_ARCHS = ["seamless-m4t-large-v2", "dbrx-132b", "olmoe-1b-7b",
+                  "llama-3.2-vision-90b", "hymba-1.5b"]
+
+
+@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
 def test_other_archs_raise_naming_the_roadmap(arch):
-    assert arch in ARCHS
+    assert arch in ARCHS and arch in J_ARCHS
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -342,8 +348,8 @@ def test_caches_round_trip_through_numpy():
     _, _, model = _models("bf16")
     _, caches = model.prefill({"tokens": torch.from_numpy(
         _tokens(6, (2, 9))).long()})
-    back = convert.rwkv_caches_from_numpy(
-        convert.rwkv_caches_to_numpy(caches), torch.bfloat16)
+    back = convert.caches_from_numpy(
+        convert.caches_to_numpy(caches), torch.bfloat16)
     for key, val in caches[0][0].items():
         assert back[0][0][key].dtype == val.dtype
         assert torch.equal(back[0][0][key], val)

@@ -261,5 +261,6 @@ def test_import_scan_covers_every_subpackage():
         REPO, "src", "repro_torch")) for p in _port_files()}
     for sub in ("models", "configs", "launch", os.path.join("kernels",
                                                             "rwkv6"),
+                os.path.join("kernels", "flash_attention"),
                 "core", os.path.join("kernels", "ga")):
         assert sub in walked, sub
