@@ -58,21 +58,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    layer by layer from the same input, in f32 end to end (the same
    weights), and in bf16 end to end within fixed limits; prefill and
    decode rates, a device profile of each, peak memory;
-8a. the flash-attention kernel against its plain version
+8a. the flash-attention kernels against their plain version
    (``kernels/flash_attention/ref.attention``): the five shapes of
-   ``tests/test_kernels.py`` in f32 and bf16 and the yi-9b serve shape
-   (4, 2048, 32 heads over 4, 128) in both; its time at the serve shape in
-   bf16 against its bound, the plain version's and SDPA's (a yardstick the
-   port never calls);
+   ``tests/test_kernels.py`` and the yi-9b serve shape (4, 2048, 32 heads
+   over 4, 128), in bf16 (the tensor-core kernel, ``flash_tc.cu``) and in
+   f32 (the CUDA-core kernel, ``flash.cu``); each kernel's time at the
+   serve shape in its dtype against its bound, the plain version's and
+   SDPA's (a yardstick the port never calls), with the tensor-core
+   kernel's build time and ptxas report;
 8b. the dense path: yi-9b at its published size (48 layers, d 4096, GQA
    32 / 4, bf16, random weights from the seed) served by
    ``launch.serve.generate``: a prefill of 4 x 2048 tokens through the
-   flash kernel (one launch per layer, none in decode), 32 greedy tokens;
-   the prefill through the plain (q-chunked) attention must agree: each
-   layer's attention output from the same bf16 input, an f32 twin of the
-   whole model end to end, and the bf16 model end to end within fixed
-   limits; prefill and decode rates, a device profile of each, peak
-   memory;
+   tensor-core flash kernel (one launch per layer, none in decode), 32
+   greedy tokens; the prefill through the plain (q-chunked) attention must
+   agree: each layer's attention output from the same bf16 input, an f32
+   twin of the whole model end to end (through the f32 kernel, one launch
+   per layer), and the bf16 model end to end within fixed limits; prefill
+   and decode rates, a device profile of each, peak memory;
 9. one JSON line with each kernel's launches, time, plain time and bound,
    then the last line: ``{"ok": true, "device": {...}}``.
 
@@ -88,6 +90,7 @@ import gc
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -169,7 +172,7 @@ SERVE_F32_TOL = 1e-3
 SERVE_LAYER_TOL = {"out": 1e-2, "state": 1e-5}
 SERVE_BF16_TOL = {"logits": 0.2, "state": 0.17}
 # bf16 tensor cores, dense (the H100 SXM data sheet): the bound of the
-# flash-attention row, whose work a tensor-core kernel does in bf16
+# bf16 flash-attention row, whose work the tensor-core kernel does
 BF16_OPS_PER_S = 989e12
 # phase 8a: (B, S, H, Kv, hd), tests/test_kernels.py's five shapes, and
 # the yi-9b serve shape last; the reference's tolerances (atol, rtol)
@@ -179,12 +182,14 @@ FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # phase 8b: the yi-9b serve cell
 DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 4, 2048, 32
 # kernel route against plain route, relative L2, set before the first run
-# of this phase. Layer by layer from the same bf16 input: the kernel keeps
-# p in f32 where the plain route rounds it to bf16 (2^-9 relative, about
-# 1e-3 on the weighted sum), then both round the output to bf16:
-# predicted 2e-3 to 5e-3, limit 1e-2 (phase 7b's). The f32 twin (the same
-# weights in f32, all 48 layers) differs in summation order only:
-# predicted 1e-6 to 1e-4 on last-position logits, limit 1e-3. End to end
+# of this phase. Layer by layer from the same bf16 input: the CUDA-core
+# kernel then kept p in f32 where the plain route rounds it to bf16 (2^-9
+# relative, about 1e-3 on the weighted sum), then both round the output to
+# bf16: predicted 2e-3 to 5e-3, limit 1e-2 (phase 7b's). The tensor-core
+# kernel rounds p to bf16 as the plain route does; the limits stay. The
+# f32 twin (the same weights in f32, all 48 layers) differs in summation
+# order only: predicted 1e-6 to 1e-4 on last-position logits, limit 1e-3.
+# End to end
 # in bf16 the per-layer differences were predicted to grow through 48
 # random layers, as phase 7b's do through 32, to 0.05-0.3 (first limit
 # 0.3). On an H100 (PERF.md) they grew far less: 2.1135e-2 on logits,
@@ -330,6 +335,28 @@ def bound_of(nbytes: int, int_ops: int = 0, f32_ops: int = 0,
              + bf16_ops / BF16_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def build_report(source: str):
+    """(the build log's header of ``source``, with its compile time, and
+    [(template argument, ptxas's register and spill lines)] of each kernel
+    compiled from it), or None when the library was built before this
+    run."""
+    from repro_torch import _build
+    entry = next((e for e in _build.BUILD_LOG
+                  if e.startswith(f"== {source} ")), None)
+    if entry is None:
+        return None
+    out, arg, spill = [], None, ""
+    for line in entry.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"ILi(\d+)E", line)
+            arg = found.group(1) if found else "?"
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and arg is not None:
+            out.append((arg, f"{line.split(':', 1)[1].strip()}; {spill}"))
+    return entry.splitlines()[0], out
 
 
 def step_profile(tag: str, islands, problem, cfg, steps: int = 20):
@@ -1324,10 +1351,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- 8a: the flash-attention kernel against its plain version --------
+    # ---- 8a: the flash-attention kernels against their plain version ----
     from repro_torch.kernels.flash_attention import flash_attention as fa_k
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    flash_err = 0.0
+    report = build_report("flash_tc.cu")
+    if report is None:
+        log("[flash] the kernel library was built before this run: no build "
+            "time or ptxas report")
+    else:
+        log(f"[flash] the bf16 kernel's build {report[0]} (the sources "
+            f"compile in parallel)")
+        for hd_, line in report[1]:
+            log(f"[flash] ptxas, flash_tc.cu at hd {hd_}: {line}")
+    flash_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for (b, s, h, kv, hd), dtype in itertools.product(
             FLASH_CASES, (torch.float32, torch.bfloat16)):
         q, k, v = (torch.randn(shape, generator=gen).to(dtype).to(dev)
@@ -1349,30 +1385,38 @@ def main() -> int:
         if not ok:
             fail(f"flash kernel differs from its plain version at ({b}, {s}, "
                  f"{h}, {kv}, {hd}) {dtype}")
-        if dtype == torch.float32:
-            flash_err = max(flash_err, err)
-    # the serve shape in bf16 (the last case): the kernel, the plain
-    # version and SDPA on the same tensors
-    fq, fk, fv = q, k, v
-    f_scale = 1.0 / fq.shape[-1] ** 0.5
-    flash_ms = event_ms(lambda: fa_k.flash_attention_kernel(
-        fq, fk, fv, scale=f_scale, causal=True), TIMED_CALLS)
-    flash_plain_ms = event_ms(lambda: fa_ref.attention(
-        fq, fk, fv, causal=True, scale=f_scale), 3)
-    sq_, sk_, sv_ = (a.transpose(1, 2).contiguous() for a in (fq, fk, fv))
-    sdpa_ms = event_ms(lambda: F.scaled_dot_product_attention(
-        sq_, sk_, sv_, is_causal=True, scale=f_scale, enable_gqa=True),
-        TIMED_CALLS)
-    flash_bytes, flash_ops = flash_work(fq, fk)
-    flash_bound, flash_by = bound_of(flash_bytes, bf16_ops=flash_ops)
-    log(f"[flash] at the serve shape {tuple(fq.shape)} q, {tuple(fk.shape)} "
-        f"k and v, bf16, causal: {flash_ms:.4f} ms per call, "
-        f"ref.attention {flash_plain_ms:.3f} ms, SDPA (is_causal, "
-        f"enable_gqa; never called by the port) {sdpa_ms:.4f} ms; bound "
-        f"{flash_bound:.4f} ms ({flash_by}: {flash_bytes} B, {flash_ops} "
-        f"ops at the bf16 tensor cores' rate), {flash_ms / flash_bound:.1f} "
-        f"times it; f32 CUDA cores' floor for the same operations "
-        f"{flash_ops / F32_OPS_PER_S * 1e3:.4f} ms; {card}")
+        flash_err[dtype] = max(flash_err[dtype], err)
+    # the serve shape (the last case): each kernel, the plain version and
+    # SDPA on the same values, in bf16 and in f32
+    f_scale = 1.0 / q.shape[-1] ** 0.5
+    flash = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        fq, fk, fv = (a.to(dtype) for a in (q, k, v))
+        sq_, sk_, sv_ = (a.transpose(1, 2).contiguous() for a in (fq, fk, fv))
+        ms = event_ms(lambda: fa_k.flash_attention_kernel(
+            fq, fk, fv, scale=f_scale, causal=True), TIMED_CALLS)
+        plain_ms = event_ms(lambda: fa_ref.attention(
+            fq, fk, fv, causal=True, scale=f_scale), 3)
+        sdpa_ms = event_ms(lambda: F.scaled_dot_product_attention(
+            sq_, sk_, sv_, is_causal=True, scale=f_scale, enable_gqa=True),
+            TIMED_CALLS)
+        nbytes, ops = flash_work(fq, fk)
+        if dtype == torch.bfloat16:
+            bound, by = bound_of(nbytes, bf16_ops=ops)
+            what = "bf16, the tensor-core kernel (flash_tc.cu)"
+        else:
+            bound, by = bound_of(nbytes, f32_ops=ops)
+            what = "f32, the CUDA-core kernel (flash.cu)"
+        flash[dtype] = dict(ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                            bound=bound, by=by)
+        log(f"[flash] at the serve shape {tuple(fq.shape)} q, "
+            f"{tuple(fk.shape)} k and v, causal, {what}: {ms:.4f} ms per "
+            f"call = {ops / ms / 1e9:.1f} TFLOP/s over the visible pairs; "
+            f"bound {bound:.4f} ms ({by}: {nbytes} B, {ops} ops), "
+            f"{ms / bound:.2f} times it; SDPA (is_causal, enable_gqa; never "
+            f"called by the port) {sdpa_ms:.4f} ms, the kernel "
+            f"{ms / sdpa_ms:.2f} times it; ref.attention {plain_ms:.3f} ms; "
+            f"{card}")
     del q, k, v, got, want, fq, fk, fv, sq_, sk_, sv_
 
     # ---- 8b: yi-9b served at full size -----------------------------------
@@ -1478,14 +1522,21 @@ def main() -> int:
     with torch.no_grad():
         for p16, p32 in zip(dense.parameters(), twin.parameters()):
             p32.copy_(p16.float())
+    kernels.reset_launches()
     tw_k, _ = make_prefill_step(twin, use_flash=True)({"tokens": d_prompts})
+    torch.cuda.synchronize()
+    f32_launches = kernels.LAUNCHES["flash_attention"]
+    if f32_launches != d_cfg.n_layers:
+        fail(f"the f32 twin's prefill should launch the flash kernel once "
+             f"per layer: {f32_launches}")
     tw_p, _ = make_prefill_step(twin)({"tokens": d_prompts})
     d_f32 = rel_l2(tw_k, tw_p)
     d_bf16_f32 = rel_l2(d_logits_p, tw_p)
     log(f"[dense] layer by layer from the same input (bf16): each layer's "
         f"attention output within relative L2 {d_layer:.4e} (limit "
-        f"{DENSE_LAYER_TOL}); the f32 twin ({d_cfg.n_layers} layers), flash "
-        f"against plain: logits {d_f32:.4e} (limit {DENSE_F32_TOL}); the "
+        f"{DENSE_LAYER_TOL}); the f32 twin ({d_cfg.n_layers} layers, "
+        f"{f32_launches} launches of the f32 kernel), flash against plain: "
+        f"logits {d_f32:.4e} (limit {DENSE_F32_TOL}); the "
         f"bf16 plain "
         f"route against the f32 plain route: logits {d_bf16_f32:.4e} "
         f"(bf16's own distance, no gate); peak device memory "
@@ -1551,13 +1602,27 @@ def main() -> int:
          "ms": wkv_ms, "plain_ms": wkv_plain_ms, "bound_ms": wkv_bound,
          "bound_by": wkv_by, "library_ms": None},
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_tc.cu",
          "replaces":
              "src/repro/kernels/flash_attention/flash_attention.py:74",
          "launches": dense_launches["flash_attention"],
-         "max_abs_err": flash_err, "ms": flash_ms,
-         "plain_ms": flash_plain_ms, "bound_ms": flash_bound,
-         "bound_by": flash_by, "library_ms": sdpa_ms},
+         "max_abs_err": flash_err[torch.bfloat16],
+         "ms": flash[torch.bfloat16]["ms"],
+         "plain_ms": flash[torch.bfloat16]["plain_ms"],
+         "bound_ms": flash[torch.bfloat16]["bound"],
+         "bound_by": flash[torch.bfloat16]["by"],
+         "library_ms": flash[torch.bfloat16]["sdpa_ms"]},
+        {"name": "flash_attention_f32", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+         "replaces":
+             "src/repro/kernels/flash_attention/flash_attention.py:74",
+         "launches": f32_launches,
+         "max_abs_err": flash_err[torch.float32],
+         "ms": flash[torch.float32]["ms"],
+         "plain_ms": flash[torch.float32]["plain_ms"],
+         "bound_ms": flash[torch.float32]["bound"],
+         "bound_by": flash[torch.float32]["by"],
+         "library_ms": flash[torch.float32]["sdpa_ms"]},
     ]}
     log(f"[kernels] shapes: trap ({rows_n}, {length}); generation "
         f"({n_isl}, {n}, {length}) fused trap, tournament, two_point; "
@@ -1567,7 +1632,9 @@ def main() -> int:
         f"launches from Fig. 4's row (4d); wkv ({SERVE_BATCH * lm_cfg.n_heads}, "
         f"{SERVE_PROMPT}, 64), launches from one rwkv6-3b prefill (7b); "
         f"flash_attention (4, 2048, 32 over 4, 128) bf16 causal, launches "
-        f"from one yi-9b prefill (8b), library_ms SDPA; "
+        f"from one yi-9b prefill (8b), library_ms SDPA; flash_attention_f32 "
+        f"the same in f32, launches from the f32 twin's prefill (8b), "
+        f"library_ms SDPA in f32; "
         f"card {card}")
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {

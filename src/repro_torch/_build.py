@@ -23,6 +23,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -75,10 +77,14 @@ SIGNATURES: Dict[str, List] = {
     # r, k, v, w, u, s0, y, s_out, bh, seq, d, chunk, vb, stream
     "wkv_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, o, B, H, Kv, Sq, Sk, hd, the strides of q, k and v (batch,
-    # seq, head), scale, causal, bf16, stream
+    # seq, head), scale, causal, stream: the f32 kernel (flash.cu) and the
+    # bf16 tensor-core kernel (flash_tc.cu)
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _I, _I, _P],
+                               _F, _I, _P],
+    "flash_attention_tc_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -114,27 +120,33 @@ def library_path() -> Path:
     return BUILD_DIR / f"libreprotorch-{digest.hexdigest()[:16]}.so"
 
 
+def _compile(nvcc: str, src: Path, obj: Path):
+    t = time.perf_counter()
+    proc = subprocess.run([nvcc, *FLAGS, "-c", str(src), "-o", str(obj)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    return proc, time.perf_counter() - t
+
+
 def build() -> Path:
     """Compile every source in parallel and link one library; return its
-    path. The compiler's resource report goes to :data:`BUILD_LOG`."""
+    path. Each source's compile time and the compiler's resource report
+    go to :data:`BUILD_LOG`."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    objs, procs = [], []
-    for src in sources():
-        obj = BUILD_DIR / f"{src.stem}-{target.stem}.o"
-        objs.append(obj)
-        procs.append((src, subprocess.Popen(
-            [nvcc, *FLAGS, "-c", str(src), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    srcs = sources()
+    objs = [BUILD_DIR / f"{src.stem}-{target.stem}.o" for src in srcs]
+    with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+        results = list(pool.map(lambda so: _compile(nvcc, *so),
+                                zip(srcs, objs)))
     failed = []
-    for src, proc in procs:
-        out, _ = proc.communicate()
-        BUILD_LOG.append(f"== {src.name}\n{out}")
+    for src, (proc, secs) in zip(srcs, results):
+        BUILD_LOG.append(f"== {src.name} ({secs:.2f} s)\n{proc.stdout}")
         if proc.returncode != 0:
-            failed.append(f"{src.name}:\n{out}")
+            failed.append(f"{src.name}:\n{proc.stdout}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = target.with_suffix(f".{os.getpid()}.tmp")

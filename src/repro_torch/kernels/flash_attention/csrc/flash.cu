@@ -1,5 +1,6 @@
-// Causal (or full) attention with an online softmax, GQA by index, f32
-// inside.
+// Causal (or full) attention with an online softmax, GQA by index: the f32
+// route, on the CUDA cores. flash_tc.cu is the bf16 route of the same
+// wrapper, on the tensor cores.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py
 // ::flash_attention_kernel (the Pallas body _flash_kernel), reached through
@@ -10,16 +11,15 @@
 // where kpos > qpos (causal) or kpos >= Sk; m_new = max(m, max s);
 // p = exp(s - m_new); l = l e^{m - m_new} + sum p; acc = acc e^{m - m_new}
 // + p v; at the end o = acc / max(l, 1e-30), rounded once to the output
-// dtype. q, k and v are read in their dtype (f32 or bf16) and everything is
-// computed in f32; p stays f32. expf, not __expf: the build has no fast
-// math, and the parity with the plain version is at f32 tolerances.
+// dtype. Everything is f32; p stays f32. expf, not __expf: the build has
+// no fast math, and the parity with the plain version is at f32
+// tolerances (atol 2e-5).
 //
-// Bound on the H100, at the yi-9b serve shape (B 4, S 2048, H 32, Kv 4,
-// hd 128, bf16): the two products over the causal half are 4 B H hd
-// S(S+1)/2 = 1.37e11 operations, 0.139 ms at the 989 TFLOP/s of the bf16
-// tensor cores, against 151 MB of q, k, v and o, 0.045 ms at 3.35 TB/s:
-// operations bound. This kernel runs the products as f32 FMAs on the CUDA
-// cores, whose 67 TFLOP/s put its own floor at 2.05 ms.
+// Bound on the H100, at the yi-9b serve shape in f32 (B 4, S 2048, H 32,
+// Kv 4, hd 128, causal): the two products over the causal half are 4 B H
+// hd S(S+1)/2 = 1.375e11 operations, 2.05 ms at the 67 TFLOP/s of the f32
+// CUDA cores, against 302 MB of q, k, v and o, 0.09 ms at 3.35 TB/s:
+// operations bound.
 //
 // Design. The Pallas grid's sequential KV axis becomes a loop inside the
 // block: a block owns one (b, h, 64-row q tile) and walks the 64-key tiles
@@ -38,12 +38,8 @@
 // transposed and then v (hd x 68), p transposed (64 x 68); 87 KB at
 // hd 128, two blocks per SM. The transposed tiles give conflict-free
 // float4 reads in both products. A row whose tile holds no visible key
-// (m still -inf) adds nothing. What a faster kernel changes (a later PR):
-// bf16 mma.sync or wgmma for both products with p rounded to bf16 in
-// registers, K and V tiles by TMA into a ring of stages, and a producer
-// warp beside the consumer warpgroups.
+// (m still -inf) adds nothing.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -56,13 +52,7 @@ constexpr int kLd = kBQ + 4;   // row stride of the transposed tiles
 static_assert(kBQ == kBK, "the transposed tiles share one row stride");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int HD>
 constexpr int smem_floats() {
@@ -224,37 +214,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int Kv, int Sq, int Sk, int hd,
-                      const long long* st, float scale, int causal,
-                      cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, Kv, Sq, Sk, st, scale, causal, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, Kv, Sq, Sk, st, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, Kv, Sq, Sk, st, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, Kv, Sq, Sk, st, scale, causal, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// q (B, Sq, H, hd), k and v (B, Sk, Kv, hd) through their strides (in
-// elements; the last dim contiguous); o (B, Sq, H, hd) contiguous, in q's
-// dtype. bf16 != 0: all four are bf16, else f32. Returns cudaGetLastError().
+// q (B, Sq, H, hd), k and v (B, Sk, Kv, hd), f32, through their strides (in
+// elements; the last dim contiguous); o (B, Sq, H, hd) f32 contiguous.
+// Returns cudaGetLastError().
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int Kv, int Sq, int Sk, int hd, int q_sb, int q_ss, int q_sh, int k_sb,
     int k_ss, int k_sh, int v_sb, int v_ss, int v_sh, float scale,
-    int causal, int bf16, void* stream) {
+    int causal, void* stream) {
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      bf16 ? launch_hd<__nv_bfloat16>(q, k, v, o, B, H, Kv, Sq, Sk, hd, st,
-                                      scale, causal, s)
-           : launch_hd<float>(q, k, v, o, B, H, Kv, Sq, Sk, hd, st, scale,
-                              causal, s);
+  cudaError_t err;
+  switch (hd) {
+    case 16: err = launch<float, 16>(q, k, v, o, B, H, Kv, Sq, Sk, st, scale, causal, s); break;
+    case 32: err = launch<float, 32>(q, k, v, o, B, H, Kv, Sq, Sk, st, scale, causal, s); break;
+    case 64: err = launch<float, 64>(q, k, v, o, B, H, Kv, Sq, Sk, st, scale, causal, s); break;
+    case 128: err = launch<float, 128>(q, k, v, o, B, H, Kv, Sq, Sk, st, scale, causal, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }

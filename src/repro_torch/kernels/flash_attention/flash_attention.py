@@ -1,13 +1,21 @@
-"""Flash-attention kernel wrapper: the CUDA kernel for CUDA tensors, the
+"""Flash-attention kernel wrapper: a CUDA kernel for CUDA tensors, the
 plain version for CPU tensors.
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py
-::flash_attention_kernel``. The kernel (``csrc/flash.cu``) reads the
+::flash_attention_kernel``. Two kernels, one per dtype, both reading the
 model's layout, q (B, Sq, H, hd) and k, v (B, Sk, Kv, hd), through their
-strides and writes o (B, Sq, H, hd) contiguous in q's dtype: no
-transposes and no padding. A block owns one (b, h, 64-row q tile) and
-loops over the 64-key tiles up to the causal frontier; the query head h
-reads KV head h // (H / Kv).
+strides and writing o (B, Sq, H, hd) contiguous in q's dtype: no
+transposes and no padding. The query head h reads KV head h // (H / Kv).
+
+- bf16: ``csrc/flash_tc.cu``, on the tensor cores (wgmma), k and v tiles
+  by TMA. A block owns one (b, h, 128-row q tile) and walks the 128-key
+  tiles down from the causal frontier. TMA takes a base address and
+  batch, sequence and head strides that are multiples of 16 bytes; the
+  wrapper refuses others.
+- f32: ``csrc/flash.cu``, on the CUDA cores, 64-row q tiles over 64-key
+  tiles.
+
+Neither falls back to the other or to the plain version.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from . import ref as _ref
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+TMA_ALIGN = 16   # bytes: base address and strides of a TMA tensor map
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -50,6 +59,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{HEAD_DIMS}")
     if sq == 0 or k.shape[1] == 0:
         raise ValueError("flash_attention: empty sequence")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            nbytes = [t.data_ptr()] + [st * t.element_size()
+                                       for st in t.stride()[:3]]
+            if any(n % TMA_ALIGN for n in nbytes):
+                raise ValueError(
+                    f"flash_attention: in bf16, {name}'s base address and "
+                    f"its batch, sequence and head strides must be multiples "
+                    f"of {TMA_ALIGN} bytes (TMA), got address "
+                    f"{t.data_ptr() % TMA_ALIGN} past a multiple and strides "
+                    f"{tuple(t.stride()[:3])}")
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -57,7 +77,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            causal: bool) -> torch.Tensor:
     """q (B, Sq, H, hd), k and v (B, Sk, Kv, hd), f32 or bf16 with the last
     dim contiguous, on one device -> (B, Sq, H, hd) in q's dtype. The
-    causal mask is qpos >= kpos with both counted from 0."""
+    causal mask is qpos >= kpos with both counted from 0. bf16 launches
+    the tensor-core kernel, f32 the CUDA-core one."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return _ref.attention(q, k, v, causal=causal, scale=scale)
@@ -67,13 +88,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     sk, kv = k.shape[1], k.shape[2]
     o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     lib = _build.library()
+    launch = (lib.flash_attention_tc_launch if q.dtype == torch.bfloat16
+              else lib.flash_attention_launch)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, kv,
             sq, sk, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), int(causal), int(q.dtype == torch.bfloat16),
-            stream)
+            float(scale), int(causal), stream)
     _build.check(err, "flash_attention_kernel")
     LAUNCHES["flash_attention"] += 1
     return o

@@ -2,7 +2,7 @@
 
 Port of ``repro/launch/steps.py:90-107``. The parameters live in the
 model, so a step takes the batch alone. The train step is not ported yet
-(ROADMAP 'Next, in order' item 2).
+(ROADMAP Queue A item 17).
 """
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ is made), so the methods take the batch alone:
     decode:   token (B, 1) int, index, caches -> (logits (B, V), caches)
 
 ``prefill`` and ``decode`` run under ``torch.inference_mode``. The loss
-and the train step are not ported yet (ROADMAP 'Next, in order' item 2).
+and the train step are not ported yet (ROADMAP Queue A item 17).
 """
 from __future__ import annotations
 

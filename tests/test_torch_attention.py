@@ -166,6 +166,54 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
                                              scale=1.0))
 
 
+# (storage offset, strides) of a (2, 8, 4, 16) view whose base address or
+# one of whose batch, sequence and head strides is not a multiple of 16
+# bytes in bf16
+MISALIGNED_BF16 = {"base": (1, (512, 64, 16, 1)),
+                   "batch": (0, (516, 64, 16, 1)),
+                   "seq": (0, (1024, 68, 16, 1)),
+                   "head": (0, (1024, 128, 20, 1))}
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+@pytest.mark.parametrize("what", sorted(MISALIGNED_BF16))
+def test_flash_wrapper_refuses_misaligned_bf16_views(what, name):
+    """The bf16 kernel loads q, k and v by TMA, whose tensor maps take a
+    base address and strides that are multiples of 16 bytes: the wrapper
+    refuses other bf16 views on every device, before the CPU's plain
+    version runs. The same view in f32 (the CUDA-core kernel) is taken."""
+    offset, strides = MISALIGNED_BF16[what]
+    g = torch.Generator().manual_seed(11)
+    for dtype in (torch.bfloat16, torch.float32):
+        buf = torch.randn(2 * 1032 + 1, generator=g).to(dtype)
+        args = {n: torch.randn(2, 8, 4, 16, generator=g).to(dtype)
+                for n in ("q", "k", "v")}
+        args[name] = torch.as_strided(buf, (2, 8, 4, 16), strides, offset)
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="multiples of 16 bytes"):
+                fa_k.flash_attention_kernel(**args, scale=0.3, causal=True)
+        else:
+            got = fa_k.flash_attention_kernel(**args, scale=0.3, causal=True)
+            assert torch.equal(got, fa_ref.attention(**args, causal=True,
+                                                     scale=0.3))
+
+
+def test_flash_wrapper_takes_aligned_strided_bf16_views():
+    """Views whose offsets and strides are multiples of 16 bytes go through
+    as they are: every other position, a slice of the head dim, and k and
+    v from a heads-first tensor."""
+    g = torch.Generator().manual_seed(12)
+    q = torch.randn(2, 16, 4, 48, generator=g).to(torch.bfloat16)[:, ::2,
+                                                                  :, 16:32]
+    kv_heads_first = torch.randn(2, 2, 8, 16, generator=g).to(torch.bfloat16)
+    k = kv_heads_first.transpose(1, 2)
+    v = torch.randn(2, 8, 2, 32, generator=g).to(torch.bfloat16)[..., 16:]
+    got = fa_k.flash_attention_kernel(q, k, v, scale=0.25, causal=True)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert torch.equal(got, fa_ref.attention(q, k, v, causal=True,
+                                             scale=0.25))
+
+
 # ---------------------------------------------------------------------------
 # rope and MLP
 # ---------------------------------------------------------------------------

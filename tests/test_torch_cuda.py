@@ -349,9 +349,9 @@ def _flash_inputs(b, sq, sk, h, kv, hd, dtype, card, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,kv,hd", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(card, b, s, h, kv, hd, dtype):
-    """The kernel against ref.attention on the card, causal. The kernel
-    keeps p in f32 where the plain version rounds it to v's dtype: in
-    bf16 that is the reference's own 2e-2."""
+    """Each kernel against ref.attention on the card, causal: f32 through
+    the CUDA-core kernel, bf16 through the tensor-core one, which rounds p
+    to bf16 as the plain version does (the reference's tolerances)."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import flash_attention as fa_k
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -367,24 +367,61 @@ def test_flash_kernel_matches_plain(card, b, s, h, kv, hd, dtype):
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk", [(50, 50), (17, 200), (200, 17), (129, 65)])
-def test_flash_kernel_ragged_and_noncausal(card, causal, sq, sk):
-    """Sq != Sk and lengths off the 64-row tiles: the kernel masks the
-    ragged edges itself; strided (B, S, H, hd) views are read in place."""
+def test_flash_kernel_ragged_and_noncausal(card, causal, sq, sk, dtype):
+    """Sq != Sk and lengths off the q and key tiles: each kernel masks the
+    ragged edges itself; strided (B, S, H, hd) views are read in place
+    (in bf16 by TMA: the views' offsets and strides are multiples of 16
+    bytes)."""
     from repro_torch.kernels.flash_attention import flash_attention as fa_k
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    q, k, v = _flash_inputs(2, sq, sk, 8, 2, 32, torch.float32, card,
-                            sq + sk)
+    q, k, v = _flash_inputs(2, sq, sk, 8, 2, 32, dtype, card, sq + sk)
     got = fa_k.flash_attention_kernel(q, k, v, scale=0.2, causal=causal)
     want = fa_ref.attention(q, k, v, causal=causal, scale=0.2)
-    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
-    qs = torch.randn(2, sq, 8, 64, device=card)[..., 16:48]
-    wide = torch.randn(2, sk, 2, 64, device=card)
+    torch.testing.assert_close(got, want, **FLASH_TOL[dtype])
+    qs = torch.randn(2, sq, 8, 64, device=card).to(dtype)[..., 16:48]
+    wide = torch.randn(2, sk, 2, 64, device=card).to(dtype)
     kt, vt = wide[..., :32], wide[..., 32:]          # last dim contiguous
     got = fa_k.flash_attention_kernel(qs, kt, vt, scale=0.2, causal=causal)
     want = fa_ref.attention(qs, kt, vt, causal=causal, scale=0.2)
-    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(got, want, **FLASH_TOL[dtype])
+
+
+# the bf16 (tensor-core) kernel's edges, (B, Sq, Sk, H, Kv, hd, causal):
+# every head dim at S <= 128, where only the diagonal tile runs; Sk off the
+# 128-key tiles; MQA and GQA 8:1 at hd 128; Sq > Sk causal, where the first
+# key tile a block takes (the frontier's) holds 2 keys and rows past Sk
+# see every key
+FLASH_TC_CASES = [
+    (2, 100, 100, 4, 2, 16, True), (2, 100, 100, 4, 2, 32, True),
+    (2, 100, 100, 4, 2, 64, True), (2, 100, 100, 4, 2, 128, True),
+    (1, 128, 128, 4, 4, 128, True), (1, 300, 300, 4, 2, 64, True),
+    (2, 200, 333, 4, 1, 128, False), (1, 300, 300, 8, 8, 16, False),
+    (2, 256, 256, 8, 1, 128, True), (1, 384, 384, 16, 2, 128, True),
+    (1, 300, 130, 4, 2, 128, True), (2, 200, 17, 8, 2, 32, True),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal", FLASH_TC_CASES)
+def test_flash_tc_kernel_edges(card, b, sq, sk, h, kv, hd, causal):
+    """The bf16 kernel against ref.attention at the reference's bf16
+    tolerance, one launch each."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    q, k, v = _flash_inputs(b, sq, sk, h, kv, hd, torch.bfloat16, card,
+                            sq + 7 * sk + hd)
+    scale = 1.0 / hd ** 0.5
+    before = kernels.LAUNCHES["flash_attention"]
+    got = fa_k.flash_attention_kernel(q, k, v, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    want = fa_ref.attention(q, k, v, causal=causal, scale=scale)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
 
 
 def test_flash_launches_once_per_layer_of_a_dense_prefill(card):
