@@ -12,23 +12,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Fig. 4's shape, at (1000, 1000, 50) and at (256, 200, 20) (bit-equal);
 3. the binary generation kernel against its plain version on the card,
    every selection x crossover x fused eval, at 8 islands of 256 x 160
-   with pop_size drawn in [128, 256] (bit-equal);
+   with pop_size drawn in [128, 256]; then at its edges (n not a multiple
+   of the CTAs per island, L not a multiple of 4, islands off 16 bytes,
+   all-masked and all-tied fitness, a tile under 16 bytes, the largest
+   island that routes untiled; clusters of 1, 3, 5, 8 and 16 CTAs through
+   n) (bit-equal);
 3b. the float generation kernel against its plain version, every
    selection x {two_point, uniform, blend} x {none, rastrigin, sphere,
    f15}, at 8 islands of 256 x 1000 with pop_size drawn in [128, 256] and
-   the problem's fitness (bit-equal);
+   the problem's fitness; then with fused F15 at its edges (m = 7 and 13,
+   n not a multiple of the rows per block, all-masked and all-tied
+   fitness, 365 x 1000; 4, 2 and 1 rows per block through L) (bit-equal);
 3c. the tiled generation kernel and the selection-plan kernel against
    their plain versions (bit-equal, genes and fitness): binary 2 x 2048 x
    160 with fused trap, every selection x {two_point, uniform}; binary
    1 x 2048 x 256, two-point, no eval; float 1 x 10,000 x 1000, every
-   selection x blend x {none, f15}; then the tiled kernel against the
-   untiled ones at the main paths' shapes, and three rows per block giving
-   identical bits;
+   selection x blend x {none, f15}; the tiled path's F15 at m = 7 and 50;
+   then the tiled kernel against the untiled ones at the main paths'
+   shapes, and three rows per block giving identical bits;
 4. the main path: ``run_fused`` at the paper's configuration (trap 40x4,
    max_pop 256, min_pop 128, 100 generations per epoch, pool topology,
    8 islands, 5 epochs, W²) through the kernels, then again through the
    plain versions from the same seed: islands, pool and stats must be
-   equal, and both of its kernels must have been launched;
+   equal, and both of its kernels must have been launched; a step
+   profile, with the generation kernel's own device time per generation;
 4b. the paper's F15 path (D 1000, m 50, the shipped constants, blend
    crossover, sigma 0.3, otherwise as in 4): 2 epochs through the kernels
    and through the plain versions from the same seed, which must be equal,
@@ -43,8 +50,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    routes it to the tiled kernel and then the F15 kernel; bit-equal to the
    plain version, timed as ms per 10,000 evaluations;
 5. the trap kernel run at 132 islands (one block per SM), 3 epochs;
-6. each kernel's time at the main paths' shapes, the tiled kernel's swept
-   rows per block against the heuristic's;
+6. each kernel's time at the main paths' shapes against its bound, the
+   generation kernels' launch shapes and times without their fused eval,
+   the tiled kernel's swept rows per block against the heuristic's;
 7a. the WKV6 kernel through ``kernels/rwkv6/ops.wkv`` against its plain
    chunked version and the sequential recurrence: the four shapes of
    ``tests/test_kernels.py`` (S = 37 through the padding), the state-carry
@@ -359,9 +367,11 @@ def build_report(source: str):
     return entry.splitlines()[0], out
 
 
-def step_profile(tag: str, islands, problem, cfg, steps: int = 20):
+def step_profile(tag: str, islands, problem, cfg, steps: int = 20,
+                 kernel: str = ""):
     """Where a generation's time goes: its CUDA kernels (profiler) against
-    the wall time of the same steps run unprofiled."""
+    the wall time of the same steps run unprofiled, and the device time of
+    the kernels whose name holds ``kernel`` on a line of its own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import island as island_lib
@@ -394,6 +404,13 @@ def step_profile(tag: str, islands, problem, cfg, steps: int = 20):
     log(f"[{tag}] device kernels per generation: "
         f"{len(dev_events) / steps}; device busy {busy_us:.1f} us per "
         f"generation = {busy_us / step_wall_us:.3f} of the wall time")
+    if kernel:
+        own = [(cnt, us) for name, (cnt, us) in by_name.items()
+               if kernel in name]
+        log(f"[{tag}] {kernel}: "
+            f"{sum(us for _, us in own) / steps:.2f} us per generation, "
+            f"{sum(cnt for cnt, _ in own) / steps} launches per generation "
+            f"(profiled)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     for name, (cnt, us) in top:
         log(f"[{tag}]   {us / steps:9.2f} us/gen  {cnt / steps:6.1f} "
@@ -620,6 +637,9 @@ def main() -> int:
             f15_err, f15_fig4 = err, (c, x)
 
     # ---- 3: generation kernel against its plain version ------------------
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
     n_isl, n, length = 8, 256, 160
     fused_specs = {
         "none": None,
@@ -666,6 +686,75 @@ def main() -> int:
                                                      "two_point", "trap"):
                     main_inputs = (seed, size, pop, fit, spec)
                     gen_err = err
+
+    def edge_case(kind, n_isl, n, length, fitness, offset=0):
+        """seed, size, pop and fit of an edge case on the card. fitness:
+        "random" (normal, -inf lanes and a run of ties), "tied" (one value),
+        "masked" (pop_size 0 and 1 on the first islands, every lane -inf
+        on the last). offset: pop starts that many bytes into its buffer."""
+        if kind == "binary":
+            host = (torch.rand(n_isl, n, length, generator=gen) < 0.5).to(
+                torch.int8)
+        else:
+            host = torch.rand(n_isl, n, length, generator=gen) * 10 - 5
+        pop = torch.empty(offset + host.numel(), dtype=host.dtype,
+                          device=dev)[offset:].view(host.shape).copy_(host)
+        fit = torch.randn(n_isl, n, generator=gen) * 10
+        size = torch.randint(max(1, n // 2), n + 1, (n_isl,), generator=gen,
+                             dtype=torch.int32)
+        if fitness == "random":
+            fit[:, 1:4] = float("-inf")
+            fit[:, 5:9] = fit[:, 10:11]
+        elif fitness == "tied":
+            fit[:] = 2.5
+        else:
+            size[0], size[1 % n_isl] = 0, 1
+            fit[-1] = float("-inf")
+        seed = torch.randint(0, 2**32, (n_isl, 2), generator=gen,
+                             dtype=torch.int64)
+        return seed.to(dev), size.to(dev), pop, fit.to(dev)
+
+    # the binary kernel at its edges; it runs min(16, n) CTAs per island,
+    # so n = 1, 3, 5 and 8 run clusters of 1, 3, 5 and 8 CTAs and the rest
+    # 16: n not a multiple of 16 (CTAs with fewer rows or none), L not a
+    # multiple of 4 or 16, islands off 16 bytes (odd n * L, odd starts),
+    # all-masked and all-tied fitness, a tile under 16 bytes, 4 elite rows
+    # over several CTAs, and the largest island at L = 160 that routes
+    # untiled
+    binary_edges = [
+        (3, 250, 160, "trap", "random", 0, 2),
+        (3, 100, 157, "onemax", "tied", 0, 2),
+        (4, 37, 39, "royal_road3", "masked", 1, 2),
+        (2, 61, 13, "none", "random", 3, 4),
+        (2, 3, 4, "onemax", "masked", 5, 2),
+        (2, 5, 40, "trap", "tied", 0, 1),
+        (3, 8, 40, "trap", "tied", 1, 2),
+        (3, 1, 40, "onemax", "masked", 3, 1),
+        (2, 1227, 160, "trap", "random", 0, 2),
+    ]
+    edge_evals = dict(fused_specs, royal_road3=(("eval", "royal_road"),
+                                                ("r", 3)))
+    for n_e, n_r, l_e, fname, fitness, offset, elite in binary_edges:
+        for selection, crossover in (("tournament", "two_point"),
+                                     ("roulette", "uniform")):
+            spec = GenerationSpec(
+                kind="binary", length=l_e, elite=elite, selection=selection,
+                tournament_k=3, crossover=crossover, crossover_rate=0.9,
+                mutation_rate=0.05, mutation_sigma=0.3,
+                fused_eval=edge_evals[fname])
+            args = edge_case("binary", n_e, n_r, l_e, fitness, offset)
+            want = as_tuple(gen_ref.generation(*args, spec))
+            got = as_tuple(gen_k.generation_kernel(*args, spec))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"generation kernel differs at the edge {n_e}x{n_r}x"
+                     f"{l_e} {fname} {fitness} offset {offset} elite "
+                     f"{elite} {selection}/{crossover}, "
+                     f"{gen_k.cluster_size(n_r)} CTAs per island")
+            log(f"[generation] edge {n_e}x{n_r}x{l_e} {fname}, {fitness} "
+                f"fitness, pop at byte {offset}, elite {elite}, {selection}/"
+                f"{crossover}: bit-equal at {gen_k.cluster_size(n_r)} CTAs "
+                f"per island")
 
     # ---- 3b: float generation kernel against its plain version -----------
     f_len = 1000
@@ -716,10 +805,38 @@ def main() -> int:
                     float_inputs = (seed, size, pop, fit, spec, prob.consts)
                     float_err = err
 
-    # ---- 3c: the tiled kernel and the plan kernel -------------------------
-    def as_tuple(x):
-        return x if isinstance(x, tuple) else (x,)
+    # the float kernel with fused F15 at its edges: n not a multiple of the
+    # rows, m = 7 and 13 (not a multiple of the tail's 4 columns),
+    # all-masked and all-tied fitness, the largest island at L = 1000 that
+    # routes untiled, and genomes wide enough that the wrapper takes 2 rows
+    # per block (L = 7300) and 1 (L = 14600)
+    smem_limit = gen_k.max_smem_bytes(0)
+    for n_e, n_r, l_e, m_e, fitness, elite in (
+            (3, 250, 91, 7, "random", 2), (2, 61, 91, 13, "tied", 4),
+            (4, 37, 35, 7, "masked", 2), (2, 365, 1000, 50, "random", 2),
+            (2, 9, 7300, 50, "tied", 2), (2, 5, 14600, 50, "masked", 2)):
+        c_e = random_f15_consts(l_e, m_e)
+        for selection in ("tournament", "roulette"):
+            spec = GenerationSpec(
+                kind="float", length=l_e, elite=elite, selection=selection,
+                tournament_k=2, crossover="blend", crossover_rate=0.9,
+                mutation_rate=0.05, mutation_sigma=0.3, low=-5.0, high=5.0,
+                fused_eval=(("eval", "f15"), ("m", m_e),
+                            ("n_groups", l_e // m_e)))
+            args = edge_case("float", n_e, n_r, l_e, fitness)
+            want = as_tuple(gen_ref.generation(*args, spec, c_e))
+            got = as_tuple(gen_k.generation_kernel(*args, spec, c_e))
+            torch.cuda.synchronize()
+            rows = gen_k.float_rows(n_r, l_e, elite, smem_limit)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"float generation kernel differs at the edge "
+                     f"{n_e}x{n_r}x{l_e} m {m_e} {fitness} elite {elite} "
+                     f"{selection}, {rows} rows per block")
+            log(f"[generation_float] edge {n_e}x{n_r}x{l_e} F15 m {m_e}, "
+                f"{fitness} fitness, elite {elite}, {selection}/blend: "
+                f"bit-equal at {rows} rows per block")
 
+    # ---- 3c: the tiled kernel and the plan kernel -------------------------
     def random_case(kind, n_isl, n, length, selection, crossover, fused,
                     sizes=None, fit=None):
         spec = GenerationSpec(
@@ -799,6 +916,19 @@ def main() -> int:
             tiled_err = max(tiled_err, err)
             if (selection, fname) == ("tournament", "none"):
                 tiled_fig4 = (args, spec, got[0])
+    # the tiled path's F15 (the tiled kernel, then the F15 kernel and its
+    # register-blocked tail) at m = 7 and 50
+    for m_e, groups in ((7, 143), (50, 20)):
+        c_e = random_f15_consts(m_e * groups, m_e)
+        fused = (("eval", "f15"), ("m", m_e), ("n_groups", groups))
+        args, spec = random_case("float", 2, 1003, m_e * groups,
+                                 "tournament", "blend", fused)
+        got, err = tiled_check(f"float 2x1003x{m_e * groups} tournament/"
+                               f"blend/f15 m {m_e}", args, spec, consts=c_e)
+        untiled = as_tuple(gen_k.generation_kernel(*args, spec, c_e))
+        if not all(torch.equal(a, b) for a, b in zip(got, untiled)):
+            fail(f"tiled F15 path differs from the untiled kernel at m {m_e}")
+        tiled_err = max(tiled_err, err)
     # the tiled kernel equals the untiled ones at the main paths' shapes
     for tag, inputs in (("binary 8x256x160 trap", main_inputs + (None,)),
                         ("float 8x256x1000 f15", float_inputs)):
@@ -863,7 +993,8 @@ def main() -> int:
         f"({convert.to_numpy(stats).best_fitness.tolist()} best per epoch)")
     if not bool(torch.isfinite(islands.best_fitness).all()):
         fail("non-finite best fitness")
-    step_profile("main", islands, problem, cfg)
+    step_profile("main", islands, problem, cfg,
+                 kernel="::generation_kernel(")
 
     # ---- 4b: the paper's F15 path ----------------------------------------
     f_cfg = EAConfig(impl="pallas", max_pop=256, min_pop=128,
@@ -903,7 +1034,8 @@ def main() -> int:
         fail(f"a kernel of the F15 path was never launched: {f_launches}")
     if not bool(torch.isfinite(f_isl.best_fitness).all()):
         fail("non-finite best fitness on the F15 path")
-    step_profile("f15-main", f_isl, f_problem, f_cfg)
+    step_profile("f15-main", f_isl, f_problem, f_cfg,
+                 kernel="generation_float_kernel")
 
     # ---- 4c: both paths under impl="pallas_tiled" --------------------------
     tiled_kernels = ("generation_tiled", "selection_plan")
@@ -1123,6 +1255,22 @@ def main() -> int:
         f"{float_ms * 1e3:.2f} us, plain {float_plain_ms * 1e3:.1f} us; f15 "
         f"({f15_x.shape[0]}, {f_len}) {f15_ms * 1e3:.2f} us, plain "
         f"{f15_plain_ms * 1e3:.1f} us")
+    # where the time goes inside each kernel: the same call without its
+    # fused eval (the plan and the children alone)
+    bare_ms = event_ms(lambda: gen_k.generation_kernel(
+        seed, size, pop, fit, dataclasses.replace(spec, fused_eval=None)),
+        TIMED_CALLS)
+    f_bare_ms = event_ms(lambda: gen_k.generation_kernel(
+        f_seed, f_size, f_pop, f_fit,
+        dataclasses.replace(f_spec, fused_eval=None)), TIMED_CALLS)
+    log(f"[kernels] without the fused eval: generation {bare_ms * 1e3:.2f} "
+        f"us (with trap {gen_ms * 1e3:.2f}), generation_float "
+        f"{f_bare_ms * 1e3:.2f} us (with F15 {float_ms * 1e3:.2f}) ({card})")
+    log(f"[kernels] launch shapes: generation ({n_isl}, {n}, {length}) "
+        f"{gen_k.cluster_size(n)} CTAs per island; generation_float "
+        f"({n_isl}, {n}, {f_len}) "
+        f"{gen_k.float_rows(n, f_len, f_spec.elite, gen_k.max_smem_bytes(0))}"
+        f" rows per block")
     rows_n = flat.shape[0]
     trap_bytes = rows_n * length + 4 * rows_n
     trap_ops = rows_n * length + rows_n * 40 * 6

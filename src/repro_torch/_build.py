@@ -47,17 +47,19 @@ SIGNATURES: Dict[str, List] = {
                           _I, _I, _I, _I, _F,
                           _F, _I, _I, _I, _F, _F, _F, _F,
                           _I, _P],
-    "generation_smem_bytes": [_I, _I],
+    # n, L, elite
+    "generation_smem_bytes": [_I, _I, _I],
     "generation_max_smem_bytes": [],
     # pop, fitness, seed, seed_stride, pop_size, o, perm, M, new_pop,
     # fit_out, n_islands, n, L, elite, selection, tournament_k, crossover,
     # crossover_rate, mutation_rate, sigma, low, high, blend_scale, alpha,
-    # eval_kind, sum_group, m, n_groups, k_group, stream
+    # eval_kind, sum_group, m, n_groups, k_group, rows, stream
     "generation_float_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I,
                                 _F, _F, _F, _F, _F, _F, _F,
-                                _I, _I, _I, _I, _I, _P],
-    "generation_float_smem_bytes": [_I, _I, _I],
+                                _I, _I, _I, _I, _I, _I, _P],
+    # n, L, elite, rows
+    "generation_float_smem_bytes": [_I, _I, _I, _I],
     # pop, o, perm, M, out, n_rows, D, m, G, k_group, stream
     "f15_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # fitness, seed, seed_stride, pop_size, masked, cum, plan, n_islands, n,

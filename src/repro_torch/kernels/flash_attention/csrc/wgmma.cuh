@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks in inline PTX for flash_tc.cu: mbarriers,
-// TMA tile loads, wgmma shared-memory descriptors and the warpgroup matrix
-// products at the shapes the kernel issues.
+// Hopper (sm_90a) building blocks in inline PTX for flash_tc.cu: TMA tile
+// loads, wgmma shared-memory descriptors and the warpgroup matrix products
+// at the shapes the kernel issues; the mbarriers come from
+// kernels/hopper/csrc/async_copy.cuh.
 //
 // Shared-memory layouts (the PTX ISA's canonical wgmma layouts, as CUTLASS's
 // make_gmma_desc builds their descriptors). A tile of 16-bit values is
@@ -18,45 +19,17 @@
 
 #include <cstdint>
 
+#include "../../hopper/csrc/async_copy.cuh"
+
 namespace tc {
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers --------------------------------------------------------------
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// arrive once and expect `bytes` of TMA traffic on the barrier's phase
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  }
-}
+// the mbarriers, shared with the binary generation kernel
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_fence_init;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_addr;
 
 // ---- TMA ------------------------------------------------------------------
 // one box of a 4-D tensor map at coordinates (c0 innermost .. c3) into

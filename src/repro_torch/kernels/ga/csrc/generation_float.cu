@@ -20,24 +20,45 @@
 // gene costs one Threefry for the mutation test and one for the blend on
 // gated rows (67 int32 operations each, as compiled): about 2.6e8 int32
 // operations, 8 us at 128 int32 operations per SM per clock. The fused F15
-// adds 1e8 f32 operations (1.5 us at 67 TFLOP/s). The bytes are a
-// population in and one out, 16 MB, 5 us at 3.35 TB/s.
+// adds 2.3e8 f32 operations, 2.05e8 of them the rotation's separately
+// rounded multiplies and adds (3.4 us at 67 TFLOP/s). The bytes are a
+// population in and one out, 16 MB, 5 us at 3.35 TB/s. What held the first
+// design back was its F15 tail, one thread per output with two loads per
+// multiply-add, which read the 200 KB rotation stack once per row through
+// L2 (410 MB per call), and the elite, found by one thread in every block.
 //
 // Design: an island's f32 tile (1 MB at 256 x 1000) does not fit a block's
-// shared memory, so the binary kernel's two resident tiles do not carry
-// over. The grid is (row blocks, islands): each block recomputes the
-// island's elite and roulette CDF (256 lanes, cheap) and draws the plan of
-// its own ROWS rows; counter-based draws make every block's plan the one a
-// single block would draw. Parents are read straight from the island's
-// input population in device memory (8 MB for 8 islands, held in L2) and
-// children are written straight out, consecutive threads on consecutive
-// genes. Only the plan and the rows under fused evaluation live in shared
-// memory. The F15 tail stages z = kid - o through perm and runs f15_rows,
-// the device function of the F15 kernel. Every f32 step is an explicit
-// intrinsic: the blend and the mutation are the fused multiply-adds that
-// XLA makes of them in the reference (__fmaf_rn; the plain version computes
-// them exactly rounded with rand.fma), every other step is rounded alone.
-// So kernel and plain version agree bit for bit.
+// shared memory. The grid is (row blocks, islands): each block recomputes
+// the island's elite (an arg-max across eight warps, plan_rows.cuh::
+// elite_rows) beside its roulette CDF (one thread of the ninth warp, left
+// to right) and draws the plan of its own ROWS rows; counter-based draws
+// make every block's plan the one a single block would draw. Parents are
+// read straight from the island's input population in device memory (8 MB
+// for 8 islands, held in L2) and children are written straight out,
+// consecutive threads on consecutive genes. Only the plan and the rows
+// under fused evaluation live in shared memory. The F15 tail stages
+// z = kid - o through perm and runs f15_rows, the device function of the
+// F15 kernel, register-blocked: a thread holds all ROWS rows x 4 columns
+// of one group, so the block reads each element of M once and each load
+// serves 4 or ROWS multiply-adds. ROWS is a template argument, 4
+// (kernels/ga/generation.py FLOAT_ROWS), or 2 or 1 where the wrapper finds
+// that 2 ROWS x L floats would not fit the card's shared memory per block,
+// so every island the first design (4 rows) ran still runs, and wider ones
+// too. Only a block whose rows start below `elite` finds the elite; the
+// others read no elite row and skip it.
+// Every f32 step is an explicit intrinsic: the blend and the mutation are
+// the fused multiply-adds that XLA makes of them in the reference
+// (__fmaf_rn; the plain version computes them exactly rounded with
+// rand.fma), every other step is rounded alone. So kernel and plain
+// version agree bit for bit.
+//
+// Measured (chip_smoke.py phase 6, CUDA events, on an NVIDIA H100 80GB
+// HBM3 at 700.00 W): 0.05472 ms at 8 x 256 x 1000 with fused F15 and 4
+// rows per block, against 0.1432 ms for the first design, and 0.0590 ms
+// at 8 rows and 0.0768 ms at 16, timed in turns when ROWS was chosen. More
+// rows per block read M less often but hold more registers (56, 90 and 136
+// a thread at 4, 8 and 16 rows), so fewer blocks share an SM and hide the
+// loads' latency.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,8 +70,10 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int ROWS = 4;
+// 9 warps: the F15 tail's 260 micro-tiles at m 50 (20 groups x 13 column
+// quads) go in one pass; the elite takes 8 warps, the CDF the ninth
+constexpr int THREADS = 288;
+constexpr int ELITE_WARPS = THREADS / 32 - 1;
 
 struct FloatParams {
   int n, L, elite, selection, tournament_k, crossover;
@@ -58,13 +81,15 @@ struct FloatParams {
   int eval_kind, sum_group, m, n_groups, k_group;
 };
 
-__host__ __device__ inline size_t float_smem_bytes(int n, int L, int elite) {
-  // masked, cum (f32) + elite (i32) + the plan of ROWS rows (5 x i32)
-  // + two ROWS x L f32 row buffers
-  return ((size_t)2 * n + elite + 5 * ROWS) * 4 +
-         2 * (size_t)ROWS * (size_t)L * 4;
+__host__ __device__ inline size_t float_smem_bytes(int n, int L, int elite,
+                                                   int rows) {
+  // two rows x L f32 row buffers + masked, cum (f32) + elite (i32) + the
+  // arg-max scratch + the plan of `rows` rows (5 x i32)
+  return 2 * (size_t)rows * (size_t)L * 4 +
+         ((size_t)2 * n + elite + 4 * ELITE_WARPS + 5 * rows) * 4;
 }
 
+template <int ROWS>
 __global__ void __launch_bounds__(THREADS)
 generation_float_kernel(const float* __restrict__ pop,
                         const float* __restrict__ fitness,
@@ -82,7 +107,8 @@ generation_float_kernel(const float* __restrict__ pop,
   float* masked = buf1 + (size_t)ROWS * L;
   float* cum = masked + n;
   int* elite_idx = reinterpret_cast<int*>(cum + n);
-  int* idx_a = elite_idx + elite;
+  float* red = reinterpret_cast<float*>(elite_idx + elite);
+  int* idx_a = reinterpret_cast<int*>(red + 4 * ELITE_WARPS);
   int* idx_b = idx_a + ROWS;
   int* cut1 = idx_b + ROWS;
   int* cut2 = cut1 + ROWS;
@@ -104,23 +130,13 @@ generation_float_kernel(const float* __restrict__ pop,
     masked[r] = r < size ? fit[r] : neg_inf();
   __syncthreads();
 
-  // ---- phase 1a: elite (lowest index wins ties) and the roulette CDF
-  if (threadIdx.x == 0) {
-    for (int e = 0; e < elite; ++e) {
-      float best = 0.0f;
-      int best_i = 0;
-      for (int r = 0; r < n; ++r) {
-        float v = masked[r];
-        for (int j = 0; j < e; ++j)
-          if (elite_idx[j] == r) v = neg_inf();
-        if (r == 0 || v > best) {
-          best = v;
-          best_i = r;
-        }
-      }
-      elite_idx[e] = best_i;
-    }
-  } else if (threadIdx.x == 32 && p.selection == 1) {
+  // ---- phase 1a: the elite (an arg-max across warps, lowest index on a
+  // tie; only where this block's rows start below it) beside the roulette
+  // CDF (one thread, left to right)
+  if (threadIdx.x < ELITE_WARPS * 32) {
+    if (row0 < elite)
+      elite_rows(masked, n, elite, ELITE_WARPS, red, elite_idx);
+  } else if (threadIdx.x == ELITE_WARPS * 32 && p.selection == 1) {
     roulette_cdf(masked, n, finite_min(masked, n), cum);
   }
   __syncthreads();
@@ -184,7 +200,8 @@ generation_float_kernel(const float* __restrict__ pop,
       buf1[i] = __fsub_rn(buf0[(size_t)t * L + q], o[q]);
     }
     __syncthreads();
-    f15_rows(buf1, buf0, rows, L, p.m, p.n_groups, p.k_group, M, out, -1.0f);
+    f15_rows<ROWS>(buf1, buf0, rows, L, p.m, p.n_groups, p.k_group, M, out,
+                   -1.0f);
     return;
   }
   for (int i = threadIdx.x; i < rows * L; i += blockDim.x) {
@@ -196,12 +213,34 @@ generation_float_kernel(const float* __restrict__ pop,
   neg_grouped_row_sums(buf1, buf0, rows, L, p.sum_group, out);
 }
 
-}  // namespace
-
-extern "C" int generation_float_smem_bytes(int n, int L, int elite) {
-  return (int)float_smem_bytes(n, L, elite);
+template <int ROWS>
+int launch(const void* pop, const void* fitness, const void* seed,
+           int seed_stride, const void* pop_size, const void* o,
+           const void* perm, const void* M, void* new_pop, void* fit_out,
+           int n_islands, const FloatParams& p, void* stream) {
+  const size_t smem = float_smem_bytes(p.n, p.L, p.elite, ROWS);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        generation_float_kernel<ROWS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((p.n + ROWS - 1) / ROWS, n_islands);
+  generation_float_kernel<ROWS><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)pop, (const float*)fitness, (const int64_t*)seed,
+      seed_stride, (const int*)pop_size, (const float*)o, (const int*)perm,
+      (const float*)M, (float*)new_pop, (float*)fit_out, p);
+  return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" int generation_float_smem_bytes(int n, int L, int elite,
+                                           int rows) {
+  return (int)float_smem_bytes(n, L, elite, rows);
+}
+
+// rows: the output rows per block, 1, 2 or 4
 extern "C" int generation_float_launch(
     const void* pop, const void* fitness, const void* seed, int seed_stride,
     const void* pop_size, const void* o, const void* perm, const void* M,
@@ -209,23 +248,20 @@ extern "C" int generation_float_launch(
     int selection, int tournament_k, int crossover, float crossover_rate,
     float mutation_rate, float sigma, float low, float high,
     float blend_scale, float alpha, int eval_kind, int sum_group, int m,
-    int n_groups, int k_group, void* stream) {
+    int n_groups, int k_group, int rows, void* stream) {
   const FloatParams p{n,          L,           elite,         selection,
                       tournament_k, crossover, crossover_rate, mutation_rate,
                       sigma,      low,         high,          blend_scale,
                       alpha,      eval_kind,   sum_group,     m,
                       n_groups,   k_group};
-  const size_t smem = float_smem_bytes(n, L, elite);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        generation_float_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  switch (rows) {
+#define ROWS_CASE(R)                                                        \
+  case R:                                                                   \
+    return launch<R>(pop, fitness, seed, seed_stride, pop_size, o, perm, M, \
+                     new_pop, fit_out, n_islands, p, stream);
+    ROWS_CASE(1) ROWS_CASE(2) ROWS_CASE(4)
+#undef ROWS_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((n + ROWS - 1) / ROWS, n_islands);
-  generation_float_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)pop, (const float*)fitness, (const int64_t*)seed,
-      seed_stride, (const int*)pop_size, (const float*)o, (const int*)perm,
-      (const float*)M, (float*)new_pop, (float*)fit_out, p);
-  return (int)cudaGetLastError();
 }

@@ -20,8 +20,8 @@
 // bytes are the fitness in and the plan out, 240 KB, 0.07 us at 3.35 TB/s.
 //
 // Design: one block per island, since the elite and the roulette CDF are
-// island-wide. The elite is a block-wide argmax per pick over a scratch
-// copy of the masked fitness, the pick then set to -inf. The CDF is one
+// island-wide. The elite is plan_rows.cuh::elite_rows, the arg-max across
+// warps that the untiled generation kernels run. The CDF is one
 // thread's left-to-right scan into device memory (serial, as the plain
 // version's order demands; 10,000 lanes take tens of microseconds), its
 // minimum a block-wide reduction, and each roulette draw a binary search
@@ -29,7 +29,6 @@
 // CDF live in device scratch the wrapper allocates, so n has no limit.
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 #include "plan_rows.cuh"
@@ -44,47 +43,6 @@ struct PlanParams {
   int n, L, elite, selection, tournament_k, crossover;
   float crossover_rate;
 };
-
-// (v, i) becomes the larger of itself and (v2, i2), the lower index on a
-// tie: the order of torch.argmax.
-__device__ __forceinline__ void argmax_merge(float& v, int& i, float v2,
-                                             int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) {
-    v = v2;
-    i = i2;
-  }
-}
-
-// The block's argmax of x[0, n), lowest index on a tie; every thread gets
-// it. Every thread of the block must call it.
-__device__ int block_argmax(const float* x, int n, float* red_v,
-                            int* red_i) {
-  float v = neg_inf();
-  int i = INT_MAX;
-  for (int r = threadIdx.x; r < n; r += blockDim.x)
-    argmax_merge(v, i, x[r], r);
-  for (int off = 16; off > 0; off >>= 1)
-    argmax_merge(v, i, __shfl_down_sync(0xffffffffu, v, off),
-                 __shfl_down_sync(0xffffffffu, i, off));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) {
-    red_v[warp] = v;
-    red_i[warp] = i;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < PLAN_WARPS ? red_v[lane] : neg_inf();
-    i = lane < PLAN_WARPS ? red_i[lane] : INT_MAX;
-    for (int off = 16; off > 0; off >>= 1)
-      argmax_merge(v, i, __shfl_down_sync(0xffffffffu, v, off),
-                   __shfl_down_sync(0xffffffffu, i, off));
-    if (lane == 0) red_i[0] = i;
-  }
-  __syncthreads();
-  const int best = red_i[0];
-  __syncthreads();  // red_* are reused by the next call
-  return best;
-}
 
 // The block's smallest finite value of x[0, n) (+inf when none); fminf is
 // exact, so any order gives the serial scan's value.
@@ -116,8 +74,7 @@ selection_plan_kernel(const float* __restrict__ fitness,
                       float* masked_buf, float* cum_buf,
                       int* __restrict__ plan,
                       int n_islands, PlanParams p) {
-  __shared__ float red_v[PLAN_WARPS];
-  __shared__ int red_i[PLAN_WARPS];
+  __shared__ float red_v[4 * PLAN_WARPS];
   const int n = p.n, elite = p.elite;
   const int isl = blockIdx.x;
   // the key words are int64 holding 32-bit values: keep the low word
@@ -136,23 +93,17 @@ selection_plan_kernel(const float* __restrict__ fitness,
   int* cut2 = cut1 + field;
   int* gate = cut2 + field;
 
-  // ---- masked fitness, and a copy (in cum) for the elite picks
-  for (int r = threadIdx.x; r < n; r += blockDim.x) {
-    const float v = r < size ? fit[r] : neg_inf();
-    masked[r] = v;
-    cum[r] = v;
-  }
+  // ---- masked fitness
+  for (int r = threadIdx.x; r < n; r += blockDim.x)
+    masked[r] = r < size ? fit[r] : neg_inf();
   __syncthreads();
 
-  // ---- elite: argmax, then that lane drops to -inf
-  for (int e = 0; e < elite; ++e) {
-    const int best = block_argmax(cum, n, red_v, red_i);
-    if (threadIdx.x == 0) {
-      idx_a[e] = idx_b[e] = best;
-      cut1[e] = cut2[e] = gate[e] = 0;
-      cum[best] = neg_inf();
-    }
-    __syncthreads();
+  // ---- elite: the generation kernels' arg-max across warps
+  elite_rows(masked, n, elite, PLAN_WARPS, red_v, idx_a);
+  __syncthreads();
+  for (int e = threadIdx.x; e < elite; e += blockDim.x) {
+    idx_b[e] = idx_a[e];
+    cut1[e] = cut2[e] = gate[e] = 0;
   }
 
   // ---- the roulette CDF

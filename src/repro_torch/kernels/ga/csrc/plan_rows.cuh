@@ -3,10 +3,12 @@
 // two parents (tournament or roulette), the two-point cuts and the
 // crossover gate of output row elite + c, drawn with the counters and salts
 // of kernels/ga/common.py::selection_plan. Also the roulette CDF, a
-// left-to-right f32 scan as common.py::prefix_sum takes it.
+// left-to-right f32 scan as common.py::prefix_sum takes it, and the elite
+// of the generation kernels, an arg-max across warps.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "threefry.cuh"
@@ -54,6 +56,70 @@ __device__ __forceinline__ int count_at_most(const float* cum, int n,
       hi = mid;
   }
   return lo;
+}
+
+// (v, i) becomes the larger of itself and (v2, i2), the lower index on a
+// tie: the order of torch.argmax.
+__device__ __forceinline__ void argmax_merge(float& v, int& i, float v2,
+                                             int i2) {
+  if (v2 > v || (v2 == v && i2 < i)) {
+    v = v2;
+    i = i2;
+  }
+}
+
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// The elite of one island into out[0, elite): `elite` passes of an arg-max
+// over masked[0, n), the largest value first and the lowest index on a
+// tie, each pass counting the rows already picked as -inf. For values
+// without NaN that is what the serial loop
+//   v = picked(r) ? -inf : masked[r]; if (r == 0 || v > best) take r
+// picks: with every lane -inf (padded, or picked) row 0 wins again, runs of
+// equal values go to their first row, one lane gives row 0. A NaN never
+// wins here (row 0 does when nothing else can), where the serial loop kept
+// a NaN in row 0 and the plain version's torch.argmax takes the first NaN;
+// fitness on every path is finite or -inf.
+// Each pass: every thread takes the arg-max of a strided slice, each warp
+// merges its lanes by shuffles, and after named barrier 1 every thread
+// merges the warps' results itself, so the pick needs no second barrier.
+// Run by the first `warps` warps of the block only, which meet at named
+// barrier 1 and nowhere else, so another warp can work beside them. `red`
+// is 4 * warps words of scratch (two buffers, passes alternate). out[e] is
+// written by thread 0; the block sees all of out after its next
+// __syncthreads().
+__device__ void elite_rows(const float* masked, int n, int elite, int warps,
+                           float* red, int* out) {
+  const int nthreads = warps * 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int last = -1;  // the previous pass's pick; earlier ones are in out
+  for (int e = 0; e < elite; ++e) {
+    float v = neg_inf();
+    int i = INT_MAX;
+    for (int r = threadIdx.x; r < n; r += nthreads) {
+      bool picked = r == last;
+      for (int j = 0; j + 1 < e; ++j) picked |= out[j] == r;
+      argmax_merge(v, i, picked ? neg_inf() : masked[r], r);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      argmax_merge(v, i, __shfl_xor_sync(0xffffffffu, v, off),
+                   __shfl_xor_sync(0xffffffffu, i, off));
+    float* red_v = red + (e & 1) * 2 * warps;
+    int* red_i = reinterpret_cast<int*>(red_v + warps);
+    if (lane == 0) {
+      red_v[warp] = v;
+      red_i[warp] = i;
+    }
+    named_barrier_sync(1, nthreads);
+    v = red_v[0];
+    i = red_i[0];
+    for (int w = 1; w < warps; ++w) argmax_merge(v, i, red_v[w], red_i[w]);
+    if (i == INT_MAX) i = 0;  // only NaN left
+    if (threadIdx.x == 0) out[e] = i;
+    last = i;
+  }
 }
 
 struct RowPlan {

@@ -29,22 +29,25 @@ struct BinaryEval {
   int royal_r;
 };
 
+// The score of trap block t of a row: its u ones give a(z - u)/z when
+// u <= z, else b(u - z)/(l - z).
+__device__ __forceinline__ float trap_score(const int8_t* row, int t,
+                                            const BinaryEval& e) {
+  int u = 0;
+  for (int j = 0; j < e.trap_l; ++j) u += row[t * e.trap_l + j];
+  const float uf = (float)u;
+  return uf <= e.z ? __fdiv_rn(__fmul_rn(e.a, __fsub_rn(e.z, uf)), e.z)
+                   : __fdiv_rn(__fmul_rn(e.b, __fsub_rn(uf, e.z)),
+                               e.l_minus_z);
+}
+
 __device__ float trap_row(const int8_t* row, const BinaryEval& e) {
   const int n_traps = e.L / e.trap_l;
   float total = 0.0f;
   for (int g0 = 0; g0 < n_traps; g0 += e.trap_group) {
     const int g1 = min(g0 + e.trap_group, n_traps);
     float part = 0.0f;
-    for (int t = g0; t < g1; ++t) {
-      int u = 0;
-      for (int j = 0; j < e.trap_l; ++j) u += row[t * e.trap_l + j];
-      const float uf = (float)u;
-      const float f =
-          uf <= e.z ? __fdiv_rn(__fmul_rn(e.a, __fsub_rn(e.z, uf)), e.z)
-                    : __fdiv_rn(__fmul_rn(e.b, __fsub_rn(uf, e.z)),
-                                e.l_minus_z);
-      part = __fadd_rn(part, f);
-    }
+    for (int t = g0; t < g1; ++t) part = __fadd_rn(part, trap_score(row, t, e));
     total = __fadd_rn(total, part);
   }
   return total;
@@ -65,6 +68,48 @@ __device__ float binary_row_fitness(const int8_t* row, const BinaryEval& e) {
     full += u >= e.royal_r;
   }
   return __fmul_rn((float)e.royal_r, (float)full);
+}
+
+// binary_row_fitness by the 32 lanes of a warp, each passing its lane
+// index; every lane returns the value. Trap scores one block per lane, then
+// every lane adds them alike, in trap_row's grouped order, from shuffles;
+// onemax and royal_road count in integers, exactly as the f32 sums of
+// whole numbers below 2^24 are.
+__device__ float binary_row_fitness_warp(const int8_t* row,
+                                         const BinaryEval& e, int lane) {
+  const unsigned all = 0xffffffffu;
+  if (e.kind == EVAL_TRAP) {
+    const int n_traps = e.L / e.trap_l;
+    float total = 0.0f, part = 0.0f;
+    int in_group = 0;
+    for (int base = 0; base < n_traps; base += 32) {
+      const int t = base + lane;
+      const float f = t < n_traps ? trap_score(row, t, e) : 0.0f;
+      const int here = min(32, n_traps - base);
+      for (int k = 0; k < here; ++k) {
+        part = __fadd_rn(part, __shfl_sync(all, f, k));
+        if (++in_group == e.trap_group) {
+          total = __fadd_rn(total, part);
+          part = 0.0f;
+          in_group = 0;
+        }
+      }
+    }
+    return in_group ? __fadd_rn(total, part) : total;
+  }
+  int count = 0;
+  if (e.kind == EVAL_ONEMAX) {
+    for (int j = lane; j < e.L; j += 32) count += row[j];
+  } else {
+    for (int b0 = lane * e.royal_r; b0 < e.L; b0 += 32 * e.royal_r) {
+      int u = 0;
+      for (int j = 0; j < e.royal_r; ++j) u += row[b0 + j];
+      count += u >= e.royal_r;
+    }
+  }
+  count = __reduce_add_sync(all, count);
+  return e.kind == EVAL_ONEMAX ? (float)count
+                               : __fmul_rn((float)e.royal_r, (float)count);
 }
 
 // out[t] = -(the sum of terms[t * L + j] over j) for t < rows, in the

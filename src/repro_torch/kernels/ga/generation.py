@@ -2,17 +2,20 @@
 version for CPU tensors.
 
 Replaces ``repro/kernels/ga/generation.py::generation_kernel``. Binary
-genomes go to ``csrc/generation.cu``: one block per island, both of the
-island's int8 tiles in shared memory, so above the card's opt-in shared
-memory per block the wrapper raises. Float genomes go to
-``csrc/generation_float.cu``: a grid of (row blocks, islands) that reads
-parents from device memory and keeps only a few rows in shared memory.
-Larger islands are the tiled kernel's (:mod:`.tiling`), where
-``ops.route`` sends ``impl='pallas'``.
+genomes go to ``csrc/generation.cu``: a cluster of ``min(CLUSTER, n)``
+CTAs per island, each holding the island's int8 tile (one TMA bulk copy
+multicast to the cluster) and making its share of the rows, so above the
+card's opt-in shared memory per block the wrapper raises. Float genomes go
+to ``csrc/generation_float.cu``: a grid of (row blocks, islands) that
+reads parents from device memory and keeps only a few rows in shared
+memory, with the fused F15 register-blocked over them. Larger islands are
+the tiled kernel's (:mod:`.tiling`), where ``ops.route`` sends
+``impl='pallas'``.
 """
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
@@ -30,20 +33,70 @@ FLOAT_EVALS = (None, "rastrigin", "sphere", "f15")
 CROSSOVERS = {"two_point": 0, "uniform": 1, "blend": 2}
 
 
-# the float kernel's rows per block (csrc/generation_float.cu, ROWS)
+# the binary kernel's most CTAs per island (csrc/generation.cu
+# MAX_CLUSTER, a non-portable cluster size) and the float kernel's rows
+# per block (csrc/generation_float.cu, ROWS), halved to 2 or 1 where a
+# block would not fit the card's shared memory (PERF.md has the timings
+# in turns that chose both)
+CLUSTER = 16
 FLOAT_ROWS = 4
+# the warps of each kernel's elite arg-max (csrc/plan_rows.cuh elite_rows)
+BINARY_ELITE_WARPS = 7
+FLOAT_ELITE_WARPS = 8
 
 
-def untiled_smem_bytes(n: int, length: int, spec: GenerationSpec) -> int:
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def cluster_size(n: int) -> int:
+    """CTAs per island of the binary kernel (``cluster_size`` in
+    csrc/generation.cu): one per row, at most CLUSTER."""
+    return max(1, min(CLUSTER, n))
+
+
+def binary_smem_bytes(n: int, length: int, elite: int) -> int:
+    """Shared memory of one CTA of the binary kernel
+    (``generation_smem_bytes`` in csrc/generation.cu): the tile's mbarrier,
+    masked fitness, CDF, elite, the arg-max scratch and the plan of its
+    ``ceil(n / cluster_size(n))`` rows, in 16-byte units, then the tile
+    with 32 bytes of slack for its offset."""
+    rows = -(-n // cluster_size(n))
+    words = 4 + 2 * n + elite + 4 * BINARY_ELITE_WARPS + 5 * rows
+    return _align16(4 * words) + n * length + 32
+
+
+def float_smem_bytes(n: int, length: int, elite: int, rows: int) -> int:
+    """Shared memory of one block of the float kernel
+    (``float_smem_bytes`` in csrc/generation_float.cu): two ``rows`` x L
+    f32 buffers, masked fitness, CDF, elite, the arg-max scratch and the
+    plan of ``rows`` rows."""
+    return (2 * rows * length * 4
+            + (2 * n + elite + 4 * FLOAT_ELITE_WARPS + 5 * rows) * 4)
+
+
+def float_rows(n: int, length: int, elite: int,
+               smem_limit: Optional[int]) -> int:
+    """Rows per block of the float kernel: FLOAT_ROWS, halved until a
+    block fits the card's ``smem_limit`` bytes per block (at least 1;
+    None: no card, no such limit)."""
+    r = FLOAT_ROWS
+    while (r > 1 and smem_limit is not None
+           and float_smem_bytes(n, length, elite, r) > smem_limit):
+        r //= 2
+    return r
+
+
+def untiled_smem_bytes(n: int, length: int, spec: GenerationSpec,
+                       smem_limit: Optional[int] = None) -> int:
     """Shared memory of one block of the untiled kernel for an (n, L)
-    island, as the C launchers size it (``generation_smem_bytes``,
-    ``generation_float_smem_bytes``): the binary kernel holds the plan
-    vectors and both int8 tiles, the float one the masked fitness, CDF,
-    elite and plan and two buffers of a few rows."""
+    island at the launch shape the wrapper picks on a card that allows
+    ``smem_limit`` bytes per block, as the C launchers size it
+    (``generation_smem_bytes``, ``generation_float_smem_bytes``)."""
     if spec.kind == "binary":
-        return n * 7 * 4 + 2 * n * length
-    return ((2 * n + spec.elite + 5 * FLOAT_ROWS) * 4
-            + 2 * FLOAT_ROWS * length * 4)
+        return binary_smem_bytes(n, length, spec.elite)
+    return float_smem_bytes(n, length, spec.elite,
+                            float_rows(n, length, spec.elite, smem_limit))
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,11 +179,12 @@ def generation_kernel(seed: torch.Tensor, size: torch.Tensor,
     if kind not in evals:
         raise ValueError(f"generation kernel: no fused {kind!r} eval for "
                          f"{spec.kind} genomes")
-    launch = _launch_binary if spec.kind == "binary" else _launch_float
-    return launch(seed, size, pop, fitness, spec, consts)
+    if spec.kind == "binary":
+        return _launch_binary(seed, size, pop, fitness, spec)
+    return _launch_float(seed, size, pop, fitness, spec, consts)
 
 
-def _launch_binary(seed, size, pop, fitness, spec, consts):
+def _launch_binary(seed, size, pop, fitness, spec):
     check_inputs(seed, size, pop, fitness, torch.int8)
     n_isl, n, length = pop.shape
     ev = spec.eval_spec or {}
@@ -143,12 +197,12 @@ def _launch_binary(seed, size, pop, fitness, spec, consts):
         raise ValueError(f"royal_road blocks of {royal_r} do not tile "
                          f"{length}")
     lib = _build.library()
-    _check_smem(untiled_smem_bytes(n, length, spec),
+    _check_smem(binary_smem_bytes(n, length, spec.elite),
                 max_smem_bytes(pop.device.index), n, length)
     new_pop = torch.empty_like(pop)
     fit_out = (torch.empty((n_isl, n), dtype=torch.float32, device=pop.device)
                if kind is not None else None)
-    if n_isl == 0:
+    if n_isl == 0 or n == 0:
         return new_pop if fit_out is None else (new_pop, fit_out)
     z = float(ev.get("z", 0.0))
     with torch.cuda.device(pop.device):
@@ -182,12 +236,14 @@ def _launch_float(seed, size, pop, fitness, spec, consts):
         m, n_groups = int(ev["m"]), int(ev["n_groups"])
         o, perm, M = (consts[k].data_ptr() for k in ("o", "perm", "M"))
     lib = _build.library()
-    _check_smem(untiled_smem_bytes(n, length, spec),
-                max_smem_bytes(pop.device.index), n, length)
+    limit = max_smem_bytes(pop.device.index)
+    r = float_rows(n, length, spec.elite, limit)
+    _check_smem(float_smem_bytes(n, length, spec.elite, r), limit, n,
+                length)
     new_pop = torch.empty_like(pop)
     fit_out = (torch.empty((n_isl, n), dtype=torch.float32, device=pop.device)
                if kind is not None else None)
-    if n_isl == 0:
+    if n_isl == 0 or n == 0:
         return new_pop if fit_out is None else (new_pop, fit_out)
     a = spec.blend_alpha
     with torch.cuda.device(pop.device):
@@ -202,7 +258,7 @@ def _launch_float(seed, size, pop, fitness, spec, consts):
             float(spec.mutation_rate), float(spec.mutation_sigma),
             float(spec.low), float(spec.high), float(1.0 + 2.0 * a),
             float(a), EVAL_KINDS[kind], sum_group(length), m, n_groups,
-            sum_group(m), stream)
+            sum_group(m), r, stream)
     _build.check(err, "generation kernel (float)")
     LAUNCHES["generation_float"] += 1
     return new_pop if fit_out is None else (new_pop, fit_out)

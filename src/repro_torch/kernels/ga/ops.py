@@ -51,7 +51,7 @@ def route(n: int, L: int, spec: GenerationSpec,
     if untiled_vmem_bytes(n, L, spec) > VMEM_BUDGET_BYTES:
         return "tiled"
     if (smem_limit is not None
-            and _k.untiled_smem_bytes(n, L, spec) > smem_limit):
+            and _k.untiled_smem_bytes(n, L, spec, smem_limit) > smem_limit):
         return "tiled"
     return "untiled"
 

@@ -10,17 +10,21 @@
 // G * m * m multiply-adds: 50,000 at D = 1000, m = 50, so 1e9 f32
 // operations at Fig. 4's 10,000 rows, 15 us at 67 TFLOP/s. The bytes are
 // the population read once, 40 MB there (12 us at 3.35 TB/s), and the
-// 200 KB rotation stack, which stays in L2.
+// 200 KB rotation stack, which stays in L2: at 4 rows per block it is read
+// 2500 times there, 500 MB through L2 per call.
 //
 // Design: a block takes ROWS rows. It stages each row shifted and permuted
 // (z[j] = x[perm[j]] - o[perm[j]], the gather read straight from device
 // memory) in shared memory, then f15_rows rotates, applies the term and
-// sums in the plain version's order (kernels/rastrigin/ref.py). The
-// rotation reads M from device memory, coalesced across k; it is the same
-// for every block, so it is served from L2. No padding: the TPU padded m to
-// its 128-lane matrix unit, which a CUDA core does not need. The product
-// runs on the CUDA cores as separate multiplies and adds, not on the tensor
-// cores, so the kernel and its plain version agree bit for bit.
+// sums in the plain version's order (kernels/rastrigin/ref.py). That tail
+// is register-blocked (f15_rows.cuh, shared with the float
+// generation kernel): each block reads the rotation stack once, a thread's
+// 4 columns of M per step serving all ROWS rows, where it read the whole
+// stack once per row before. This kernel's own launch (ROWS rows per
+// block, 256 threads, the grid) is unchanged. No padding: the TPU padded m
+// to its 128-lane matrix unit, which a CUDA core does not need. The
+// product runs on the CUDA cores as separate multiplies and adds, not on
+// the tensor cores, so the kernel and its plain version agree bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,7 +57,7 @@ f15_kernel(const float* __restrict__ pop, const float* __restrict__ o,
     zp[i] = __fsub_rn(src[(size_t)r * D + p], o[p]);
   }
   __syncthreads();
-  f15_rows(zp, terms, rows, D, m, G, k_group, M, out + row0, 1.0f);
+  f15_rows<ROWS>(zp, terms, rows, D, m, G, k_group, M, out + row0, 1.0f);
 }
 
 }  // namespace

@@ -77,7 +77,8 @@ def _f15_consts(dim, m, g, card):
 
 
 @pytest.mark.parametrize("n,dim,m", [(1000, 1000, 50), (256, 200, 20),
-                                     (7, 64, 8)])
+                                     (7, 64, 8), (333, 91, 7), (5, 91, 13),
+                                     (3, 150, 50)])
 def test_f15_kernel_bit_equal(card, n, dim, m):
     g = torch.Generator().manual_seed(n + dim)
     consts = _f15_consts(dim, m, g, card)
@@ -116,6 +117,155 @@ def test_float_generation_kernel_bit_equal(card, selection, crossover, fused):
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the untiled generation kernels at their edges
+# ---------------------------------------------------------------------------
+BINARY_EVALS = {"none": None,
+                "trap": (("a", 1.0), ("b", 2.0), ("eval", "trap"), ("l", 4),
+                         ("z", 3.0)),
+                "onemax": (("eval", "onemax"),),
+                "royal_road": (("eval", "royal_road"), ("r", 3))}
+
+
+def _edge_inputs(kind, n_isl, n, length, fitness, g):
+    """seed words, size, pop and fit of an edge case. ``fitness``:
+    "random" (normal, with -inf lanes and a run of ties), "tied" (one
+    value everywhere), "masked" (pop_size 0 and 1 on the first islands,
+    every lane -inf on the last)."""
+    if kind == "binary":
+        pop = (torch.rand(n_isl, n, length, generator=g) < 0.5).to(
+            torch.int8)
+    else:
+        pop = torch.rand(n_isl, n, length, generator=g) * 10 - 5
+    fit = torch.randn(n_isl, n, generator=g) * 10
+    size = torch.randint(max(1, n // 2), n + 1, (n_isl,), generator=g,
+                         dtype=torch.int32)
+    if fitness == "random":
+        fit[:, 1:4] = float("-inf")
+        fit[:, 5:9] = fit[:, 10:11]
+    elif fitness == "tied":
+        fit[:] = 2.5
+    else:
+        size[0], size[1 % n_isl] = 0, 1
+        fit[-1] = float("-inf")
+    seed = torch.randint(0, 2**32, (n_isl, 2), generator=g,
+                         dtype=torch.int64)
+    return seed, size, pop, fit
+
+
+# (n_isl, n, L, fused eval, fitness, byte offset, elite): the kernel runs
+# min(16, n) CTAs per island, so n = 1, 3, 5 and 8 run clusters of 1, 3, 5
+# and 8 CTAs and the rest 16; n not a multiple of 16 (CTAs with fewer rows
+# or none), L not a multiple of 4 or 16, islands off 16 bytes (odd n * L
+# and an odd start), all-masked and all-tied fitness, a tile under 16 bytes
+# (no bulk copy), 4 elite rows over several CTAs, and the largest island at
+# L = 160 that routes untiled
+BINARY_EDGES = [
+    (3, 250, 160, "trap", "random", 0, 2),
+    (3, 100, 157, "onemax", "tied", 0, 2),
+    (4, 37, 39, "royal_road", "masked", 1, 2),
+    (2, 61, 13, "none", "random", 3, 4),
+    (2, 3, 4, "onemax", "masked", 5, 2),
+    (2, 5, 40, "trap", "tied", 0, 1),
+    (3, 8, 40, "trap", "tied", 1, 2),
+    (3, 1, 40, "onemax", "masked", 3, 1),
+    (2, 1227, 160, "trap", "random", 0, 2),
+]
+
+
+@pytest.mark.parametrize("case", range(len(BINARY_EDGES)))
+@pytest.mark.parametrize("selection,crossover", [("tournament", "two_point"),
+                                                 ("roulette", "uniform")])
+def test_generation_kernel_edges(card, case, selection, crossover):
+    """The binary kernel equals its plain version at its edges, over
+    clusters of 1, 3, 5, 8 and 16 CTAs per island."""
+    gen_k = importlib.import_module("repro_torch.kernels.ga.generation")
+    n_isl, n, length, fused, fitness, offset, elite = BINARY_EDGES[case]
+    g = torch.Generator().manual_seed(100 + case)
+    spec = GenerationSpec(
+        kind="binary", length=length, elite=elite, selection=selection,
+        tournament_k=3, crossover=crossover, crossover_rate=0.9,
+        mutation_rate=0.05, mutation_sigma=0.3,
+        fused_eval=BINARY_EVALS[fused])
+    args = [t.to(card) for t in _edge_inputs("binary", n_isl, n, length,
+                                             fitness, g)]
+    # pop starts `offset` bytes into its buffer
+    args[2] = torch.empty(offset + args[2].numel(), dtype=torch.int8,
+                          device=card)[offset:].view(n_isl, n, length) \
+        .copy_(args[2])
+    assert args[2].data_ptr() % 16 == offset % 16
+    want = _as_tuple(gen_ref.generation(*args, spec))
+    got = _as_tuple(gen_k.generation_kernel(*args, spec))
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), gen_k.cluster_size(n)
+
+
+# (n_isl, n, L, m, fitness, elite): n not a multiple of the rows per block,
+# m = 7 and 13 (not a multiple of the tail's 4 columns) with several
+# groups, all-masked and all-tied fitness, the largest island at L = 1000
+# under fused F15 that routes untiled, and genomes wide enough that the
+# wrapper takes 2 rows per block (L = 7300) and 1 (L = 14600)
+FLOAT_EDGES = [
+    (3, 250, 91, 7, "random", 2),
+    (2, 61, 91, 13, "tied", 4),
+    (4, 37, 35, 7, "masked", 2),
+    (2, 365, 1000, 50, "random", 2),
+    (2, 9, 7300, 50, "tied", 2),
+    (2, 5, 14600, 50, "masked", 2),
+]
+
+
+@pytest.mark.parametrize("case", range(len(FLOAT_EDGES)))
+@pytest.mark.parametrize("selection", ["tournament", "roulette"])
+def test_float_generation_kernel_edges(card, case, selection):
+    """The float kernel with fused F15 equals its plain version at its
+    edges, at 4, 2 and 1 rows per block."""
+    gen_k = importlib.import_module("repro_torch.kernels.ga.generation")
+    n_isl, n, length, m, fitness, elite = FLOAT_EDGES[case]
+    g = torch.Generator().manual_seed(200 + case)
+    spec = GenerationSpec(
+        kind="float", length=length, elite=elite, selection=selection,
+        tournament_k=2, crossover="blend", crossover_rate=0.9,
+        mutation_rate=0.05, mutation_sigma=0.3, low=-5.0, high=5.0,
+        fused_eval=(("eval", "f15"), ("m", m), ("n_groups", length // m)))
+    consts = _f15_consts(length, m, g, card)
+    args = [t.to(card) for t in _edge_inputs("float", n_isl, n, length,
+                                             fitness, g)]
+    want = _as_tuple(gen_ref.generation(*args, spec, consts))
+    got = _as_tuple(gen_k.generation_kernel(*args, spec, consts))
+    rows = gen_k.float_rows(n, length, elite, gen_k.max_smem_bytes(0))
+    assert rows == {7300: 2, 14600: 1}.get(length, gen_k.FLOAT_ROWS)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), rows
+
+
+@pytest.mark.parametrize("m,n_groups", [(7, 13), (50, 4)])
+def test_tiled_kernel_fused_f15_bit_equal(card, m, n_groups):
+    """The tiled path's F15 (the tiled kernel, then the F15 kernel and its
+    register-blocked tail) equals the plain version and the untiled
+    kernel at m = 7 and 50."""
+    gen_k = importlib.import_module("repro_torch.kernels.ga.generation")
+    from repro_torch.kernels.ga import tiling
+    length = m * n_groups
+    g = torch.Generator().manual_seed(m)
+    spec = GenerationSpec(
+        kind="float", length=length, elite=2, selection="tournament",
+        tournament_k=2, crossover="blend", crossover_rate=0.9,
+        mutation_rate=0.05, mutation_sigma=0.3, low=-5.0, high=5.0,
+        fused_eval=(("eval", "f15"), ("m", m), ("n_groups", n_groups)))
+    consts = _f15_consts(length, m, g, card)
+    args = [t.to(card) for t in _edge_inputs("float", 2, 203, length,
+                                             "random", g)]
+    want = _as_tuple(gen_ref.generation(*args, spec, consts))
+    untiled = _as_tuple(gen_k.generation_kernel(*args, spec, consts))
+    for rows in (1, 7, 32):
+        got = _as_tuple(tiling.generation_tiled(*args, spec, tile_pop=rows,
+                                                consts=consts))
+        for a, b, c in zip(got, want, untiled):
+            assert torch.equal(a, b) and torch.equal(a, c), rows
 
 
 # ---------------------------------------------------------------------------
@@ -199,30 +349,42 @@ def test_tiled_kernel_bit_equal(card, kind, selection, crossover, fused):
 
 
 def test_untiled_smem_formula_is_the_kernels(card):
-    """The routing's shared-memory formula is the C launchers' own."""
+    """The routing's shared-memory formula is the C launchers' own, up to
+    the largest islands that route untiled (1227 x 160 and 230 x 1000
+    binary, 365 x 1000 float under fused F15) and the wide genomes that
+    take fewer rows per block."""
     from repro_torch import _build
     gen_k = importlib.import_module("repro_torch.kernels.ga.generation")
     lib = _build.library()
+    limit = gen_k.max_smem_bytes(0)
     for kind, n, length in (("binary", 256, 160), ("binary", 668, 160),
-                            ("float", 256, 1000), ("float", 37, 64)):
+                            ("binary", 1227, 160), ("binary", 230, 1000),
+                            ("binary", 5, 40), ("float", 256, 1000),
+                            ("float", 37, 64), ("float", 365, 1000),
+                            ("float", 64, 7000), ("float", 64, 7300),
+                            ("float", 64, 28000)):
         spec, _, _ = _tiled_case(kind, "tournament", "two_point", "none", 1,
                                  n, length, 0)
-        want = (lib.generation_smem_bytes(n, length) if kind == "binary"
-                else lib.generation_float_smem_bytes(n, length, spec.elite))
-        assert gen_k.untiled_smem_bytes(n, length, spec) == want
+        want = (lib.generation_smem_bytes(n, length, spec.elite)
+                if kind == "binary"
+                else lib.generation_float_smem_bytes(
+                    n, length, spec.elite,
+                    gen_k.float_rows(n, length, spec.elite, limit)))
+        assert gen_k.untiled_smem_bytes(n, length, spec, limit) == want
+        assert want <= limit
 
 
 def test_pallas_routes_large_binary_islands_to_the_tiled_kernel(card):
-    """668 rows of 160 genes overflow the binary kernel's shared memory:
+    """300 rows of 1000 genes overflow the binary kernel's shared memory:
     impl='pallas' runs them tiled, equal to the plain version."""
     from repro_torch import kernels
     from repro_torch.kernels.ga import ops
     spec, args, _ = _tiled_case("binary", "tournament", "two_point", "trap",
-                                2, 668, 160, 3)
+                                2, 300, 1000, 3)
     args = [t.to(card) for t in args]
     limit = importlib.import_module(
         "repro_torch.kernels.ga.generation").max_smem_bytes(card.index or 0)
-    assert ops.route(668, 160, spec, limit) == "tiled"
+    assert ops.route(300, 1000, spec, limit) == "tiled"
     kernels.reset_launches()
     got = ops._pallas(*args, spec, None)
     assert kernels.LAUNCHES["generation"] == 0

@@ -58,6 +58,22 @@ def test_plain_matches_reference(dim, group, n, shared):
                                    atol=ATOL)
 
 
+@pytest.mark.parametrize("group,n_groups", [(7, 13), (13, 7), (50, 3),
+                                            (7, 2)])
+def test_plain_matches_reference_at_group_sizes_off_four(group, n_groups):
+    """Group sizes that are not a multiple of the kernels' 4-column
+    micro-tiles (m = 7, 13, 50), with several groups."""
+    dim = group * n_groups
+    consts, pop = _case(dim, group, 9)
+    got = t_ref.f15(convert.f15_consts_from_numpy(consts),
+                    torch.from_numpy(pop)).numpy()
+    jc = {k: jnp.asarray(v) for k, v in consts.items()}
+    for want in (j_f15_ops.f15(jc, jnp.asarray(pop)),
+                 j_f15_ref(jc, jnp.asarray(pop))):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL,
+                                   atol=ATOL)
+
+
 def test_wrapper_on_cpu_runs_the_plain_version_and_optimum_is_zero():
     consts, pop = _case(200, 20, 24)
     tc = convert.f15_consts_from_numpy(consts)

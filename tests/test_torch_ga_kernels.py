@@ -232,3 +232,122 @@ def test_plain_float_generation_matches_reference(selection, crossover,
     assert torch.equal(got[0][:, :2], torch.gather(torch.from_numpy(pop), 1,
                                                    idx))
     assert float(got[0].abs().max()) <= 5.0
+
+
+# ---------------------------------------------------------------------------
+# the elite: what the kernels' parallel arg-max must reproduce
+# ---------------------------------------------------------------------------
+def _elite_inputs(seed):
+    """Five islands of N lanes: every lane masked (pop_size 0), one valid
+    lane (pop_size 1), the whole population tied, every valid lane -inf,
+    and random fitness with runs of ties and -inf lanes among the valid."""
+    g = np.random.default_rng(seed)
+    fit = (g.normal(size=(5, N)) * 10).astype(np.float32)
+    fit[2] = 3.5
+    fit[3] = -np.inf
+    fit[4, 3:9] = fit[4, 20]
+    fit[4, [1, 11]] = -np.inf
+    sizes = np.array([0, 1, N, N, N - 5], np.int32)
+    seeds = g.integers(0, 2**32, size=(5, 2),
+                       dtype=np.uint64).astype(np.uint32)
+    return seeds, sizes, fit
+
+
+@pytest.mark.parametrize("selection", ["tournament", "roulette"])
+@pytest.mark.parametrize("elite", [0, 1, 2, 3, 4])
+def test_elite_plan_matches_reference(selection, elite):
+    """The port's plain selection plan, the elite rows first, against the
+    reference's: all-masked islands (row 0 picked again and again), ties
+    across the whole population (the lowest rows), pop_size 1, elite
+    0-4."""
+    from repro.kernels.ga.common import selection_plan as j_plan
+    from repro_torch.kernels.ga.common import selection_plan as t_plan
+    kw = dict(_spec_kwargs(selection, "two_point", "none"), elite=elite)
+    seeds, sizes, fit = _elite_inputs(elite * 2 + len(selection))
+    want = jax.jit(jax.vmap(lambda s, f, z: j_plan(
+        s[0], s[1], f, z, JSpec(**kw), N)))(
+            jnp.asarray(seeds), jnp.asarray(fit), jnp.asarray(sizes))
+    got = t_plan(torch.from_numpy(seeds.astype(np.int64)),
+                 torch.from_numpy(fit), torch.from_numpy(sizes), TSpec(**kw),
+                 N)
+    for name, a, b in zip(got._fields, got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=f"plan.{name}")
+    top = got.idx_a[:, :elite].numpy()
+    if elite:
+        assert (top[0] == 0).all() and (top[3] == 0).all()
+        assert (top[1] == 0).all()
+        assert top[2].tolist() == list(range(elite))
+
+
+# ---------------------------------------------------------------------------
+# the untiled kernels' launch shapes and shared memory (pure Python)
+# ---------------------------------------------------------------------------
+H100_SMEM = 232_448
+
+
+def _first_design_smem(kind, n, length, elite):
+    """The first untiled kernels' shared memory: both int8 tiles and seven
+    words a row (binary); four rows of two f32 buffers (float)."""
+    if kind == "binary":
+        return n * 7 * 4 + 2 * n * length
+    return (2 * n + elite + 20) * 4 + 2 * 4 * length * 4
+
+
+@pytest.mark.parametrize("kind", ["binary", "float"])
+def test_untiled_islands_of_the_first_design_stay_untiled(kind):
+    """Every (n, L) the first design ran untiled on an H100 still routes
+    untiled, within 232,448 B of shared memory."""
+    import importlib
+
+    from repro_torch.kernels.ga import ops
+    gen_k = importlib.import_module("repro_torch.kernels.ga.generation")
+    lengths = list(range(1, 70)) + list(range(70, 130_000, 251))
+    sizes = list(range(1, 40)) + list(range(40, 1300, 13))
+    checked = 0
+    for length in lengths:
+        for n in sizes:
+            elite = min(n, 2)
+            spec = TSpec(kind=kind, length=length, elite=elite,
+                         selection="tournament", tournament_k=2,
+                         crossover="two_point", crossover_rate=0.9,
+                         mutation_rate=0.1, mutation_sigma=0.3)
+            if (_first_design_smem(kind, n, length, elite) > H100_SMEM
+                    or ops.route(n, length, spec) == "tiled"):
+                continue
+            checked += 1
+            assert gen_k.untiled_smem_bytes(n, length, spec,
+                                            H100_SMEM) <= H100_SMEM, \
+                (n, length)
+            assert ops.route(n, length, spec, H100_SMEM) == "untiled"
+    assert checked > 1000
+
+
+def test_launch_shapes():
+    """The binary kernel's CTAs per island and the float kernel's rows per
+    block, and the shared memory the C launchers size for them."""
+    import importlib
+    gen_k = importlib.import_module("repro_torch.kernels.ga.generation")
+    assert gen_k.cluster_size(256) == gen_k.CLUSTER == 16
+    assert gen_k.cluster_size(17) == gen_k.cluster_size(16) == 16
+    assert gen_k.cluster_size(5) == 5
+    assert gen_k.cluster_size(1) == 1
+    # paper-8's island at 16 CTAs: 16 rows each; the barrier, masked, cum,
+    # the elite, the arg-max scratch and the plan (626 words), then the
+    # 40,960-byte tile and its 32 bytes of slack
+    assert gen_k.binary_smem_bytes(256, 160, 2) == 2512 + 40960 + 32
+    # a 5-row island: 5 CTAs of one row each (49 words, 208 bytes)
+    assert gen_k.binary_smem_bytes(5, 40, 2) == 208 + 200 + 32
+    # paper-f15-8's block at 4 rows: two 4 x 1000 f32 buffers and 566 words
+    assert gen_k.float_rows(256, 1000, 2, H100_SMEM) == gen_k.FLOAT_ROWS == 4
+    assert gen_k.float_smem_bytes(256, 1000, 2, 4) == 32000 + 4 * (
+        512 + 2 + 32 + 20)
+    # wide genomes take fewer rows on the card: two rows x L f32 buffers
+    # fill at most its shared memory per block; without a card, no limit
+    for length, rows in ((3000, 4), (7000, 4), (7300, 2), (14000, 2),
+                         (14600, 1), (28000, 1)):
+        assert gen_k.float_rows(64, length, 2, H100_SMEM) == rows
+        assert gen_k.float_smem_bytes(64, length, 2, rows) <= H100_SMEM
+        assert gen_k.float_rows(64, length, 2, None) == gen_k.FLOAT_ROWS
+    # the card's own limit decides: a smaller one halves sooner
+    assert gen_k.float_rows(64, 3000, 2, 90_000) == 2

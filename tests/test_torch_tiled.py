@@ -202,15 +202,23 @@ def test_route_follows_the_reference_budget(n, length, fused, want):
 
 
 def test_route_sends_what_the_binary_kernel_cannot_hold_to_tiled():
-    """The binary kernel holds both int8 tiles (348 B per row at L = 160):
-    668-1227 rows overflow 232,448 B and go tiled on such a card."""
+    """Each CTA of the binary kernel holds the island's int8 tile (about
+    1 kB per row at L = 1000, and the plan of its rows): 231-584 rows
+    overflow 232,448 B and go tiled on such a card, where the reference's
+    budget alone would run them untiled. At L = 160 the kernel holds every
+    island the budget leaves untiled (up to 1227 rows)."""
+    spec = _spec("binary", 1000, TRAP)
+    assert untiled_smem_bytes(229, 1000, spec) <= H100_SMEM
+    assert untiled_smem_bytes(231, 1000, spec) > H100_SMEM
+    assert ops.route(229, 1000, spec, H100_SMEM) == "untiled"
+    for n in (231, 400, 584):
+        assert ops.route(n, 1000, spec, H100_SMEM) == "tiled"
+        assert ops.route(n, 1000, spec) == "untiled"
+    assert ops.route(585, 1000, spec) == "tiled"
     spec = _spec("binary", 160, TRAP)
-    assert untiled_smem_bytes(667, 160, spec) <= H100_SMEM
-    assert untiled_smem_bytes(668, 160, spec) > H100_SMEM
-    assert ops.route(667, 160, spec, H100_SMEM) == "untiled"
-    for n in (668, 900, 1227):
-        assert ops.route(n, 160, spec, H100_SMEM) == "tiled"
-        assert ops.route(n, 160, spec) == "untiled"
+    for n in (667, 668, 1227):
+        assert untiled_smem_bytes(n, 160, spec) <= H100_SMEM
+        assert ops.route(n, 160, spec, H100_SMEM) == "untiled"
     # the float kernel keeps a few rows only: the reference's budget rules
     fspec = _spec("float", 1000, F15_1000)
     assert untiled_smem_bytes(365, 1000, fspec) < H100_SMEM
