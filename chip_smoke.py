@@ -53,11 +53,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. each kernel's time at the main paths' shapes against its bound, the
    generation kernels' launch shapes and times without their fused eval,
    the tiled kernel's swept rows per block against the heuristic's;
-7a. the WKV6 kernel through ``kernels/rwkv6/ops.wkv`` against its plain
-   chunked version and the sequential recurrence: the four shapes of
+7a. the WKV6 kernel through ``kernels/rwkv6/ops.wkv`` against both plain
+   chunked versions (``wkv_chunked``, the reference's form, and
+   ``wkv_subchunked``, the kernel's) and the sequential recurrence, with
+   r, k, v and u in f32 and in bf16: the four shapes of
    ``tests/test_kernels.py`` (S = 37 through the padding), the state-carry
    composition, and the serve shape (4, 1024, 40, 64) with RWKV's decays
-   and with strong ones; its time at the serve shape against its bound;
+   and with strong ones; its time at the serve shape as the prefill calls
+   it (bf16 through ops.wkv) and on f32 inputs, against its bound and both
+   plain versions' times; the ptxas report of the serve shape's kernels;
 7b. the model-land path: rwkv6-3b at its published size (32 layers,
    d 2560, bf16, random weights from the seed with the decay and mixing
    LoRAs drawn too) served by ``launch.serve.generate``: a prefill of 4 x
@@ -182,6 +186,10 @@ SERVE_BF16_TOL = {"logits": 0.2, "state": 0.17}
 # bf16 tensor cores, dense (the H100 SXM data sheet): the bound of the
 # bf16 flash-attention row, whose work the tensor-core kernel does
 BF16_OPS_PER_S = 989e12
+# TF32 tensor cores, dense (the same data sheet): the WKV kernel's products
+# run in 3xTF32, three TF32 products for each f32-grade one (two where one
+# operand is exact in tf32, as a bf16 v is), counted as such in wkv_work
+TF32_OPS_PER_S = 495e12
 # phase 8a: (B, S, H, Kv, hd), tests/test_kernels.py's five shapes, and
 # the yi-9b serve shape last; the reference's tolerances (atol, rtol)
 FLASH_CASES = [(1, 64, 4, 4, 16), (2, 96, 8, 2, 32), (1, 64, 4, 1, 16),
@@ -335,19 +343,19 @@ def f15_work(consts, rows: int):
 
 
 def bound_of(nbytes: int, int_ops: int = 0, f32_ops: int = 0,
-             bf16_ops: int = 0):
+             bf16_ops: int = 0, tf32_ops: int = 0):
     """(bound in ms, "bytes" or "operations"): the larger of the bytes
     over the memory rate and the operations over their rates."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = (int_ops / INT32_OPS_PER_S + f32_ops / F32_OPS_PER_S
-             + bf16_ops / BF16_OPS_PER_S)
+             + bf16_ops / BF16_OPS_PER_S + tf32_ops / TF32_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def build_report(source: str):
     """(the build log's header of ``source``, with its compile time, and
-    [(template argument, ptxas's register and spill lines)] of each kernel
+    [(template arguments, ptxas's register and spill lines)] of each kernel
     compiled from it), or None when the library was built before this
     run."""
     from repro_torch import _build
@@ -358,8 +366,7 @@ def build_report(source: str):
     out, arg, spill = [], None, ""
     for line in entry.splitlines():
         if "Compiling entry function" in line:
-            found = re.search(r"ILi(\d+)E", line)
-            arg = found.group(1) if found else "?"
+            arg = ",".join(re.findall(r"Li(\d+)E", line)) or "?"
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and arg is not None:
@@ -436,23 +443,36 @@ def same_run(tag: str, a, b):
         fail(f"{tag}: epoch counts differ")
 
 
-def wkv_work(bh: int, seq: int, d: int, chunk: int):
-    """(bytes, f32 operations) of one WKV call: r, k, v, w and y (BH, S, D)
-    f32 each read or written once, u, s0 and s_out once; the operations of
-    the chunked form counted once per head (the kernel's blocks recompute
-    a head's pairwise terms per column block; that is its overhead, not
-    the function's work). Per chunk of T with K = V = D: 8 per (t, k) for
-    log, cumsum, L_prev, r~ and k^ (a transcendental counts one); 2TKV for
-    r~ S and again for k^T v; 5 per strictly lower pair and k for the
-    pairwise scores; 2 per pair and v for scores v; 3TK for the bonus
-    diagonal and 3TV to add the three terms; K exps and 2KV for the decay
-    of S."""
-    t, k = chunk, d
-    pairs = t * (t - 1) // 2
-    per_chunk = (8 * t * k + 4 * t * k * k + 5 * pairs * k + 2 * pairs * k
-                 + 3 * t * k + 3 * t * k + k + 2 * k * k)
-    nbytes = 4 * (5 * bh * seq * d + bh * d + 2 * bh * d * d)
-    return nbytes, bh * (seq // chunk) * per_chunk
+def wkv_work(b: int, h: int, seq: int, d: int, chunk: int, elem: int):
+    """(bytes, f32 operations, TF32 tensor-core operations) of one WKV call.
+    Bytes: r, k, v (B, S, H, D) of ``elem`` bytes each, w read and y
+    written in f32, u (H, D) and s0 read and s_out written once. Work, per
+    chunk of T tokens and head (K = V = D), in the least form the kernel
+    knows, the intra term exact only inside sub-chunks of 8 (ref.SUB). On
+    the CUDA cores: 8 per (t, k) for log, cumsum, L_prev, r~ and k^ (a
+    transcendental counts one); 5 per (pair, k) for the exact pairs; 3 per
+    (row, k) for r and k scaled to each sub-chunk's end; 3TK for the bonus
+    diagonal; K exps and KV products for the decay of S. On the tensor
+    cores, 2 per multiply-add: r~ S and k^T v (TKV each), a v over its
+    lower triangle and diagonal, and a's off-diagonal blocks; each in
+    3xTF32 at three TF32 products, two where v is exact in tf32 (bf16)."""
+    t, k, sub = chunk, d, 8
+    v_passes = 2 if elem == 2 else 3
+    n_sub = t // sub
+    exact_pairs = n_sub * sub * (sub - 1) // 2
+    # rows of a below each sub-chunk q but its last, against its 8 columns
+    below = [t - sub * (q + 1) for q in range(n_sub - 1)]
+    f32_per = (8 * t * k + 5 * exact_pairs * k
+               + 3 * k * sum(rows + sub for rows in below)
+               + 3 * t * k + k + k * k)
+    tc_per = (3 * 2 * t * k * k                        # r~ S
+              + v_passes * 2 * t * k * k               # k^T v
+              + v_passes * 2 * (t * (t + 1) // 2) * k  # a v
+              + 3 * 2 * sub * sum(below) * k)          # a off the diagonal
+    rows = b * seq * h * d
+    nbytes = (3 * elem + 2 * 4) * rows + elem * h * d + 2 * 4 * b * h * d * d
+    heads_chunks = b * h * (seq // chunk)
+    return nbytes, heads_chunks * f32_per, heads_chunks * tc_per
 
 
 def flash_work(q, k, causal: bool = True):
@@ -540,6 +560,11 @@ def device_profile(tag: str, fn, card: str, top: int = 6):
                                   key=lambda kv: -kv[1][1])[:top]:
         log(f"[{tag}]   {us / 1e3:9.3f} ms {us / 1e3 / busy_ms:6.3f} of "
             f"busy  {cnt:5d} launches  {name[:90]}")
+    copies = [(cnt, us) for name, (cnt, us) in by_name.items()
+              if "copy" in name.lower()]
+    log(f"[{tag}] copy and cast kernels (names with 'copy'): "
+        f"{sum(c for c, _ in copies)} launches, "
+        f"{sum(us for _, us in copies) / 1e3:.3f} ms")
 
 
 def main() -> int:
@@ -1309,31 +1334,52 @@ def main() -> int:
     def wkv_close(got, want, tol):
         return all(torch.allclose(a, b, **tol) for a, b in zip(got, want))
 
+    def wkv_plain(fn, args, chunk):
+        """A plain chunked version (kernel layout) on the model's layout,
+        S padded as ops.wkv pads it, on the same values in f32."""
+        r, k, v, w, u, s0 = args
+        b, seq, h, hd = r.shape
+        pad = (-seq) % chunk
+        r, k, v = (F.pad(a.float(), (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
+        w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
+        y, st = fn(*(a.transpose(1, 2).reshape(b * h, seq + pad, hd)
+                     for a in (r, k, v, w)),
+                   u.float()[None].expand(b, h, hd).reshape(b * h, hd),
+                   s0.reshape(b * h, hd, hd), chunk=chunk)
+        return (y.reshape(b, h, seq + pad, hd).transpose(1, 2)[:, :seq],
+                st.reshape(b, h, hd, hd))
+
+    # every case with r, k, v and u in f32 and in bf16 (the served model's
+    # types), each held against both chunked forms and the recurrence on
+    # the same values
     wkv_err = 0.0
     for b, s, h, hd, chunk, decays in WKV_CASES:
         args = wkv_inputs(gen, b, s, h, hd, decays, dev)
-        got = wkv_ops.wkv(*args, chunk=chunk)
-        torch.cuda.synchronize()
-        # the kernel's plain version (wkv_chunked) through the same layout
-        # and padding, on the same values
-        chunked = [t.to(dev) for t in wkv_ops.wkv(*(a.cpu() for a in args),
-                                                   chunk=chunk)]
-        seq = wkv_ref.wkv(*args)
-        tol = WKV_TOL[decays]
-        finite = all(bool(torch.isfinite(t).all()) for t in got)
-        ok = finite and wkv_close(got, chunked, tol) and wkv_close(got, seq,
-                                                                  tol)
-        err_c, err_s = wkv_max_err(got, chunked), wkv_max_err(got, seq)
-        log(f"[wkv] ({b}, {s}, {h}, {hd}) chunk {chunk}, {decays} decays: "
-            f"max_abs_err {err_c} against wkv_chunked, {err_s} against the "
-            f"sequential recurrence (|y| <= {got[0].abs().max().item():.1f})"
-            f"; finite {finite}; within atol {tol['atol']} rtol "
-            f"{tol['rtol']}: {ok}")
-        if not ok:
-            fail(f"WKV kernel differs from its plain versions at ({b}, {s}, "
-                 f"{h}, {hd}), {decays} decays")
-        if decays == "rwkv":
-            wkv_err = max(wkv_err, err_c)
+        for dtype in (torch.float32, torch.bfloat16):
+            r, k, v, w, u, s0 = args
+            case = [r.to(dtype), k.to(dtype), v.to(dtype), w, u.to(dtype), s0]
+            got = wkv_ops.wkv(*case, chunk=chunk)
+            torch.cuda.synchronize()
+            chunked = wkv_plain(wkv_ref.wkv_chunked, case, chunk)
+            sub = wkv_plain(wkv_ref.wkv_subchunked, case, chunk)
+            seq = wkv_ref.wkv(*(a.float() for a in case[:5]), s0)
+            tol = WKV_TOL[decays]
+            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            ok = finite and all(wkv_close(got, want, tol)
+                                for want in (chunked, sub, seq))
+            err_c, err_u, err_s = (wkv_max_err(got, want)
+                                   for want in (chunked, sub, seq))
+            log(f"[wkv] ({b}, {s}, {h}, {hd}) chunk {chunk}, {decays} "
+                f"decays, {str(dtype)[6:]} r, k, v, u: max_abs_err {err_c} "
+                f"against wkv_chunked, {err_u} against wkv_subchunked, "
+                f"{err_s} against the sequential recurrence (|y| <= "
+                f"{got[0].abs().max().item():.1f}); finite {finite}; within "
+                f"atol {tol['atol']} rtol {tol['rtol']}: {ok}")
+            if not ok:
+                fail(f"WKV kernel differs from its plain versions at ({b}, "
+                     f"{s}, {h}, {hd}), {decays} decays, {dtype}")
+            if decays == "rwkv":
+                wkv_err = max(wkv_err, err_c)
         if (s, decays) == (SERVE_PROMPT, "rwkv"):
             wkv_serve = args
     # the state carried across two calls equals one call (S 64 in halves)
@@ -1346,25 +1392,41 @@ def main() -> int:
         f"{wkv_max_err(halves, whole)} against one call")
     if not wkv_close(halves, whole, WKV_TOL["rwkv"]):
         fail("WKV kernel: the state carried across calls differs")
-    # the kernel alone at the serve shape, in its own layout
+    # the serve shape: as the prefill calls it (bf16 r, k, v and u in the
+    # model's layout, through ops.wkv), and the kernel alone on f32 inputs
     sr, sk, sv, sw, su, ss0 = wkv_serve
     s_b, s_len, s_h, s_hd = sr.shape
-    bh_args = [a.transpose(1, 2).reshape(s_b * s_h, s_len, s_hd).contiguous()
-               for a in (sr, sk, sv, sw)]
-    bh_args += [su[None].expand(s_b, s_h, s_hd).reshape(s_b * s_h,
-                                                        s_hd).contiguous(),
-                ss0.reshape(s_b * s_h, s_hd, s_hd).contiguous()]
-    wkv_ms = event_ms(lambda: wkv_k.wkv_kernel(*bh_args), TIMED_CALLS)
-    wkv_plain_ms = event_ms(lambda: wkv_ref.wkv_chunked(
-        *bh_args, chunk=wkv_k.CHUNK), 3)
-    wkv_bytes, wkv_ops_n = wkv_work(s_b * s_h, s_len, s_hd, wkv_k.CHUNK)
-    wkv_bound, wkv_by = bound_of(wkv_bytes, f32_ops=wkv_ops_n)
-    log(f"[wkv] at the serve shape (BH {s_b * s_h}, S {s_len}, D {s_hd}, "
-        f"chunk {wkv_k.CHUNK}, 32 columns per block): "
-        f"{wkv_ms:.4f} ms per call, wkv_chunked {wkv_plain_ms:.3f} ms, "
-        f"bound {wkv_bound:.4f} ms ({wkv_by}: {wkv_bytes} B, {wkv_ops_n} "
-        f"f32 ops), {wkv_ms / wkv_bound:.1f} times it; no single PyTorch "
-        f"call computes WKV6; {card}")
+    bf_args = [sr.bfloat16(), sk.bfloat16(), sv.bfloat16(), sw,
+               su.bfloat16(), ss0]
+    wkv_ms = event_ms(lambda: wkv_ops.wkv(*bf_args), TIMED_CALLS)
+    wkv_f32_ms = event_ms(lambda: wkv_k.wkv_kernel(*wkv_serve),
+                          TIMED_CALLS)
+    # the plain version (the wrapper's CPU route, wkv_chunked) and the
+    # kernel's own form in plain PyTorch, on the card
+    wkv_plain_ms = event_ms(lambda: wkv_k._plain(*bf_args, wkv_k.CHUNK), 3)
+    wkv_sub_ms = event_ms(lambda: wkv_plain(
+        wkv_ref.wkv_subchunked, bf_args, wkv_k.CHUNK), 3)
+    wkv_bytes, wkv_f32_n, wkv_tc_n = wkv_work(s_b, s_h, s_len, s_hd,
+                                              wkv_k.CHUNK, 2)
+    wkv_bound, wkv_by = bound_of(wkv_bytes, f32_ops=wkv_f32_n,
+                                 tf32_ops=wkv_tc_n)
+    log(f"[wkv] at the serve shape ({s_b}, {s_len}, {s_h}, {s_hd}), chunk "
+        f"{wkv_k.CHUNK}, one CTA per head: bf16 r, k, v through ops.wkv (as "
+        f"the prefill calls it) {wkv_ms:.4f} ms per call; f32 r, k, v "
+        f"{wkv_f32_ms:.4f} ms; the plain version (wkv_chunked) "
+        f"{wkv_plain_ms:.3f} ms, wkv_subchunked {wkv_sub_ms:.3f} ms; bound "
+        f"{wkv_bound:.4f} ms ({wkv_by}: {wkv_bytes} B = "
+        f"{wkv_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; {wkv_f32_n} f32 ops "
+        f"and {wkv_tc_n} TF32 tensor-core ops = "
+        f"{(wkv_f32_n / F32_OPS_PER_S + wkv_tc_n / TF32_OPS_PER_S) * 1e3:.4f}"
+        f" ms), {wkv_ms / wkv_bound:.2f} times it; no single PyTorch call "
+        f"computes WKV6; {card}")
+    wkv_build = build_report("wkv.cu")
+    if wkv_build is not None:
+        log(f"[wkv] build: {wkv_build[0]}")
+        for arg, regs in wkv_build[1]:
+            if arg == f"{s_hd},{wkv_k.CHUNK}":   # hd, chunk
+                log(f"[wkv]   <{arg}>: {regs}")
 
     # ---- 7b: rwkv6-3b served at full size ----------------------------------
     from repro_torch.configs import get_config
@@ -1495,7 +1557,7 @@ def main() -> int:
         {"token": tok, "index": SERVE_PROMPT, "caches": caches_k}), card)
 
     # free rwkv6-3b before the dense phases
-    del model, decode, caches_k, logits_k, logits_d, tok, wkv_serve, bh_args
+    del model, decode, caches_k, logits_k, logits_d, tok, wkv_serve, bf_args
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1777,8 +1839,9 @@ def main() -> int:
         f"generation_float ({n_isl}, {n}, {f_len}) fused f15, tournament, "
         f"blend; f15 ({f15_x.shape[0]}, {f_len}, m 50); generation_tiled "
         f"and selection_plan (1, {t_n}, {f_len}) tournament, blend, no eval, "
-        f"launches from Fig. 4's row (4d); wkv ({SERVE_BATCH * lm_cfg.n_heads}, "
-        f"{SERVE_PROMPT}, 64), launches from one rwkv6-3b prefill (7b); "
+        f"launches from Fig. 4's row (4d); wkv ({SERVE_BATCH}, "
+        f"{SERVE_PROMPT}, {lm_cfg.n_heads}, 64) bf16 through ops.wkv, "
+        f"launches from one rwkv6-3b prefill (7b); "
         f"flash_attention (4, 2048, 32 over 4, 128) bf16 causal, launches "
         f"from one yi-9b prefill (8b), library_ms SDPA; flash_attention_f32 "
         f"the same in f32, launches from the f32 twin's prefill (8b), "

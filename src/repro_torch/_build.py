@@ -76,8 +76,13 @@ SIGNATURES: Dict[str, List] = {
                                 _F, _F, _F, _I, _P],
     # rows, L, float_genes, eval_kind, sum_group
     "generation_tiled_smem_bytes": [_I, _I, _I, _I, _I],
-    # r, k, v, w, u, s0, y, s_out, bh, seq, d, chunk, vb, stream
-    "wkv_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # r, k, v, w, u, s0, y, s_out, B, S, H, hd, chunk, u_bf16, strides (an
+    # int[12]: batch, seq, head of r, k, v, w), stream: bf16 r, k, v
+    # (wkv.cu) and f32 (wkv_f32.cu)
+    "wkv_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                   _P, _P],
+    "wkv_f32_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _P, _P],
     # q, k, v, o, B, H, Kv, Sq, Sk, hd, the strides of q, k and v (batch,
     # seq, head), scale, causal, stream: the f32 kernel (flash.cu) and the
     # bf16 tensor-core kernel (flash_tc.cu)

@@ -318,38 +318,11 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A bf16 (B, S, heads, HD) tensor through its strides (in elements) as a
 // 4-D tensor map (HD, S, heads, B), boxes of (box width, rows, 1, 1).
 template <int HD>
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B,
-              int S, int heads, long long sb, long long ss, long long sh,
+bool make_map(hopper::EncodeTiled enc, CUtensorMap* map, const void* ptr,
+              int B, int S, int heads, long long sb, long long ss, long long sh,
               int rows) {
   using T = Tile<HD>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
@@ -375,7 +348,7 @@ template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int Kv, int Sq, int Sk, const long long* st,
                    float scale, int causal, cudaStream_t stream) {
-  const EncodeTiled enc = encoder();
+  const hopper::EncodeTiled enc = hopper::tensor_map_encoder();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap q_map, k_map, v_map;
   if (!make_map<HD>(enc, &q_map, q, B, Sq, H, st[0], st[1], st[2], kBQ) ||

@@ -1,7 +1,7 @@
-// Hopper (sm_90a) building blocks in inline PTX for flash_tc.cu: TMA tile
-// loads, wgmma shared-memory descriptors and the warpgroup matrix products
-// at the shapes the kernel issues; the mbarriers come from
-// kernels/hopper/csrc/async_copy.cuh.
+// Hopper (sm_90a) building blocks in inline PTX for flash_tc.cu: wgmma
+// shared-memory descriptors and the warpgroup matrix products at the shapes
+// the kernel issues; the mbarriers and TMA tile loads come from
+// kernels/hopper/csrc/async_copy.cuh and tma.cuh.
 //
 // Shared-memory layouts (the PTX ISA's canonical wgmma layouts, as CUTLASS's
 // make_gmma_desc builds their descriptors). A tile of 16-bit values is
@@ -19,7 +19,7 @@
 
 #include <cstdint>
 
-#include "../../hopper/csrc/async_copy.cuh"
+#include "../../hopper/csrc/tma.cuh"
 
 namespace tc {
 
@@ -30,25 +30,9 @@ using hopper::mbar_fence_init;
 using hopper::mbar_init;
 using hopper::mbar_wait;
 using hopper::smem_addr;
-
-// ---- TMA ------------------------------------------------------------------
-// one box of a 4-D tensor map at coordinates (c0 innermost .. c3) into
-// shared memory, completing `bytes` on `bar`
-__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_prefetch_map(const void* map) {
-  asm volatile("prefetch.tensormap [%0];\n"
-               :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
+// the TMA loads
+using hopper::tma_load_4d;
+using hopper::tma_prefetch_map;
 
 // ---- wgmma ------------------------------------------------------------------
 // layout type of a descriptor for a swizzle of `row_bytes`

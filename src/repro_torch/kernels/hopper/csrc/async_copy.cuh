@@ -1,9 +1,10 @@
 // Hopper (sm_90) asynchronous copies in inline PTX, shared by the kernels
 // that use them: mbarriers (the tensor-core flash kernel's TMA ring in
-// kernels/flash_attention/csrc/flash_tc.cu through wgmma.cuh, and the binary
-// generation kernel in kernels/ga/csrc/generation.cu), the plain bulk copy
-// from device memory into the shared memory of every CTA of a cluster, and
-// the cluster's barrier and rank.
+// kernels/flash_attention/csrc/flash_tc.cu through wgmma.cuh, the binary
+// generation kernel in kernels/ga/csrc/generation.cu and the WKV6 kernel's
+// ring in kernels/rwkv6/csrc/wkv.cuh), the plain bulk copy from device memory
+// into the shared memory of every CTA of a cluster, and the cluster's
+// barrier and rank.
 #pragma once
 
 #include <cstdint>

@@ -397,66 +397,114 @@ def test_pallas_routes_large_binary_islands_to_the_tiled_kernel(card):
 # ---------------------------------------------------------------------------
 # the WKV6 kernel
 # ---------------------------------------------------------------------------
-def _wkv_inputs(bh, seq, d, g, lo=-4.0, hi=1.0):
+def _wkv_inputs(b, seq, h, hd, g, lo=-4.0, hi=1.0):
     """r, k, v ~ N(0, 1), w = exp(-exp(U(lo, hi))), u ~ 0.5 N(0, 1), s0 ~
-    0.1 N(0, 1), as the reference's kernel test draws them."""
-    r, k, v = (torch.randn(bh, seq, d, generator=g) for _ in range(3))
-    w = torch.exp(-torch.exp(torch.rand(bh, seq, d, generator=g)
+    0.1 N(0, 1), as the reference's kernel test draws them, in the model's
+    layout: (B, S, H, hd), u (H, hd), s0 (B, H, hd, hd)."""
+    r, k, v = (torch.randn(b, seq, h, hd, generator=g) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand(b, seq, h, hd, generator=g)
                              * (hi - lo) + lo))
-    u = torch.randn(bh, d, generator=g) * 0.5
-    s0 = torch.randn(bh, d, d, generator=g) * 0.1
+    u = torch.randn(h, hd, generator=g) * 0.5
+    s0 = torch.randn(b, h, hd, hd, generator=g) * 0.1
     return r, k, v, w, u, s0
 
 
-# (BH, S, D, chunk): the shapes of tests/test_kernels.py's WKV6 test in
-# the kernel's layout (S = 37 padded to 64), a strong-decay case, and one
-# head of the serve shape at full length
-WKV_SHAPES = [(6, 64, 16, 32), (2, 128, 64, 32), (2, 64, 8, 32),
-              (4, 32, 32, 8), (3, 1024, 64, 32)]
+def _wkv_plain_chunked(r, k, v, w, u, s0, chunk, form="wkv_chunked"):
+    """A plain chunked form in the model's layout: wkv_chunked (the
+    reference's formulation) or wkv_subchunked (the kernel's)."""
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    b, seq, h, hd = r.shape
+    y, s = getattr(wkv_ref, form)(
+        *(a.float().transpose(1, 2).reshape(b * h, seq, hd)
+          for a in (r, k, v, w)),
+        u.float()[None].expand(b, h, hd).reshape(b * h, hd),
+        s0.reshape(b * h, hd, hd), chunk=chunk)
+    return y.reshape(b, h, seq, hd).transpose(1, 2), s.reshape(b, h, hd, hd)
 
 
-@pytest.mark.parametrize("bh,seq,d,chunk", WKV_SHAPES)
+# (B, S, H, hd, chunk): the shapes of tests/test_kernels.py's WKV6 test
+# (S = 37 padded to 64), B and H both above 1 in the first, and one
+# batch row of three heads of the serve shape at full length
+WKV_SHAPES = [(2, 64, 3, 16, 32), (1, 128, 2, 64, 32), (2, 64, 1, 8, 32),
+              (1, 32, 4, 32, 8), (1, 1024, 3, 64, 32)]
+WKV_TOL = {"rwkv": dict(atol=1e-3, rtol=2e-3),
+           "strong": dict(atol=1e-2, rtol=2e-3)}
+
+
+def _wkv_case(b, seq, h, hd, decay, dtype, card, seed):
+    lo, hi = (-4.0, 1.0) if decay == "rwkv" else (2.0, 4.0)
+    r, k, v, w, u, s0 = _wkv_inputs(b, seq, h, hd,
+                                    torch.Generator().manual_seed(seed),
+                                    lo, hi)
+    return [t.to(card) for t in (r.to(dtype), k.to(dtype), v.to(dtype), w,
+                                 u.to(dtype), s0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,seq,h,hd,chunk", WKV_SHAPES)
 @pytest.mark.parametrize("decay", ["rwkv", "strong"])
-def test_wkv_kernel_matches_plain(card, bh, seq, d, chunk, decay):
-    """The kernel against wkv_chunked and the sequential oracle. With
-    RWKV's decays, at the reference's kernel tolerance (atol 1e-3, rtol
-    2e-3): the same f32 algorithm, summed in another order. With strong
-    decays the chunk's cumsum of log w reaches about -1760, where an f32
-    ulp is 1.2e-4, so the pairwise exponents L_prev - L carry that much
-    absolute error in the reference's own formulation (on the CPU,
-    wkv_chunked is 2.7e-3 from an f64 oracle where the sequential
+def test_wkv_kernel_matches_plain(card, b, seq, h, hd, chunk, decay, dtype):
+    """The kernel on the model's layout (r, k, v and u in f32 or bf16)
+    against wkv_chunked, wkv_subchunked (its own formulation) and the
+    sequential oracle, all on the same values. With RWKV's decays, at the
+    reference's kernel tolerance (atol 1e-3, rtol 2e-3): the same f32
+    function, summed in another order and with the products in 3xTF32.
+    With strong decays the chunk's cumsum of log w reaches about -1760,
+    where an f32 ulp is 1.2e-4, so the pairwise exponents L_prev - L carry
+    that much absolute error in the reference's own formulation (on the
+    CPU, wkv_chunked is 2.7e-3 from an f64 oracle where the sequential
     recurrence is 3.7e-5): atol 1e-2 there."""
     from repro_torch.kernels.rwkv6 import ref as wkv_ref
     from repro_torch.kernels.rwkv6 import rwkv6 as wkv_k
-    lo, hi = (-4.0, 1.0) if decay == "rwkv" else (2.0, 4.0)
-    tol = dict(atol=1e-3 if decay == "rwkv" else 1e-2, rtol=2e-3)
-    args = [t.to(card) for t in _wkv_inputs(bh, seq, d,
-                                            torch.Generator().manual_seed(
-                                                seq + d), lo, hi)]
+    tol = WKV_TOL[decay]
+    args = _wkv_case(b, seq, h, hd, decay, dtype, card, seq + hd)
     y, s = wkv_k.wkv_kernel(*args, chunk=chunk)
     torch.cuda.synchronize()
-    y_c, s_c = wkv_ref.wkv_chunked(*args, chunk=chunk)
+    assert y.shape == (b, seq, h, hd) and y.dtype == torch.float32
+    assert y.is_contiguous() and s.shape == (b, h, hd, hd)
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
-    torch.testing.assert_close(y, y_c, **tol)
-    torch.testing.assert_close(s, s_c, **tol)
-    # the sequential oracle in the model's layout: one batch row, BH heads
-    r, k, v, w, u, s0 = args
-    y_o, s_o = wkv_ref.wkv(*(a.transpose(0, 1)[None] for a in (r, k, v, w)),
-                           u, s0[None])
-    torch.testing.assert_close(y, y_o[0].transpose(0, 1), **tol)
-    torch.testing.assert_close(s, s_o[0], **tol)
+    for want in (_wkv_plain_chunked(*args, chunk),
+                 _wkv_plain_chunked(*args, chunk, "wkv_subchunked"),
+                 wkv_ref.wkv(*(a.float() for a in args[:4]), args[4].float(),
+                             args[5])):
+        torch.testing.assert_close(y, want[0], **tol)
+        torch.testing.assert_close(s, want[1], **tol)
+
+
+def test_wkv_kernel_reads_views(card):
+    """Views with B and H above 1, as TMA takes them: a head slice, an S
+    slice off the base and a bf16 u beside f32 ones; a wrong head or
+    batch stride would read another head's rows."""
+    from repro_torch.kernels.rwkv6 import rwkv6 as wkv_k
+    g = torch.Generator().manual_seed(3)
+    b, seq, h, hd = 2, 64, 3, 32
+    big = [torch.randn(b, seq + 32, 2 * h, hd, generator=g).to(card)
+           for _ in range(3)]
+    r = big[0].bfloat16()[:, 32:, 2:h + 2]
+    k = big[1].bfloat16()[:, :seq, :h]
+    v = big[2].bfloat16()[:, 16:16 + seq, h:]
+    _, _, _, w, u, s0 = (t.to(card) for t in _wkv_inputs(b, seq, h, hd, g))
+    assert not r.is_contiguous()
+    y, s = wkv_k.wkv_kernel(r, k, v, w, u, s0)
+    want = wkv_k._plain(r, k, v, w, u, s0, wkv_k.CHUNK)
+    torch.testing.assert_close(y, want[0], **WKV_TOL["rwkv"])
+    torch.testing.assert_close(s, want[1], **WKV_TOL["rwkv"])
+    y2, s2 = wkv_k.wkv_kernel(r.contiguous(), k.contiguous(),
+                              v.contiguous(), w, u.bfloat16(), s0)
+    want = wkv_k._plain(r, k, v, w, u.bfloat16(), s0, wkv_k.CHUNK)
+    torch.testing.assert_close(y2, want[0], **WKV_TOL["rwkv"])
 
 
 def test_wkv_state_carry_composes(card):
     """Two halves run back to back through the kernel equal one run."""
     from repro_torch.kernels.rwkv6 import rwkv6 as wkv_k
     r, k, v, w, u, s0 = [t.to(card) for t in _wkv_inputs(
-        2, 64, 16, torch.Generator().manual_seed(7))]
+        2, 64, 3, 16, torch.Generator().manual_seed(7))]
     y, s = wkv_k.wkv_kernel(r, k, v, w, u, s0)
-    halves = [a[:, :32].contiguous() for a in (r, k, v, w)], \
-        [a[:, 32:].contiguous() for a in (r, k, v, w)]
-    y1, s1 = wkv_k.wkv_kernel(*halves[0], u, s0)
-    y2, s2 = wkv_k.wkv_kernel(*halves[1], u, s1)
+    y1, s1 = wkv_k.wkv_kernel(r[:, :32], k[:, :32], v[:, :32], w[:, :32],
+                              u, s0)
+    y2, s2 = wkv_k.wkv_kernel(r[:, 32:], k[:, 32:], v[:, 32:], w[:, 32:],
+                              u, s1)
     torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=1e-3,
                                rtol=2e-3)
     torch.testing.assert_close(s2, s, atol=1e-3, rtol=2e-3)
@@ -464,9 +512,15 @@ def test_wkv_state_carry_composes(card):
 
 def test_wkv_launches_once_per_layer_of_a_prefill(card):
     """One prefill through the kernel launches it once per layer, decode
-    never; the plain route agrees (f32 reduced config, S = 37 padded)."""
+    never; the plain route agrees (f32 reduced config, S = 37 padded). On
+    inputs as the model makes them (bf16 r, k, v and u, f32 w and state, S
+    a multiple of the chunk) ops.wkv launches the kernel and nothing else
+    on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.models import Model
     cfg = get_config("rwkv6-3b", smoke=True)
     model = Model(cfg, device=card,
@@ -488,6 +542,15 @@ def test_wkv_launches_once_per_layer_of_a_prefill(card):
     torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(caches[0][0]["wkv"], want_caches[0][0]["wkv"],
                                atol=1e-3, rtol=2e-3)
+    args = _wkv_case(2, 64, 4, 64, "rwkv", torch.bfloat16, card, 9)
+    wkv_ops.wkv(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wkv_ops.wkv(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "wkv_kernel" in names[0], names
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,12 @@ Inputs are drawn with numpy and handed to both packages. The reference's
 - the sequential oracles (``ref.wkv`` in both packages): the same f32
   recurrence, einsums summed in another order; measured at most 1.5e-5 on
   |y| <= 103, held to atol 1e-4, rtol 1e-5;
-- the chunked form (the port's ``wkv_chunked`` behind ``ops.wkv``) against
-  the reference's Pallas body: the same chunked f32 algorithm, cumsum and
-  products summed in another order; measured at most 7.4e-5 on |y| <= 103,
-  held to atol 2e-4, rtol 1e-5;
+- the chunked forms against the reference's Pallas body: ``wkv_chunked``,
+  the same chunked f32 algorithm, cumsum and products summed in another
+  order, measured at most 7.4e-5 on |y| <= 103 (``wkv_chunked`` is also
+  what ``ops.wkv`` runs on CPU tensors); ``wkv_subchunked`` (the CUDA
+  kernel's form), whose pairs across sub-chunks take e^{a} e^{b} for
+  e^{a + b}, at most 6.8e-5; both held to atol 2e-4, rtol 1e-5;
 - chunked against sequential (one formulation against the other): the
   reference's own kernel tolerance, atol 1e-3, rtol 2e-3; with strong
   decays atol 1e-2, because the chunk's cumsum of log w reaches about
@@ -145,24 +147,88 @@ def test_padding_leaves_the_state_unchanged():
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_uncounted():
-    bh, s, d = 4, 64, 16
+    """On CPU tensors in the model's layout the wrapper runs the kernel's
+    plain version, wkv_chunked, and counts no launch."""
+    b, s, h, hd = 2, 64, 2, 16
     g = torch.Generator().manual_seed(0)
-    args = [torch.randn(bh, s, d, generator=g) for _ in range(3)]
-    args.append(torch.rand(bh, s, d, generator=g))
-    args += [torch.randn(bh, d, generator=g), torch.randn(bh, d, d,
-                                                          generator=g)]
+    args = [torch.randn(b, s, h, hd, generator=g) for _ in range(3)]
+    args.append(torch.rand(b, s, h, hd, generator=g))
+    args += [torch.randn(h, hd, generator=g),
+             torch.randn(b, h, hd, hd, generator=g)]
     before = LAUNCHES["wkv"]
-    got = rwkv6.wkv_kernel(*args, chunk=16)
-    want = ref.wkv_chunked(*args, chunk=16)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    y, s_out = rwkv6.wkv_kernel(*args, chunk=16)
+    bh = [a.transpose(1, 2).reshape(b * h, s, hd) for a in args[:4]]
+    want_y, want_s = ref.wkv_chunked(
+        *bh, args[4][None].expand(b, h, hd).reshape(b * h, hd),
+        args[5].reshape(b * h, hd, hd), chunk=16)
+    assert y.shape == (b, s, h, hd) and y.is_contiguous()
+    assert torch.equal(y, want_y.reshape(b, h, s, hd).transpose(1, 2))
+    assert torch.equal(s_out, want_s.reshape(b, h, hd, hd))
     assert LAUNCHES["wkv"] == before
 
 
-def _kernel_args(bh=2, s=64, d=16):
+def test_wrapper_takes_the_model_layout():
+    """bf16 r, k, v and u as the served model makes them give what their
+    f32 values give; so do views (a head slice, an S slice off the base)
+    and ops.wkv on them."""
+    arrays = _inputs(2, 64, 3, 16, 21)
+    r, k, v, w, u, s0 = _t(arrays)
+    bf = [a.bfloat16() for a in (r, k, v, u)]
+    got = rwkv6.wkv_kernel(bf[0], bf[1], bf[2], w, bf[3], s0)
+    want = rwkv6.wkv_kernel(*(a.float() for a in bf[:3]), w,
+                            bf[3].float(), s0)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+    assert all(torch.equal(a, c) for a, c in zip(
+        ops.wkv(bf[0], bf[1], bf[2], w, bf[3], s0), want))
+    big = torch.cat([r, k, v], 2)          # (2, 64, 9, 16): heads in thirds
+    views = [big[:, :, 3 * i:3 * i + 3] for i in range(3)]
+    assert not views[1].is_contiguous()
+    got = rwkv6.wkv_kernel(*views, w, u, s0)
+    want = rwkv6.wkv_kernel(r, k, v, w, u, s0)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+    got = rwkv6.wkv_kernel(r[:, 32:], k[:, 32:], v[:, 32:], w[:, 32:], u, s0)
+    want = rwkv6.wkv_kernel(*(a[:, 32:].contiguous() for a in (r, k, v, w)),
+                            u, s0)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+@pytest.mark.parametrize("b,s,h,hd,chunk", REF_SHAPES)
+def test_subchunked_matches_reference_kernel(b, s, h, hd, chunk):
+    """wkv_subchunked in the kernel's layout against the reference's
+    Pallas body (interpret mode), S = 37 padded as ops.wkv pads it."""
+    arrays = _inputs(b, s, h, hd, b * s + hd)
+    pad = (-s) % chunk
+    r, k, v, w = (np.pad(a, ((0, 0), (0, pad), (0, 0), (0, 0)),
+                         constant_values=cv)
+                  for a, cv in zip(arrays[:4], (0, 0, 0, 1)))
+    bh = [torch.from_numpy(a).transpose(1, 2).reshape(b * h, s + pad, hd)
+          for a in (r, k, v, w)]
+    y, st = ref.wkv_subchunked(
+        *bh, torch.from_numpy(arrays[4])[None].expand(b, h, hd).reshape(
+            b * h, hd),
+        torch.from_numpy(arrays[5]).reshape(b * h, hd, hd), chunk=chunk)
+    y = y.reshape(b, h, s + pad, hd).transpose(1, 2)[:, :s]
+    _close((y, st.reshape(b, h, hd, hd)),
+           j_ops.wkv(*_j(arrays), chunk=chunk), CHUNK_TOL)
+
+
+@pytest.mark.parametrize("lo,hi,tol", [(-4.0, 1.0, KERNEL_TOL),
+                                       (2.0, 4.0, STRONG_TOL)])
+def test_subchunked_matches_sequential(lo, hi, tol):
+    """wkv_subchunked against the sequential oracle, one head at S = 1024,
+    where strong decays take the chunk's cumsum to about -1760; finite."""
+    r, k, v, w, u, s0 = _t(_inputs(1, 1024, 1, 64, 13, lo, hi))
+    y, st = ref.wkv_subchunked(*(a[:, :, 0] for a in (r, k, v, w)), u,
+                               s0[:, 0], chunk=32)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    _close((y[:, :, None], st[:, None]), ref.wkv(r, k, v, w, u, s0), tol)
+
+
+def _kernel_args(b=2, s=64, h=2, hd=16):
     g = torch.Generator().manual_seed(1)
-    return ([torch.randn(bh, s, d, generator=g) for _ in range(4)]
-            + [torch.randn(bh, d, generator=g),
-               torch.randn(bh, d, d, generator=g)])
+    return ([torch.randn(b, s, h, hd, generator=g) for _ in range(4)]
+            + [torch.randn(h, hd, generator=g),
+               torch.randn(b, h, hd, hd, generator=g)])
 
 
 @pytest.mark.parametrize("case,match", [
@@ -172,22 +238,36 @@ def _kernel_args(bh=2, s=64, d=16):
     ("chunk", "chunk 64"),
     ("shape", r"u must be \(2, 16\)"),
     ("strided", "must be contiguous"),
-    ("layout", r"want r of \(BH, S, D\)")])
+    ("layout", r"want r of \(B, S, H, hd\)"),
+    ("mixed", "share one dtype"),
+    ("u_dtype", "u must be one of"),
+    ("last_dim", "last dim must be contiguous"),
+    ("align", "multiples of 16 bytes")])
 def test_wrapper_refuses(case, match):
+    """Inputs the kernel cannot take raise, naming the reason; nothing is
+    copied to make them fit."""
     args, chunk = _kernel_args(), 32
     if case == "bf16":
-        args[1] = args[1].bfloat16()
+        args[3] = args[3].bfloat16()             # w is read in f32
     elif case == "seq":
         args = _kernel_args(s=48)
     elif case == "hd":
-        args = _kernel_args(d=24)
+        args = _kernel_args(hd=24)
     elif case == "chunk":
         chunk = 64
     elif case == "shape":
         args[4] = args[4][:, :8].contiguous()
     elif case == "strided":
-        args[2] = torch.randn(2, 16, 64).transpose(1, 2)
+        args[5] = args[5].transpose(2, 3)        # the state is read as is
     elif case == "layout":
-        args[0] = args[0][None]
+        args[0] = args[0][0]
+    elif case == "mixed":
+        args[1] = args[1].bfloat16()
+    elif case == "u_dtype":
+        args[4] = args[4].half()
+    elif case == "last_dim":
+        args[2] = torch.randn(2, 64, 2, 32)[..., ::2]
+    elif case == "align":
+        args[0] = torch.randn(2 * 64 * 2 * 16 + 1)[1:].view(2, 64, 2, 16)
     with pytest.raises(ValueError, match=match):
         rwkv6.wkv_kernel(*args, chunk=chunk)
