@@ -23,13 +23,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the problem's fitness; then with fused F15 at its edges (m = 7 and 13,
    n not a multiple of the rows per block, all-masked and all-tied
    fitness, 365 x 1000; 4, 2 and 1 rows per block through L) (bit-equal);
-3c. the tiled generation kernel and the selection-plan kernel against
-   their plain versions (bit-equal, genes and fitness): binary 2 x 2048 x
-   160 with fused trap, every selection x {two_point, uniform}; binary
-   1 x 2048 x 256, two-point, no eval; float 1 x 10,000 x 1000, every
-   selection x blend x {none, f15}; the tiled path's F15 at m = 7 and 50;
-   then the tiled kernel against the untiled ones at the main paths'
-   shapes, and three rows per block giving identical bits;
+3c. the tiled generation kernel (each block drawing its rows' plan) and,
+   under roulette, the roulette-CDF kernel against their plain versions
+   (bit-equal, genes, fitness and CDF): binary 2 x 2048 x 160 with fused
+   trap, every selection x {two_point, uniform}; roulette at 1 x 4200 x
+   160; binary 1 x 2048 x 256, two-point, no eval; float 1 x 10,000 x
+   1000, every selection x blend x {none, f15}; the tiled path's F15 at
+   m = 7 and 50; the kernel's edges (rows off its 16-byte pack, 1003 f32
+   and 157 int8, populations 4 and 5 bytes off 16, 3 elite rows over
+   blocks of 1, 2 and 8 rows, pop_size below n) against the plain version
+   and the untiled kernels; then the tiled kernel against the untiled
+   ones at the main paths' shapes, and three rows per block giving
+   identical bits;
 4. the main path: ``run_fused`` at the paper's configuration (trap 40x4,
    max_pop 256, min_pop 128, 100 generations per epoch, pool topology,
    8 islands, 5 epochs, W²) through the kernels, then again through the
@@ -42,17 +47,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    then a timed 5-epoch kernel run; both of its kernels must launch;
 4c. both paths under ``impl="pallas_tiled"`` (paper-8 5 epochs, paper-f15-8
    2 epochs): equal to the ``impl="pallas"`` runs from the same seed, the
-   tiled and plan kernels launched and the untiled ones not; a step
+   tiled kernel launched and neither the CDF kernel nor the untiled ones
+   (tournament: one launch a generation); a step
    profile of each, then evals/s of both impls in turns (pallas, tiled,
    tiled, pallas, 5 epochs each) on both paths;
 4d. Fig. 4's row (``benchmarks/fig4_f15.py``): one fused generation+F15
    step of a 10,000 x 1000 population through ``impl="pallas"``, which
-   routes it to the tiled kernel and then the F15 kernel; bit-equal to the
-   plain version, timed as ms per 10,000 evaluations;
+   routes it to the tiled kernel (one launch) and then the F15 kernel;
+   bit-equal to the plain version, timed as ms per 10,000 evaluations;
 5. the trap kernel run at 132 islands (one block per SM), 3 epochs;
 6. each kernel's time at the main paths' shapes against its bound, the
-   generation kernels' launch shapes and times without their fused eval,
-   the tiled kernel's swept rows per block against the heuristic's;
+   generation kernels' launch shapes and times without their fused eval;
+   the tiled kernel at Fig. 4's shape and at paper-8's (in turns with the
+   untiled binary kernel), each against the untiled kernel's work, the
+   CDF kernel at 10,000 lanes, the tiled kernel's swept rows per block
+   against the heuristic's, and the ptxas report of both;
 7a. the WKV6 kernel through ``kernels/rwkv6/ops.wkv`` against both plain
    chunked versions (``wkv_chunked``, the reference's form, and
    ``wkv_subchunked``, the kernel's) and the sequential recurrence, with
@@ -277,24 +286,20 @@ def plan_draws(spec) -> int:
         2 if spec.crossover == "two_point" else 0)
 
 
-def plan_work(spec, n_isl: int, n: int):
-    """(bytes, int32 operations) of the plan kernel: the fitness, seed and
-    size read once and the five (I, n) int32 vectors written once; the
-    Threefry draws of every child row (tournament selection)."""
-    if spec.selection != "tournament":
-        raise ValueError("the bound is derived for tournament selection")
-    nbytes = 4 * n_isl * n + 2 * 8 * n_isl + 4 * n_isl + 5 * 4 * n_isl * n
-    return nbytes, n_isl * (n - spec.elite) * plan_draws(spec) * THREEFRY_OPS
+def cdf_work(n_isl: int, n: int):
+    """(bytes, f32 operations) of the roulette-CDF kernel: the fitness and
+    sizes read once and the (I, n) CDF written once; per lane the weight's
+    subtract and add and the running sum's add."""
+    return 4 * n_isl * n + 4 * n_isl + 4 * n_isl * n, 3 * n_isl * n
 
 
 def float_generation_work(seed, size, fit, spec, consts, n_isl: int,
-                          n: int, plan: bool = True):
+                          n: int):
     """(bytes, int32 operations, f32 operations) that one float generation
-    kernel call needs on these inputs. The gated rows and the mutation
-    hits (each a Box-Muller draw) are read from the plain version's draws
-    on the same counters. With ``plan=False`` it is the tiled child
-    kernel's work: the plan is read (five (I, n) int32 vectors) and its
-    draws are the plan kernel's."""
+    kernel call (untiled, or the tiled kernel, which draws the same plan)
+    needs on these inputs. The gated rows and the mutation hits (each a
+    Box-Muller draw) are read from the plain version's draws on the same
+    counters."""
     from repro_torch import rand
     from repro_torch.kernels.ga import common
     if spec.selection != "tournament":
@@ -307,18 +312,16 @@ def float_generation_work(seed, size, fit, spec, consts, n_isl: int,
     hits = int(rand.bernoulli(k0, k1, (children, length), spec.mutation_rate,
                               common.SALT_MUTATE).sum().item())
     genes = n_isl * children * length
-    draws = ((n_isl * children * plan_draws(spec) if plan else 0) + genes
+    draws = (n_isl * children * plan_draws(spec) + genes
              + (gated * length if spec.crossover != "two_point" else 0))
     int_ops = draws * THREEFRY_OPS + hits * THREEFRY2_OPS + genes * GENE_OPS
     f32_ops = (hits * NORMAL_F32 + genes * CLIP_F32
                + (gated * length * BLEND_F32
                   if spec.crossover == "blend" else 0))
-    # the population in and out, the seed words; the fitness in and out, or
-    # the plan in and a fused fitness out
-    nbytes = (2 * 4 * n_isl * n * length + 2 * 8 * n_isl
-              + (4 * n_isl + 2 * 4 * n_isl * n if plan
-                 else 5 * 4 * n_isl * n
-                 + (4 * n_isl * n if spec.fused_eval else 0)))
+    # the population in and out, the seed words and sizes, the fitness in,
+    # and a fused fitness out
+    nbytes = (2 * 4 * n_isl * n * length + 2 * 8 * n_isl + 4 * n_isl
+              + 4 * n_isl * n + (4 * n_isl * n if spec.fused_eval else 0))
     ev = spec.eval_spec or {}
     if ev.get("eval") == "f15":
         groups, m = int(ev["n_groups"]), int(ev["m"])
@@ -861,11 +864,11 @@ def main() -> int:
                 f"{fitness} fitness, elite {elite}, {selection}/blend: "
                 f"bit-equal at {rows} rows per block")
 
-    # ---- 3c: the tiled kernel and the plan kernel -------------------------
+    # ---- 3c: the tiled kernel and the roulette-CDF kernel -----------------
     def random_case(kind, n_isl, n, length, selection, crossover, fused,
-                    sizes=None, fit=None):
+                    sizes=None, fit=None, elite=2):
         spec = GenerationSpec(
-            kind=kind, length=length, elite=2, selection=selection,
+            kind=kind, length=length, elite=elite, selection=selection,
             tournament_k=2, crossover=crossover, crossover_rate=0.9,
             mutation_rate=1.0 / length, mutation_sigma=0.3,
             fused_eval=fused)
@@ -884,10 +887,10 @@ def main() -> int:
                              dtype=torch.int64).to(dev)
         return (seed, size, pop, fit), spec
 
-    def tiled_check(tag, args, spec, consts=None, rows=None, plan=False):
-        """The tiled kernel (and the plan kernel) against the plain
-        version; fail unless bit-equal. Returns the kernel's output and its
-        largest difference."""
+    def tiled_check(tag, args, spec, consts=None, rows=None):
+        """The tiled kernel (and, under roulette, the CDF kernel) against
+        the plain version; fail unless bit-equal. Returns the kernel's
+        output and its largest difference."""
         got = as_tuple(tiling_k.generation_tiled(*args, spec, tile_pop=rows,
                                                  consts=consts))
         torch.cuda.synchronize()
@@ -896,35 +899,44 @@ def main() -> int:
         fit_eq = len(got) == 1 or torch.equal(got[1], want[1])
         err = max((a.float() - b.float()).abs().max().item()
                   for a, b in zip(got, want))
-        plan_eq = True
-        if plan:
-            p_seed, p_size, _, p_fit = args
-            got_p = tiling_k.plan_kernel(p_seed, p_size, p_fit, spec)
-            want_p = selection_plan(p_seed, p_fit, p_size, spec,
-                                    p_fit.shape[1])
-            plan_eq = all(torch.equal(a, b) for a, b in zip(got_p, want_p))
-            plan_errs.append(max((a - b).abs().max().item()
-                                 for a, b in zip(got_p, want_p)))
+        cdf_eq = True
+        if spec.selection == "roulette":
+            c_seed, c_size, _, c_fit = args
+            got_c = torch.empty_like(c_fit)
+            tiling_k.launch_cdf(c_size, c_fit, got_c)   # uncounted
+            want_c = common.roulette_cdf(common.masked_fitness(c_fit,
+                                                               c_size))
+            cdf_eq = torch.equal(got_c, want_c)
+            cdf_errs.append((got_c - want_c).abs().max().item())
         log(f"[tiled] {tag}: pop bit-equal={genes == 0} differing genes="
             f"{genes} fitness equal={fit_eq}"
-            + (f" plan equal={plan_eq}" if plan else "")
+            + (f" CDF equal={cdf_eq}" if spec.selection == "roulette" else "")
             + f" max_abs_err={err}")
-        if genes or not fit_eq or not plan_eq:
+        if genes or not fit_eq or not cdf_eq:
             fail(f"tiled kernel differs from its plain version: {tag}")
         return got, err
 
     tiling_k = importlib.import_module("repro_torch.kernels.ga.tiling")
-    from repro_torch.kernels.ga.common import selection_plan
+    from repro_torch.kernels.ga import common
     trap_fused = fused_specs["trap"]
     tiled_err = 0.0
-    plan_errs = []
+    cdf_errs = []
+    # these checks launch the CDF kernel through the tiled path only; the
+    # comparison's own launches are uncounted
+    kernels.reset_launches()
     for selection in ("tournament", "roulette"):
         for crossover in ("two_point", "uniform"):
             args, spec = random_case("binary", 2, 2048, 160, selection,
                                      crossover, trap_fused, (1024, 2048))
             _, err = tiled_check(f"binary 2x2048x160 trap {selection}/"
-                                 f"{crossover}", args, spec, plan=True)
+                                 f"{crossover}", args, spec)
             tiled_err = max(tiled_err, err)
+    # roulette above the reference's 4096-lane selection block
+    args, spec = random_case("binary", 1, 4200, 160, "roulette", "two_point",
+                             trap_fused, (4000, 4200))
+    _, err = tiled_check("binary 1x4200x160 trap roulette/two_point", args,
+                         spec)
+    tiled_err = max(tiled_err, err)
     args, spec = random_case("binary", 1, 2048, 256, "tournament",
                              "two_point", None)
     tiled_check("binary 1x2048x256 (the reference's roofline shape)", args,
@@ -937,10 +949,45 @@ def main() -> int:
                                      "blend", fused)
             got, err = tiled_check(
                 f"float 1x10000x1000 {selection}/blend/{fname}", args, spec,
-                consts=f15_consts if fused else None, plan=fname == "none")
+                consts=f15_consts if fused else None)
             tiled_err = max(tiled_err, err)
             if (selection, fname) == ("tournament", "none"):
                 tiled_fig4 = (args, spec, got[0])
+    # the kernel's edges: rows off the 16-byte pack (1003 f32, 157 int8)
+    # and a population 4 or 5 bytes off 16 (the scalar route), and rows on
+    # it at offset 0 (the 16-byte route); 3 elite rows over blocks of 1 and
+    # 2 rows; pop_size below n; against the plain version and the untiled
+    # kernels
+    for kind, l_e, crossover, fname, offset in (
+            ("float", 1003, "blend", "rastrigin", 0),
+            ("binary", 157, "uniform", "onemax", 0),
+            ("float", 1000, "blend", "sphere", 1),
+            ("binary", 160, "two_point", "trap", 5),
+            ("float", 1000, "blend", "sphere", 0),
+            ("binary", 160, "two_point", "trap", 0)):
+        fused = (fused_specs[fname] if kind == "binary"
+                 else (("eval", fname),))
+        for selection in ("tournament", "roulette"):
+            args, spec = random_case(kind, 2, 37, l_e, selection, crossover,
+                                     fused, (20, 36), elite=3)
+            pop_e = args[2]
+            pop_e = torch.empty(offset + pop_e.numel(), dtype=pop_e.dtype,
+                                device=dev)[offset:].view(
+                                    pop_e.shape).copy_(pop_e)
+            args = (args[0], args[1], pop_e, args[3])
+            untiled = as_tuple(gen_k.generation_kernel(*args, spec))
+            for rows in (1, 2, 8):
+                got, err = tiled_check(
+                    f"edge {kind} 2x37x{l_e} {fname} {selection}/{crossover}"
+                    f", elite 3, {rows} rows per block, offset {offset}",
+                    args, spec, rows=rows)
+                if not all(torch.equal(a, b) for a, b in zip(got, untiled)):
+                    fail(f"tiled kernel differs from the untiled one at the "
+                         f"edge {kind} L {l_e} {selection}, {rows} rows")
+                tiled_err = max(tiled_err, err)
+    log(f"[tiled] roulette cases: {kernels.LAUNCHES['roulette_cdf']} "
+        f"launches of the CDF kernel by the tiled path, each bit-equal to "
+        f"the plain CDF (max_abs_err {max(cdf_errs)})")
     # the tiled path's F15 (the tiled kernel, then the F15 kernel and its
     # register-blocked tail) at m = 7 and 50
     for m_e, groups in ((7, 143), (50, 20)):
@@ -1063,13 +1110,13 @@ def main() -> int:
                  kernel="generation_float_kernel")
 
     # ---- 4c: both paths under impl="pallas_tiled" --------------------------
-    tiled_kernels = ("generation_tiled", "selection_plan")
-
     def tiled_launches_ok(tag, launches):
-        if min(launches[k] for k in tiled_kernels) <= 0 or max(
-                launches["generation"], launches["generation_float"]) != 0:
-            fail(f"{tag}: want the tiled and plan kernels only, got "
-                 f"{launches}")
+        """Under tournament the tiled kernel is a generation's one launch:
+        no CDF kernel, no untiled kernel."""
+        if launches["generation_tiled"] <= 0 or max(
+                launches["roulette_cdf"], launches["generation"],
+                launches["generation_float"]) != 0:
+            fail(f"{tag}: want the tiled kernel alone, got {launches}")
 
     t_cfg = dataclasses.replace(cfg, impl="pallas_tiled")
     drive(problem, t_cfg, 8, 1, SEED + 1)   # warm-up, autotune sweep
@@ -1139,7 +1186,7 @@ def main() -> int:
     fig4_out = fig4_call()
     torch.cuda.synchronize()
     fig4_launches = dict(kernels.LAUNCHES)
-    want_launches = {"generation_tiled": 1, "selection_plan": 1, "f15": 1,
+    want_launches = {"generation_tiled": 1, "roulette_cdf": 0, "f15": 1,
                      "generation_float": 0, "generation": 0}
     if any(fig4_launches[k] != v for k, v in want_launches.items()):
         fail(f"Fig. 4's row did not take the tiled path: {fig4_launches}")
@@ -1161,6 +1208,34 @@ def main() -> int:
         f"2015 CPU figures for 10,000 F15 evaluations "
         f"(benchmarks/fig4_f15.py): Java {PAPER_FIG4_MS['java']} ms, "
         f"Node {PAPER_FIG4_MS['js_node']} ms")
+    # the same row under roulette selection, a path of its own: the CDF
+    # kernel, then the tiled kernel, then F15
+    rl_args = fig4_args[:4] + (dataclasses.replace(
+        fig4_cfg, selection="roulette"),) + fig4_args[5:]
+
+    def roulette_call():
+        return fig4_kern(*rl_args, consts=fig4_problem.consts)
+
+    roulette_call()                          # warm-up, autotune sweep
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rl_out = roulette_call()
+    torch.cuda.synchronize()
+    rl_launches = dict(kernels.LAUNCHES)
+    want_launches = {"generation_tiled": 1, "roulette_cdf": 1, "f15": 1,
+                     "generation_float": 0, "generation": 0}
+    if any(rl_launches[k] != v for k, v in want_launches.items()):
+        fail(f"Fig. 4's row under roulette did not take the tiled path: "
+             f"{rl_launches}")
+    rl_want = get_kernel("generation_eval", "float", "pallas_ref")(
+        *rl_args, consts=fig4_problem.consts)
+    rl_eq = all(torch.equal(a, b) for a, b in zip(rl_out, rl_want))
+    log(f"[fig4] the same row under roulette: launches {rl_launches}; "
+        f"bit-equal to the plain version {rl_eq}")
+    if not rl_eq:
+        fail("Fig. 4's row under roulette differs from its plain version")
+    if not bool(torch.isfinite(rl_out[1]).all()):
+        fail("Fig. 4's row under roulette: non-finite fitness")
 
     # ---- 5: one block per SM ---------------------------------------------
     drive(problem, cfg, 132, 1, SEED + 2)            # warm-up
@@ -1210,57 +1285,68 @@ def main() -> int:
     zg = f15_ref.shift_permute(fig4_x, fig4_c["o"], fig4_c["perm"]).reshape(
         -1, groups, m).transpose(0, 1).contiguous()
     bmm_ms = event_ms(lambda: torch.bmm(zg, fig4_c["M"]), TIMED_CALLS)
-    # the tiled kernel and the plan kernel at Fig. 4's 10,000 x 1000
-    # (tournament, blend, no fused eval), each alone
+    # the tiled kernel (one launch under tournament) at Fig. 4's 10,000 x
+    # 1000 (tournament, blend, no fused eval), against the untiled float
+    # kernel's work: it draws the same plan
     (t_seed, t_size, t_pop, t_fit), t_spec, _ = tiled_fig4
     t_n = t_pop.shape[1]
-    t_plan = tiling_k.plan_buffer(t_seed, t_size, t_fit, t_spec)
-    tiled_ms = event_ms(lambda: tiling_k.child_kernel(t_seed, t_pop, t_plan,
-                                                      t_spec), TIMED_CALLS)
+    tiled_ms = event_ms(lambda: tiling_k.child_kernel(
+        t_seed, t_size, t_pop, t_fit, t_spec), TIMED_CALLS)
     tiled_plain_ms = event_ms(lambda: gen_ref.generation(
         t_seed, t_size, t_pop, t_fit, t_spec), 3)
-    plan_ms = event_ms(lambda: tiling_k.plan_buffer(t_seed, t_size, t_fit,
-                                                    t_spec), TIMED_CALLS)
-    plan_plain_ms = event_ms(lambda: selection_plan(t_seed, t_fit, t_size,
-                                                    t_spec, t_n), 3)
     # the gather of both parents by one PyTorch call each: the yardstick of
-    # the child kernel's bytes (the port does not call it)
+    # the tiled kernel's bytes (the port does not call it)
+    t_plan = common.selection_plan(t_seed, t_fit, t_size, t_spec, t_n)
     gather_ms = event_ms(lambda: (
-        torch.index_select(t_pop[0], 0, t_plan[0, 0]),
-        torch.index_select(t_pop[0], 0, t_plan[1, 0])), TIMED_CALLS)
+        torch.index_select(t_pop[0], 0, t_plan.idx_a[0]),
+        torch.index_select(t_pop[0], 0, t_plan.idx_b[0])), TIMED_CALLS)
     tl_bytes, tl_int, tl_f32 = float_generation_work(
-        t_seed, t_size, t_fit, t_spec, None, 1, t_n, plan=False)
+        t_seed, t_size, t_fit, t_spec, None, 1, t_n)
     tiled_bound, tiled_by = bound_of(tl_bytes, tl_int, tl_f32)
-    pl_bytes, pl_ops = plan_work(t_spec, 1, t_n)
-    plan_bound, plan_by = bound_of(pl_bytes, int_ops=pl_ops)
     t_rows = tiling_k.max_rows(f_len, t_spec, gen_k.max_smem_bytes(0))
-    log(f"[kernels] generation_tiled at 1x{t_n}x{f_len} (tournament, blend):"
-        f" {tiled_ms * 1e3:.2f} us, plain {tiled_plain_ms * 1e3:.1f} us, "
-        f"bound {tiled_bound * 1e3:.3f} us ({tiled_by}: {tl_bytes} B, "
-        f"{tl_int} int32 ops, {tl_f32} f32 ops), {tiled_ms / tiled_bound:.1f}"
-        f" times it; index_select of both parents {gather_ms * 1e3:.2f} us; "
-        f"selection_plan {plan_ms * 1e3:.2f} us, plain "
-        f"{plan_plain_ms * 1e3:.1f} us, bound {plan_bound * 1e3:.4f} us "
-        f"({plan_by}: {pl_bytes} B, {pl_ops} int32 ops); rows per block "
+    log(f"[kernels] generation_tiled at 1x{t_n}x{f_len} (tournament, blend,"
+        f" one launch): {tiled_ms * 1e3:.2f} us, plain "
+        f"{tiled_plain_ms * 1e3:.1f} us, bound {tiled_bound * 1e3:.3f} us "
+        f"({tiled_by}: {tl_bytes} B, {tl_int} int32 ops, {tl_f32} f32 ops), "
+        f"{tiled_ms / tiled_bound:.2f} times it; index_select of both "
+        f"parents {gather_ms * 1e3:.2f} us; rows per block "
         f"{_autotune.load_cache().get(torch.cuda.get_device_name(), {})}"
         f" (shared memory holds {t_rows})")
-    # the child kernel at paper-8's shape (8 x 256 x 160, fused trap), the
-    # shape of its 500 launches in 4c
-    m_plan = tiling_k.plan_buffer(seed, size, fit, spec)
-    tiled_main_ms = event_ms(lambda: tiling_k.child_kernel(seed, pop, m_plan,
-                                                           spec), TIMED_CALLS)
-    plan_main_ms = event_ms(lambda: tiling_k.plan_buffer(seed, size, fit,
-                                                         spec), TIMED_CALLS)
-    log(f"[kernels] at paper-8's ({n_isl}, {n}, {length}) fused trap: "
-        f"generation_tiled {tiled_main_ms * 1e3:.2f} us, selection_plan "
-        f"{plan_main_ms * 1e3:.2f} us (the untiled generation kernel below)")
+    # the CDF kernel at Fig. 4's 10,000 lanes (roulette only)
+    cdf_ms = event_ms(lambda: tiling_k.roulette_cdf(t_size, t_fit),
+                      TIMED_CALLS)
+    cdf_plain_ms = event_ms(lambda: common.roulette_cdf(
+        common.masked_fitness(t_fit, t_size)), 3)
+    cdf_bytes, cdf_ops = cdf_work(1, t_n)
+    cdf_bound, cdf_by = bound_of(cdf_bytes, f32_ops=cdf_ops)
+    log(f"[kernels] roulette_cdf at (1, {t_n}): {cdf_ms * 1e3:.2f} us, plain"
+        f" {cdf_plain_ms * 1e3:.1f} us, bound {cdf_bound * 1e3:.4f} us "
+        f"({cdf_by}: {cdf_bytes} B, {cdf_ops} f32 ops)")
+    # the tiled kernel at paper-8's shape (8 x 256 x 160, fused trap), the
+    # shape of its 500 launches in 4c, against the untiled binary kernel's
+    # work and time (the same work), in turns
+    m_bytes, m_ops = generation_work(seed, size, fit, spec, n_isl, n)
+    tiled_main_bound, tiled_main_by = bound_of(m_bytes, int_ops=m_ops)
+    m_turns = [event_ms(lambda: tiling_k.child_kernel(seed, size, pop, fit,
+                                                      spec), TIMED_CALLS)
+               if which == "tiled" else event_ms(gen_call, TIMED_CALLS)
+               for which in ("tiled", "untiled", "untiled", "tiled")]
+    tiled_main_ms = (m_turns[0] + m_turns[3]) / 2
+    log(f"[kernels] at paper-8's ({n_isl}, {n}, {length}) fused trap, in "
+        f"turns: generation_tiled {m_turns[0] * 1e3:.2f} / "
+        f"{m_turns[3] * 1e3:.2f} us, generation (untiled) "
+        f"{m_turns[1] * 1e3:.2f} / {m_turns[2] * 1e3:.2f} us; bound "
+        f"{tiled_main_bound * 1e3:.4f} us ({tiled_main_by}), the tiled kernel"
+        f" {tiled_main_ms / tiled_main_bound:.1f} times it")
     # the swept rows per block against the heuristic's, in turns (swept,
     # heuristic, heuristic, swept) at both shapes: whether the sweep earns
     # its keep
-    for tag, (r_seed, r_pop, r_plan, r_spec) in (
-            ("paper-8 8x256x160 trap", (seed, pop, m_plan, spec)),
-            ("Fig. 4 1x10000x1000", (t_seed, t_pop, t_plan, t_spec))):
-        r_isl, r_n, r_len = r_pop.shape
+    for tag, r_args in (
+            ("paper-8 8x256x160 trap", (seed, size, pop, fit, spec)),
+            ("Fig. 4 1x10000x1000", (t_seed, t_size, t_pop, t_fit,
+                                     t_spec))):
+        r_isl, r_n, r_len = r_args[2].shape
+        r_spec = r_args[-1]
         cap = tiling_k.max_rows(r_len, r_spec, gen_k.max_smem_bytes(0))
         swept = min(_autotune.best_tiles(r_n, r_len, r_spec.kind,
                                          n_islands=r_isl, spec=r_spec)[0],
@@ -1269,11 +1355,24 @@ def main() -> int:
         turns = []
         for rows in (swept, rule, rule, swept):
             turns.append(event_ms(lambda: tiling_k.child_kernel(
-                r_seed, r_pop, r_plan, r_spec, rows), TIMED_CALLS))
+                *r_args, rows), TIMED_CALLS))
         log(f"[autotune] {tag}: swept {swept} rows per block "
             f"{turns[0] * 1e3:.2f} / {turns[3] * 1e3:.2f} us, heuristic "
             f"{rule} rows {turns[1] * 1e3:.2f} / {turns[2] * 1e3:.2f} us "
             f"(in turns, CUDA events, {card})")
+        sweep = _autotune.load_cache().get(torch.cuda.get_device_name(),
+                                           {}).get(_autotune.shape_key(
+                                               r_n, r_len, r_spec.kind,
+                                               r_isl, r_spec), {})
+        log(f"[autotune] {tag}: sweep ms per rows per block "
+            f"{sweep.get('sweep_ms')}")
+    for source in ("generation_tiled.cu", "roulette_cdf.cu"):
+        report = build_report(source)
+        if report is not None:
+            head, regs = report
+            log(f"[tiled] build {head}")
+            for arg, line in regs:
+                log(f"[tiled]   ptxas <{arg}>: {line}")
     log(f"[kernels] events per call: trap {trap_ms * 1e3:.2f} us, plain "
         f"{trap_plain_ms * 1e3:.1f} us; generation {gen_ms * 1e3:.2f} us, "
         f"plain {gen_plain_ms * 1e3:.1f} us; generation_float "
@@ -1798,13 +1897,13 @@ def main() -> int:
          "max_abs_err": tiled_err, "ms": tiled_ms,
          "plain_ms": tiled_plain_ms, "bound_ms": tiled_bound,
          "bound_by": tiled_by, "library_ms": gather_ms},
-        {"name": "selection_plan", "route": "cuda",
-         "source": "src/repro_torch/kernels/ga/csrc/plan.cu",
+        {"name": "roulette_cdf", "route": "cuda",
+         "source": "src/repro_torch/kernels/ga/csrc/roulette_cdf.cu",
          "replaces": "src/repro/kernels/ga/tiling.py:168",
-         "launches": fig4_launches["selection_plan"],
-         "max_abs_err": max(plan_errs), "ms": plan_ms,
-         "plain_ms": plan_plain_ms, "bound_ms": plan_bound,
-         "bound_by": plan_by, "library_ms": None},
+         "launches": rl_launches["roulette_cdf"],
+         "max_abs_err": max(cdf_errs),
+         "ms": cdf_ms, "plain_ms": cdf_plain_ms, "bound_ms": cdf_bound,
+         "bound_by": cdf_by, "library_ms": None},
         {"name": "wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
          "replaces": "src/repro/kernels/rwkv6/rwkv6.py:88",
@@ -1838,8 +1937,11 @@ def main() -> int:
         f"({n_isl}, {n}, {length}) fused trap, tournament, two_point; "
         f"generation_float ({n_isl}, {n}, {f_len}) fused f15, tournament, "
         f"blend; f15 ({f15_x.shape[0]}, {f_len}, m 50); generation_tiled "
-        f"and selection_plan (1, {t_n}, {f_len}) tournament, blend, no eval, "
-        f"launches from Fig. 4's row (4d); wkv ({SERVE_BATCH}, "
+        f"(1, {t_n}, {f_len}) tournament, blend, no eval, launches from Fig."
+        f" 4's row (4d), library_ms index_select of both parents; "
+        f"roulette_cdf (1, {t_n}), launches from Fig. 4's row under "
+        f"roulette (4d); wkv "
+        f"({SERVE_BATCH}, "
         f"{SERVE_PROMPT}, {lm_cfg.n_heads}, 64) bf16 through ops.wkv, "
         f"launches from one rwkv6-3b prefill (7b); "
         f"flash_attention (4, 2048, 32 over 4, 128) bf16 causal, launches "

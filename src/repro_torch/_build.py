@@ -62,20 +62,20 @@ SIGNATURES: Dict[str, List] = {
     "generation_float_smem_bytes": [_I, _I, _I, _I],
     # pop, o, perm, M, out, n_rows, D, m, G, k_group, stream
     "f15_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # fitness, seed, seed_stride, pop_size, masked, cum, plan, n_islands, n,
-    # L, elite, selection, tournament_k, crossover, crossover_rate, stream
-    "selection_plan_launch": [_P, _P, _I, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _I, _F, _P],
-    # pop, plan, seed, seed_stride, new_pop, fit_out, float_genes,
-    # n_islands, n, L, elite, rows, crossover, mutation_rate, sigma, low,
-    # high, blend_scale, alpha, eval_kind, sum_group, trap_l, trap_group, a,
-    # b, z, l_minus_z, royal_r, stream
-    "generation_tiled_launch": [_P, _P, _P, _I, _P, _P, _I,
-                                _I, _I, _I, _I, _I, _I, _F, _F, _F,
-                                _F, _F, _F, _I, _I, _I, _I, _F,
-                                _F, _F, _F, _I, _P],
-    # rows, L, float_genes, eval_kind, sum_group
-    "generation_tiled_smem_bytes": [_I, _I, _I, _I, _I],
+    # fitness, pop_size, cum, n_islands, n, stream
+    "roulette_cdf_launch": [_P, _P, _P, _I, _I, _P],
+    # pop, fitness, seed, seed_stride, pop_size, cum, new_pop, fit_out,
+    # float_genes, n_islands, n, L, elite, rows, selection, tournament_k,
+    # crossover, crossover_rate, mutation_rate, sigma, low, high,
+    # blend_scale, alpha, eval_kind, sum_group, trap_l, trap_group, a, b, z,
+    # l_minus_z, royal_r, stream
+    "generation_tiled_launch": [_P, _P, _P, _I, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _F, _F, _F, _F, _F,
+                                _F, _F, _I, _I, _I, _I, _F, _F, _F,
+                                _F, _I, _P],
+    # rows, L, elite, float_genes, eval_kind, sum_group
+    "generation_tiled_smem_bytes": [_I, _I, _I, _I, _I, _I],
     # r, k, v, w, u, s0, y, s_out, B, S, H, hd, chunk, u_bf16, strides (an
     # int[12]: batch, seq, head of r, k, v, w), stream: bf16 r, k, v
     # (wkv.cu) and f32 (wkv_f32.cu)

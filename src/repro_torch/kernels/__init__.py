@@ -9,7 +9,8 @@ launches the kernel or raises.
 Kernels: ``trap`` (trap fitness), ``rastrigin`` (CEC2010-F15) and ``ga``
 (one GA generation per island, optionally with the fitness fused in: one
 untiled kernel for binary genomes, one for float genomes, and the tiled
-kernel for both, which runs after the selection-plan kernel), ``rwkv6``
+kernel for both, which draws its own selection plan and, under roulette
+selection, runs after the roulette-CDF kernel), ``rwkv6``
 (the chunked WKV6 recurrence of the RWKV6 time mix) and
 ``flash_attention`` (causal attention with an online softmax, GQA by
 index, the prefill of the dense models).
@@ -24,7 +25,7 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"trap_fitness": 0, "generation": 0,
                             "generation_float": 0, "f15": 0,
-                            "generation_tiled": 0, "selection_plan": 0,
+                            "generation_tiled": 0, "roulette_cdf": 0,
                             "wkv": 0, "flash_attention": 0}
 
 

@@ -9,9 +9,11 @@ Modules:
                     and ``impl='pallas'`` for large islands)
     autotune.py   - the tiled kernel's rows per block, cached per card
     csrc/         - the CUDA sources: generation.cu (binary genomes),
-                    generation_float.cu (float genomes), plan.cu (the
-                    selection plan), generation_tiled.cu (the tiled
-                    kernel), and the headers they share
+                    generation_float.cu (float genomes),
+                    generation_tiled.cu (the tiled kernel, which draws
+                    its own selection plan), roulette_cdf.cu (the
+                    roulette CDF the tiled kernel reads), and the
+                    headers they share
     registry.py   - the (op, genome_kind, impl) table
     ops.py        - the public wrappers that fill the table, and the
                     routing of ``impl='pallas'``

@@ -10,7 +10,8 @@ so its one knob is the number of output rows a block takes, and
 * on the card, a timed sweep of :data:`CANDIDATES` on synthetic data of
   the caller's shape, island count and spec (the fused eval decides how
   many threads sum each row) picks the fastest: CUDA events around
-  back-to-back launches of the child kernel alone, after a warm-up call,
+  back-to-back launches of the tiled kernel alone (under roulette the CDF
+  it reads is written once, before the sweep), after a warm-up call,
   with the card held busy while the host enqueues them, so that the
   events time the kernel and not the host's launch rate;
 * on the CPU, where the wrapper runs the plain version and no time means
@@ -19,7 +20,7 @@ so its one knob is the number of output rows a block takes, and
 
 The result is the same bits for every candidate (the kernel is
 tiling-invariant), so the sweep changes only speed. The sweep launches the
-kernels through :func:`.tiling.launch_plan` and :func:`.tiling.launch_child`,
+kernels through :func:`.tiling.launch_cdf` and :func:`.tiling.launch_child`,
 so it adds nothing to ``LAUNCHES``. Results are cached as JSON under
 ``build/repro_torch/autotune_ga.json`` at the root of the checkout, keyed on
 the card's name (``torch.cuda.get_device_name()``, or ``"cpu"``) and then
@@ -99,13 +100,13 @@ def heuristic_rows(length: int) -> int:
 
 def _time_candidates(n: int, length: int, kind: str, n_islands: int,
                      spec) -> Dict[int, float]:
-    """Milliseconds per child-kernel launch for each candidate that the
+    """Milliseconds per tiled-kernel launch for each candidate that the
     card's shared memory holds, on a synthetic population of the caller's
     shape under ``spec`` (without one: tournament, two-point or blend, no
     fused eval)."""
     from .common import GenerationSpec
     from .generation import max_smem_bytes
-    from .tiling import PLAN_FIELDS, launch_child, launch_plan, max_rows
+    from .tiling import launch_cdf, launch_child, max_rows
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(n * 7919 + length)
@@ -125,15 +126,16 @@ def _time_candidates(n: int, length: int, kind: str, n_islands: int,
         torch.arange(2 * n_islands, dtype=torch.int64).reshape(-1, 2),
         torch.full((n_islands,), n, dtype=torch.int32), pop,
         torch.randn(n_islands, n, generator=gen))]
-    plan = torch.empty((PLAN_FIELDS, n_islands, n), dtype=torch.int32,
-                       device=dev)
-    launch_plan(seed, size, fit, spec, plan)
+    cum = None
+    if spec.selection == "roulette":
+        cum = torch.empty_like(fit)
+        launch_cdf(size, fit, cum)
     new_pop = torch.empty_like(pop)
     fit_out = (None if spec.eval_spec is None else
                torch.empty((n_islands, n), dtype=torch.float32, device=dev))
 
     def call(rows):
-        launch_child(seed, pop, plan, spec, rows, new_pop, fit_out)
+        launch_child(seed, size, pop, fit, cum, spec, rows, new_pop, fit_out)
 
     fit_rows = max_rows(length, spec, max_smem_bytes(dev.index or 0))
     times = {}

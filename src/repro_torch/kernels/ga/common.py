@@ -138,15 +138,29 @@ def prefix_sum(w: torch.Tensor) -> torch.Tensor:
     return cum
 
 
+def masked_fitness(fitness: torch.Tensor,
+                   pop_size: torch.Tensor) -> torch.Tensor:
+    """(I, n) fitness with -inf on the lanes at or past each island's
+    ``pop_size``."""
+    lanes = torch.arange(fitness.shape[-1], device=fitness.device)
+    return torch.where(lanes < pop_size[:, None], fitness, NEG_INF)
+
+
+def roulette_cdf(masked: torch.Tensor) -> torch.Tensor:
+    """The (I, n) roulette CDF of masked fitness: weight ``(v - lo) +
+    1e-6`` on each finite lane (``lo`` the island's smallest finite value)
+    and exactly 0 elsewhere, summed left to right (:func:`prefix_sum`)."""
+    valid = torch.isfinite(masked)
+    finite = torch.where(valid, masked, 0.0)
+    lo = torch.where(valid, masked, float("inf")).amin(-1, keepdim=True)
+    return prefix_sum(torch.where(valid, finite - lo + 1e-6, 0.0))
+
+
 def _roulette(k0, k1, masked: torch.Tensor, maxval: torch.Tensor,
               n_children: int, salt: int) -> torch.Tensor:
     """(I, n_children) fitness-proportional parents by inverse CDF; padded
     lanes weigh exactly 0 and the final clamp keeps draws in range."""
-    valid = torch.isfinite(masked)
-    finite = torch.where(valid, masked, 0.0)
-    lo = torch.where(valid, masked, float("inf")).amin(-1, keepdim=True)
-    w = torch.where(valid, finite - lo + 1e-6, 0.0)
-    cum = prefix_sum(w)
+    cum = roulette_cdf(masked)
     u = rand.uniform(k0, k1, (n_children, 1), salt)[..., 0] * cum[:, -1:]
     idx = (cum[:, None, :] <= u[:, :, None]).sum(-1).to(torch.int32)
     return torch.minimum(idx, maxval[:, :, 0] - 1)
@@ -159,7 +173,7 @@ def selection_plan(seed: torch.Tensor, fitness: torch.Tensor,
     k0, k1 = _seed_view(seed)
     dev = fitness.device
     lanes = torch.arange(n, device=dev)
-    masked = torch.where(lanes < pop_size[:, None], fitness, NEG_INF)
+    masked = masked_fitness(fitness, pop_size)
     maxval = torch.clamp(pop_size, min=1).to(torch.int64).reshape(-1, 1, 1)
     n_children = n - spec.elite
     n_isl = fitness.shape[0]

@@ -1,10 +1,14 @@
 // The selection plan of one child row, shared by the generation kernels
-// (generation.cu, generation_float.cu) and the plan kernel (plan.cu): the
-// two parents (tournament or roulette), the two-point cuts and the
-// crossover gate of output row elite + c, drawn with the counters and salts
-// of kernels/ga/common.py::selection_plan. Also the roulette CDF, a
-// left-to-right f32 scan as common.py::prefix_sum takes it, and the elite
-// of the generation kernels, an arg-max across warps.
+// (generation.cu, generation_float.cu, generation_tiled.cu): the two
+// parents (tournament or roulette), the two-point cuts and the crossover
+// gate of output row elite + c, drawn with the counters and salts of
+// kernels/ga/common.py::selection_plan. Also the roulette CDF, a
+// left-to-right f32 scan as common.py::prefix_sum takes it (the untiled
+// kernels; roulette_cdf.cu scans the same weights in chunks), and the
+// elite, an arg-max across warps. The plan and the elite read the island's
+// masked fitness through `masked[r]`: a float array in shared memory (the
+// untiled kernels) or MaskedFitness, which reads device memory (the tiled
+// kernel).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,6 +23,16 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); 
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
+// An island's fitness with -inf on the lanes at or past its size, read
+// from device memory.
+struct MaskedFitness {
+  const float* fit;
+  int size;
+  __device__ __forceinline__ float operator[](int r) const {
+    return r < size ? fit[r] : neg_inf();
+  }
+};
+
 // The smallest finite value of masked[0, n), +inf when none is finite.
 __device__ __forceinline__ float finite_min(const float* masked, int n) {
   float lo = pos_inf();
@@ -27,17 +41,19 @@ __device__ __forceinline__ float finite_min(const float* masked, int n) {
   return lo;
 }
 
-// The roulette CDF of one island, by one thread: weight (v - lo) + 1e-6 on
-// a finite lane and 0 elsewhere, summed from 0 left to right. The weights
-// are non-negative and f32 addition rounds monotonically, so cum never
-// decreases.
+// A lane's roulette weight: (v - lo) + 1e-6 on a finite lane, 0 elsewhere.
+__device__ __forceinline__ float roulette_weight(float v, float lo) {
+  return isfinite(v) ? __fadd_rn(__fsub_rn(v, lo), 1e-6f) : 0.0f;
+}
+
+// The roulette CDF of one island, by one thread: the weights summed from 0
+// left to right. The weights are non-negative and f32 addition rounds
+// monotonically, so cum never decreases.
 __device__ __forceinline__ void roulette_cdf(const float* masked, int n,
                                              float lo, float* cum) {
   float acc = 0.0f;
   for (int r = 0; r < n; ++r) {
-    const float v = masked[r];
-    const float w = isfinite(v) ? __fadd_rn(__fsub_rn(v, lo), 1e-6f) : 0.0f;
-    acc = __fadd_rn(acc, w);
+    acc = __fadd_rn(acc, roulette_weight(masked[r], lo));
     cum[r] = acc;
   }
 }
@@ -90,7 +106,8 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
 // is 4 * warps words of scratch (two buffers, passes alternate). out[e] is
 // written by thread 0; the block sees all of out after its next
 // __syncthreads().
-__device__ void elite_rows(const float* masked, int n, int elite, int warps,
+template <typename Masked>
+__device__ void elite_rows(const Masked& masked, int n, int elite, int warps,
                            float* red, int* out) {
   const int nthreads = warps * 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -130,8 +147,9 @@ struct RowPlan {
 // lanes (n lanes), cum its roulette CDF (read under roulette only), maxval
 // max(pop_size, 1). selection: 0 tournament, 1 roulette; crossover: 0
 // two-point (draws the cuts), else none.
+template <typename Masked>
 __device__ __forceinline__ RowPlan child_row_plan(
-    uint32_t k0, uint32_t k1, int c, const float* masked, const float* cum,
+    uint32_t k0, uint32_t k1, int c, const Masked& masked, const float* cum,
     int n, uint32_t maxval, int selection, int tournament_k, int crossover,
     int L, float crossover_rate) {
   RowPlan rp;

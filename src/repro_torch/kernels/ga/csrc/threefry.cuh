@@ -72,6 +72,20 @@ __device__ __forceinline__ bool bernoulli_at(uint32_t k0, uint32_t k1,
   return uniform_at(k0, k1, ctr, salt) < p;
 }
 
+// bernoulli_at's test as an integer compare: u = k 2^-24 with k = bits >> 8
+// exactly, so u < p iff k < ceil(p 2^24). p 2^24 is exact (a power-of-two
+// scale); p <= 0 or NaN never passes, p >= 1 always does.
+__device__ __forceinline__ uint32_t unit_threshold(float p) {
+  const float s = __fmul_rn(p, 16777216.0f);
+  if (!(s > 0.0f)) return 0u;
+  if (s >= 16777216.0f) return 1u << 24;
+  return (uint32_t)ceilf(s);
+}
+
+__device__ __forceinline__ bool unit_below(uint32_t bits, uint32_t threshold) {
+  return (bits >> 8) < threshold;
+}
+
 __device__ __forceinline__ int randint_at(uint32_t k0, uint32_t k1,
                                           uint32_t ctr, uint32_t salt,
                                           uint32_t maxval) {

@@ -106,13 +106,18 @@ def max_smem_bytes(device_index: int) -> int:
         return int(_build.library().generation_max_smem_bytes())
 
 
-def check_plan_inputs(seed, size, fitness):
-    """Raise unless seed (I, 2) int64 words with unit stride, size (I,)
-    int32 and fitness (I, n) f32 lie contiguous on one device."""
-    n_isl = fitness.shape[0]
-    if fitness.dtype != torch.float32 or fitness.dim() != 2:
-        raise ValueError(f"generation kernel: fitness must be f32 (I, n), "
-                         f"got {fitness.dtype} {tuple(fitness.shape)}")
+def check_inputs(seed, size, pop, fitness, genes):
+    """Raise unless pop (I, n, L) of ``genes``, fitness (I, n) f32, seed
+    (I, 2) int64 words with unit stride and size (I,) int32 lie contiguous
+    on one device."""
+    n_isl, n, _ = pop.shape
+    if pop.dtype != genes:
+        raise ValueError(f"generation kernel: want {genes} genomes, got "
+                         f"{pop.dtype}")
+    if fitness.dtype != torch.float32 or tuple(fitness.shape) != (n_isl, n):
+        raise ValueError(f"generation kernel: fitness must be f32 "
+                         f"{(n_isl, n)}, got {fitness.dtype} "
+                         f"{tuple(fitness.shape)}")
     if tuple(seed.shape) != (n_isl, 2) or tuple(size.shape) != (n_isl,):
         raise ValueError("generation kernel: want seed (I, 2) and size (I,)")
     if seed.dtype != torch.int64 or seed.stride(-1) != 1:
@@ -122,30 +127,13 @@ def check_plan_inputs(seed, size, fitness):
     if size.dtype != torch.int32:
         raise ValueError(f"generation kernel: size must be int32, got "
                          f"{size.dtype}")
-    for name, t in (("seed", seed), ("size", size)):
-        if t.device != fitness.device:
+    for name, t in (("seed", seed), ("size", size), ("fitness", fitness)):
+        if t.device != pop.device:
             raise ValueError(f"generation kernel: {name} is on {t.device}, "
-                             f"fitness on {fitness.device}")
-    if not (fitness.is_contiguous() and size.is_contiguous()):
+                             f"pop on {pop.device}")
+    if not (pop.is_contiguous() and fitness.is_contiguous()
+            and size.is_contiguous()):
         raise ValueError("generation kernel: inputs must be contiguous")
-
-
-def check_inputs(seed, size, pop, fitness, genes):
-    """:func:`check_plan_inputs`, and pop (I, n, L) of ``genes`` beside
-    them."""
-    n_isl, n, _ = pop.shape
-    if pop.dtype != genes:
-        raise ValueError(f"generation kernel: want {genes} genomes, got "
-                         f"{pop.dtype}")
-    if tuple(fitness.shape) != (n_isl, n):
-        raise ValueError(f"generation kernel: fitness must be "
-                         f"{(n_isl, n)}, got {tuple(fitness.shape)}")
-    if fitness.device != pop.device:
-        raise ValueError(f"generation kernel: fitness is on "
-                         f"{fitness.device}, pop on {pop.device}")
-    if not pop.is_contiguous():
-        raise ValueError("generation kernel: inputs must be contiguous")
-    check_plan_inputs(seed, size, fitness)
 
 
 def _check_smem(need: int, limit: int, n: int, length: int) -> None:

@@ -269,7 +269,7 @@ def test_tiled_kernel_fused_f15_bit_equal(card, m, n_groups):
 
 
 # ---------------------------------------------------------------------------
-# the tiled generation kernel and the selection-plan kernel
+# the tiled generation kernel and the roulette-CDF kernel
 # ---------------------------------------------------------------------------
 TILED_EVALS = {"binary": {"none": None,
                           "trap": (("a", 1.0), ("b", 2.0), ("eval", "trap"),
@@ -303,20 +303,86 @@ def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
+@pytest.mark.parametrize("n", [64, 5000])
+@pytest.mark.parametrize("fitness", ["random", "tied", "masked"])
+def test_roulette_cdf_kernel_bit_equal(card, fitness, n):
+    """The CDF kernel equals the plain CDF (a left-to-right f32 scan of the
+    masked fitness), -inf lanes, ties and all-masked islands included."""
+    from repro_torch.kernels.ga import common, tiling
+    g = torch.Generator().manual_seed(n)
+    _, size, _, fit = _edge_inputs("binary", 3, n, 4, fitness, g)
+    size, fit = size.to(card), fit.to(card)
+    got = tiling.roulette_cdf(size, fit)
+    want = common.roulette_cdf(common.masked_fitness(fit, size))
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("selection", ["tournament", "roulette"])
 @pytest.mark.parametrize("crossover", ["two_point", "uniform"])
 @pytest.mark.parametrize("n", [64, 5000])
-def test_plan_kernel_bit_equal(card, selection, crossover, n):
+def test_tiled_one_launch_bit_equal(card, selection, crossover, n):
+    """The tiled kernel, drawing its rows' plan itself, equals the plain
+    version with ties at the elite, for 1, 3 and 8 rows per block: one
+    launch under tournament, the CDF kernel first under roulette. Rows of
+    160 genes take the 16-byte route."""
+    from repro_torch import kernels
     from repro_torch.kernels.ga import tiling
-    from repro_torch.kernels.ga.common import selection_plan
-    spec, (seed, size, _, fit), _ = _tiled_case(
-        "binary", selection, crossover, "none", 3, n, 40, n)
-    fit[0, :5] = fit[0, 5]                       # ties at the elite
-    args = [t.to(card) for t in (seed, size, fit)]
-    got = tiling.plan_kernel(*args, spec)
-    want = selection_plan(args[0], args[2], args[1], spec, n)
-    for name, a, b in zip(want._fields, got, want):
-        assert torch.equal(a, b), name
+    spec, args, _ = _tiled_case("binary", selection, crossover, "trap", 3, n,
+                                160, n)
+    args[3][0, :5] = args[3][0, 5]               # ties at the elite
+    args = [t.to(card) for t in args]
+    want = gen_ref.generation(*args, spec)
+    for rows in (1, 3, 8):
+        kernels.reset_launches()
+        got = tiling.generation_tiled(*args, spec, tile_pop=rows)
+        assert kernels.LAUNCHES["generation_tiled"] == 1
+        assert kernels.LAUNCHES["roulette_cdf"] == (selection == "roulette")
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), rows
+
+
+# (kind, L, crossover, fused eval, fitness, offset in elements): rows off
+# the 16-byte pack (1003 f32, 157 int8) and packed rows of a population
+# that starts 4 or 5 bytes off 16, all on the scalar route; packed rows on
+# the 16-byte route beside them; all-masked and tied fitness
+TILED_EDGES = [
+    ("float", 1003, "blend", "rastrigin", "random", 0),
+    ("float", 1003, "uniform", "none", "tied", 0),
+    ("binary", 157, "two_point", "onemax", "random", 0),
+    ("binary", 157, "uniform", "none", "masked", 0),
+    ("float", 1000, "blend", "sphere", "masked", 1),
+    ("binary", 160, "two_point", "trap", "random", 5),
+    ("binary", 160, "uniform", "royal_road", "tied", 0),
+]
+
+
+@pytest.mark.parametrize("case", range(len(TILED_EDGES)))
+@pytest.mark.parametrize("selection", ["tournament", "roulette"])
+def test_tiled_kernel_edges(card, case, selection):
+    """The tiled kernel at its edges equals its plain version and the
+    untiled kernel, with 3 elite rows over blocks of 1 and 2 rows (and 8)
+    and pop_size below n."""
+    gen_k = importlib.import_module("repro_torch.kernels.ga.generation")
+    from repro_torch.kernels.ga import tiling
+    kind, length, crossover, fused, fitness, offset = TILED_EDGES[case]
+    g = torch.Generator().manual_seed(300 + case)
+    spec = GenerationSpec(
+        kind=kind, length=length, elite=3, selection=selection,
+        tournament_k=2, crossover=crossover, crossover_rate=0.9,
+        mutation_rate=0.05, mutation_sigma=0.3, low=-5.0, high=5.0,
+        fused_eval=TILED_EVALS[kind][fused])
+    args = [t.to(card) for t in _edge_inputs(kind, 2, 37, length, fitness,
+                                             g)]
+    pop = args[2]
+    args[2] = torch.empty(offset + pop.numel(), dtype=pop.dtype,
+                          device=card)[offset:].view(pop.shape).copy_(pop)
+    want = _as_tuple(gen_ref.generation(*args, spec))
+    untiled = _as_tuple(gen_k.generation_kernel(*args, spec))
+    for rows in (1, 2, 8):
+        got = _as_tuple(tiling.generation_tiled(*args, spec, tile_pop=rows))
+        assert len(got) == len(want)
+        for a, b, c in zip(got, want, untiled):
+            assert torch.equal(a, b) and torch.equal(a, c), rows
 
 
 @pytest.mark.parametrize("kind,selection,crossover,fused", [
@@ -389,7 +455,7 @@ def test_pallas_routes_large_binary_islands_to_the_tiled_kernel(card):
     got = ops._pallas(*args, spec, None)
     assert kernels.LAUNCHES["generation"] == 0
     assert kernels.LAUNCHES["generation_tiled"] == 1
-    assert kernels.LAUNCHES["selection_plan"] == 1
+    assert kernels.LAUNCHES["roulette_cdf"] == 0
     for a, b in zip(got, gen_ref.generation(*args, spec)):
         assert torch.equal(a, b)
 

@@ -37,8 +37,9 @@ from repro.kernels.ga.common import selection_plan as j_plan
 from repro_torch import convert, rand
 from repro_torch.core import EAConfig, MigrationConfig, make_trap, run_fused
 from repro_torch.core.types import GenomeSpec
-from repro_torch.kernels.ga import autotune, get_kernel, ops
+from repro_torch.kernels.ga import autotune, common, get_kernel, ops, tiling
 from repro_torch.kernels.ga.common import GenerationSpec as TSpec
+from repro_torch.kernels.ga.common import masked_fitness
 from repro_torch.kernels.ga.common import selection_plan as t_plan
 from repro_torch.kernels.ga.generation import untiled_smem_bytes
 
@@ -114,6 +115,137 @@ def test_tiled_entry_matches_reference(kind, length, crossover, tile_pop,
     if fused is not None:
         np.testing.assert_allclose(got[1][0].numpy(), np.asarray(want[1]),
                                    rtol=FIT_RTOL, atol=FIT_ATOL)
+
+
+# (kind, length, crossover, fused eval): genomes whose rows are not a
+# multiple of the tiled kernel's 16-byte pack (1003 f32, 157 int8), so the
+# card takes its scalar route
+EDGE_CASES = [
+    ("float", 1003, "blend", None),
+    ("float", 1003, "uniform", {"eval": "rastrigin"}),
+    ("binary", 157, "two_point", {"eval": "onemax"}),
+    ("binary", 157, "uniform", None),
+]
+
+
+@pytest.mark.parametrize("selection", ["tournament", "roulette"])
+@pytest.mark.parametrize("kind,length,crossover,fused", EDGE_CASES)
+def test_tiled_entry_edges_match_reference(kind, length, crossover, fused,
+                                           selection):
+    """The tiled entry at the tiled kernel's edges against the reference's:
+    rows off the 16-byte pack, 3 elite rows (over blocks of 1 and 2 rows
+    on the card), pop_size below n, tournament and roulette."""
+    n, pop_size = 24, 19
+    jg = JGenomeSpec(kind, length, -5.0, 5.0)
+    tg = GenomeSpec(kind, length, -5.0, 5.0)
+    cfg = dict(max_pop=n, min_pop=8, crossover=crossover, mutation_rate=0.05,
+               elite=3, selection=selection)
+    pop, fit = _inputs(kind, n, length, length + n)
+    fit[4:7] = fit[2]                                # ties at the elite
+    op = "generation" if fused is None else "generation_eval"
+    extra = () if fused is None else (fused,)
+    tiles = dict(tile_pop=8, tile_len=256)
+
+    j_kern = j_ga.get_kernel(op, kind, "pallas_tiled")
+    want = jax.jit(lambda p, f: j_kern(
+        jax.random.key(5), p, f, jnp.int32(pop_size), JEAConfig(**cfg), jg,
+        *extra, interpret=True, **tiles))(jnp.asarray(pop), jnp.asarray(fit))
+    got = get_kernel(op, kind, "pallas_tiled")(
+        rand.key(5)[None], torch.from_numpy(pop)[None],
+        torch.from_numpy(fit)[None], torch.tensor([pop_size]),
+        EAConfig(**cfg), tg, *extra, **tiles)
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    genes, j_genes = got[0][0].numpy(), np.asarray(want[0])
+    if kind == "binary":
+        np.testing.assert_array_equal(genes, j_genes)
+    else:
+        np.testing.assert_allclose(genes, j_genes, rtol=0, atol=GENE_ATOL)
+    if fused is not None:
+        np.testing.assert_allclose(got[1][0].numpy(), np.asarray(want[1]),
+                                   rtol=FIT_RTOL, atol=FIT_ATOL)
+
+
+def _block_plan(seed, size, fit, spec, rows):
+    """The selection plan as the tiled kernel's blocks draw it: block b
+    takes output rows [b rows, (b + 1) rows); only a block whose rows start
+    below ``elite`` finds the elite (the iterative masked arg-max); each
+    child row elite + c draws plan_rows.cuh::child_row_plan's counters (c k
+    + j per tournament, c for a roulette draw and the gate, 2c and 2c + 1
+    for the cuts) from the island's masked fitness, or searches the CDF of
+    the CDF kernel's wrapper under roulette."""
+    n_isl, n = fit.shape
+    k0, k1 = seed[:, 0].reshape(-1, 1, 1), seed[:, 1].reshape(-1, 1, 1)
+    masked = masked_fitness(fit, size)
+    maxval = torch.clamp(size, min=1).to(torch.int64).reshape(-1, 1, 1)
+    cum = tiling.roulette_cdf(size, fit)
+    isl = torch.arange(n_isl)[:, None]
+    blocks = []
+    for row0 in range(0, n, rows):
+        rr = range(row0, min(row0 + rows, n))
+        elite = []
+        if row0 < spec.elite:
+            tmp = masked.clone()
+            for _ in range(spec.elite):
+                elite.append(tmp.argmax(-1))
+                tmp[torch.arange(n_isl), elite[-1]] = float("-inf")
+        e_rows = [r for r in rr if r < spec.elite]
+        c0, n_c = max(row0, spec.elite) - spec.elite, len(rr) - len(e_rows)
+        par = []
+        for salt in (common.SALT_SELECT_A, common.SALT_SELECT_B):
+            if spec.selection == "tournament":
+                cand = rand.randint(k0, k1, (n_c, spec.tournament_k), maxval,
+                                    salt, offset=(c0, 0)).long()
+                f = masked[isl[:, :, None], cand]
+                par.append(torch.gather(cand, 2, f.argmax(-1, keepdim=True))
+                           [..., 0])
+            else:
+                u = rand.uniform(k0, k1, (n_c, 1), salt,
+                                 offset=(c0, 0))[..., 0] * cum[:, -1:]
+                idx = (cum[:, None, :] <= u[:, :, None]).sum(-1)
+                par.append(torch.minimum(idx, maxval[:, :, 0] - 1))
+        if spec.crossover == "two_point":
+            cuts = rand.randint(k0, k1, (n_c, 2), spec.length + 1,
+                                common.SALT_CROSSOVER, offset=(c0, 0))
+            c1, c2 = cuts.amin(-1), cuts.amax(-1)
+        else:
+            c1 = c2 = torch.zeros((n_isl, n_c), dtype=torch.int32)
+        gate = rand.bernoulli(k0, k1, (n_c, 1), spec.crossover_rate,
+                              common.SALT_CROSSOVER_GATE,
+                              offset=(c0, 0))[..., 0]
+        e = torch.stack([elite[r] for r in e_rows], -1) if e_rows else \
+            torch.zeros((n_isl, 0), dtype=torch.int64)
+        z = torch.zeros_like(e)
+        blocks.append([torch.cat([a, b.to(torch.int64)], 1) for a, b in (
+            (e, par[0]), (e, par[1]), (z, c1), (z, c2), (z, gate))])
+    return common.SelectionPlan(*(torch.cat(f, 1).to(torch.int32)
+                                  for f in zip(*blocks)))
+
+
+@pytest.mark.parametrize("selection,crossover", [("tournament", "two_point"),
+                                                 ("roulette", "uniform")])
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_block_decomposition_draws_the_whole_plan(rows, selection,
+                                                  crossover):
+    """Each block's rows' plan, the elite only in blocks below it, is the
+    whole-island plan (``common.selection_plan``), bit for bit: 3 elite
+    rows over 3 blocks of 1 row or 2 blocks of 3, ties at the elite, lanes
+    past pop_size, and a 0-size island."""
+    g = torch.Generator().manual_seed(rows)
+    n_isl, n = 3, 29
+    spec = TSpec(kind="binary", length=40, elite=3, selection=selection,
+                 tournament_k=3, crossover=crossover, crossover_rate=0.9,
+                 mutation_rate=0.05, mutation_sigma=0.3)
+    fit = torch.randn(n_isl, n, generator=g) * 10
+    fit[0, 4:8] = fit[0, 1]
+    size = torch.tensor([20, n, 0], dtype=torch.int32)
+    seed = torch.randint(0, 2**32, (n_isl, 2), generator=g,
+                         dtype=torch.int64)
+    got = _block_plan(seed, size, fit, spec, rows)
+    want = t_plan(seed, fit, size, spec, n)
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a, b), name
 
 
 N_ISLANDS, MAX_EPOCHS, SEED = 4, 3, 7
