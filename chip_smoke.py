@@ -7,9 +7,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` and print
    the card's name and power limit;
-2. the trap kernel against its plain version on the card (bit-equal);
-2b. the F15 kernel against its plain version at (10000, 1000, m 50),
-   Fig. 4's shape, at (1000, 1000, 50) and at (256, 200, 20) (bit-equal);
+2. the trap kernel (a warp per row) against its plain version on the card
+   (bit-equal): the main path's 2048 x 40 traps, 1000 and 77 rows, one
+   row, 64, 65 and 80 traps, 13 traps of 5 genes, and a population that
+   starts 3 bytes off 16;
+2b. the F15 kernel (row tiles, each group's rotation by a bulk copy)
+   against its plain version (bit-equal) at (10000, 1000, m 50), Fig. 4's
+   shape, at (1000, 1000, 50) and at (256, 200, 20); at its edges (n = 1,
+   7, one tile, one tile + 1, a whole wave of tiles + 1; m = 7 and 13, the
+   scalar route; m = 64; D = 40,000, where a tile is one row); and at
+   every rows per tile that phase 6 sweeps, whose shared memory the kernel
+   and the wrapper must count alike;
 3. the binary generation kernel against its plain version on the card,
    every selection x crossover x fused eval, at 8 islands of 256 x 160
    with pop_size drawn in [128, 256]; then at its edges (n not a multiple
@@ -61,7 +69,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the tiled kernel at Fig. 4's shape and at paper-8's (in turns with the
    untiled binary kernel), each against the untiled kernel's work, the
    CDF kernel at 10,000 lanes, the tiled kernel's swept rows per block
-   against the heuristic's, and the ptxas report of both;
+   against the heuristic's, and the ptxas report of both; F15 at the
+   island batch and at Fig. 4's shape against ``bound_of`` and against the
+   no-FMA contract's FP32 issue floor (its term's instructions counted in
+   the kernel's SASS), its launch shape, the sweep of rows per tile at
+   Fig. 4's shape; trap at the main path's shape against its bound; the
+   ptxas report of both;
 7a. the WKV6 kernel through ``kernels/rwkv6/ops.wkv`` against both plain
    chunked versions (``wkv_chunked``, the reference's form, and
    ``wkv_subchunked``, the kernel's) and the sequential recurrence, with
@@ -156,6 +169,9 @@ CLIP_F32 = 2
 # f32 operations per gene of an F15 row besides its rotation: z - o, the
 # term (r * r, 2 pi * r, cos, 10 *, -, +) and its add to the sum.
 F15_GENE_F32 = 8
+# the F15 kernel's rows per tile that phase 6 times at Fig. 4's shape (and
+# phase 2b holds bit-equal), beside the wrapper's choice
+F15_SWEEP_ROWS = (8, 16, 20, 26, 32, 38, 44)
 TIMED_CALLS = 50
 # head start of the timed windows: the card spins this long while the host
 # enqueues the calls (the spin is counted in clock cycles; 2 GHz is above
@@ -375,6 +391,57 @@ def build_report(source: str):
         elif "registers" in line and arg is not None:
             out.append((arg, f"{line.split(':', 1)[1].strip()}; {spill}"))
     return entry.splitlines()[0], out
+
+
+def f15_term_instructions():
+    """(instructions per Rastrigin term in the F15 kernel's SASS, the terms
+    counted), by ``cuobjdump -sass`` of the kernel's object: the fast path
+    (each ``@!P`` branch forward taken, so the slow argument reduction is
+    skipped) from the first multiply by f32(2 pi) that starts a cosf (a
+    multiply by 2 / pi next) until every cosf begun on it has reached its
+    term's last add (+ 10), over the cosf begun; the compiler interleaves a
+    micro-tile's terms. None where the tool, the object or the pattern is
+    missing."""
+    from repro_torch import _build
+    obj = _build.BUILD_DIR / f"f15-{_build.library_path().stem}.o"
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not (obj.exists() and os.path.exists(tool)):
+        return None
+    sass = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
+                          text=True).stdout
+    body = next((sec for sec in sass.split("Function : ")[1:]
+                 if "f15_kernel" in sec.split("\n", 1)[0]), "")
+    ops = [(int(a, 16), ins.split()) for a, ins in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", body)]
+    at = {a: i for i, (a, _) in enumerate(ops)}
+
+    def starts_cos(i):
+        return (ops[i][1][0] == "FMUL"
+                and any(t.startswith("6.28318548") for t in ops[i][1])
+                and any(any(t.startswith("0.63661974") for t in nxt)
+                        for _, nxt in ops[i + 1:i + 3]))
+
+    k = next((i for i in range(len(ops)) if ops[i][1] and starts_cos(i)),
+             None)
+    if k is None:
+        return None
+    n = begun = ended = 0
+    while k < len(ops) and n < 5000:
+        addr, ins = ops[k]
+        n += 1
+        pred = ins[0] if ins[0].startswith("@") else ""
+        op = ins[1] if pred else ins[0]
+        begun += any(t.startswith("0.63661974") for t in ins)
+        ended += op == "FADD" and ins[-1] == "10"
+        if begun and ended == begun:
+            break
+        target = (int(ins[-1], 16) if op.startswith("BRA")
+                  and ins[-1].startswith("0x") else -1)
+        k = (at[target] if pred.startswith("@!") and target > addr
+             and target in at else k + 1)
+    if not begun or ended != begun:
+        return None
+    return round(n / begun), begun
 
 
 def step_profile(tag: str, islands, problem, cfg, steps: int = 20,
@@ -618,19 +685,27 @@ def main() -> int:
     # ---- 2: trap kernel against its plain version ------------------------
     consts = {"a": 1.0, "b": 2.0, "z": 3.0, "l": 4}
     trap_err = 0.0
-    for n, n_traps in ((8 * 256, 40), (1000, 40), (2048, 80)):
-        pop = (torch.rand(n, n_traps * 4, generator=gen) < 0.5).to(
+    # (n, traps, l, bytes the population starts off 16): the main path's
+    # batch, one row, 64 and 65 traps (two rounds of a warp's 32 lanes),
+    # rows of 65 bytes, and an (n, L) view of a flat buffer 3 bytes in
+    for n, n_traps, l, off in ((8 * 256, 40, 4, 0), (1000, 40, 4, 0),
+                               (77, 8, 4, 0), (1, 40, 4, 0), (2048, 80, 4, 0),
+                               (2048, 64, 4, 0), (2048, 65, 4, 0),
+                               (1000, 13, 5, 0), (1000, 40, 4, 3)):
+        flat = (torch.rand(off + n * n_traps * l, generator=gen) < 0.5).to(
             torch.int8).to(dev)
-        got = trap_k.trap_fitness(consts, pop, n_traps=n_traps)
+        pop = flat[off:].view(n, n_traps * l)
+        got = trap_k.trap_fitness(dict(consts, l=l), pop, n_traps=n_traps)
         torch.cuda.synchronize()
-        want = trap_ref.trap_fitness(pop, n_traps=n_traps, l=4, a=1.0, b=2.0,
+        want = trap_ref.trap_fitness(pop, n_traps=n_traps, l=l, a=1.0, b=2.0,
                                      z=3.0)
         err = (got - want).abs().max().item()
-        log(f"[trap] ({n}, {n_traps * 4}) bit-equal={torch.equal(got, want)} "
-            f"max_abs_err={err}")
+        log(f"[trap] ({n}, {n_traps} x {l}) base {pop.data_ptr() % 16} off "
+            f"16 bit-equal={torch.equal(got, want)} max_abs_err={err}")
         if not torch.equal(got, want):
-            fail(f"trap kernel differs from its plain version at {n}")
-        if n_traps == 40 and n == 8 * 256:
+            fail(f"trap kernel differs from its plain version at "
+                 f"({n}, {n_traps} x {l}, base +{off})")
+        if (n, n_traps, off) == (8 * 256, 40, 0):
             trap_err = err
 
     # ---- 2b: F15 kernel against its plain version -----------------------
@@ -645,24 +720,56 @@ def main() -> int:
                     torch.int32).to(dev),
                 "M": q.to(torch.float32).contiguous().to(dev)}
 
-    f15_err = 0.0
-    for rows_n, dim, m in ((10000, 1000, 50), (1000, 1000, 50),
-                           (256, 200, 20)):
-        c = f15_consts if (dim, m) == (1000, 50) else random_f15_consts(dim,
-                                                                        m)
-        x = (torch.rand(rows_n, dim, generator=gen) * 10 - 5).to(dev)
-        got = f15_k.f15(c, x)
+    def f15_check(tag, c, x, shape=None):
+        """The kernel (at the wrapper's launch shape, or at ``shape``)
+        against the plain version on x: bit-equal, or fail."""
+        got = (f15_k.f15(c, x) if shape is None
+               else f15_k.launch(c, x, shape))
         torch.cuda.synchronize()
         want = f15_ref.f15(c, x)
         err = (got - want).abs().max().item()
         diff = int((got != want).sum().item())
-        log(f"[f15] ({rows_n}, {dim}, m {m}) bit-equal={diff == 0} "
-            f"differing rows={diff} max_abs_err={err}")
+        if shape is None:
+            shape = f15_k.card_shape(*x.shape, c["M"].shape[1], dev)
+        log(f"[f15] {tag} ({x.shape[0]}, {x.shape[1]}, m {c['M'].shape[1]}) "
+            f"{shape.rows} rows per tile, {shape.groups} groups per batch, "
+            f"grid {shape.grid}: bit-equal={diff == 0} differing rows={diff} "
+            f"max_abs_err={err}")
         if diff:
-            fail(f"F15 kernel differs from its plain version at "
-                 f"({rows_n}, {dim}, {m}): {diff} rows")
+            fail(f"F15 kernel differs from its plain version at {tag} "
+                 f"{tuple(x.shape)}: {diff} rows")
+        return err
+
+    # the shapes of the paths, then the kernel's edges: n of one row, 7,
+    # one tile and one row more, a whole wave of tiles and one row more;
+    # odd m (the scalar route) and m = 64; a D so wide a tile is one row
+    fig4_shape = f15_k.card_shape(10000, 1000, 50, dev)
+    f15_err = 0.0
+    for tag, rows_n, dim, m in (
+            ("paths", 10000, 1000, 50), ("paths", 1000, 1000, 50),
+            ("paths", 256, 200, 20), ("edge", 1, 1000, 50),
+            ("edge", 7, 1000, 50), ("one tile", fig4_shape.rows, 1000, 50),
+            ("one tile + 1", fig4_shape.rows + 1, 1000, 50),
+            ("a wave + 1", fig4_shape.grid * fig4_shape.rows + 1, 1000, 50),
+            ("odd m", 1000, 91, 7), ("odd m", 1000, 91, 13),
+            ("m 64", 1000, 1024, 64), ("wide", 5, 40000, 50)):
+        c = f15_consts if (dim, m) == (1000, 50) else random_f15_consts(dim,
+                                                                        m)
+        x = (torch.rand(rows_n, dim, generator=gen) * 10 - 5).to(dev)
+        err = f15_check(tag, c, x)
+        if tag == "wide" and f15_k.card_shape(rows_n, dim, m, dev).rows != 1:
+            fail("F15 at D 40000: the tile is not one row")
         if rows_n == 10000:
             f15_err, f15_fig4 = err, (c, x)
+    # every tile height phase 6 sweeps, at Fig. 4's shape, and the kernel's
+    # shared memory against the wrapper's count
+    for rows in F15_SWEEP_ROWS:
+        shape = f15_k.card_shape(10000, 1000, 50, dev, rows=rows)
+        smem = _build.library().f15_smem_bytes(rows, 1000, 50, shape.groups)
+        if smem != shape.smem:
+            fail(f"F15 shared memory: the kernel counts {smem} bytes, the "
+                 f"wrapper {shape.smem}")
+        f15_check("sweep", *f15_fig4, shape)
 
     # ---- 3: generation kernel against its plain version ------------------
     def as_tuple(x):
@@ -1421,6 +1528,63 @@ def main() -> int:
         f"{fig4_ms * 1e3:.2f} us, plain {fig4_plain_ms * 1e3:.1f} us, bound "
         f"{fig4_bound * 1e3:.3f} us ({fig4_bytes} B, {fig4_ops} f32 ops); "
         f"the rotation alone by torch.bmm (TF32 off) {bmm_ms * 1e3:.2f} us")
+    # the no-FMA contract's FP32 issue floor: two instructions per
+    # multiply-add and the term's instructions (from the kernel's SASS) per
+    # gene, over every lane of the card at its maximum SM clock
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    term = f15_term_instructions()
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * 128
+    log(f"[f15] SASS: {'not measured' if term is None else term[0]} "
+        f"instructions per term on cosf's fast path (over "
+        f"{0 if term is None else term[1]} terms); {lanes} FP32 lanes at "
+        f"{sm_mhz:.0f} MHz")
+    for tag, c, x, ms in (("island batch", f15_consts, f15_x, f15_ms),
+                          ("Fig. 4", fig4_c, fig4_x, fig4_ms)):
+        rows_x, dim_x = x.shape
+        groups_x, m_x, _ = c["M"].shape
+        rot = 2 * rows_x * groups_x * m_x * m_x
+        issue = rot + (0 if term is None else term[0] * rows_x * dim_x)
+        floor_us = issue / (lanes * sm_mhz * 1e6) * 1e6
+        w_bytes, w_ops = f15_work(c, rows_x)
+        b_ms, _ = bound_of(w_bytes, f32_ops=w_ops)
+        shape = f15_k.card_shape(rows_x, dim_x, m_x, dev)
+        log(f"[f15] {tag} ({rows_x}, {dim_x}, m {m_x}): {ms * 1e3:.2f} us; "
+            f"bound_of {b_ms * 1e3:.3f} us (the FMA rate); FP32 issue floor "
+            f"{floor_us:.3f} us ({rot} rotation + "
+            f"{'no' if term is None else issue - rot} term instructions), "
+            f"the kernel {ms * 1e3 / floor_us:.2f} times it; {shape.rows} "
+            f"rows per tile, {shape.groups} groups per batch, grid "
+            f"{shape.grid}, {shape.smem} B shared memory, "
+            f"{-(-rows_x // shape.rows)} tiles ({card})")
+    # rows per tile at Fig. 4's shape: the wrapper's choice and the sweep,
+    # in turns (choice, sweep, choice)
+    f15_turns = [fig4_ms]
+    for rows in F15_SWEEP_ROWS:
+        shape = f15_k.card_shape(10000, 1000, 50, dev, rows=rows)
+        t_ms = event_ms(lambda: f15_k.launch(fig4_c, fig4_x, shape),
+                        TIMED_CALLS)
+        log(f"[f15] sweep at (10000, 1000, m 50): {rows} rows per tile, "
+            f"{shape.groups} groups per batch, grid {shape.grid}: "
+            f"{t_ms * 1e3:.2f} us")
+    f15_turns.append(event_ms(lambda: f15_k.f15(fig4_c, fig4_x),
+                              TIMED_CALLS))
+    log(f"[f15] the wrapper's choice {fig4_shape.rows} rows per tile: "
+        f"{f15_turns[0] * 1e3:.2f} / {f15_turns[1] * 1e3:.2f} us, before "
+        f"and after the sweep")
+    log(f"[trap] at ({rows_n}, {length}): {trap_ms * 1e3:.3f} us, plain "
+        f"{trap_plain_ms * 1e3:.1f} us, bound {trap_bound * 1e3:.4f} us "
+        f"({trap_by}), {trap_ms / trap_bound:.1f} times it; "
+        f"{-(-rows_n // 8)} blocks of 8 warps, a warp per row ({card})")
+    for source in ("f15.cu", "trap.cu"):
+        report = build_report(source)
+        if report is not None:
+            head, regs = report
+            log(f"[f15] build {head}")
+            for arg, line in regs:
+                log(f"[f15]   ptxas <{arg}>: {line}")
 
     # ---- 7a: the WKV6 kernel against its plain versions ------------------
     from repro_torch.kernels.rwkv6 import ops as wkv_ops

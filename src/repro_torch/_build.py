@@ -60,8 +60,15 @@ SIGNATURES: Dict[str, List] = {
                                 _I, _I, _I, _I, _I, _I, _P],
     # n, L, elite, rows
     "generation_float_smem_bytes": [_I, _I, _I, _I],
-    # pop, o, perm, M, out, n_rows, D, m, G, k_group, stream
-    "f15_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # pop, o, perm, M, out, n_rows, D, m, G, k_group, rows, groups per
+    # batch, blocks, stream
+    "f15_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # rows, D, m, groups per batch
+    "f15_smem_bytes": [_I, _I, _I, _I],
+    # shared memory bytes
+    "f15_blocks_per_sm": [_I],
+    # out: int[4] (SMs, shared memory per SM, per block, reserved per block)
+    "f15_device_limits": [_P],
     # fitness, pop_size, cum, n_islands, n, stream
     "roulette_cdf_launch": [_P, _P, _P, _I, _I, _P],
     # pop, fitness, seed, seed_stride, pop_size, cum, new_pop, fit_out,

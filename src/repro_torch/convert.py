@@ -14,6 +14,10 @@ parameter tree (numpy leaves, each segment's blocks stacked on a leading
 caches (per segment, a tuple of dicts of stacked arrays: RWKV states and
 attention ring caches) both ways, each leaf's dtype set by its name. bf16
 leaves go through f32, which holds them exactly.
+
+The ``*_from_numpy`` helpers put their tensors on the card unless the
+caller asks for another device, as every entry point of the port does
+(``_device.resolve_device``).
 """
 from __future__ import annotations
 
@@ -22,18 +26,20 @@ from typing import Any, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
+from ._device import DeviceLike, resolve_device
 from .core.types import ExperimentState, IslandState, PoolState
 
 _KEY_FIELDS = ("rng", "key")
 
 
 def _tensor(x, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(x)).to(dtype=dtype, device=device)
+    return torch.as_tensor(np.array(x)).to(dtype=dtype,
+                                            device=resolve_device(device))
 
 
-def key_from_numpy(words, device="cpu") -> torch.Tensor:
+def key_from_numpy(words, device: DeviceLike = None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(words, dtype=np.uint32).astype(
-        np.int64), device=device)
+        np.int64), device=resolve_device(device))
 
 
 def _genome_dtype(x) -> torch.dtype:
@@ -41,7 +47,8 @@ def _genome_dtype(x) -> torch.dtype:
 
 
 def f15_consts_from_numpy(consts: Mapping[str, Any],
-                          device="cpu") -> Dict[str, torch.Tensor]:
+                          device: DeviceLike = None
+                          ) -> Dict[str, torch.Tensor]:
     """F15's ``o`` (D,), ``perm`` (D,) and ``M`` (G, m, m) as contiguous
     f32, int32 and f32 tensors on ``device`` (the kernels and
     ``index_select`` take int32 indices)."""
@@ -51,7 +58,7 @@ def f15_consts_from_numpy(consts: Mapping[str, Any],
             "M": _tensor(consts["M"], torch.float32, device).contiguous()}
 
 
-def islands_from_numpy(isl: Any, device="cpu") -> IslandState:
+def islands_from_numpy(isl: Any, device: DeviceLike = None) -> IslandState:
     """A batch of islands (leading axis) with reference dtypes."""
     g = _genome_dtype(isl.pop)
     i32 = torch.int32
@@ -70,7 +77,7 @@ def islands_from_numpy(isl: Any, device="cpu") -> IslandState:
     )
 
 
-def pool_from_numpy(pool: Any, device="cpu") -> PoolState:
+def pool_from_numpy(pool: Any, device: DeviceLike = None) -> PoolState:
     return PoolState(
         genomes=_tensor(pool.genomes, _genome_dtype(pool.genomes), device),
         fitness=_tensor(pool.fitness, torch.float32, device),
@@ -79,7 +86,8 @@ def pool_from_numpy(pool: Any, device="cpu") -> PoolState:
     )
 
 
-def experiment_from_numpy(st: Any, device="cpu") -> ExperimentState:
+def experiment_from_numpy(st: Any,
+                          device: DeviceLike = None) -> ExperimentState:
     """The carried part of an ``ExperimentState`` (islands, pool, key,
     epoch, stopped, next_uuid); async state, stats and counters are left
     empty."""
@@ -163,10 +171,12 @@ def caches_to_numpy(caches: List) -> List:
 
 
 def caches_from_numpy(caches: List, activation_dtype: torch.dtype,
-                      device="cpu") -> List:
+                      device: DeviceLike = None) -> List:
     """The reference's caches as tensors: ``wkv`` f32, ``pos`` int32, the
     others (``k``, ``v``, ``tm_prev``, ``cm_prev``) in
     ``activation_dtype``."""
+    device = resolve_device(device)
+
     def leaf(key, a) -> torch.Tensor:
         dtype = CACHE_DTYPES.get(key, activation_dtype)
         a = np.asarray(a).astype(np.float32 if dtype.is_floating_point

@@ -1,6 +1,7 @@
 // The fused separable fitness of new rows, shared by the generation
-// kernels (generation.cu, generation_float.cu, generation_tiled.cu), in the
-// f32 order of kernels/ga/common.py::fused_fitness: trap as
+// kernels (generation.cu, generation_float.cu, generation_tiled.cu) and,
+// through binary_row_fitness_warp, the trap kernel (kernels/trap/csrc/
+// trap.cu), in the f32 order of kernels/ga/common.py::fused_fitness: trap as
 // kernels/trap/ref.py::ordered_sum of the block scores, onemax and
 // royal_road exactly, and the rastrigin and sphere terms in ordered_sum's
 // grouped order. Round-to-nearest intrinsics keep the compiler from

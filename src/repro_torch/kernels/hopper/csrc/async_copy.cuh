@@ -3,8 +3,9 @@
 // kernels/flash_attention/csrc/flash_tc.cu through wgmma.cuh, the binary
 // generation kernel in kernels/ga/csrc/generation.cu and the WKV6 kernel's
 // ring in kernels/rwkv6/csrc/wkv.cuh), the plain bulk copy from device memory
-// into the shared memory of every CTA of a cluster, and the cluster's
-// barrier and rank.
+// into the shared memory of this CTA (the F15 kernel's rows and rotations,
+// kernels/rastrigin/csrc/f15.cu) or of every CTA of a cluster, and the
+// cluster's barrier and rank.
 #pragma once
 
 #include <cstdint>
@@ -92,6 +93,19 @@ __device__ __forceinline__ void bulk_copy_multicast(void* dst, const void* src,
       ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)),
          "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from device memory at `src` into this CTA's
+// shared memory at `dst`, completing `bytes` on the barrier `bar`. `src`,
+// `dst` and `bytes` must be 16-byte aligned.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

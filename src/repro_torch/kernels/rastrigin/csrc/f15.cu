@@ -1,79 +1,481 @@
-// CEC2010-F15 of a float population, a few rows per block.
+// CEC2010-F15 of a float population: tiles of many rows in shared memory,
+// each group's rotation staged once per tile by a bulk copy, twelve compute
+// warps fed by four helper warps.
 //
 // Replaces: src/repro/kernels/rastrigin/rastrigin.py::f15_kernel (the Pallas
 // body _f15_kernel) and the shift / permute / pad that its wrapper
 // kernels/rastrigin/ops.py::f15 runs before it. The island model reaches it
 // through core/problems.py::make_f15(impl="pallas") at set-up and at each W²
-// restart.
+// restart, and the tiled generation path (kernels/ga/tiling.py) after each
+// generation.
 //
 // Bound on the H100: operations. Per row of D = G * m genes the rotation is
-// G * m * m multiply-adds: 50,000 at D = 1000, m = 50, so 1e9 f32
-// operations at Fig. 4's 10,000 rows, 15 us at 67 TFLOP/s. The bytes are
-// the population read once, 40 MB there (12 us at 3.35 TB/s), and the
-// 200 KB rotation stack, which stays in L2: at 4 rows per block it is read
-// 2500 times there, 500 MB through L2 per call.
+// G * m * m multiply-adds, 50,000 at D = 1000, m = 50. The plain version
+// rounds each multiply and each add apart (no FMA), so each multiply-add is
+// two FP32-pipe instructions, and each gene's term (cosf's fast path) is 32
+// more (chip_smoke.py counts them in this kernel's SASS): 1.32e9
+// instructions at Fig. 4's 10,000 rows, 40 us of issue on 132 SMs x 128
+// lanes at 1.98 GHz. The bytes are the population read once, 40 MB there
+// (12 us at 3.35 TB/s).
 //
-// Design: a block takes ROWS rows. It stages each row shifted and permuted
-// (z[j] = x[perm[j]] - o[perm[j]], the gather read straight from device
-// memory) in shared memory, then f15_rows rotates, applies the term and
-// sums in the plain version's order (kernels/rastrigin/ref.py). That tail
-// is register-blocked (f15_rows.cuh, shared with the float
-// generation kernel): each block reads the rotation stack once, a thread's
-// 4 columns of M per step serving all ROWS rows, where it read the whole
-// stack once per row before. This kernel's own launch (ROWS rows per
-// block, 256 threads, the grid) is unchanged. No padding: the TPU padded m
-// to its 128-lane matrix unit, which a CUDA core does not need. The
-// product runs on the CUDA cores as separate multiplies and adds, not on
-// the tensor cores, so the kernel and its plain version agree bit for bit.
+// Design. A block takes a tile of `rows` consecutive rows and loops over
+// the tiles (gridDim.x blocks, as many as the card holds at once; the
+// wrapper kernels/rastrigin/f15.py::launch_shape picks rows, groups per
+// batch and grid from n, D, m, the card's SMs and the occupancy of the
+// shared memory they need). The tile's rows are contiguous in device
+// memory: one bulk copy (cp.async.bulk, the 16-byte-aligned body; the
+// ragged ends, under 16 bytes each, by plain loads) brings them into shared
+// memory at the source's offset modulo 16. Groups go in batches of `gpb`;
+// a batch's rotations M[g0 .. g0 + gpb) (contiguous) come by one bulk copy
+// into one half of a two-half ring, each half behind an mbarrier, issued a
+// whole batch ahead of their use. So each element of M crosses L2 once per
+// tile, not once per 4 rows as in the first design (M read by __ldg from
+// every block of 4 rows: 500 MB through L2 at 10,000 rows). Each batch:
+// - the compute warps take a micro-tile of RB rows x KB columns of one
+//   group each, both operands from shared memory (even m: z and M's rows in
+//   column pairs by 8-byte loads; odd m: one column at a time), apply the
+//   Rastrigin term and, once every compute warp has read z, write the terms
+//   where z was;
+// - the helper warps meanwhile sum the previous batch's terms, a thread per
+//   (group, row) in ordered_sum's order, gather the next batch's z = x[perm]
+//   - o from the staged rows (a thread per column, down the rows), and,
+//   after a tile's last z, bring the next tile's rows in, a batch ahead;
+//   after a tile's last batch a thread per row adds its group sums in group
+//   order.
+// The arithmetic is f15_rows.cuh's (rotate_step, rotate_pair_step,
+// rastrigin_term, ordered_sum's order), so kernel and plain version
+// (kernels/rastrigin/ref.py) agree bit for bit. No padding: the TPU padded
+// m to its 128-lane matrix unit, which a CUDA core does not need.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../hopper/csrc/async_copy.cuh"
 #include "f15_rows.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int ROWS = 4;
+// twelve compute warps rotate, four helper warps stage, gather and sum
+constexpr int COMPUTE = 384, HELPERS = 128, THREADS = COMPUTE + HELPERS;
+constexpr int RB = 4;  // rows of a thread's micro-tile
+constexpr int KB = 4;  // columns of a thread's micro-tile
+// a copy that has not landed after this long traps (async_copy.cuh)
+constexpr uint64_t COPY_TIMEOUT_NS = 2000000000ull;
 
-__host__ __device__ inline size_t f15_smem_bytes(int D) {
-  return 2 * (size_t)ROWS * (size_t)D * sizeof(float);  // zp + terms
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+// A block's shared memory, in bytes from its start: three mbarriers (the
+// rows, the ring's two halves), the rows (rows * D f32 and 16 bytes for
+// their offset), the ring (two halves of gpb * m * m f32 and 16 bytes), two
+// buffers of rows * gpb * m f32, each a batch's z and then its terms, and
+// the tile's group sums (rows * D / m f32).
+// kernels/rastrigin/f15.py::smem_bytes computes the same total.
+struct Layout {
+  size_t xs, half, ring, buf, gs, bytes;
+};
+
+__host__ __device__ inline Layout layout(int rows, int D, int m, int gpb) {
+  Layout l;
+  size_t off = 32;
+  l.xs = off;
+  off += align16((size_t)rows * D * 4 + 16);
+  l.half = align16((size_t)gpb * m * m * 4 + 16);
+  l.ring = off;
+  off += 2 * l.half;
+  l.buf = off;
+  off += 2 * align16((size_t)rows * gpb * m * 4);
+  l.gs = off;
+  off += align16((size_t)rows * (D / m) * 4);
+  l.bytes = off;
+  return l;
+}
+
+// n floats from device memory at src, to sit in the shared region at
+// `region` (16-byte aligned, 4n + 16 bytes) at src's offset modulo 16: the
+// first `head` floats and the tail after the 16-byte-aligned body (under 4
+// floats each) by plain loads, the body (`body` bytes) by one bulk copy.
+struct Span {
+  float* dst;
+  const float* src;
+  size_t n;
+  uint32_t head, body;
+};
+
+__device__ __forceinline__ Span span_of(unsigned char* region,
+                                        const float* src, size_t n) {
+  const uint32_t mis = (uint32_t)(reinterpret_cast<uintptr_t>(src) & 15);
+  Span s;
+  s.dst = reinterpret_cast<float*>(region + mis);
+  s.src = src;
+  s.n = n;
+  const size_t to16 = ((16 - mis) & 15) / 4;
+  s.head = (uint32_t)(to16 < n ? to16 : n);
+  s.body = (uint32_t)(((n - s.head) * 4) & ~(size_t)15);
+  return s;
+}
+
+// ragged float e (0-2: the head, 3-5: the tail) of the span, if it has one
+__device__ __forceinline__ void span_ragged(const Span& s, int e) {
+  const size_t tail0 = s.head + s.body / 4;
+  const size_t i = e < 3 ? (size_t)e : tail0 + (size_t)(e - 3);
+  if (e < 3 ? i < s.head : i < s.n) s.dst[i] = s.src[i];
+}
+
+// rotate_tile (f15_rows.cuh) with Mg in shared memory: one column of M's
+// row j per step
+template <int ROWS, int KB_>
+__device__ __forceinline__ void rotate_shared(float (&acc)[ROWS][KB_],
+                                              const float* z, const int* zr,
+                                              const float* Mg, int m,
+                                              int k0) {
+  int kc[KB_];
+#pragma unroll
+  for (int c = 0; c < KB_; ++c) kc[c] = min(k0 + c, m - 1);
+  float mj[KB_];
+#pragma unroll
+  for (int c = 0; c < KB_; ++c) mj[c] = Mg[kc[c]];
+  rotate_step<true>(acc, z, zr, 0, mj);
+  for (int j = 1; j < m; ++j) {
+    const float* Mj = Mg + (size_t)j * m;
+#pragma unroll
+    for (int c = 0; c < KB_; ++c) mj[c] = Mj[kc[c]];
+    rotate_step<false>(acc, z, zr, j, mj);
+  }
+}
+
+// rotate_tile_pairs (f15_rows.cuh) with Mg in shared memory: even m, z and
+// Mg 8-byte aligned; two steps of j at a time, each row's z[j], z[j + 1]
+// and each pair of M's columns by one 8-byte load
+template <int ROWS, int KB_>
+__device__ __forceinline__ void rotate_pairs_shared(float (&acc)[ROWS][KB_],
+                                                    const float* z,
+                                                    const int* zr,
+                                                    const float* Mg, int m,
+                                                    int k0) {
+  static_assert(KB_ % 2 == 0, "columns go in pairs");
+  constexpr int P = KB_ / 2;
+  int kp[P];  // a pair past m repeats m - 2, m - 1
+#pragma unroll
+  for (int q = 0; q < P; ++q) kp[q] = min(k0 + 2 * q, m - 2);
+  float2 m0[P], m1[P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    m0[q] = *reinterpret_cast<const float2*>(Mg + kp[q]);
+    m1[q] = *reinterpret_cast<const float2*>(Mg + m + kp[q]);
+  }
+  rotate_pair_step<true>(acc, z, zr, 0, m0, m1);
+#pragma unroll 2
+  for (int j = 2; j < m; j += 2) {
+    const float* Mj = Mg + (size_t)j * m;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      m0[q] = *reinterpret_cast<const float2*>(Mj + kp[q]);
+      m1[q] = *reinterpret_cast<const float2*>(Mj + m + kp[q]);
+    }
+    rotate_pair_step<false>(acc, z, zr, j, m0, m1);
+  }
+}
+
+// ordered_sum (f15_rows.cuh) for groups of at most 32 terms (sum_group's),
+// each group's terms loaded at once ahead of its adds: the same adds in the
+// same order
+__device__ __forceinline__ float group_sum(const float* t, int n,
+                                           int group) {
+  float total = 0.0f;
+  for (int g0 = 0; g0 < n; g0 += group) {
+    const int len = min(group, n - g0);
+    float v[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) v[i] = i < len ? t[g0 + i] : 0.0f;
+    float part = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (i < len) part = __fadd_rn(part, v[i]);
+    total = __fadd_rn(total, part);
+  }
+  return total;
+}
+
+// wait for a copy's barrier phase; the clock of the trapping wait
+// (async_copy.cuh) is read only where the copy has not landed yet
+__device__ __forceinline__ void wait_copy(uint64_t* bar, uint32_t parity) {
+  if (!hopper::mbar_try_wait(bar, parity))
+    hopper::mbar_wait_or_trap(bar, parity, COPY_TIMEOUT_NS);
+}
+
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
 __global__ void __launch_bounds__(THREADS)
 f15_kernel(const float* __restrict__ pop, const float* __restrict__ o,
            const int* __restrict__ perm, const float* __restrict__ M,
            float* __restrict__ out, int n_rows, int D, int m, int G,
-           int k_group) {
+           int k_group, int R, int gpb) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* zp = reinterpret_cast<float*>(smem);
-  float* terms = zp + (size_t)ROWS * D;
-  const int row0 = blockIdx.x * ROWS;
-  const int rows = min(ROWS, n_rows - row0);
-  const float* src = pop + (size_t)row0 * D;
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    const int r = i / D, j = i - r * D;
-    const int p = perm[j];
-    zp[i] = __fsub_rn(src[(size_t)r * D + p], o[p]);
+  const Layout lay = layout(R, D, m, gpb);
+  uint64_t* bar_x = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* bar_m = bar_x + 1;  // the ring's two halves
+  unsigned char* ring = smem + lay.ring;
+  const int tid = threadIdx.x;
+  const int tiles = (n_rows + R - 1) / R;
+  const int nb = (G + gpb - 1) / gpb;  // batches per tile
+  const int my_tiles =
+      (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int batches = my_tiles * nb;
+  const int quads = (m + KB - 1) / KB;
+  const bool pairs = m % 2 == 0 && (reinterpret_cast<uintptr_t>(M) & 7) == 0;
+  const size_t mm = (size_t)m * m;
+  const int h = tid - COMPUTE;  // a helper's index, negative in compute warps
+
+  if (tid == 0) {
+    hopper::mbar_init(bar_x, 1);
+    hopper::mbar_init(bar_m, 1);
+    hopper::mbar_init(bar_m + 1, 1);
+    hopper::mbar_fence_init();
   }
   __syncthreads();
-  f15_rows<ROWS>(zp, terms, rows, D, m, G, k_group, M, out + row0, 1.0f);
+
+  // batch q of this block: its tile (the block's q / nb-th), the tile's
+  // rows, its first group and its groups
+  struct Batch {
+    int tile, rows, g0, pb;
+    bool last;
+  };
+  auto batch = [&](int q) {
+    Batch b;
+    b.tile = (int)blockIdx.x + (q / nb) * (int)gridDim.x;
+    b.rows = min(R, n_rows - b.tile * R);
+    b.g0 = (q % nb) * gpb;
+    b.pb = min(gpb, G - b.g0);
+    b.last = q % nb == nb - 1;
+    return b;
+  };
+  // batch q's z, then its terms: buf[q % 2], (group, row, column)
+  auto buf = [&](int q) {
+    return reinterpret_cast<float*>(smem + lay.buf) +
+           (size_t)(q & 1) * R * gpb * m;
+  };
+  // batch q's rotations (contiguous in device memory) in the ring's half
+  // q % 2; group g0 + p's at .dst + p * m * m
+  auto ring_span = [&](int q) {
+    const Batch b = batch(q);
+    return span_of(ring + (size_t)(q & 1) * lay.half, M + (size_t)b.g0 * mm,
+                   (size_t)b.pb * mm);
+  };
+  // the rotations of batch q into the ring's half q % 2: one bulk copy
+  // (one thread) and the ragged ends (helpers)
+  auto issue_ring = [&](int q) {
+    const Span s = ring_span(q);
+    hopper::mbar_expect_tx(bar_m + (q & 1), s.body);
+    if (s.body)
+      hopper::bulk_copy(s.dst + s.head, s.src + s.head, s.body,
+                        bar_m + (q & 1));
+  };
+  auto ragged_ring = [&](int q) {
+    if (h < 6) span_ragged(ring_span(q), h);
+  };
+  // (helpers) batch q's tile's rows into xs
+  float* xs = nullptr;
+  auto stage_rows = [&](int q) {
+    const Batch b = batch(q);
+    const Span s = span_of(smem + lay.xs, pop + (size_t)b.tile * R * D,
+                           (size_t)b.rows * D);
+    if (h == HELPERS - 1) {
+      hopper::mbar_expect_tx(bar_x, s.body);
+      if (s.body)
+        hopper::bulk_copy(s.dst + s.head, s.src + s.head, s.body, bar_x);
+    }
+    if (h >= 0 && h < 6) span_ragged(s, h);
+    xs = s.dst;
+  };
+  // (helpers) batch q's z = x[perm] - o from the staged rows, a thread per
+  // column of the batch, down the rows; four columns' indices and shifts
+  // loaded at once
+  constexpr int COLS = 4;
+  auto build_z = [&](int q) {
+    const Batch b = batch(q);
+    const int cols = b.pb * m;
+    float* zg = buf(q);
+    for (int c0 = h; c0 < cols; c0 += COLS * HELPERS) {
+      int col[COLS];
+      float oc[COLS];
+#pragma unroll
+      for (int k = 0; k < COLS; ++k) {
+        const int c = min(c0 + k * HELPERS, cols - 1);
+        col[k] = __ldg(perm + (size_t)b.g0 * m + c);
+      }
+#pragma unroll
+      for (int k = 0; k < COLS; ++k) oc[k] = __ldg(o + col[k]);
+#pragma unroll
+      for (int k = 0; k < COLS; ++k) {
+        const int c = c0 + k * HELPERS;
+        if (c >= cols) break;
+        const float* src = xs + col[k];
+        // row 0 of z[p][.][j], c = p * m + j
+        float* dst = zg + (size_t)(c / m) * (R - 1) * m + c;
+#pragma unroll 4
+        for (int r = 0; r < b.rows; ++r)
+          dst[(size_t)r * m] = __fsub_rn(src[(size_t)r * D], oc[k]);
+      }
+    }
+  };
+  // (helpers) batch q's terms summed, a thread per (group, row), each in
+  // ordered_sum's order; after the tile's last batch, a thread per row adds
+  // its group sums in group order and writes the total
+  float* gs = reinterpret_cast<float*>(smem + lay.gs);
+  auto sum_terms = [&](int q) {
+    const Batch b = batch(q);
+    for (int i = h; i < b.pb * b.rows; i += HELPERS) {
+      const int p = i / b.rows, r = i - p * b.rows;
+      gs[(size_t)(b.g0 + p) * R + r] =
+          group_sum(buf(q) + ((size_t)p * R + r) * m, m, k_group);
+    }
+    if (!b.last) return;
+    named_barrier(2, HELPERS);
+    for (int r = h; r < b.rows; r += HELPERS) {
+      float total = 0.0f;
+      for (int g = 0; g < G; ++g)
+        total = __fadd_rn(total, gs[(size_t)g * R + r]);
+      out[(size_t)b.tile * R + r] = total;
+    }
+  };
+
+  // (helpers) batch q's z, from its tile's rows (waited for at the tile's
+  // first batch); after a tile's last batch's z, the next tile's rows come
+  // in, a batch ahead of their use
+  auto next_z = [&](int q) {
+    if (q % nb == 0)
+      wait_copy(bar_x, (q / nb) & 1);
+    build_z(q);
+    if (batch(q).last && q + 1 < batches) {
+      named_barrier(2, HELPERS);  // every helper has read the rows
+      stage_rows(q + 1);
+    }
+  };
+
+  // the first batch's rows, rotations and z
+  if (h >= 0) {
+    stage_rows(0);
+    if (h == HELPERS - 1) issue_ring(0);
+    ragged_ring(0);
+    named_barrier(2, HELPERS);  // the rows' ragged ends
+    next_z(0);
+  }
+  __syncthreads();
+  for (int q = 0; q < batches; ++q) {
+    if (h < 0) {
+      // compute warps: batch q's micro-tiles, a task per thread
+      const Batch b = batch(q);
+      const int rbk = (b.rows + RB - 1) / RB;
+      const int tasks = b.pb * rbk * quads;
+      float* zt = buf(q);
+      // batch q + 1's rotations go out now, a whole batch ahead of their
+      // use (a helper would issue them late: the compute warps leave the
+      // helpers few issue slots)
+      if (tid == 0 && q + 1 < batches) issue_ring(q + 1);
+      int zr[RB];
+      float acc[RB][KB];
+      const int quad = tid % quads, t2 = tid / quads;
+      const int rb = t2 % rbk, p = t2 / rbk, k0 = quad * KB;
+      if (tid < tasks) {
+        wait_copy(bar_m + (q & 1), (q >> 1) & 1);
+        const float* Mg = ring_span(q).dst + (size_t)p * mm;
+#pragma unroll
+        for (int i = 0; i < RB; ++i)
+          zr[i] = (p * R + min(rb * RB + i, b.rows - 1)) * m;
+        if (pairs)
+          rotate_pairs_shared<RB, KB>(acc, zt, zr, Mg, m, k0);
+        else
+          rotate_shared<RB, KB>(acc, zt, zr, Mg, m, k0);
+        // every term (those of repeated rows and columns too), so the
+        // compiler can interleave them
+#pragma unroll
+        for (int i = 0; i < RB; ++i)
+#pragma unroll
+          for (int c = 0; c < KB; ++c) acc[i][c] = rastrigin_term(acc[i][c]);
+      }
+      named_barrier(1, COMPUTE);  // z read: the terms take its place
+      if (tid < tasks) {
+#pragma unroll
+        for (int i = 0; i < RB; ++i)
+#pragma unroll
+          for (int c = 0; c < KB; ++c)
+            if (rb * RB + i < b.rows && k0 + c < m)
+              zt[(size_t)zr[i] + k0 + c] = acc[i][c];
+      }
+    } else {
+      // helpers: batch q + 1's rotations' ragged ends, batch q - 1's sums,
+      // then batch q + 1's z in place of those terms
+      if (q + 1 < batches) ragged_ring(q + 1);
+      if (q > 0) sum_terms(q - 1);
+      named_barrier(2, HELPERS);
+      if (q + 1 < batches) next_z(q + 1);
+    }
+    __syncthreads();
+  }
+  if (h >= 0) sum_terms(batches - 1);
 }
 
 }  // namespace
 
+extern "C" int f15_smem_bytes(int rows, int D, int m, int gpb) {
+  return (int)layout(rows, D, m, gpb).bytes;
+}
+
+// blocks of the F15 kernel an SM holds at `smem` bytes of shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on an error
+extern "C" int f15_blocks_per_sm(int smem) {
+  int dev = 0, optin = 0, blocks = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return -1;
+  if (cudaFuncSetAttribute(f15_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           optin) != cudaSuccess)
+    return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f15_kernel,
+                                                    THREADS, (size_t)smem) !=
+      cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// the card's SMs, shared memory per SM, per block (opt-in) and reserved
+// per block, into out[0..3]; 0 or a cudaError_t
+extern "C" int f15_device_limits(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const cudaDeviceAttr attrs[4] = {
+      cudaDevAttrMultiProcessorCount,
+      cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+      cudaDevAttrMaxSharedMemoryPerBlockOptin,
+      cudaDevAttrReservedSharedMemoryPerBlock};
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = cudaDeviceGetAttribute(out + i, attrs[i], dev);
+  return (int)err;
+}
+
 extern "C" int f15_launch(const void* pop, const void* o, const void* perm,
                           const void* M, void* out, int n_rows, int D, int m,
-                          int G, int k_group, void* stream) {
-  const size_t smem = f15_smem_bytes(D);
+                          int G, int k_group, int rows, int gpb, int blocks,
+                          void* stream) {
+  if (rows < 1 || rows > HELPERS || gpb < 1 || gpb > G || blocks < 1 ||
+      k_group < 1 || k_group > 32 ||
+      blocks > (n_rows + rows - 1) / rows ||
+      gpb * ((rows + RB - 1) / RB) * ((m + KB - 1) / KB) > COMPUTE)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = layout(rows, D, m, gpb).bytes;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         f15_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int blocks = (n_rows + ROWS - 1) / ROWS;
   f15_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)pop, (const float*)o, (const int*)perm, (const float*)M,
-      (float*)out, n_rows, D, m, G, k_group);
+      (float*)out, n_rows, D, m, G, k_group, rows, gpb);
   return (int)cudaGetLastError();
 }

@@ -86,6 +86,63 @@ def test_f15_kernel_bit_equal(card, n, dim, m):
     assert torch.equal(f15_k.f15(consts, x), f15_ref.f15(consts, x))
 
 
+# the trap kernel's edges: (n, n_traps, l, bytes the population starts off
+# a 16-byte boundary): one row, 64 and 65 traps (two rounds of 32 lanes),
+# rows of 65 bytes, and an (n, L) view of a flat buffer 3 bytes in
+@pytest.mark.parametrize("n,n_traps,l,offset", [
+    (1, 40, 4, 0), (2048, 64, 4, 0), (1000, 65, 4, 0), (1000, 13, 5, 0),
+    (333, 40, 4, 3), (77, 13, 5, 3)])
+def test_trap_kernel_edges_bit_equal(card, n, n_traps, l, offset):
+    g = torch.Generator().manual_seed(n + n_traps)
+    flat = (torch.rand(offset + n * n_traps * l, generator=g) < 0.6).to(
+        torch.int8).to(card)
+    pop = flat[offset:].view(n, n_traps * l)
+    assert pop.is_contiguous() and pop.data_ptr() % 16 == offset
+    got = trap_k.trap_fitness(dict(CONSTS, l=l), pop, n_traps=n_traps)
+    want = trap_ref.trap_fitness(pop, n_traps=n_traps, l=l, a=1.0, b=2.0,
+                                 z=3.0)
+    assert torch.equal(got, want)
+
+
+def _f15_edge(case, card):
+    """(n, dim, m) of an F15 kernel edge on this card: one row, 7, one
+    tile and one more row, a whole wave of tiles and one more row (D 1000,
+    m 50), odd and wide m, and a D so wide that a tile is one row."""
+    fig4 = f15_k.card_shape(10000, 1000, 50, card)
+    return {"n1": (1, 1000, 50), "n7": (7, 1000, 50),
+            "tile": (fig4.rows, 1000, 50), "tile+1": (fig4.rows + 1, 1000, 50),
+            "wave+1": (fig4.grid * fig4.rows + 1, 1000, 50),
+            "m7": (1000, 91, 7), "m13": (1000, 91, 13),
+            "m64": (1000, 1024, 64), "wide": (5, 40000, 50)}[case]
+
+
+@pytest.mark.parametrize("case", ["n1", "n7", "tile", "tile+1", "wave+1",
+                                  "m7", "m13", "m64", "wide"])
+def test_f15_kernel_edges_bit_equal(card, case):
+    n, dim, m = _f15_edge(case, card)
+    g = torch.Generator().manual_seed(n + dim + m)
+    consts = _f15_consts(dim, m, g, card)
+    x = (torch.rand(n, dim, generator=g) * 10 - 5).to(card)
+    if case == "wide":
+        assert f15_k.card_shape(n, dim, m, card).rows == 1
+    assert torch.equal(f15_k.f15(consts, x), f15_ref.f15(consts, x))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 5, 8, 16, 26, 38, 44])
+def test_f15_kernel_any_rows_per_tile_bit_equal(card, rows):
+    """Every tile height the builder's sweep tries gives the plain
+    version's bits; the kernel's shared memory is the wrapper's count."""
+    from repro_torch import _build
+    g = torch.Generator().manual_seed(rows)
+    consts = _f15_consts(1000, 50, g, card)
+    x = (torch.rand(3000, 1000, generator=g) * 10 - 5).to(card)
+    shape = f15_k.card_shape(3000, 1000, 50, card, rows=rows)
+    assert _build.library().f15_smem_bytes(rows, 1000, 50, shape.groups) \
+        == shape.smem
+    assert torch.equal(f15_k.launch(consts, x, shape),
+                       f15_ref.f15(consts, x))
+
+
 FLOAT_EVALS = {"none": None, "rastrigin": (("eval", "rastrigin"),),
                "sphere": (("eval", "sphere"),),
                "f15": (("eval", "f15"), ("m", 10), ("n_groups", 10))}

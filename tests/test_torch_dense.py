@@ -229,7 +229,7 @@ def test_caches_round_trip_through_numpy(arch):
     _, caches = model.prefill({"tokens": torch.from_numpy(
         _tokens(6, (2, 9))).long()}, max_seq=12)
     back = convert.caches_from_numpy(convert.caches_to_numpy(caches),
-                                     torch.bfloat16)
+                                     torch.bfloat16, "cpu")
     for key, val in caches[0][0].items():
         assert back[0][0][key].dtype == val.dtype
         assert torch.equal(back[0][0][key], val)

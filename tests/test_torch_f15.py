@@ -49,7 +49,7 @@ def _case(dim, group, n, shared=False):
     (64, 8, 1, False), (100, 10, 16, True)])
 def test_plain_matches_reference(dim, group, n, shared):
     consts, pop = _case(dim, group, n, shared)
-    got = t_ref.f15(convert.f15_consts_from_numpy(consts),
+    got = t_ref.f15(convert.f15_consts_from_numpy(consts, "cpu"),
                     torch.from_numpy(pop)).numpy()
     jc = {k: jnp.asarray(v) for k, v in consts.items()}
     for want in (j_f15_ops.f15(jc, jnp.asarray(pop)),
@@ -65,7 +65,7 @@ def test_plain_matches_reference_at_group_sizes_off_four(group, n_groups):
     micro-tiles (m = 7, 13, 50), with several groups."""
     dim = group * n_groups
     consts, pop = _case(dim, group, 9)
-    got = t_ref.f15(convert.f15_consts_from_numpy(consts),
+    got = t_ref.f15(convert.f15_consts_from_numpy(consts, "cpu"),
                     torch.from_numpy(pop)).numpy()
     jc = {k: jnp.asarray(v) for k, v in consts.items()}
     for want in (j_f15_ops.f15(jc, jnp.asarray(pop)),
@@ -76,7 +76,7 @@ def test_plain_matches_reference_at_group_sizes_off_four(group, n_groups):
 
 def test_wrapper_on_cpu_runs_the_plain_version_and_optimum_is_zero():
     consts, pop = _case(200, 20, 24)
-    tc = convert.f15_consts_from_numpy(consts)
+    tc = convert.f15_consts_from_numpy(consts, "cpu")
     x = torch.from_numpy(pop)
     assert torch.equal(t_f15.f15(tc, x), t_ref.f15(tc, x))
     at_o = t_f15.f15(tc, tc["o"][None, :].repeat(3, 1))
@@ -125,6 +125,54 @@ def test_make_f15_refuses_what_it_cannot_build():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make_f15()
+
+
+def _kernel_rows(n, shape):
+    """How often each row is written by the kernel's loop (csrc/f15.cu):
+    block b takes tiles b, b + grid, ... of ``shape.rows`` rows."""
+    tiles = -(-n // shape.rows)
+    seen = np.zeros(n, np.int64)
+    for b in range(shape.grid):
+        for t in range(b, tiles, shape.grid):
+            seen[t * shape.rows:(t + 1) * shape.rows] += 1
+    return seen
+
+
+@pytest.mark.parametrize("dim,m", [(14, 7), (91, 7), (91, 13), (200, 20),
+                                   (1000, 50), (1024, 64), (8000, 50)])
+@pytest.mark.parametrize("n", [1, 7, 100, 1000, 2048, 3433, 10000])
+def test_launch_shape_covers_every_row_once_in_whole_waves(n, dim, m):
+    """The launch shape on an H100's limits (132 SMs): every row in one
+    tile of one block, every group in one batch; the grid every tile, or as
+    many blocks as the card holds at once, each looping over tiles; the
+    block's shared memory within the card's."""
+    limits = t_f15.H100
+    shape = t_f15.launch_shape(n, dim, m, limits)
+    assert 1 <= shape.rows <= min(t_f15.HELPERS, n)
+    assert t_f15.tasks(shape.rows, m, shape.groups) <= t_f15.COMPUTE
+    assert 1 <= shape.groups <= dim // m
+    assert shape.smem == t_f15.smem_bytes(shape.rows, dim, m, shape.groups)
+    assert shape.smem <= limits.smem_per_block
+    per_sm = t_f15.blocks_per_sm(shape.smem, limits)
+    assert per_sm >= 1
+    tiles = -(-n // shape.rows)
+    assert shape.grid == min(tiles, limits.sms * per_sm)
+    np.testing.assert_array_equal(_kernel_rows(n, shape), 1)
+    batches = [list(range(g0, min(g0 + shape.groups, dim // m)))
+               for g0 in range(0, dim // m, shape.groups)]
+    assert sum(batches, []) == list(range(dim // m))
+
+
+def test_launch_shape_shrinks_to_one_row_and_raises_where_none_fits():
+    limits = t_f15.H100
+    assert t_f15.launch_shape(10, 40000, 50, limits).rows == 1
+    assert t_f15.shape_for_rows(10, 40000, 50, 1, limits).groups >= 1
+    with pytest.raises(ValueError, match="shared memory"):
+        t_f15.launch_shape(10, 60000, 50, limits)
+    with pytest.raises(ValueError, match="shared memory"):
+        t_f15.shape_for_rows(10000, 1000, 50, 64, limits)
+    with pytest.raises(ValueError, match="rows per tile"):
+        t_f15.shape_for_rows(10, 14, 7, t_f15.HELPERS + 1, limits)
 
 
 def _regen():

@@ -198,7 +198,8 @@ def test_plain_float_generation_matches_reference(selection, crossover,
     consts = f15_consts if fused == "f15" else None
     jc = None if consts is None else {k: jnp.asarray(v)
                                       for k, v in consts.items()}
-    tc = None if consts is None else convert.f15_consts_from_numpy(consts)
+    tc = None if consts is None else convert.f15_consts_from_numpy(
+        consts, "cpu")
     run = jax.jit(jax.vmap(lambda s, z, p, f: j_ref.generation(
         s, z.reshape(1), p, f, js, consts=jc)))
     want = run(jnp.asarray(seeds), jnp.asarray(sizes), jnp.asarray(pop),

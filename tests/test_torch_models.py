@@ -349,7 +349,7 @@ def test_caches_round_trip_through_numpy():
     _, caches = model.prefill({"tokens": torch.from_numpy(
         _tokens(6, (2, 9))).long()})
     back = convert.caches_from_numpy(
-        convert.caches_to_numpy(caches), torch.bfloat16)
+        convert.caches_to_numpy(caches), torch.bfloat16, "cpu")
     for key, val in caches[0][0].items():
         assert back[0][0][key].dtype == val.dtype
         assert torch.equal(back[0][0][key], val)

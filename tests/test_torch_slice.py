@@ -16,6 +16,7 @@ are held to 2e-6 and fitness to rtol 2e-4, atol 1e-3, the tolerances of
 """
 import ast
 import os
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -93,7 +94,7 @@ def test_run_fused_matches_reference(name, w2):
     problem = make_t()
     cfg = EAConfig(**CFG)
     mig = MigrationConfig(topology="pool")
-    state = convert.experiment_from_numpy(init)
+    state = convert.experiment_from_numpy(init, device="cpu")
 
     # the port's own init walks the same streams as the reference's
     own = island.init_islands(rand.split(rand.key(SEED), 2)[0], N_ISLANDS,
@@ -176,7 +177,7 @@ def test_float_run_fused_matches_reference(name):
     islands, pool, epochs, stats = run_fused(
         problem, cfg, mig, n_islands=N_ISLANDS, max_epochs=MAX_EPOCHS,
         w2=True, return_stats=True, device="cpu",
-        state=convert.experiment_from_numpy(init))
+        state=convert.experiment_from_numpy(init, device="cpu"))
     _assert_tree_close(convert.to_numpy(islands), j_isl, "islands")
     _assert_tree_close(convert.to_numpy(pool), j_pool_np, "pool")
     _assert_tree_close(convert.to_numpy(stats), j_stats, "stats")
@@ -191,6 +192,36 @@ def test_run_fused_without_device_needs_a_card():
                   n_islands=2, max_epochs=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         island.init_islands(rand.key(0), 2, make_onemax(8), EAConfig(**CFG))
+
+
+@pytest.mark.parametrize("helper", ["key", "f15_consts", "islands", "pool",
+                                    "experiment", "caches"])
+def test_convert_helpers_without_device_need_a_card(helper, monkeypatch):
+    """The ``*_from_numpy`` helpers resolve no device to the card, as every
+    entry point does, and raise where none is visible."""
+    isl = convert.to_numpy(island.init_islands(
+        rand.key(0), 2, make_onemax(8), EAConfig(**CFG), device="cpu"))
+    pool = SimpleNamespace(genomes=np.zeros((4, 8), np.int8),
+                           fitness=np.zeros(4, np.float32),
+                           ptr=np.int32(0), count=np.int32(0))
+    state = SimpleNamespace(islands=isl, pool=pool,
+                            key=np.zeros(2, np.uint32), epoch=np.int32(0),
+                            stopped=np.bool_(False), next_uuid=np.int32(2))
+    consts = {"o": np.zeros(8, np.float32), "perm": np.arange(8),
+              "M": np.eye(4, dtype=np.float32)[None].repeat(2, 0)}
+    fn, args = {
+        "key": (convert.key_from_numpy, (state.key,)),
+        "f15_consts": (convert.f15_consts_from_numpy, (consts,)),
+        "islands": (convert.islands_from_numpy, (isl,)),
+        "pool": (convert.pool_from_numpy, (pool,)),
+        "experiment": (convert.experiment_from_numpy, (state,)),
+        "caches": (convert.caches_from_numpy,
+                   ([({"wkv": np.zeros((1, 2, 2), np.float32)},)],
+                    torch.float32))}[helper]
+    fn(*args, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn(*args)
 
 
 def test_unported_paths_raise_naming_the_roadmap():

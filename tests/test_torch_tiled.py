@@ -102,7 +102,8 @@ def test_tiled_entry_matches_reference(kind, length, crossover, tile_pop,
                  torch.from_numpy(fit)[None], torch.tensor([pop_size]),
                  EAConfig(**cfg), tg, *extra,
                  consts=(None if consts is None
-                         else convert.f15_consts_from_numpy(consts)),
+                         else convert.f15_consts_from_numpy(consts,
+                                                              "cpu")),
                  **tiles)
     want = want if isinstance(want, tuple) else (want,)
     got = got if isinstance(got, tuple) else (got,)
@@ -285,7 +286,7 @@ def test_run_fused_pallas_tiled_matches_reference(tmp_path, monkeypatch):
         make_trap(40, 4), EAConfig(**cfg), MigrationConfig(topology="pool"),
         n_islands=N_ISLANDS, max_epochs=MAX_EPOCHS, w2=True,
         return_stats=True, device="cpu",
-        state=convert.experiment_from_numpy(init))
+        state=convert.experiment_from_numpy(init, device="cpu"))
     assert int(epochs) == int(j_epochs)
     for what, got, want in (
             ("islands", convert.to_numpy(islands), _jax_islands_np(j_isl)),

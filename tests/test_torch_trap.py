@@ -19,24 +19,33 @@ from repro_torch.kernels.trap import trap as t_trap
 CONSTS = {"a": 1.0, "b": 2.0, "z": 3.0, "l": 4}
 
 
-def _pop(n, n_traps, p, seed):
+def _pop(n, n_traps, p, seed, l=4):
     g = np.random.default_rng(seed)
-    return (g.random((n, n_traps * 4)) < p).astype(np.int8)
+    return (g.random((n, n_traps * l)) < p).astype(np.int8)
 
 
-@pytest.mark.parametrize("n,n_traps", [(256, 40), (100, 40), (37, 8),
-                                       (64, 50), (300, 33)])
-def test_plain_matches_reference(n, n_traps):
+# (n, n_traps, l); the first five keep their ids from when l was always 4;
+# 64 traps and 13 blocks of 5 are the trap kernel's edges on the card
+@pytest.mark.parametrize("n,n_traps,l", [
+    pytest.param(256, 40, 4, id="256-40"),
+    pytest.param(100, 40, 4, id="100-40"),
+    pytest.param(37, 8, 4, id="37-8"),
+    pytest.param(64, 50, 4, id="64-50"),
+    pytest.param(300, 33, 4, id="300-33"),
+    pytest.param(128, 64, 4, id="128-64"),
+    pytest.param(100, 13, 5, id="100-13-l5")])
+def test_plain_matches_reference(n, n_traps, l):
+    consts = dict(CONSTS, l=l)
     for seed, p in enumerate((0.5, 0.8, 0.95)):
-        pop = _pop(n, n_traps, p, seed)
-        got = t_ref.trap_fitness(torch.from_numpy(pop), n_traps=n_traps, l=4,
+        pop = _pop(n, n_traps, p, seed, l)
+        got = t_ref.trap_fitness(torch.from_numpy(pop), n_traps=n_traps, l=l,
                                  a=1.0, b=2.0, z=3.0).numpy()
         np.testing.assert_array_equal(
             got, np.asarray(j_trap_ref.trap_fitness(
-                jnp.asarray(pop), n_traps=n_traps, l=4, a=1.0, b=2.0,
+                jnp.asarray(pop), n_traps=n_traps, l=l, a=1.0, b=2.0,
                 z=3.0)))
         np.testing.assert_array_equal(
-            got, np.asarray(j_trap_fitness_ref(CONSTS, jnp.asarray(pop))))
+            got, np.asarray(j_trap_fitness_ref(consts, jnp.asarray(pop))))
 
 
 @pytest.mark.parametrize("n", [256, 100])
