@@ -15,9 +15,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    against its plain version (bit-equal) at (10000, 1000, m 50), Fig. 4's
    shape, at (1000, 1000, 50) and at (256, 200, 20); at its edges (n = 1,
    7, one tile, one tile + 1, a whole wave of tiles + 1; m = 7 and 13, the
-   scalar route; m = 64; D = 40,000, where a tile is one row); and at
-   every rows per tile that phase 6 sweeps, whose shared memory the kernel
-   and the wrapper must count alike;
+   scalar route; m = 64; D = 40,000, where a tile is one row); at the
+   shapes whose rows it cannot stage, one launch each, through the route
+   the wrapper picks (z gathered from device memory at D 60,000 and 51,950,
+   m 50, and at m 169; the sliced route at m 200, 500 and 1000, D 1000);
+   and at every rows per tile that phase 6 sweeps, whose shared memory the
+   kernel and the wrapper must count alike;
 3. the binary generation kernel against its plain version on the card,
    every selection x crossover x fused eval, at 8 islands of 256 x 160
    with pop_size drawn in [128, 256]; then at its edges (n not a multiple
@@ -73,8 +76,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    island batch and at Fig. 4's shape against ``bound_of`` and against the
    no-FMA contract's FP32 issue floor (its term's instructions counted in
    the kernel's SASS), its launch shape, the sweep of rows per tile at
-   Fig. 4's shape; trap at the main path's shape against its bound; the
-   ptxas report of both;
+   Fig. 4's shape, its gathered and sliced routes at 2048 rows (D 60,000;
+   m 200 and 1000) against ``bound_of`` and the plain version; trap at the
+   main path's shape against its bound; the ptxas report of both;
 7a. the WKV6 kernel through ``kernels/rwkv6/ops.wkv`` against both plain
    chunked versions (``wkv_chunked``, the reference's form, and
    ``wkv_subchunked``, the kernel's) and the sequential recurrence, with
@@ -95,20 +99,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 8a. the flash-attention kernels against their plain version
    (``kernels/flash_attention/ref.attention``): the five shapes of
    ``tests/test_kernels.py`` and the yi-9b serve shape (4, 2048, 32 heads
-   over 4, 128), in bf16 (the tensor-core kernel, ``flash_tc.cu``) and in
-   f32 (the CUDA-core kernel, ``flash.cu``); each kernel's time at the
-   serve shape in its dtype against its bound, the plain version's and
-   SDPA's (a yardstick the port never calls), with the tensor-core
-   kernel's build time and ptxas report;
+   over 4, 128), in bf16 (the bf16 tensor-core kernel, ``flash_tc.cu``)
+   and in f32 (the 3xTF32 tensor-core kernel, ``flash_3xtf32.cu``); the
+   f32 kernel also at its edges (non-causal, Sq > Sk, keys off its tiles,
+   MQA, strided views and views 4 bytes off 16); each kernel's time at the
+   serve shape in its dtype against its bound (the f32 kernel's in 3xTF32
+   on the TF32 tensor cores, beside the CUDA-core bound of f32
+   operations), the plain version's and SDPA's (a yardstick the port never
+   calls), with both kernels' build times and ptxas reports;
 8b. the dense path: yi-9b at its published size (48 layers, d 4096, GQA
    32 / 4, bf16, random weights from the seed) served by
    ``launch.serve.generate``: a prefill of 4 x 2048 tokens through the
    tensor-core flash kernel (one launch per layer, none in decode), 32
    greedy tokens; the prefill through the plain (q-chunked) attention must
    agree: each layer's attention output from the same bf16 input, an f32
-   twin of the whole model end to end (through the f32 kernel, one launch
-   per layer), and the bf16 model end to end within fixed limits; prefill
-   and decode rates, a device profile of each, peak memory;
+   twin of the whole model end to end (through the 3xTF32 kernel, one
+   launch per layer), and the bf16 model end to end within fixed limits;
+   prefill and decode rates, a device profile of each, peak memory;
 9. one JSON line with each kernel's launches, time, plain time and bound,
    then the last line: ``{"ok": true, "device": {...}}``.
 
@@ -172,6 +179,12 @@ F15_GENE_F32 = 8
 # the F15 kernel's rows per tile that phase 6 times at Fig. 4's shape (and
 # phase 2b holds bit-equal), beside the wrapper's choice
 F15_SWEEP_ROWS = (8, 16, 20, 26, 32, 38, 44)
+# phase 2b: (tag, n, D, m) of the F15 shapes whose rows the tiled route
+# cannot stage; phase 6 times those at n = 2048
+F15_ROUTE_CASES = (("gathered", 2048, 60000, 50), ("gathered", 7, 51950, 50),
+                   ("gathered m 169", 333, 1014, 169),
+                   ("sliced", 2048, 1000, 200), ("sliced", 2048, 1000, 1000),
+                   ("sliced", 1, 1000, 1000), ("sliced", 45, 1000, 500))
 TIMED_CALLS = 50
 # head start of the timed windows: the card spins this long while the host
 # enqueues the calls (the spin is counted in clock cycles; 2 GHz is above
@@ -220,6 +233,15 @@ TF32_OPS_PER_S = 495e12
 FLASH_CASES = [(1, 64, 4, 4, 16), (2, 96, 8, 2, 32), (1, 64, 4, 1, 16),
                (1, 50, 4, 2, 16), (2, 64, 6, 3, 64), (4, 2048, 32, 4, 128)]
 FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# phase 8a: the f32 kernel's edges, (B, Sq, Sk, H, Kv, hd, causal, view):
+# non-causal with keys off its 32-key tiles, Sq > Sk causal, MQA and GQA
+# 8:1 at hd 128, one q tile at hd 16, and views 4 bytes off 16
+FLASH_F32_EDGES = [(2, 200, 333, 4, 1, 128, False, "contiguous"),
+                   (1, 300, 130, 4, 2, 128, True, "contiguous"),
+                   (2, 256, 256, 8, 1, 128, True, "contiguous"),
+                   (2, 100, 100, 4, 2, 16, True, "contiguous"),
+                   (2, 150, 97, 8, 2, 32, True, "offset4"),
+                   (2, 150, 97, 8, 2, 32, False, "offset4")]
 # phase 8b: the yi-9b serve cell
 DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 4, 2048, 32
 # kernel route against plain route, relative L2, set before the first run
@@ -731,10 +753,12 @@ def main() -> int:
         diff = int((got != want).sum().item())
         if shape is None:
             shape = f15_k.card_shape(*x.shape, c["M"].shape[1], dev)
+        route = (f"sliced, {shape.cols} columns per slice" if shape.cols
+                 else f"{shape.groups} groups per batch"
+                 + (", z gathered" if shape.gather else ""))
         log(f"[f15] {tag} ({x.shape[0]}, {x.shape[1]}, m {c['M'].shape[1]}) "
-            f"{shape.rows} rows per tile, {shape.groups} groups per batch, "
-            f"grid {shape.grid}: bit-equal={diff == 0} differing rows={diff} "
-            f"max_abs_err={err}")
+            f"{shape.rows} rows per tile, {route}, grid {shape.grid}: "
+            f"bit-equal={diff == 0} differing rows={diff} max_abs_err={err}")
         if diff:
             fail(f"F15 kernel differs from its plain version at {tag} "
                  f"{tuple(x.shape)}: {diff} rows")
@@ -742,9 +766,14 @@ def main() -> int:
 
     # the shapes of the paths, then the kernel's edges: n of one row, 7,
     # one tile and one row more, a whole wave of tiles and one row more;
-    # odd m (the scalar route) and m = 64; a D so wide a tile is one row
+    # odd m (the scalar route) and m = 64; a D so wide a tile is one row;
+    # then the shapes whose rows it cannot stage, one launch each: z
+    # gathered from device memory (D 60,000 and 51,950 at m 50; m 169 at D
+    # 6 x 169) and the sliced route (m 200, 500 and 1000 at D 1000, m 1000
+    # in slices of 512 and 488; one row; a ragged last tile)
     fig4_shape = f15_k.card_shape(10000, 1000, 50, dev)
     f15_err = 0.0
+    f15_routes = {}
     for tag, rows_n, dim, m in (
             ("paths", 10000, 1000, 50), ("paths", 1000, 1000, 50),
             ("paths", 256, 200, 20), ("edge", 1, 1000, 50),
@@ -752,20 +781,39 @@ def main() -> int:
             ("one tile + 1", fig4_shape.rows + 1, 1000, 50),
             ("a wave + 1", fig4_shape.grid * fig4_shape.rows + 1, 1000, 50),
             ("odd m", 1000, 91, 7), ("odd m", 1000, 91, 13),
-            ("m 64", 1000, 1024, 64), ("wide", 5, 40000, 50)):
+            ("m 64", 1000, 1024, 64), ("wide", 5, 40000, 50)) \
+            + F15_ROUTE_CASES:
         c = f15_consts if (dim, m) == (1000, 50) else random_f15_consts(dim,
                                                                         m)
         x = (torch.rand(rows_n, dim, generator=gen) * 10 - 5).to(dev)
+        shape = f15_k.card_shape(rows_n, dim, m, dev)
+        before = kernels.LAUNCHES["f15"]
         err = f15_check(tag, c, x)
-        if tag == "wide" and f15_k.card_shape(rows_n, dim, m, dev).rows != 1:
+        if kernels.LAUNCHES["f15"] != before + 1:
+            fail(f"F15 at {tag} ({rows_n}, {dim}, m {m}): not one launch")
+        if tag == "wide" and shape.rows != 1:
             fail("F15 at D 40000: the tile is not one row")
+        if tag.startswith("gathered") != shape.gather \
+                or tag.startswith("sliced") != (shape.cols > 0):
+            fail(f"F15 at ({rows_n}, {dim}, m {m}) took another route than "
+                 f"{tag}: {shape}")
+        if tag.startswith(("gathered", "sliced")):
+            smem = _build.library().f15_smem_bytes(
+                shape.rows, dim, m, shape.groups, shape.cols,
+                int(shape.gather))
+            if smem != shape.smem:
+                fail(f"F15 {tag} shared memory: the kernel counts {smem} "
+                     f"bytes, the wrapper {shape.smem}")
+            if rows_n == 2048:
+                f15_routes[(dim, m)] = (c, x, shape)
         if rows_n == 10000:
             f15_err, f15_fig4 = err, (c, x)
     # every tile height phase 6 sweeps, at Fig. 4's shape, and the kernel's
     # shared memory against the wrapper's count
     for rows in F15_SWEEP_ROWS:
         shape = f15_k.card_shape(10000, 1000, 50, dev, rows=rows)
-        smem = _build.library().f15_smem_bytes(rows, 1000, 50, shape.groups)
+        smem = _build.library().f15_smem_bytes(rows, 1000, 50, shape.groups,
+                                               0, 0)
         if smem != shape.smem:
             fail(f"F15 shared memory: the kernel counts {smem} bytes, the "
                  f"wrapper {shape.smem}")
@@ -1574,6 +1622,20 @@ def main() -> int:
     log(f"[f15] the wrapper's choice {fig4_shape.rows} rows per tile: "
         f"{f15_turns[0] * 1e3:.2f} / {f15_turns[1] * 1e3:.2f} us, before "
         f"and after the sweep")
+    # the routes for rows the tiled route cannot stage, at the island
+    # batch's 2048 rows: z gathered (D 60,000), sliced (m 200 and 1000)
+    for (dim_r, m_r), (c, x, shape) in sorted(f15_routes.items()):
+        r_ms = event_ms(lambda: f15_k.f15(c, x), 10)
+        r_plain_ms = event_ms(lambda: f15_ref.f15(c, x), 1)
+        w_bytes, w_ops = f15_work(c, x.shape[0])
+        r_bound, r_by = bound_of(w_bytes, f32_ops=w_ops)
+        route = (f"sliced, {shape.cols} columns per slice" if shape.cols
+                 else f"z gathered, {shape.groups} groups per batch")
+        log(f"[f15] route at ({x.shape[0]}, {dim_r}, m {m_r}): {r_ms:.4f} "
+            f"ms, plain {r_plain_ms:.3f} ms, bound_of {r_bound:.4f} ms "
+            f"({r_by}, the FMA rate), {r_ms / r_bound:.1f} times it; "
+            f"{route}, {shape.rows} rows per tile, grid {shape.grid}, "
+            f"{shape.smem} B shared memory ({card})")
     log(f"[trap] at ({rows_n}, {length}): {trap_ms * 1e3:.3f} us, plain "
         f"{trap_plain_ms * 1e3:.1f} us, bound {trap_bound * 1e3:.4f} us "
         f"({trap_by}), {trap_ms / trap_bound:.1f} times it; "
@@ -1827,15 +1889,15 @@ def main() -> int:
     # ---- 8a: the flash-attention kernels against their plain version ----
     from repro_torch.kernels.flash_attention import flash_attention as fa_k
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    report = build_report("flash_tc.cu")
-    if report is None:
-        log("[flash] the kernel library was built before this run: no build "
-            "time or ptxas report")
-    else:
-        log(f"[flash] the bf16 kernel's build {report[0]} (the sources "
-            f"compile in parallel)")
+    for source in ("flash_tc.cu", "flash_3xtf32.cu"):
+        report = build_report(source)
+        if report is None:
+            log("[flash] the kernel library was built before this run: no "
+                "build time or ptxas report")
+            break
+        log(f"[flash] build {report[0]} (the sources compile in parallel)")
         for hd_, line in report[1]:
-            log(f"[flash] ptxas, flash_tc.cu at hd {hd_}: {line}")
+            log(f"[flash] ptxas, {source} at hd {hd_}: {line}")
     flash_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for (b, s, h, kv, hd), dtype in itertools.product(
             FLASH_CASES, (torch.float32, torch.bfloat16)):
@@ -1859,6 +1921,32 @@ def main() -> int:
             fail(f"flash kernel differs from its plain version at ({b}, {s}, "
                  f"{h}, {kv}, {hd}) {dtype}")
         flash_err[dtype] = max(flash_err[dtype], err)
+        if (b, s) == (4, 2048):
+            serve_qkv = (q, k, v)
+    # the f32 kernel's edges: (B, Sq, Sk, H, Kv, hd, causal, view)
+    for b, sq, sk, h, kv, hd, causal, view in FLASH_F32_EDGES:
+        q, k, v = (torch.randn(shape, generator=gen).to(dev)
+                   for shape in ((b, sq, h, hd + 1), (b, sk, kv, hd + 1),
+                                 (b, sk, kv, hd + 1)))
+        # "offset4": views of wider rows, 4 bytes off 16 with odd strides
+        # (the kernel's 4-byte loads); else contiguous tensors
+        q, k, v = ((a[..., 1:] if view == "offset4" else
+                    a[..., :hd].contiguous()) for a in (q, k, v))
+        got = fa_k.flash_attention_kernel(q, k, v, scale=hd ** -0.5,
+                                          causal=causal)
+        want = fa_ref.attention(q, k, v, causal=causal, scale=hd ** -0.5)
+        atol, rtol = FLASH_TOL["float32"]
+        err = (got - want).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got, want, atol=atol, rtol=rtol)
+        log(f"[flash] f32 edge ({b}, {sq}, {sk}, {h}, {kv}, {hd}) causal "
+            f"{causal} {view}: max_abs_err {err}; within atol {atol} rtol "
+            f"{rtol}: {ok}")
+        if not ok:
+            fail(f"the f32 flash kernel differs from its plain version at "
+                 f"({b}, {sq}, {sk}, {h}, {kv}, {hd}, {causal}, {view})")
+        flash_err[torch.float32] = max(flash_err[torch.float32], err)
+    q, k, v = serve_qkv
     # the serve shape (the last case): each kernel, the plain version and
     # SDPA on the same values, in bf16 and in f32
     f_scale = 1.0 / q.shape[-1] ** 0.5
@@ -1877,20 +1965,28 @@ def main() -> int:
         if dtype == torch.bfloat16:
             bound, by = bound_of(nbytes, bf16_ops=ops)
             what = "bf16, the tensor-core kernel (flash_tc.cu)"
+            also = ""
         else:
-            bound, by = bound_of(nbytes, f32_ops=ops)
-            what = "f32, the CUDA-core kernel (flash.cu)"
+            # three TF32 products for each f32-grade one
+            bound, by = bound_of(nbytes, tf32_ops=3 * ops)
+            what = ("f32, both products in 3xTF32 on the tensor cores "
+                    "(flash_3xtf32.cu)")
+            cc_bound, _ = bound_of(nbytes, f32_ops=ops)
+            also = (f"; the f32 CUDA cores' bound for the same work "
+                    f"{cc_bound:.4f} ms, the kernel {ms / cc_bound:.2f} "
+                    f"times it")
         flash[dtype] = dict(ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
                             bound=bound, by=by)
         log(f"[flash] at the serve shape {tuple(fq.shape)} q, "
             f"{tuple(fk.shape)} k and v, causal, {what}: {ms:.4f} ms per "
             f"call = {ops / ms / 1e9:.1f} TFLOP/s over the visible pairs; "
-            f"bound {bound:.4f} ms ({by}: {nbytes} B, {ops} ops), "
-            f"{ms / bound:.2f} times it; SDPA (is_causal, enable_gqa; never "
-            f"called by the port) {sdpa_ms:.4f} ms, the kernel "
-            f"{ms / sdpa_ms:.2f} times it; ref.attention {plain_ms:.3f} ms; "
-            f"{card}")
-    del q, k, v, got, want, fq, fk, fv, sq_, sk_, sv_
+            f"bound {bound:.4f} ms ({by}: {nbytes} B, {ops} ops"
+            f"{', x3 on the TF32 tensor cores' if also else ''}), "
+            f"{ms / bound:.2f} times it{also}; SDPA (is_causal, enable_gqa, "
+            f"in {str(dtype).split('.')[-1]}; never called by the port) "
+            f"{sdpa_ms:.4f} ms, the kernel {ms / sdpa_ms:.2f} times it; "
+            f"ref.attention {plain_ms:.3f} ms; {card}")
+    del q, k, v, got, want, fq, fk, fv, sq_, sk_, sv_, serve_qkv
 
     # ---- 8b: yi-9b served at full size -----------------------------------
     d_cfg = get_config("yi-9b")
@@ -1996,13 +2092,25 @@ def main() -> int:
         for p16, p32 in zip(dense.parameters(), twin.parameters()):
             p32.copy_(p16.float())
     kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     tw_k, _ = make_prefill_step(twin, use_flash=True)({"tokens": d_prompts})
     torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t) * 1e3
     f32_launches = kernels.LAUNCHES["flash_attention"]
     if f32_launches != d_cfg.n_layers:
         fail(f"the f32 twin's prefill should launch the flash kernel once "
              f"per layer: {f32_launches}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     tw_p, _ = make_prefill_step(twin)({"tokens": d_prompts})
+    torch.cuda.synchronize()
+    twin_plain_ms = (time.perf_counter() - t) * 1e3
+    log(f"[dense] the f32 twin's prefill ({DENSE_BATCH} x {DENSE_PROMPT}, "
+        f"its first): {twin_ms:.1f} ms through the 3xTF32 flash kernel "
+        f"({f32_launches} launches, {flash[torch.float32]['ms']:.4f} ms "
+        f"each at the serve shape in 8a), {twin_plain_ms:.1f} ms through "
+        f"the plain (q-chunked) attention ({card})")
     d_f32 = rel_l2(tw_k, tw_p)
     d_bf16_f32 = rel_l2(d_logits_p, tw_p)
     log(f"[dense] layer by layer from the same input (bf16): each layer's "
@@ -2086,7 +2194,8 @@ def main() -> int:
          "bound_by": flash[torch.bfloat16]["by"],
          "library_ms": flash[torch.bfloat16]["sdpa_ms"]},
         {"name": "flash_attention_f32", "route": "cuda",
-         "source": "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+         "source":
+             "src/repro_torch/kernels/flash_attention/csrc/flash_3xtf32.cu",
          "replaces":
              "src/repro/kernels/flash_attention/flash_attention.py:74",
          "launches": f32_launches,
@@ -2110,8 +2219,9 @@ def main() -> int:
         f"launches from one rwkv6-3b prefill (7b); "
         f"flash_attention (4, 2048, 32 over 4, 128) bf16 causal, launches "
         f"from one yi-9b prefill (8b), library_ms SDPA; flash_attention_f32 "
-        f"the same in f32, launches from the f32 twin's prefill (8b), "
-        f"library_ms SDPA in f32; "
+        f"the same in f32 (3xTF32), launches from the f32 twin's prefill "
+        f"(8b), bound in 3xTF32 on the TF32 tensor cores, library_ms SDPA "
+        f"in f32; "
         f"card {card}")
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {

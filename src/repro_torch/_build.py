@@ -61,12 +61,13 @@ SIGNATURES: Dict[str, List] = {
     # n, L, elite, rows
     "generation_float_smem_bytes": [_I, _I, _I, _I],
     # pop, o, perm, M, out, n_rows, D, m, G, k_group, rows, groups per
-    # batch, blocks, stream
-    "f15_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # rows, D, m, groups per batch
-    "f15_smem_bytes": [_I, _I, _I, _I],
-    # shared memory bytes
-    "f15_blocks_per_sm": [_I],
+    # batch, columns per slice (0: the tiled route), gather, blocks, stream
+    "f15_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _P],
+    # rows, D, m, groups per batch, columns per slice, gather
+    "f15_smem_bytes": [_I, _I, _I, _I, _I, _I],
+    # shared memory bytes, columns per slice, gather
+    "f15_blocks_per_sm": [_I, _I, _I],
     # out: int[4] (SMs, shared memory per SM, per block, reserved per block)
     "f15_device_limits": [_P],
     # fitness, pop_size, cum, n_islands, n, stream
@@ -91,11 +92,11 @@ SIGNATURES: Dict[str, List] = {
     "wkv_f32_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _P, _P],
     # q, k, v, o, B, H, Kv, Sq, Sk, hd, the strides of q, k and v (batch,
-    # seq, head), scale, causal, stream: the f32 kernel (flash.cu) and the
-    # bf16 tensor-core kernel (flash_tc.cu)
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _I, _P],
+    # seq, head), scale, causal, stream: the f32 kernel (flash_3xtf32.cu)
+    # and the bf16 kernel (flash_tc.cu)
+    "flash_attention_f32_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                   _F, _I, _P],
     "flash_attention_tc_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                   _F, _I, _P],

@@ -4,8 +4,8 @@
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py
 // ::flash_attention_kernel (the Pallas body _flash_kernel), reached through
 // kernels/flash_attention/ops.py::flash_attention from every layer of
-// Model.prefill(use_flash=True) (models/attention.py::attend). flash.cu is
-// the f32 route of the same wrapper.
+// Model.prefill(use_flash=True) (models/attention.py::attend).
+// flash_3xtf32.cu is the f32 route of the same wrapper.
 //
 // Per query row, over the key tiles: s = (q . k) * scale, masked where kpos
 // > qpos (causal) or kpos >= Sk; m_new = max(m, max s); p = exp(s - m_new);

@@ -12,8 +12,11 @@ transposes and no padding. The query head h reads KV head h // (H / Kv).
   tiles down from the causal frontier. TMA takes a base address and
   batch, sequence and head strides that are multiples of 16 bytes; the
   wrapper refuses others.
-- f32: ``csrc/flash.cu``, on the CUDA cores, 64-row q tiles over 64-key
-  tiles.
+- f32: ``csrc/flash_3xtf32.cu``, both products on the tensor cores in
+  3xTF32 (mma.sync; each operand split into tf32 hi and lo parts, f32
+  sums: f32 grade, never plain TF32), 128-row q tiles over 32-key tiles.
+  It takes any view whose last dim is contiguous (16-byte loads where the
+  base and strides allow, 4-byte ones otherwise).
 
 Neither falls back to the other or to the plain version.
 """
@@ -78,7 +81,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     """q (B, Sq, H, hd), k and v (B, Sk, Kv, hd), f32 or bf16 with the last
     dim contiguous, on one device -> (B, Sq, H, hd) in q's dtype. The
     causal mask is qpos >= kpos with both counted from 0. bf16 launches
-    the tensor-core kernel, f32 the CUDA-core one."""
+    the bf16 tensor-core kernel, f32 the 3xTF32 one."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return _ref.attention(q, k, v, causal=causal, scale=scale)
@@ -89,7 +92,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     o = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
     lib = _build.library()
     launch = (lib.flash_attention_tc_launch if q.dtype == torch.bfloat16
-              else lib.flash_attention_launch)
+              else lib.flash_attention_f32_launch)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(

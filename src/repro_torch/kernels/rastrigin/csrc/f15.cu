@@ -42,6 +42,11 @@
 //   after a tile's last z, bring the next tile's rows in, a batch ahead;
 //   after a tile's last batch a thread per row adds its group sums in group
 //   order.
+// Where no row fits shared memory beside the ring (D above 51,900 at m 50),
+// the rows are not staged: the helpers gather z from device memory (the
+// `gather` launch), and everything else stays as it is. Where not even two
+// rotations fit the ring (m above 169), the sliced route below runs
+// instead.
 // The arithmetic is f15_rows.cuh's (rotate_step, rotate_pair_step,
 // rastrigin_term, ordered_sum's order), so kernel and plain version
 // (kernels/rastrigin/ref.py) agree bit for bit. No padding: the TPU padded
@@ -68,19 +73,21 @@ __host__ __device__ inline size_t align16(size_t x) {
 
 // A block's shared memory, in bytes from its start: three mbarriers (the
 // rows, the ring's two halves), the rows (rows * D f32 and 16 bytes for
-// their offset), the ring (two halves of gpb * m * m f32 and 16 bytes), two
-// buffers of rows * gpb * m f32, each a batch's z and then its terms, and
-// the tile's group sums (rows * D / m f32).
+// their offset; none where z is gathered from device memory), the ring (two
+// halves of gpb * m * m f32 and 16 bytes), two buffers of rows * gpb * m
+// f32, each a batch's z and then its terms, and the tile's group sums
+// (rows * D / m f32).
 // kernels/rastrigin/f15.py::smem_bytes computes the same total.
 struct Layout {
   size_t xs, half, ring, buf, gs, bytes;
 };
 
-__host__ __device__ inline Layout layout(int rows, int D, int m, int gpb) {
+__host__ __device__ inline Layout layout(int rows, int D, int m, int gpb,
+                                         bool gather) {
   Layout l;
   size_t off = 32;
   l.xs = off;
-  off += align16((size_t)rows * D * 4 + 16);
+  if (!gather) off += align16((size_t)rows * D * 4 + 16);
   l.half = align16((size_t)gpb * m * m * 4 + 16);
   l.ring = off;
   off += 2 * l.half;
@@ -209,13 +216,17 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
+// GATHER: z gathered from device memory, no rows staged (a template
+// argument, so that the staged instance reads its rows from shared memory
+// by shared-memory loads)
+template <bool GATHER>
 __global__ void __launch_bounds__(THREADS)
 f15_kernel(const float* __restrict__ pop, const float* __restrict__ o,
            const int* __restrict__ perm, const float* __restrict__ M,
            float* __restrict__ out, int n_rows, int D, int m, int G,
            int k_group, int R, int gpb) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay = layout(R, D, m, gpb);
+  const Layout lay = layout(R, D, m, gpb, GATHER);
   uint64_t* bar_x = reinterpret_cast<uint64_t*>(smem);
   uint64_t* bar_m = bar_x + 1;  // the ring's two halves
   unsigned char* ring = smem + lay.ring;
@@ -277,48 +288,87 @@ f15_kernel(const float* __restrict__ pop, const float* __restrict__ o,
   auto ragged_ring = [&](int q) {
     if (h < 6) span_ragged(ring_span(q), h);
   };
-  // (helpers) batch q's tile's rows into xs
-  float* xs = nullptr;
+  // (helpers) batch q's tile's rows into xs (none where z is gathered)
+  const float* xs = nullptr;
   auto stage_rows = [&](int q) {
-    const Batch b = batch(q);
-    const Span s = span_of(smem + lay.xs, pop + (size_t)b.tile * R * D,
-                           (size_t)b.rows * D);
-    if (h == HELPERS - 1) {
-      hopper::mbar_expect_tx(bar_x, s.body);
-      if (s.body)
-        hopper::bulk_copy(s.dst + s.head, s.src + s.head, s.body, bar_x);
+    if constexpr (!GATHER) {
+      const Batch b = batch(q);
+      const Span s = span_of(smem + lay.xs, pop + (size_t)b.tile * R * D,
+                             (size_t)b.rows * D);
+      if (h == HELPERS - 1) {
+        hopper::mbar_expect_tx(bar_x, s.body);
+        if (s.body)
+          hopper::bulk_copy(s.dst + s.head, s.src + s.head, s.body, bar_x);
+      }
+      if (h >= 0 && h < 6) span_ragged(s, h);
+      xs = s.dst;
     }
-    if (h >= 0 && h < 6) span_ragged(s, h);
-    xs = s.dst;
   };
-  // (helpers) batch q's z = x[perm] - o from the staged rows, a thread per
-  // column of the batch, down the rows; four columns' indices and shifts
-  // loaded at once
+  // (helpers) batch q's z = x[perm] - o: from the staged rows, a thread per
+  // column of the batch, down the rows, four columns' indices and shifts
+  // loaded at once; or gathered from device memory
   constexpr int COLS = 4;
   auto build_z = [&](int q) {
     const Batch b = batch(q);
     const int cols = b.pb * m;
     float* zg = buf(q);
-    for (int c0 = h; c0 < cols; c0 += COLS * HELPERS) {
-      int col[COLS];
-      float oc[COLS];
+    if constexpr (GATHER) {
+      // from device memory: a thread per column, as below, each column's
+      // index and shift loaded once, then 8 rows of its columns at a time
+      // (32 loads in flight)
+      constexpr int GR = 8;
+      const float* x0 = pop + (size_t)b.tile * R * D;
+      for (int c0 = h; c0 < cols; c0 += COLS * HELPERS) {
+        int col[COLS];
+        float oc[COLS];
 #pragma unroll
-      for (int k = 0; k < COLS; ++k) {
-        const int c = min(c0 + k * HELPERS, cols - 1);
-        col[k] = __ldg(perm + (size_t)b.g0 * m + c);
+        for (int k = 0; k < COLS; ++k) {
+          const int c = min(c0 + k * HELPERS, cols - 1);
+          col[k] = __ldg(perm + (size_t)b.g0 * m + c);
+        }
+#pragma unroll
+        for (int k = 0; k < COLS; ++k) oc[k] = __ldg(o + col[k]);
+        for (int r0 = 0; r0 < b.rows; r0 += GR) {
+          float v[GR][COLS];
+#pragma unroll
+          for (int i = 0; i < GR; ++i)
+#pragma unroll
+            for (int k = 0; k < COLS; ++k)
+              v[i][k] = __ldg(x0 + (size_t)min(r0 + i, b.rows - 1) * D +
+                              col[k]);
+#pragma unroll
+          for (int k = 0; k < COLS; ++k) {
+            const int c = c0 + k * HELPERS;
+            float* dst = zg + (size_t)(c / m) * (R - 1) * m + c;
+#pragma unroll
+            for (int i = 0; i < GR; ++i)
+              if (c < cols && r0 + i < b.rows)
+                dst[(size_t)(r0 + i) * m] = __fsub_rn(v[i][k], oc[k]);
+          }
+        }
       }
+    } else {
+      for (int c0 = h; c0 < cols; c0 += COLS * HELPERS) {
+        int col[COLS];
+        float oc[COLS];
 #pragma unroll
-      for (int k = 0; k < COLS; ++k) oc[k] = __ldg(o + col[k]);
+        for (int k = 0; k < COLS; ++k) {
+          const int c = min(c0 + k * HELPERS, cols - 1);
+          col[k] = __ldg(perm + (size_t)b.g0 * m + c);
+        }
 #pragma unroll
-      for (int k = 0; k < COLS; ++k) {
-        const int c = c0 + k * HELPERS;
-        if (c >= cols) break;
-        const float* src = xs + col[k];
-        // row 0 of z[p][.][j], c = p * m + j
-        float* dst = zg + (size_t)(c / m) * (R - 1) * m + c;
+        for (int k = 0; k < COLS; ++k) oc[k] = __ldg(o + col[k]);
+#pragma unroll
+        for (int k = 0; k < COLS; ++k) {
+          const int c = c0 + k * HELPERS;
+          if (c >= cols) break;
+          const float* src = xs + col[k];
+          // row 0 of z[p][.][j], c = p * m + j
+          float* dst = zg + (size_t)(c / m) * (R - 1) * m + c;
 #pragma unroll 4
-        for (int r = 0; r < b.rows; ++r)
-          dst[(size_t)r * m] = __fsub_rn(src[(size_t)r * D], oc[k]);
+          for (int r = 0; r < b.rows; ++r)
+            dst[(size_t)r * m] = __fsub_rn(src[(size_t)r * D], oc[k]);
+        }
       }
     }
   };
@@ -347,7 +397,7 @@ f15_kernel(const float* __restrict__ pop, const float* __restrict__ o,
   // first batch); after a tile's last batch's z, the next tile's rows come
   // in, a batch ahead of their use
   auto next_z = [&](int q) {
-    if (q % nb == 0)
+    if (!GATHER && q % nb == 0)
       wait_copy(bar_x, (q / nb) & 1);
     build_z(q);
     if (batch(q).last && q + 1 < batches) {
@@ -419,26 +469,174 @@ f15_kernel(const float* __restrict__ pop, const float* __restrict__ o,
   if (h >= 0) sum_terms(batches - 1);
 }
 
-}  // namespace
+// ---- the sliced route: any m and any D --------------------------------------
+// f15_kernel holds two batches of whole rotations in shared memory, so it
+// takes no m above 169 (two rotations of 115 KB fill the ring), no D whose
+// group sums and buffers do not fit beside them even with z gathered, and
+// no m above 1536 (a group's micro-tiles outnumber its compute threads).
+// This route takes every (n, D, m): a block of SLICED_THREADS loops over
+// tiles of R rows; for each group in order, each slice of C columns of its
+// rotation (C a multiple of ordered_sum's group, or m), and each chunk of
+// SLICE_J rows of M, it
+// gathers z = x[perm] - o of the chunk from device memory and stages M's
+// J x C block, and each thread carries its micro-tile's sums in registers
+// across the chunks, j in order. After a slice, its terms go to shared
+// memory and one thread per row adds them, in ordered_sum's groups, to its
+// group's sum; after a group, the group's sum to the row's total. So the
+// roundings and their order are those of the plain version, and shared
+// memory stays under 150 KB at any shape (R x C <= 4096; the launch model,
+// kernels/rastrigin/f15.py::sliced_shape, picks R and C).
+constexpr int SLICED_THREADS = 256;
+constexpr int SLICE_J = 32;
+static_assert(KB == 4, "a micro-tile's columns are one float4 of M's block");
+constexpr int ZP = SLICE_J + 1;  // pitch of z: a micro-tile's rows on
+                                 // distinct banks
 
-extern "C" int f15_smem_bytes(int rows, int D, int m, int gpb) {
-  return (int)layout(rows, D, m, gpb).bytes;
+// pitch of M's block: C rounded up to whole micro-tile columns (16-byte rows)
+__host__ __device__ inline int sliced_pitch(int C) { return (C + 3) & ~3; }
+
+// bytes of the sliced route's shared memory: z (R x ZP), M's block
+// (J x pitch), the slice's terms (R x (C + 1)); R a multiple of RB
+// kernels/rastrigin/f15.py::sliced_smem_bytes computes the same total.
+__host__ __device__ inline size_t sliced_bytes(int R, int C) {
+  return 4 * ((size_t)R * ZP + (size_t)SLICE_J * sliced_pitch(C) +
+              (size_t)R * (C + 1));
 }
 
-// blocks of the F15 kernel an SM holds at `smem` bytes of shared memory
+// row jj of M's staged block at this thread's KB columns from k0, one
+// 16-byte load
+__device__ __forceinline__ void m_row(float (&mj)[KB], const float* ms,
+                                      int jj, int CP, int k0) {
+  const float4 v = *reinterpret_cast<const float4*>(ms + jj * CP + k0);
+  mj[0] = v.x;
+  mj[1] = v.y;
+  mj[2] = v.z;
+  mj[3] = v.w;
+}
+
+__global__ void __launch_bounds__(SLICED_THREADS)
+f15_sliced_kernel(const float* __restrict__ pop, const float* __restrict__ o,
+                  const int* __restrict__ perm, const float* __restrict__ M,
+                  float* __restrict__ out, int n_rows, int D, int m, int G,
+                  int k_group, int R, int C) {
+  extern __shared__ __align__(16) float fs[];
+  const int CP = sliced_pitch(C);
+  float* zs = fs;                     // [R][ZP]
+  float* ms = zs + (size_t)R * ZP;    // [SLICE_J][CP]
+  float* ts = ms + (size_t)SLICE_J * CP;  // [R][C + 1]
+  const int tid = threadIdx.x;
+  const int tiles = (n_rows + R - 1) / R;
+  const int rbk = R / RB;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * R, rows = min(R, n_rows - row0);
+    float total = 0.0f, gsum = 0.0f;  // thread r < rows: row r's sums
+    for (int g = 0; g < G; ++g) {
+      const int* pg = perm + (size_t)g * m;
+      const float* Mg = M + (size_t)g * m * m;
+      for (int c0 = 0; c0 < m; c0 += C) {
+        const int cs = min(C, m - c0);
+        const int quads = (cs + KB - 1) / KB;
+        const bool active = tid < rbk * quads;
+        const int rb = tid / quads, k0 = (tid - rb * quads) * KB;
+        int zr[RB];
+#pragma unroll
+        for (int i = 0; i < RB; ++i) zr[i] = (rb * RB + i) * ZP;
+        float acc[RB][KB];
+        for (int j0 = 0; j0 < m; j0 += SLICE_J) {
+          const int jn = min(SLICE_J, m - j0);
+          __syncthreads();  // the last chunk's z and M, the last terms, read
+          // z of the chunk (rows past the tile's as 0), then M's block
+          // (columns past the slice as 0)
+          for (int i = tid; i < R * SLICE_J; i += SLICED_THREADS) {
+            const int r = i / SLICE_J, jj = i - r * SLICE_J;
+            float z = 0.0f;
+            if (r < rows && jj < jn) {
+              const int col = __ldg(pg + j0 + jj);
+              z = __fsub_rn(__ldg(pop + (size_t)(row0 + r) * D + col),
+                            __ldg(o + col));
+            }
+            zs[r * ZP + jj] = z;
+          }
+          for (int i = tid; i < jn * CP; i += SLICED_THREADS) {
+            const int jj = i / CP, c = i - jj * CP;
+            ms[i] = c < cs ? __ldg(Mg + (size_t)(j0 + jj) * m + c0 + c)
+                           : 0.0f;
+          }
+          __syncthreads();
+          if (active) {
+            float mj[KB];
+            int jj = 0;
+            if (j0 == 0) {
+              m_row(mj, ms, 0, CP, k0);
+              rotate_step<true>(acc, zs, zr, 0, mj);
+              jj = 1;
+            }
+            for (; jj < jn; ++jj) {
+              m_row(mj, ms, jj, CP, k0);
+              rotate_step<false>(acc, zs, zr, jj, mj);
+            }
+          }
+        }
+        if (active) {
+#pragma unroll
+          for (int i = 0; i < RB; ++i)
+#pragma unroll
+            for (int c = 0; c < KB; ++c)
+              if (rb * RB + i < rows && k0 + c < cs)
+                ts[(rb * RB + i) * (C + 1) + k0 + c] =
+                    rastrigin_term(acc[i][c]);
+        }
+        __syncthreads();
+        // the slice starts one of ordered_sum's groups: add its groups'
+        // sums in order to the row's group sum
+        if (tid < rows) {
+          const float* t = ts + tid * (C + 1);
+          for (int a = 0; a < cs; a += k_group) {
+            const int e = min(a + k_group, cs);
+            float part = 0.0f;
+            for (int i = a; i < e; ++i) part = __fadd_rn(part, t[i]);
+            gsum = __fadd_rn(gsum, part);
+          }
+        }
+      }
+      if (tid < rows) {
+        total = __fadd_rn(total, gsum);
+        gsum = 0.0f;
+      }
+    }
+    if (tid < rows) out[row0 + tid] = total;
+  }
+}
+
+}  // namespace
+
+// bytes of shared memory of a block: the tiled route at rows, gpb (cols 0;
+// gather 1 where z is gathered from device memory) or the sliced route at
+// rows, cols
+extern "C" int f15_smem_bytes(int rows, int D, int m, int gpb, int cols,
+                              int gather) {
+  return cols > 0 ? (int)sliced_bytes(rows, cols)
+                  : (int)layout(rows, D, m, gpb, gather).bytes;
+}
+
+// blocks of the F15 kernel (cols 0: the tiled route's, staged or gathered,
+// else the sliced route's) an SM holds at `smem` bytes of shared memory
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on an error
-extern "C" int f15_blocks_per_sm(int smem) {
+extern "C" int f15_blocks_per_sm(int smem, int cols, int gather) {
   int dev = 0, optin = 0, blocks = 0;
+  const void* fn = cols > 0 ? (const void*)f15_sliced_kernel
+                   : gather ? (const void*)f15_kernel<true>
+                            : (const void*)f15_kernel<false>;
+  const int threads = cols > 0 ? SLICED_THREADS : THREADS;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              dev) != cudaSuccess)
     return -1;
-  if (cudaFuncSetAttribute(f15_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            optin) != cudaSuccess)
     return -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f15_kernel,
-                                                    THREADS, (size_t)smem) !=
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads,
+                                                    (size_t)smem) !=
       cudaSuccess)
     return -1;
   return blocks;
@@ -459,22 +657,45 @@ extern "C" int f15_device_limits(int* out) {
   return (int)err;
 }
 
+// The tiled route (cols 0: tiles of `rows` rows, batches of `gpb` groups,
+// the rows staged in shared memory or, gather 1, z gathered from device
+// memory) or the sliced route (cols > 0: tiles of `rows` rows, a multiple of
+// 4, slices of `cols` columns, a multiple of k_group or m, rows * cols <=
+// 4096), `blocks` blocks looping over the tiles.
 extern "C" int f15_launch(const void* pop, const void* o, const void* perm,
                           const void* M, void* out, int n_rows, int D, int m,
-                          int G, int k_group, int rows, int gpb, int blocks,
-                          void* stream) {
-  if (rows < 1 || rows > HELPERS || gpb < 1 || gpb > G || blocks < 1 ||
-      k_group < 1 || k_group > 32 ||
-      blocks > (n_rows + rows - 1) / rows ||
+                          int G, int k_group, int rows, int gpb, int cols,
+                          int gather, int blocks, void* stream) {
+  if (blocks < 1 || k_group < 1 || k_group > 32 || rows < 1 ||
+      blocks > (n_rows + rows - 1) / rows)
+    return (int)cudaErrorInvalidValue;
+  if (cols > 0) {
+    if (rows % RB || cols > m || (cols < m && cols % k_group) ||
+        (rows / RB) * ((cols + KB - 1) / KB) > SLICED_THREADS)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = sliced_bytes(rows, cols);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          f15_sliced_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    f15_sliced_kernel<<<blocks, SLICED_THREADS, smem, (cudaStream_t)stream>>>(
+        (const float*)pop, (const float*)o, (const int*)perm, (const float*)M,
+        (float*)out, n_rows, D, m, G, k_group, rows, cols);
+    return (int)cudaGetLastError();
+  }
+  if (rows > HELPERS || gpb < 1 || gpb > G ||
       gpb * ((rows + RB - 1) / RB) * ((m + KB - 1) / KB) > COMPUTE)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = layout(rows, D, m, gpb).bytes;
+  const size_t smem = layout(rows, D, m, gpb, gather != 0).bytes;
+  auto kernel = gather ? f15_kernel<true> : f15_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        f15_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  f15_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)pop, (const float*)o, (const int*)perm, (const float*)M,
       (float*)out, n_rows, D, m, G, k_group, rows, gpb);
   return (int)cudaGetLastError();

@@ -9,8 +9,14 @@ takes the population as it is.
 
 The kernel (``csrc/f15.cu``) takes tiles of ``rows`` rows and the groups
 in batches of ``groups``, and loops over the tiles with ``grid`` blocks.
-:func:`launch_shape` picks them, a plain function of the shape and the
-card's limits (:class:`Limits`), so the CPU tests can check it; on the card
+Where not even one row fits its shared memory beside the rotations (D
+above 51,900 at m 50), its helpers gather z from device memory instead
+(``gather``). Where two rotations do not fit (m above 169), or a group's
+micro-tiles outnumber its compute threads (m above 1536), it runs its
+sliced route: each rotation in slices of ``cols`` columns, z gathered
+from device memory, any (n, D, m). :func:`launch_shape` picks
+the route and the shape, a plain function of the shape and the card's
+limits (:class:`Limits`), so the CPU tests can check it; on the card
 :func:`card_shape` feeds it the card's limits and sets the grid from the
 occupancy the runtime reports.
 """
@@ -40,6 +46,14 @@ LANES_PER_ROUND = 128
 # warps' term stores; the helpers' sums and gather overlap the rounds), in
 # rounds
 BATCH_ROUNDS = 0.15
+# csrc/f15.cu's sliced route: threads of a block (a thread takes at most
+# one micro-tile of a slice, so rows x cols <= 4096), rows of M staged per
+# chunk, the pitch of z, and the blocks an SM holds by threads
+SLICED_THREADS = 256
+SLICE_J = 32
+SLICE_ZP = SLICE_J + 1
+SLICED_BLOCKS_PER_SM = 2048 // SLICED_THREADS
+SLICED_ROWS = (64, 32, 16, 8, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,25 +76,55 @@ H100 = Limits(132, 233472, 232448, 1024, 1)
 
 @dataclasses.dataclass(frozen=True)
 class Shape:
-    rows: int    # rows per tile
-    groups: int  # groups per batch
-    grid: int    # blocks, each looping over tiles
-    smem: int    # shared memory per block, bytes
+    rows: int      # rows per tile
+    groups: int    # groups per batch (the sliced route: 1)
+    grid: int      # blocks, each looping over tiles
+    smem: int      # shared memory per block, bytes
+    cols: int = 0  # columns per slice on the sliced route; 0: tiled route
+    gather: bool = False  # tiled route: z gathered from device memory
 
 
 def _align16(x: int) -> int:
     return (x + 15) & ~15
 
 
-def smem_bytes(rows: int, dim: int, m: int, groups: int) -> int:
+def smem_bytes(rows: int, dim: int, m: int, groups: int,
+               gather: bool = False) -> int:
     """Shared memory of a block (``csrc/f15.cu::layout``): three mbarriers,
-    the rows (and 16 bytes for their offset), a ring of two halves of
-    groups rotations, two buffers of rows x groups x m f32 (a batch's z,
-    then its terms), the tile's group sums (rows x D / m f32)."""
-    return (32 + _align16(rows * dim * 4 + 16)
+    the rows (and 16 bytes for their offset; none where z is gathered from
+    device memory), a ring of two halves of groups rotations, two buffers
+    of rows x groups x m f32 (a batch's z, then its terms), the tile's
+    group sums (rows x D / m f32)."""
+    return (32 + (0 if gather else _align16(rows * dim * 4 + 16))
             + 2 * _align16(groups * m * m * 4 + 16)
             + 2 * _align16(rows * groups * m * 4)
             + _align16(rows * (dim // m) * 4))
+
+
+def sliced_smem_bytes(rows: int, cols: int) -> int:
+    """Shared memory of a block of the sliced route
+    (``csrc/f15.cu::sliced_bytes``): z (rows x 33 f32), a chunk of M's
+    slice (32 x cols rounded up to 4 f32) and the slice's terms
+    (rows x (cols + 1) f32)."""
+    return 4 * (rows * SLICE_ZP + SLICE_J * ((cols + 3) & ~3)
+                + rows * (cols + 1))
+
+
+def sliced_shape(n: int, dim: int, m: int, limits: Limits) -> Shape:
+    """The sliced route's launch: the tallest tile (64 rows down to 4)
+    that still leaves no SM without a tile, then the widest slice its 256
+    threads cover (rows x cols <= 4096), whole groups of ordered_sum's
+    order (``sum_group(m)`` columns) unless it is the whole rotation.
+    Takes every shape: shared memory stays under 150 KB."""
+    rows = next((r for r in SLICED_ROWS if -(-n // r) >= limits.sms),
+                SLICED_ROWS[-1])
+    cap = SLICED_THREADS * MICRO_ROWS * MICRO_COLS // rows
+    k = sum_group(m)
+    cols = m if m <= cap else cap // k * k
+    smem = sliced_smem_bytes(rows, cols)
+    per_sm = min(SLICED_BLOCKS_PER_SM,
+                 limits.smem_per_sm // (smem + limits.reserved_per_block))
+    return Shape(rows, 1, grid_of(n, rows, limits.sms, per_sm), smem, cols)
 
 
 def tasks(rows: int, m: int, groups: int) -> int:
@@ -114,10 +158,11 @@ def _rounds(n_groups: int, rows: int, m: int, groups: int) -> float:
 
 
 def _cost(n: int, dim: int, m: int, rows: int, groups: int,
-          limits: Limits) -> Optional[Tuple[float, int, int, int]]:
+          limits: Limits, gather: bool = False
+          ) -> Optional[Tuple[float, int, int, int]]:
     """(the busiest SM's rounds, its rows, the grid, smem), or None where
     the block does not fit."""
-    smem = smem_bytes(rows, dim, m, groups)
+    smem = smem_bytes(rows, dim, m, groups, gather)
     per_sm = blocks_per_sm(smem, limits)
     if per_sm == 0 or tasks(rows, m, groups) > COMPUTE:
         return None
@@ -130,15 +175,16 @@ def _cost(n: int, dim: int, m: int, rows: int, groups: int,
 
 
 def shape_for_rows(n: int, dim: int, m: int, rows: int,
-                   limits: Limits) -> Shape:
-    """The cheapest launch of tiles of ``rows`` rows: the groups per batch
-    that give the busiest SM the fewest rounds (then the fewest groups)."""
+                   limits: Limits, gather: bool = False) -> Shape:
+    """The cheapest launch of tiles of ``rows`` rows (their rows staged, or
+    z gathered from device memory): the groups per batch that give the
+    busiest SM the fewest rounds (then the fewest groups)."""
     if not 1 <= rows <= HELPERS:
         raise ValueError(f"f15: rows per tile must be in [1, {HELPERS}], "
                          f"got {rows}")
     best = None
     for groups in range(1, dim // m + 1):
-        cost = _cost(n, dim, m, rows, groups, limits)
+        cost = _cost(n, dim, m, rows, groups, limits, gather)
         if cost is None:
             break
         if best is None or cost[0] < best[0][0]:
@@ -146,12 +192,12 @@ def shape_for_rows(n: int, dim: int, m: int, rows: int,
     if best is None:
         raise ValueError(
             f"f15: {rows} rows of D = {dim} with m = {m} need "
-            f"{smem_bytes(rows, dim, m, 1)} bytes of shared memory (the "
-            f"card has {limits.smem_per_block} per block) and "
+            f"{smem_bytes(rows, dim, m, 1, gather)} bytes of shared memory "
+            f"(the card has {limits.smem_per_block} per block) and "
             f"{tasks(rows, m, 1)} micro-tiles a group (a block computes "
             f"{COMPUTE} at once)")
     (_, _, grid, smem), groups = best
-    return Shape(rows, groups, grid, smem)
+    return Shape(rows, groups, grid, smem, gather=gather)
 
 
 @functools.lru_cache(maxsize=256)
@@ -160,22 +206,26 @@ def launch_shape(n: int, dim: int, m: int, limits: Limits) -> Shape:
     with groups of m: the fewest rounds of micro-tiles on the busiest SM
     (the grid counted in whole waves, blocks an SM holds at once from the
     shared memory they need), then the fewest rows on it, then the largest
-    tile. Raises where not even one row fits the card."""
+    tile. Where not even one staged row fits, the same search with z
+    gathered from device memory (no rows in shared memory); where not even
+    two rotations fit, the sliced route's :func:`sliced_shape`. No shape
+    the plain version takes is refused."""
     if n < 1 or m < 1 or dim % m:
         raise ValueError(f"f15: no launch for n = {n}, D = {dim}, m = {m}")
-    best = None
-    for rows in range(1, min(HELPERS, n) + 1):
-        if smem_bytes(rows, dim, m, 1) > limits.smem_per_block \
-                or tasks(rows, m, 1) > COMPUTE:
-            break
-        shape = shape_for_rows(n, dim, m, rows, limits)
-        cost = _cost(n, dim, m, rows, shape.groups, limits)
-        key = (round(cost[0], 6), cost[1], -rows)
-        if best is None or key < best[0]:
-            best = (key, shape)
-    if best is None:
-        shape_for_rows(n, dim, m, 1, limits)  # raises: one row does not fit
-    return best[1]
+    for gather in (False, True):
+        best = None
+        for rows in range(1, min(HELPERS, n) + 1):
+            if smem_bytes(rows, dim, m, 1, gather) > limits.smem_per_block \
+                    or tasks(rows, m, 1) > COMPUTE:
+                break
+            shape = shape_for_rows(n, dim, m, rows, limits, gather)
+            cost = _cost(n, dim, m, rows, shape.groups, limits, gather)
+            key = (round(cost[0], 6), cost[1], -rows)
+            if best is None or key < best[0]:
+                best = (key, shape)
+        if best is not None:
+            return best[1]
+    return sliced_shape(n, dim, m, limits)
 
 
 @functools.lru_cache(maxsize=None)
@@ -186,7 +236,7 @@ def device_limits(device_index: int) -> Limits:
     with torch.cuda.device(device_index):
         _build.check(lib.f15_device_limits(ctypes.addressof(vals)),
                      "f15_device_limits")
-        per_sm = lib.f15_blocks_per_sm(0)
+        per_sm = lib.f15_blocks_per_sm(0, 0, 0)
     if per_sm < 1:
         raise RuntimeError(f"f15: the occupancy query failed ({per_sm})")
     return Limits(*vals, per_sm)
@@ -202,7 +252,8 @@ def card_shape(n: int, dim: int, m: int, device: torch.device,
     shape = (launch_shape(n, dim, m, limits) if rows is None
              else shape_for_rows(n, dim, m, rows, limits))
     with torch.cuda.device(device):
-        per_sm = _build.library().f15_blocks_per_sm(shape.smem)
+        per_sm = _build.library().f15_blocks_per_sm(
+            shape.smem, shape.cols, int(shape.gather))
     if per_sm < 1:
         raise RuntimeError(f"f15: no block of {shape.smem} bytes fits an SM "
                            f"({per_sm})")
@@ -261,7 +312,8 @@ def launch(consts: Dict[str, torch.Tensor], pop: torch.Tensor,
         err = lib.f15_launch(
             pop.data_ptr(), consts["o"].data_ptr(), consts["perm"].data_ptr(),
             consts["M"].data_ptr(), out.data_ptr(), n, dim, m, n_groups,
-            sum_group(m), shape.rows, shape.groups, shape.grid, stream)
+            sum_group(m), shape.rows, shape.groups, shape.cols,
+            int(shape.gather), shape.grid, stream)
     _build.check(err, "f15")
     LAUNCHES["f15"] += 1
     return out

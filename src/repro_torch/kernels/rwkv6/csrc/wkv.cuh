@@ -68,6 +68,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "../../hopper/csrc/tf32x3.cuh"
 #include "../../hopper/csrc/tma.cuh"
 
 namespace wkv {
@@ -97,71 +98,14 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// ---- 3xTF32 products -------------------------------------------------------
-struct Split4 {
-  uint32_t hi[4], lo[4];
-};
-struct Split2 {
-  uint32_t hi[2], lo[2];
-};
-
-// hi: x rounded to tf32, half an ulp added and the low 13 bits cleared
-// (cvt.rna.tf32.f32 compiles to four instructions with an infinity test,
-// and the values here are finite); lo: the exact rest x - hi, which the
-// tensor core reads truncated to tf32, at most 2^-21 of x off. The split
-// of CUTLASS's fast 3xTF32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ Split4 split4(float a0, float a1, float a2,
-                                         float a3) {
-  Split4 s;
-  split(a0, s.hi[0], s.lo[0]);
-  split(a1, s.hi[1], s.lo[1]);
-  split(a2, s.hi[2], s.lo[2]);
-  split(a3, s.hi[3], s.lo[3]);
-  return s;
-}
-
-__device__ __forceinline__ Split2 split2(float b0, float b1) {
-  Split2 s;
-  split(b0, s.hi[0], s.lo[0]);
-  split(b1, s.hi[1], s.lo[1]);
-  return s;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b (m16 x k8 times k8 x n8) in 3xTF32, the small terms first
-__device__ __forceinline__ void mma3(float (&d)[4], const Split4& a,
-                                     const Split2& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// d += a b where b is exact in tf32 (a bf16 value widened): b's lo part is
-// zero, so the product is a's hi and lo parts against it
-__device__ __forceinline__ void mma3_exact_b(float (&d)[4], const Split4& a,
-                                             const uint32_t* b) {
-  mma_tf32(d, a.lo, b);
-  mma_tf32(d, a.hi, b);
-}
-
-// d += a b where a is exact in tf32
-__device__ __forceinline__ void mma3_exact_a(float (&d)[4], const uint32_t* a,
-                                             const Split2& b) {
-  mma_tf32(d, a, b.lo);
-  mma_tf32(d, a, b.hi);
-}
+// ---- 3xTF32 products (hopper/csrc/tf32x3.cuh) -----------------------------
+using tf32x3::mma3;
+using tf32x3::mma3_exact_a;
+using tf32x3::mma3_exact_b;
+using tf32x3::Split2;
+using tf32x3::split2;
+using tf32x3::Split4;
+using tf32x3::split4;
 
 // N consecutive floats of a row of a transposed buffer (k^T, v^T), in as
 // few vector stores as their alignment allows: one lane per row, so the

@@ -103,6 +103,41 @@ def test_flash_matches_reference(b, s, h, kv, hd):
         np.testing.assert_allclose(_np(g_), _np(w_), **FLASH_F32)
 
 
+def test_tf32_split_matches_the_kernels():
+    """ref.tf32_split is tf32x3.cuh's split: hi has no bits below tf32's
+    10, lo no bits below the tensor core's read, and hi + lo is within
+    2^-21 of x (lo's cut bits) where hi alone is 2^-11 off."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(4096)
+                         .astype(np.float32) * 3)
+    hi, lo = fa_ref.tf32_split(x)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert float(((x - hi - lo).abs() / x.abs()).max()) <= 2.0 ** -21
+    assert float(((x - hi).abs() / x.abs()).max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_3xtf32_emulation_within_f32_tolerance(causal):
+    """The f32 kernel's products in 3xTF32 (emulated on the CPU with the
+    kernel's split) stay within the reference's f32 tolerance of
+    ref.attention and of the reference's plain version at the width of
+    yi-9b's heads (hd 128, S 512, GQA 4:1): the headroom the card must
+    keep. Plain TF32 (the hi parts alone) misses it."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 512, 512, 8, 2, 128, 11),
+                                       "f32")
+    scale = 1.0 / 128 ** 0.5
+    emu = fa_ref.attention_tf32x3(tq, tk, tv, causal=causal, scale=scale)
+    want = fa_ref.attention(tq, tk, tv, causal=causal, scale=scale)
+    np.testing.assert_allclose(_np(emu), _np(want), **FLASH_F32)
+    np.testing.assert_allclose(
+        _np(emu), _np(j_fa_ref.attention(jq, jk, jv, causal=causal,
+                                         scale=scale)), **FLASH_F32)
+    assert float((emu - want).abs().max()) <= FLASH_F32["atol"] / 4
+    hi = [fa_ref.tf32_split(t)[0] for t in (tq, tk, tv)]
+    plain_tf32 = fa_ref.attention(*hi, causal=causal, scale=scale)
+    assert not torch.allclose(plain_tf32, want, **FLASH_F32)
+
+
 def test_flash_bf16_inputs():
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 64, 64, 4, 4, 32, 0), "bf16")
     want = j_fa_ops.flash_attention(jq, jk, jv, causal=True, scale=0.17,
@@ -181,7 +216,7 @@ def test_flash_wrapper_refuses_misaligned_bf16_views(what, name):
     """The bf16 kernel loads q, k and v by TMA, whose tensor maps take a
     base address and strides that are multiples of 16 bytes: the wrapper
     refuses other bf16 views on every device, before the CPU's plain
-    version runs. The same view in f32 (the CUDA-core kernel) is taken."""
+    version runs. The same view in f32 (the 3xTF32 kernel) is taken."""
     offset, strides = MISALIGNED_BF16[what]
     g = torch.Generator().manual_seed(11)
     for dtype in (torch.bfloat16, torch.float32):

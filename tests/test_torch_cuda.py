@@ -137,10 +137,40 @@ def test_f15_kernel_any_rows_per_tile_bit_equal(card, rows):
     consts = _f15_consts(1000, 50, g, card)
     x = (torch.rand(3000, 1000, generator=g) * 10 - 5).to(card)
     shape = f15_k.card_shape(3000, 1000, 50, card, rows=rows)
-    assert _build.library().f15_smem_bytes(rows, 1000, 50, shape.groups) \
-        == shape.smem
+    assert _build.library().f15_smem_bytes(rows, 1000, 50, shape.groups,
+                                           0, 0) == shape.smem
     assert torch.equal(f15_k.launch(consts, x, shape),
                        f15_ref.f15(consts, x))
+
+
+# the routes for the shapes whose rows the tiled route cannot stage, (n, D,
+# m, route): z gathered from device memory for rows wider than its shared
+# memory and at m = 169 (D = 6 x 169); the sliced route where two rotations
+# do not fit (m = 200, 500, 1000; m = 1000 in slices of 512 and 488), with
+# a ragged last tile and one row
+@pytest.mark.parametrize("n,dim,m,route", [
+    (2048, 1000, 200, "sliced"), (2048, 1000, 1000, "sliced"),
+    (2048, 60000, 50, "gather"), (333, 1014, 169, "gather"),
+    (7, 51950, 50, "gather"), (1, 1000, 1000, "sliced"),
+    (45, 1000, 500, "sliced")])
+def test_f15_kernel_wide_routes_bit_equal(card, n, dim, m, route):
+    """Each shape runs its route, one launch, and gives the plain version's
+    bits; the kernel's shared memory is the wrapper's count."""
+    from repro_torch import _build, kernels
+    g = torch.Generator().manual_seed(n + dim + m)
+    consts = _f15_consts(dim, m, g, card)
+    x = (torch.rand(n, dim, generator=g) * 10 - 5).to(card)
+    shape = f15_k.card_shape(n, dim, m, card)
+    assert (shape.cols > 0, shape.gather) == (route == "sliced",
+                                              route == "gather")
+    assert _build.library().f15_smem_bytes(
+        shape.rows, dim, m, shape.groups, shape.cols,
+        int(shape.gather)) == shape.smem
+    before = kernels.LAUNCHES["f15"]
+    got = f15_k.f15(consts, x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["f15"] == before + 1
+    assert torch.equal(got, f15_ref.f15(consts, x))
 
 
 FLOAT_EVALS = {"none": None, "rastrigin": (("eval", "rastrigin"),),
@@ -698,7 +728,7 @@ def _flash_inputs(b, sq, sk, h, kv, hd, dtype, card, seed):
 @pytest.mark.parametrize("b,s,h,kv,hd", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(card, b, s, h, kv, hd, dtype):
     """Each kernel against ref.attention on the card, causal: f32 through
-    the CUDA-core kernel, bf16 through the tensor-core one, which rounds p
+    the 3xTF32 kernel, bf16 through the bf16 tensor-core one, which rounds p
     to bf16 as the plain version does (the reference's tolerances)."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import flash_attention as fa_k
@@ -770,6 +800,56 @@ def test_flash_tc_kernel_edges(card, b, sq, sk, h, kv, hd, causal):
     want = fa_ref.attention(q, k, v, causal=causal, scale=scale)
     torch.testing.assert_close(got.float(), want.float(),
                                **FLASH_TOL[torch.bfloat16])
+
+
+# the f32 (3xTF32) kernel's edges, (B, Sq, Sk, H, Kv, hd, causal): every
+# head dim at S <= 128, one q tile; Sk off the 32-key tiles; MQA and GQA 8:1
+# at hd 128; Sq > Sk causal, where rows past Sk see every key; non-causal
+FLASH_F32_CASES = [
+    (2, 100, 100, 4, 2, 16, True), (2, 100, 100, 4, 2, 32, True),
+    (2, 100, 100, 4, 2, 64, True), (2, 100, 100, 4, 2, 128, True),
+    (1, 128, 128, 4, 4, 128, True), (1, 300, 300, 4, 2, 64, True),
+    (2, 200, 333, 4, 1, 128, False), (1, 300, 300, 8, 8, 16, False),
+    (2, 256, 256, 8, 1, 128, True), (1, 384, 384, 16, 2, 128, True),
+    (1, 300, 130, 4, 2, 128, True), (2, 200, 17, 8, 2, 32, True),
+    (1, 129, 161, 4, 1, 64, False), (3, 33, 33, 2, 2, 128, True),
+]
+
+
+def _flash_f32_case(q, k, v, scale, causal):
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    before = kernels.LAUNCHES["flash_attention"]
+    got = fa_k.flash_attention_kernel(q, k, v, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    want = fa_ref.attention(q, k, v, causal=causal, scale=scale)
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal", FLASH_F32_CASES)
+def test_flash_f32_kernel_edges(card, b, sq, sk, h, kv, hd, causal):
+    """The f32 kernel (both products in 3xTF32 on the tensor cores)
+    against ref.attention at the reference's f32 tolerance, one launch
+    each."""
+    q, k, v = _flash_inputs(b, sq, sk, h, kv, hd, torch.float32, card,
+                            sq + 5 * sk + hd)
+    _flash_f32_case(q, k, v, 1.0 / hd ** 0.5, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_kernel_reads_misaligned_views(card, causal):
+    """Views 4 bytes off 16 with odd strides, read in place by 4-byte
+    loads (the strided views on 16 bytes are
+    test_flash_kernel_ragged_and_noncausal's)."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 150, 8, 33, generator=g).to(card)[..., 1:]
+    wide = torch.randn(2, 97, 2, 65, generator=g).to(card)
+    k, v = wide[..., 1:33], wide[..., 33:]
+    assert q.data_ptr() % 16 == k.data_ptr() % 16 == v.data_ptr() % 16 == 4
+    _flash_f32_case(q, k, v, 0.2, causal)
 
 
 def test_flash_launches_once_per_layer_of_a_dense_prefill(card):

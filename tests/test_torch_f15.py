@@ -28,6 +28,7 @@ from repro_torch.core import make_f15, make_problem
 from repro_torch.core.problems import F15_DEFAULT_CONSTS
 from repro_torch.kernels.rastrigin import f15 as t_f15
 from repro_torch.kernels.rastrigin import ref as t_ref
+from repro_torch.kernels.trap.ref import sum_group
 
 RTOL, ATOL = 3e-5, 2e-2
 
@@ -163,16 +164,118 @@ def test_launch_shape_covers_every_row_once_in_whole_waves(n, dim, m):
     assert sum(batches, []) == list(range(dim // m))
 
 
-def test_launch_shape_shrinks_to_one_row_and_raises_where_none_fits():
+def test_launch_shape_shrinks_to_one_row_then_gathers_z():
+    """Wide rows shrink the tiled route's tile to one row; where not even
+    one row fits its shared memory, the helpers gather z from device
+    memory (no rows staged) instead of the launch raising."""
     limits = t_f15.H100
     assert t_f15.launch_shape(10, 40000, 50, limits).rows == 1
+    assert not t_f15.launch_shape(10, 40000, 50, limits).gather
     assert t_f15.shape_for_rows(10, 40000, 50, 1, limits).groups >= 1
+    wide = t_f15.launch_shape(10, 60000, 50, limits)
+    assert wide.gather and wide.cols == 0
+    assert wide == t_f15.shape_for_rows(10, 60000, 50, wide.rows, limits,
+                                        gather=True)
     with pytest.raises(ValueError, match="shared memory"):
-        t_f15.launch_shape(10, 60000, 50, limits)
+        t_f15.shape_for_rows(10, 60000, 50, 1, limits)
     with pytest.raises(ValueError, match="shared memory"):
         t_f15.shape_for_rows(10000, 1000, 50, 64, limits)
     with pytest.raises(ValueError, match="rows per tile"):
         t_f15.shape_for_rows(10, 14, 7, t_f15.HELPERS + 1, limits)
+
+
+# shapes whose staged row does not fit beside the rotations: rows wider
+# than 51,900 genes at m = 50, and m = 169 (the first m whose two rotations
+# leave no room for a row; 169 does not divide 1000, so D = 6 x 169)
+GATHER_CASES = [(2048, 51950, 50), (2048, 60000, 50), (2048, 100000, 50),
+                (10, 60000, 50), (2048, 1014, 169), (3, 2000000, 50)]
+
+
+@pytest.mark.parametrize("n,dim,m", GATHER_CASES)
+def test_launch_shape_gathers_z_where_no_row_fits(n, dim, m):
+    """The tiled route with z gathered from device memory, on an H100's
+    limits: the same checks as the staged launch's, its shared memory
+    counted without the rows."""
+    limits = t_f15.H100
+    with pytest.raises(ValueError, match="shared memory"):
+        t_f15.shape_for_rows(n, dim, m, 1, limits)
+    shape = t_f15.launch_shape(n, dim, m, limits)
+    assert shape.gather and shape.cols == 0
+    assert 1 <= shape.rows <= min(t_f15.HELPERS, n)
+    assert t_f15.tasks(shape.rows, m, shape.groups) <= t_f15.COMPUTE
+    assert shape.smem == t_f15.smem_bytes(shape.rows, dim, m, shape.groups,
+                                          gather=True)
+    assert shape.smem <= limits.smem_per_block
+    per_sm = t_f15.blocks_per_sm(shape.smem, limits)
+    assert shape.grid == min(-(-n // shape.rows), limits.sms * per_sm)
+    np.testing.assert_array_equal(_kernel_rows(n, shape), 1)
+
+
+# shapes whose two rotations do not fit the ring, staged or gathered:
+# m above 169 at D 1000 (200, 250, 500, 1000), m above 1536 (more
+# micro-tiles than compute threads), and rows whose group sums alone
+# outgrow shared memory (D 3,000,000 at m 50)
+SLICED_CASES = [(2048, 1000, 200), (2048, 1000, 250), (2048, 1000, 500),
+                (2048, 1000, 1000), (1, 1000, 1000), (2048, 1020, 170),
+                (300, 2000, 2000), (7, 4000, 4000), (5, 3000000, 50)]
+
+
+@pytest.mark.parametrize("n,dim,m", SLICED_CASES)
+def test_launch_shape_takes_the_sliced_route_where_rotations_do_not_fit(
+        n, dim, m):
+    """The sliced route's launch on an H100's limits: a slice's
+    micro-tiles within the block's threads, slices that start groups of
+    ordered_sum's order (so the terms sum in the plain version's order),
+    shared memory within the card's, every row in one tile of one block."""
+    limits = t_f15.H100
+    for gather in (False, True):
+        with pytest.raises(ValueError, match="shared memory"):
+            t_f15.shape_for_rows(n, dim, m, 1, limits, gather)
+    shape = t_f15.launch_shape(n, dim, m, limits)
+    assert shape.cols > 0 and shape.groups == 1 and not shape.gather
+    assert shape.rows % t_f15.MICRO_ROWS == 0
+    micro = (shape.rows // t_f15.MICRO_ROWS) * -(-shape.cols
+                                                 // t_f15.MICRO_COLS)
+    assert micro <= t_f15.SLICED_THREADS
+    assert shape.cols == m or (shape.cols < m
+                               and shape.cols % sum_group(m) == 0)
+    assert shape.smem == t_f15.sliced_smem_bytes(shape.rows, shape.cols)
+    assert shape.smem <= limits.smem_per_block
+    tiles = -(-n // shape.rows)
+    per_sm = min(t_f15.SLICED_BLOCKS_PER_SM,
+                 limits.smem_per_sm // (shape.smem
+                                        + limits.reserved_per_block))
+    assert shape.grid == min(tiles, limits.sms * per_sm)
+    np.testing.assert_array_equal(_kernel_rows(n, shape), 1)
+
+
+@pytest.mark.parametrize("n,dim,m,want", [
+    (10000, 1000, 50, t_f15.Shape(26, 4, 132, 227760)),
+    (2048, 1000, 50, t_f15.Shape(16, 6, 128, 223760))])
+def test_fig4_and_island_batch_keep_their_launch_shapes(n, dim, m, want):
+    """The sliced route changes nothing where the tiled route fits: Fig.
+    4's row and the island batch keep the launches they were timed at."""
+    assert t_f15.launch_shape(n, dim, m, t_f15.H100) == want
+
+
+@pytest.mark.parametrize("group", [200, 1000])
+def test_make_f15_matches_reference_at_wide_groups(group):
+    """The reference's make_f15(group=200 and 1000, impl="pallas"), its
+    Pallas kernel in interpret mode, against the port's on the plain
+    version, at the reference's kernel tolerance."""
+    from repro.core.problems import make_f15 as j_make_f15
+    key = jax.random.key(group)
+    want_p = j_make_f15(key, dim=1000, group=group, impl="pallas")
+    got_p = make_f15(_np_consts(want_p.consts), dim=1000, group=group,
+                     impl="pallas", device="cpu")
+    assert got_p.fused == {"eval": "f15", "m": group,
+                           "n_groups": 1000 // group}
+    pop = np.random.default_rng(group).uniform(-5, 5, (6, 1000)).astype(
+        np.float32)
+    want = want_p.evaluate(want_p.consts, jnp.asarray(pop))
+    got = got_p.evaluate(got_p.consts, torch.from_numpy(pop))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
 
 
 def _regen():
