@@ -79,6 +79,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Fig. 4's shape, its gathered and sliced routes at 2048 rows (D 60,000;
    m 200 and 1000) against ``bound_of`` and the plain version; trap at the
    main path's shape against its bound; the ptxas report of both;
+   ``torch.cumsum`` of the masked weights beside the CDF kernel;
 7a. the WKV6 kernel through ``kernels/rwkv6/ops.wkv`` against both plain
    chunked versions (``wkv_chunked``, the reference's form, and
    ``wkv_subchunked``, the kernel's) and the sequential recurrence, with
@@ -116,8 +117,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    twin of the whole model end to end (through the 3xTF32 kernel, one
    launch per layer), and the bf16 model end to end within fixed limits;
    prefill and decode rates, a device profile of each, peak memory;
-9. one JSON line with each kernel's launches, time, plain time and bound,
-   then the last line: ``{"ok": true, "device": {...}}``.
+9a. the classic path (``impl="jnp"``, ``EAConfig()``'s defaults, the
+   operators of ``core/ga.py`` in plain PyTorch on the card, the fitness
+   through the trap kernel): paper-8 for 5 epochs through ``run_fused``
+   and through the host loop ``run_experiment``, which must be equal; one
+   epoch on the card equal to the same epoch on the CPU; evals/s beside
+   phase 4's ``impl="pallas"``, and a step profile;
+9b. the float classic path, paper-f15-8 (blend, gaussian sigma 0.3, the
+   fitness through the F15 kernel) for 2 epochs; the initial islands and
+   one generation step from the run's final state held against the CPU
+   within the CPU tests' float tolerances; a step profile;
+9c. every topology x acceptance policy (5 x 4) at paper-8 width, 3 epochs
+   of 10 generations, under ``impl="pallas"`` with the counter ledger:
+   each equal to the same run under ``impl="pallas_ref"`` (islands, pool,
+   stats, harvest), each ledger balanced (delivered = accepted +
+   rejected);
+9d. the ``ea`` command (``python -m repro_torch.launch.evolve ea`` with no
+   ``--device``) in a subprocess: exit 0 and the reference's final line;
+10. one JSON line with each kernel's launches, time, plain time, bound and
+   library time, then the last line: ``{"ok": true, "device": {...}}``.
 
 It imports the port only (``src/repro_torch``), never JAX or the reference.
 Run times are wall clock around work that ends in
@@ -263,6 +281,10 @@ DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 4, 2048, 32
 DENSE_LAYER_TOL = 1e-2
 DENSE_F32_TOL = 1e-3
 DENSE_BF16_TOL = 5e-2
+# phase 9b: the float classic path on the card against the CPU, the float
+# tolerances of tests/test_torch_evolve.py (genes; fitness relative and
+# absolute); integer fields exact
+GENE_ATOL, FIT_RTOL, FIT_ATOL = 2e-6, 2e-4, 1e-3
 
 
 def log(*args):
@@ -669,9 +691,12 @@ def main() -> int:
     import importlib
 
     from repro_torch import _build, convert, kernels, rand
-    from repro_torch.core import (EAConfig, MigrationConfig, make_f15,
+    from repro_torch.core import (AcceptanceConfig, EAConfig, MigrationConfig,
+                                  available_acceptance_policies,
+                                  available_topologies, make_f15,
                                   make_rastrigin, make_sphere, make_trap,
-                                  run_fused)
+                                  run_experiment, run_fused)
+    from repro_torch.core import island as island_lib
     from repro_torch.core.problems import default_f15_consts
     from repro_torch.kernels.ga import autotune as _autotune
     from repro_torch.kernels.ga import get_kernel
@@ -1474,9 +1499,23 @@ def main() -> int:
         common.masked_fitness(t_fit, t_size)), 3)
     cdf_bytes, cdf_ops = cdf_work(1, t_n)
     cdf_bound, cdf_by = bound_of(cdf_bytes, f32_ops=cdf_ops)
+    # the library's prefix sum over the same masked weights (made once,
+    # outside the timed calls); its parallel scan rounds differently from
+    # the serial left-to-right sum that is the kernel's bit contract
+    t_masked = common.masked_fitness(t_fit, t_size)
+    t_valid = torch.isfinite(t_masked)
+    t_lo = torch.where(t_valid, t_masked, float("inf")).amin(-1,
+                                                             keepdim=True)
+    t_weights = torch.where(t_valid, torch.where(t_valid, t_masked, 0.0)
+                            - t_lo + 1e-6, 0.0)
+    cumsum_ms = event_ms(lambda: torch.cumsum(t_weights, -1), TIMED_CALLS)
+    cumsum_err = (torch.cumsum(t_weights, -1)
+                  - tiling_k.roulette_cdf(t_size, t_fit)).abs().max().item()
     log(f"[kernels] roulette_cdf at (1, {t_n}): {cdf_ms * 1e3:.2f} us, plain"
         f" {cdf_plain_ms * 1e3:.1f} us, bound {cdf_bound * 1e3:.4f} us "
-        f"({cdf_by}: {cdf_bytes} B, {cdf_ops} f32 ops)")
+        f"({cdf_by}: {cdf_bytes} B, {cdf_ops} f32 ops); torch.cumsum of the "
+        f"masked weights {cumsum_ms * 1e3:.2f} us (another rounding: at most"
+        f" {cumsum_err:.4e} from the kernel's serial sum)")
     # the tiled kernel at paper-8's shape (8 x 256 x 160, fused trap), the
     # shape of its 500 launches in 4c, against the untiled binary kernel's
     # work and time (the same work), in turns
@@ -2136,6 +2175,185 @@ def main() -> int:
     device_profile("dense-decode", lambda: d_decode(
         {"token": d_tok, "index": DENSE_PROMPT, "caches": d_caches}), card)
 
+    # ---- 9a: the classic path (impl="jnp"), paper-8 ------------------------
+    # EAConfig()'s defaults are the paper's (max_pop 256, min_pop 128, 100
+    # generations per epoch, tournament k 2, two-point, elite 2); only the
+    # fitness goes through the trap kernel, as the classic path evaluates
+    # every generation's population by problem.evaluate
+    classic = EAConfig()
+    if (classic.impl, classic.max_pop, classic.min_pop,
+            classic.generations_per_epoch) != ("jnp", 256, 128, 100):
+        fail(f"EAConfig() is not the paper's classic configuration: "
+             f"{classic}")
+    gen_kernels = ("generation", "generation_float", "generation_tiled",
+                   "roulette_cdf")
+    drive(problem, classic, 8, 1, SEED + 1)          # warm-up, not counted
+    kernels.reset_launches()
+    c_run, c_wall = drive(problem, classic, 8, 5, SEED)
+    c_launches = dict(kernels.LAUNCHES)
+    c_evals = int(c_run[0].evaluations.sum().item())
+    if c_launches["trap_fitness"] <= 0 or max(c_launches[k]
+                                              for k in gen_kernels):
+        fail(f"classic paper-8: want the trap kernel and no generation "
+             f"kernel, got {c_launches}")
+    if not bool(torch.isfinite(c_run[0].best_fitness).all()):
+        fail("classic paper-8: non-finite best fitness")
+    log(f"[classic-main] paper-8 impl=jnp run_fused: 8 islands x 5 epochs: "
+        f"{c_evals} evaluations in {c_wall:.3f} s = {c_evals / c_wall:.1f} "
+        f"evals/s (impl=pallas, phase 4: {evals / wall:.1f}); launches "
+        f"{c_launches}; best per epoch "
+        f"{convert.to_numpy(c_run[3]).best_fitness.tolist()}")
+    kernels.reset_launches()
+    t = time.perf_counter()
+    res = run_experiment(problem, classic, mig, n_islands=8, max_epochs=5,
+                         rng=SEED, w2=True)
+    torch.cuda.synchronize()
+    e_wall = time.perf_counter() - t
+    e_launches = dict(kernels.LAUNCHES)
+    if e_launches["trap_fitness"] <= 0:
+        fail(f"classic paper-8 run_experiment: no trap launch {e_launches}")
+    for what, x, y in (("islands", res.islands, c_run[0]),
+                       ("pool", res.pool, c_run[1])):
+        for name, u, v in zip(x._fields, x, y):
+            if not torch.equal(u, v):
+                fail(f"classic paper-8: run_experiment's {what}.{name} "
+                     f"differs from run_fused's")
+    c_stats = convert.to_numpy(c_run[3])
+    for row, st in enumerate(res.stats):
+        for name in st._fields:
+            if getattr(st, name) != getattr(c_stats, name)[row]:
+                fail(f"classic paper-8: run_experiment's stats row {row} "
+                     f"{name} differs from run_fused's")
+    log(f"[classic-main] run_experiment == run_fused (islands, pool, every "
+        f"stats row); run_experiment {res.evaluations} evaluations in "
+        f"{e_wall:.3f} s = {res.evaluations / e_wall:.1f} evals/s")
+    # one epoch on the card and on the host's CPU from the same seed
+    (g1_isl, g1_pool, _, g1_st), _ = drive(problem, classic, 8, 1, SEED)
+    t = time.perf_counter()
+    h1 = run_fused(make_trap(40, 4, impl="pallas"), classic, mig,
+                   n_islands=8, max_epochs=1, rng=SEED, w2=True,
+                   return_stats=True, device="cpu")
+    h_wall = time.perf_counter() - t
+    for what, x, y in (("islands", g1_isl, h1[0]), ("pool", g1_pool, h1[1]),
+                       ("stats", g1_st, h1[3])):
+        for name, u, v in zip(x._fields, x, y):
+            u = u.cpu()
+            same = (torch.allclose(u, v, rtol=1e-6, atol=0)
+                    if name == "mean_best" else torch.equal(u, v))
+            if not same:
+                fail(f"classic paper-8, one epoch: the card's {what}.{name} "
+                     f"differs from the CPU's")
+    log(f"[classic-main] one epoch on the card == one epoch on the CPU "
+        f"(islands, pool, stats; mean_best within 1e-6 relative; the CPU "
+        f"epoch took {h_wall:.1f} s)")
+    step_profile("classic-main", c_run[0], problem, classic)
+
+    # ---- 9b: the float classic path, paper-f15-8 --------------------------
+    f_classic = EAConfig(crossover="blend", mutation_sigma=0.3)
+    kernels.reset_launches()
+    cf_run, cf_wall = drive(f_problem, f_classic, 8, 2, SEED)
+    cf_launches = dict(kernels.LAUNCHES)
+    cf_evals = int(cf_run[0].evaluations.sum().item())
+    if cf_launches["f15"] <= 0 or max(cf_launches[k] for k in gen_kernels):
+        fail(f"classic paper-f15-8: want the F15 kernel and no generation "
+             f"kernel, got {cf_launches}")
+    if not bool(torch.isfinite(cf_run[0].pop).all()
+                and torch.isfinite(cf_run[0].best_fitness).all()):
+        fail("classic paper-f15-8: non-finite genes or best fitness")
+    log(f"[classic-f15-main] paper-f15-8 impl=jnp run_fused: 8 islands x 2 "
+        f"epochs: {cf_evals} evaluations in {cf_wall:.3f} s = "
+        f"{cf_evals / cf_wall:.1f} evals/s (impl=pallas, phase 4b: "
+        f"{f_evals / f_wall5:.1f}); launches {cf_launches}; best per epoch "
+        f"{convert.to_numpy(cf_run[3]).best_fitness.tolist()}")
+    # against the CPU within tests/test_torch_evolve.py's float tolerances:
+    # the initial islands from the seed, then one generation step from the
+    # card's final state (F15's cos rounds differently on the card and the
+    # CPU, so a longer run parts where a tournament meets two rows whose
+    # fitness lies within that rounding)
+    h_problem = make_f15(impl="pallas", device="cpu")
+    k_init = rand.split(rand.key(SEED, device=dev), 2)[0]
+    starts = (island_lib.init_islands(k_init, 8, f_problem, f_classic),
+              island_lib.init_islands(k_init.cpu(), 8, h_problem, f_classic,
+                                      device="cpu"))
+    steps = (island_lib.generation_step(cf_run[0], f_problem, f_classic),
+             island_lib.generation_step(
+                 type(cf_run[0])(*(t.cpu() for t in cf_run[0])), h_problem,
+                 f_classic))
+    f_err = {}
+    for what, (u_isl, v_isl) in (("init", starts), ("step", steps)):
+        for name, u, v in zip(u_isl._fields, u_isl, v_isl):
+            u = u.cpu()
+            if name in ("pop", "best_genome"):
+                ok = torch.allclose(u, v, rtol=0, atol=GENE_ATOL)
+            elif name in ("fitness", "best_fitness"):
+                ok = torch.allclose(u, v, rtol=FIT_RTOL, atol=FIT_ATOL)
+            else:
+                ok = torch.equal(u, v)
+            if u.dtype.is_floating_point:
+                d = (u - v).abs()
+                f_err[f"{what}.{name}"] = float(
+                    torch.where(torch.isfinite(d), d, 0.0).max())
+            if not ok:
+                fail(f"classic paper-f15-8: {what} {name} on the card and "
+                     f"on the CPU disagree beyond the stated tolerances")
+    log(f"[classic-f15-main] the card against the CPU (genes atol "
+        f"{GENE_ATOL}, fitness rtol {FIT_RTOL} atol {FIT_ATOL}, the rest "
+        f"exact): initial islands and one generation step agree; largest "
+        f"differences {f_err}")
+    step_profile("classic-f15-main", cf_run[0], f_problem, f_classic)
+
+    # ---- 9c: every topology x acceptance policy under impl="pallas" -------
+    t9c = time.perf_counter()
+    short = EAConfig(impl="pallas", max_pop=256, min_pop=128,
+                     generations_per_epoch=10)
+    short_ref = dataclasses.replace(short, impl="pallas_ref")
+    ledger = {}
+    for topo, pol in itertools.product(available_topologies(),
+                                       available_acceptance_policies()):
+        m = MigrationConfig(topology=topo, acceptance=AcceptanceConfig(
+            policy=pol, epsilon=2.0 if pol == "dedup" else 0.0))
+        kernels.reset_launches()
+        k_out = run_fused(problem, short, m, n_islands=8, max_epochs=3,
+                          rng=SEED, w2=True, return_stats=True,
+                          return_obs=True)
+        torch.cuda.synchronize()
+        p_launches = dict(kernels.LAUNCHES)
+        if p_launches["generation"] <= 0:
+            fail(f"{topo} x {pol}: the generation kernel never launched: "
+                 f"{p_launches}")
+        r_out = run_fused(make_trap(40, 4), short_ref, m, n_islands=8,
+                          max_epochs=3, rng=SEED, w2=True, return_stats=True,
+                          return_obs=True)
+        same_run(f"{topo} x {pol}", k_out[:4], r_out[:4])
+        tot = k_out[4]["totals"]
+        if k_out[4] != r_out[4] or tot["delivered"] != (
+                tot["accepted"] + tot["rejected"]) or tot["fired"] != 24:
+            fail(f"{topo} x {pol}: the ledger differs from the plain run's "
+                 f"or does not balance: {k_out[4]} against {r_out[4]}")
+        ledger[f"{topo}/{pol}"] = (tot["delivered"], tot["accepted"])
+    log(f"[engine] 5 topologies x 4 policies, paper-8 width, 3 epochs of 10 "
+        f"generations, impl=pallas == impl=pallas_ref (islands, pool, stats,"
+        f" harvest), ledgers balanced, in {time.perf_counter() - t9c:.1f} s;"
+        f" (delivered, accepted): {ledger}")
+
+    # ---- 9d: the ea command, on the card by default ---------------------
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    t = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.evolve", "ea",
+           "--problem", "trap", "--islands", "8", "--epochs", "2"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or not re.fullmatch(
+            r"success=(True|False) evals_to_solution=(None|\d+) "
+            r"wall=\d+\.\ds", lines[-1]):
+        fail(f"the ea command: rc {proc.returncode}, stdout {lines[-3:]}, "
+             f"stderr {proc.stderr[-2000:]}")
+    log(f"[ea] {' '.join(cmd[1:])}: rc 0 in {time.perf_counter() - t:.1f} s"
+        f"; {' | '.join(lines[-3:])}")
+
     result = {"kernels": [
         {"name": "trap_fitness", "route": "cuda",
          "source": "src/repro_torch/kernels/trap/csrc/trap.cu",
@@ -2175,7 +2393,7 @@ def main() -> int:
          "launches": rl_launches["roulette_cdf"],
          "max_abs_err": max(cdf_errs),
          "ms": cdf_ms, "plain_ms": cdf_plain_ms, "bound_ms": cdf_bound,
-         "bound_by": cdf_by, "library_ms": None},
+         "bound_by": cdf_by, "library_ms": cumsum_ms},
         {"name": "wkv", "route": "cuda",
          "source": "src/repro_torch/kernels/rwkv6/csrc/wkv.cu",
          "replaces": "src/repro/kernels/rwkv6/rwkv6.py:88",
@@ -2213,7 +2431,8 @@ def main() -> int:
         f"(1, {t_n}, {f_len}) tournament, blend, no eval, launches from Fig."
         f" 4's row (4d), library_ms index_select of both parents; "
         f"roulette_cdf (1, {t_n}), launches from Fig. 4's row under "
-        f"roulette (4d); wkv "
+        f"roulette (4d), library_ms torch.cumsum of the masked weights "
+        f"(another rounding than the kernel's serial sum); wkv "
         f"({SERVE_BATCH}, "
         f"{SERVE_PROMPT}, {lm_cfg.n_heads}, 64) bf16 through ops.wkv, "
         f"launches from one rwkv6-3b prefill (7b); "

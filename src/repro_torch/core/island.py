@@ -16,17 +16,10 @@ import torch
 from .. import rand
 from .._device import resolve_device
 from ..kernels.ga import registry
+from . import ga
+from .ga import mask_fitness
 from .problems import Problem
 from .types import EAConfig, IslandState
-
-NEG_INF = float("-inf")
-
-
-def mask_fitness(fitness: torch.Tensor,
-                 pop_size: torch.Tensor) -> torch.Tensor:
-    """(I, n) fitness with lanes >= pop_size forced to -inf."""
-    lanes = torch.arange(fitness.shape[-1], device=fitness.device)
-    return torch.where(lanes < pop_size[..., None], fitness, NEG_INF)
 
 
 def success(best: torch.Tensor, problem: Problem,
@@ -126,10 +119,8 @@ def generation_step(state: IslandState, problem: Problem,
                                  problem.fused, consts=problem.consts)
         new_fit = mask_fitness(raw_fit, state.pop_size)
     else:
-        kern = registry.get_kernel("generation", problem.genome.kind,
-                                   cfg.impl)
-        new_pop = kern(k_gen, state.pop, state.fitness, state.pop_size, cfg,
-                       problem.genome)
+        new_pop = ga.next_generation(k_gen, state.pop, state.fitness,
+                                     state.pop_size, cfg, problem.genome)
         new_fit = mask_fitness(_evaluate(problem, new_pop), state.pop_size)
     top_f, top_g = _best(new_fit, new_pop)
     improved = top_f > state.best_fitness

@@ -9,12 +9,19 @@ per-island callables; here one call serves every island):
 * ``"generation_eval"``: ``fn(..., genome, fused) -> (new_pop,
   raw_fitness)``, the problem's fitness fused in.
 
-The impl names mean what they mean in the reference: ``pallas`` is the
-hand-written untiled kernel, routed to the tiled one for large islands,
-``pallas_tiled`` the tiled kernel (both their plain version for CPU
-tensors) and ``pallas_ref`` always the plain version. :mod:`.ops` fills
-:data:`KERNELS`. What the port does not carry yet raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+The impl names mean what they mean in the reference: ``jnp`` is the
+classic path (``core.ga.next_generation_jnp``, registered by
+:mod:`repro_torch.core.ga`), ``pallas`` the hand-written untiled kernel,
+routed to the tiled one for large islands, ``pallas_tiled`` the tiled
+kernel (both their plain version for CPU tensors) and ``pallas_ref``
+always the plain version. :mod:`.ops` fills the kernel entries. Register
+a custom impl with::
+
+    @register_kernel("generation", "binary", "my_impl")
+    def my_generation(rng, pop, fitness, pop_size, cfg, genome): ...
+
+and select it with ``EAConfig(impl="my_impl")``: every driver dispatches
+through this table.
 """
 from __future__ import annotations
 
@@ -22,9 +29,15 @@ from typing import Callable, Dict, List, Tuple
 
 KERNELS: Dict[Tuple[str, str, str], Callable] = {}
 
-NOT_PORTED = {
-    "jnp": "the classic impl is not ported yet (ROADMAP, Queue A item 8)",
-}
+
+def register_kernel(op: str, genome_kind: str, impl: str):
+    """Decorator: register ``fn`` as the ``op`` kernel for ``(genome_kind,
+    impl)``. Registering again overwrites (the last wins), so tests and
+    other packages can shadow the built-ins."""
+    def deco(fn: Callable) -> Callable:
+        KERNELS[(op, genome_kind, impl)] = fn
+        return fn
+    return deco
 
 
 def has_kernel(op: str, genome_kind: str, impl: str) -> bool:
@@ -35,8 +48,6 @@ def get_kernel(op: str, genome_kind: str, impl: str) -> Callable:
     key = (op, genome_kind, impl)
     if key in KERNELS:
         return KERNELS[key]
-    if impl in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[impl])
     have = sorted({i for (o, g, i) in KERNELS if o == op and g == genome_kind})
     raise KeyError(f"no {op!r} kernel for genome {genome_kind!r} impl "
                    f"{impl!r}; registered impls: {have}")
@@ -46,3 +57,7 @@ def available_impls(op: str = "generation",
                     genome_kind: str = "binary") -> List[str]:
     return sorted({i for (o, g, i) in KERNELS
                    if o == op and g == genome_kind})
+
+
+def registered_kernels() -> List[Tuple[str, str, str]]:
+    return sorted(KERNELS)

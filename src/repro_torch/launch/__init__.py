@@ -1,1 +1,2 @@
-"""Entry points of the port's model land: the serving loop and its steps."""
+"""Entry points of the port: the evolution command (``evolve``) and the
+serving loop of model land (``serve``, ``steps``)."""

@@ -12,9 +12,16 @@ Two families live here, both built on one 20-round Threefry-2x32:
   bits from the same counters.
 * **The keyed recipes** that the island model draws from outside the kernel
   (``key``, ``key_data``, ``split``, ``fold_in``, ``keyed_bits``,
-  ``keyed_randint``, ``keyed_uniform``, ``keyed_bernoulli``). They follow
-  ``jax.random`` under ``jax_threefry_partitionable=True`` bit for bit, so
-  the port and the reference walk the same streams from the same seed.
+  ``keyed_randint``, ``keyed_uniform``, ``keyed_bernoulli``,
+  ``keyed_permutation``, ``keyed_gumbel``, ``keyed_categorical``,
+  ``keyed_normal``). They follow ``jax.random`` under
+  ``jax_threefry_partitionable=True``, so the port and the reference walk
+  the same streams from the same seed: bit for bit where a recipe is
+  integer arithmetic and exactly rounded f32 steps, and within an ulp or
+  so of XLA's ``log``/``log1p`` where it goes through them (gumbel,
+  categorical, normal). Those use the correctly rounded f32 result
+  (:func:`log_f32`, :func:`log1p_f32`, :func:`sqrt_f32`: the f64
+  function rounded once), which the CPU and the card give alike.
 
 A key is a tensor of shape ``(..., 2)`` holding its two uint32 words in
 int64. PyTorch on the CPU has no uint32 add, shift or modulo, so every
@@ -258,3 +265,95 @@ def keyed_bernoulli(k: torch.Tensor, p: float,
     """``keyed_uniform < p`` with ``p`` rounded to f32."""
     u = keyed_uniform(k, shape)
     return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+
+
+# ---------------------------------------------------------------------------
+# Keyed recipes through transcendental functions
+# ---------------------------------------------------------------------------
+F32_TINY = 1.1754943508222875e-38          # numpy.finfo(float32).tiny
+# nextafter(-1, 0) in f32, the low end of jax.random.normal's uniform
+_NORMAL_LOW = -0.99999994039535522
+_SQRT2_F32 = 1.4142135381698608            # numpy.float32(sqrt(2))
+# XLA's f32 ErfInv (Giles' approximation): Horner coefficients, highest
+# degree first, for w = -log1p(-x*x) below 5 and at or above it
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 ``log`` (PyTorch's f32 CPU ``log`` and
+    ``sqrt`` are not: they miss by an ulp on some inputs)."""
+    return torch.log(x.double()).float()
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    return torch.log1p(x.double()).float()
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(x.double()).float()
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """f32 inverse error function as XLA lowers ``lax.erf_inv``: Giles'
+    polynomial in w = -log1p(-x*x) (w - 2.5 below 5, sqrt(w) - 3 above),
+    each Horner step one fused multiply-add as XLA's CPU code contracts it,
+    and ``x * inf`` at |x| = 1."""
+    w = -log1p_f32(x * -x)
+    lt = w < 5.0
+    t = torch.where(lt, w - 2.5, sqrt_f32(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], device=x.device))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = fma(p, t, coef(i))
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def keyed_permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(k, n)``: ``arange(n)`` sorted by fresh
+    32-bit words in each of ``ceil(3 ln n / ln(2**32 - 1))`` rounds, a
+    round's key being the second child of ``split`` and the next round's
+    the first. The sort is stable; XLA's sort need not be, which could
+    matter only where two of a round's words collide."""
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(MASK32)))
+    x = torch.arange(n, device=k.device).expand(k.shape[:-1] + (n,))
+    for _ in range(rounds):
+        children = split(k, 2)
+        k, sub = children[..., 0, :], children[..., 1, :]
+        order = torch.sort(keyed_bits(sub, (n,)), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x
+
+
+def keyed_gumbel(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """Standard Gumbel f32, ``jax.random.gumbel``'s ``"low"`` mode:
+    ``-log(-log(u))`` of u uniform in [tiny, 1)."""
+    return -log_f32(-log_f32(keyed_uniform(k, shape, F32_TINY, 1.0)))
+
+
+def keyed_categorical(k: torch.Tensor, logits: torch.Tensor,
+                      shape: Sequence[int]) -> torch.Tensor:
+    """Draws of ``shape`` from the categorical over ``logits``' last axis,
+    with replacement: ``argmax(gumbel(shape + (lanes,)) + logits)`` (the
+    first index on ties, as ``jnp.argmax``). ``logits`` carries the key's
+    batch axes in front of its lanes."""
+    shape = tuple(shape)
+    lanes = logits.shape[-1]
+    g = keyed_gumbel(k, shape + (lanes,))
+    lg = logits.reshape(logits.shape[:-1] + (1,) * len(shape) + (lanes,))
+    return torch.argmax(g + lg, dim=-1)
+
+
+def keyed_normal(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """Standard normal f32, ``jax.random.normal``: ``sqrt(2) *
+    erf_inv(u)`` of u uniform in [nextafter(-1, 0), 1)."""
+    u = keyed_uniform(k, shape, _NORMAL_LOW, 1.0)
+    return torch.tensor(_SQRT2_F32, device=u.device) * erf_inv(u)

@@ -124,13 +124,33 @@ def dataclass_fields(spec):
 
 
 def test_registry_names_what_is_not_ported():
+    from repro_torch.core import ga as core_ga
+    from repro_torch.core import migration
+    from repro_torch.core.pool import pool_init
     for kind in ("binary", "float"):
         for op in ("generation", "generation_eval"):
-            assert registry.available_impls(op, kind) == [
-                "pallas", "pallas_ref", "pallas_tiled"]
             assert callable(get_kernel(op, kind, "pallas_tiled"))
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            get_kernel("generation", kind, "jnp")
+        assert registry.available_impls("generation_eval", kind) == [
+            "pallas", "pallas_ref", "pallas_tiled"]
+        # the classic impl (Queue A item 8) is the table's "jnp" entry
+        assert registry.available_impls("generation", kind) == [
+            "jnp", "pallas", "pallas_ref", "pallas_tiled"]
+        assert get_kernel("generation", kind,
+                          "jnp") is core_ga.next_generation_jnp
+    new_pop = get_kernel("generation", "binary", "jnp")(
+        torch.zeros((2, 2), dtype=torch.int64),
+        torch.zeros((2, 6, 8), dtype=torch.int8), torch.zeros((2, 6)),
+        torch.tensor([6, 3], dtype=torch.int32), EAConfig(),
+        GenomeSpec("binary", 8))
+    assert new_pop.shape == (2, 6, 8) and new_pop.dtype == torch.int8
+    # the async runtime's per-island fire mask is still unported
+    genome = GenomeSpec("binary", 8)
+    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+        migration.migrate(pool_init(4, genome, device="cpu"),
+                          torch.zeros((2, 8), dtype=torch.int8),
+                          torch.zeros(2), torch.zeros(2, dtype=torch.int64),
+                          migration.MigrationConfig(),
+                          available=torch.tensor([True, False]))
     with pytest.raises(KeyError):
         get_kernel("generation", "binary", "no_such_impl")
     spec = TSpec(kind="float", length=8, elite=1, selection="tournament",

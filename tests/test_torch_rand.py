@@ -176,3 +176,78 @@ def test_fma_rounds_once():
             dy = abs(Fraction(float(y)) - exact)
             assert dy > dx or (dy == dx and int(x.view(np.int32)) % 2 == 0), \
                 (a[i], b[i], c[i], x)
+
+
+# ---------------------------------------------------------------------------
+# keyed recipes through log, log1p and erf_inv (gumbel, categorical, normal)
+# and the permutation; tolerances: the port computes each log, log1p and
+# sqrt correctly rounded (the f64 function rounded once), where XLA's CPU
+# code rounds about 6 % of f32 logs an ulp away; erf_inv is held to 2 ulp
+# of XLA's value, the normals and the Gumbel draws to 2.4e-7 absolute plus
+# 2.4e-7 relative (2 ulp at 1: the Gumbel's outer log cancels near 0, so
+# its error there is absolute), categorical draws to at most 0.5 %
+# differing, the permutation bit for bit
+# ---------------------------------------------------------------------------
+CATEGORICAL_MAX_FRACTION = 0.005
+DRAW_TOL = 2.4e-7
+
+
+def _ulps(got, want):
+    return np.abs(got.astype(np.float64) - want) / np.spacing(
+        np.abs(want).astype(np.float32)).astype(np.float64)
+
+
+def test_erf_inv_matches_xla_within_two_ulp():
+    assert jax.config.jax_threefry_partitionable
+    edge = np.float32(1 - 2**-24)
+    x = np.concatenate([np.float32([edge, -edge, 0.0, -0.0, 0.5, -0.5]),
+                        np.linspace(-edge, edge, 200001, dtype=np.float32)])
+    want = np.asarray(jax.jit(jax.lax.erf_inv)(jnp.asarray(x)))
+    got = _np(rand.erf_inv(torch.from_numpy(x)))
+    np.testing.assert_array_equal(got[:4], want[:4])    # the edges and 0
+    assert _ulps(got, want).max() <= 2
+    assert np.isinf(_np(rand.erf_inv(torch.tensor([1.0, -1.0])))).all()
+
+
+def test_keyed_normal_on_batched_keys_within_tolerance():
+    assert jax.config.jax_threefry_partitionable
+    jks = jax.random.split(jax.random.key(31), 4)
+    want = np.asarray(jax.vmap(lambda k: jax.random.normal(k, (50, 64)))(jks))
+    got = _np(rand.keyed_normal(rand.split(rand.key(31), 4), (50, 64)))
+    np.testing.assert_allclose(got, want, rtol=DRAW_TOL, atol=DRAW_TOL)
+
+
+def test_keyed_gumbel_within_tolerance():
+    assert jax.config.jax_threefry_partitionable
+    jks = jax.random.split(jax.random.key(32), 3)
+    want = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (40, 77)))(jks))
+    got = _np(rand.keyed_gumbel(rand.split(rand.key(32), 3), (40, 77)))
+    np.testing.assert_allclose(got, want, rtol=DRAW_TOL, atol=DRAW_TOL)
+
+
+@pytest.mark.parametrize("lanes", [1, 7, 256])
+def test_keyed_categorical_within_stated_count(lanes):
+    assert jax.config.jax_threefry_partitionable
+    g = np.random.default_rng(lanes)
+    logits = g.normal(size=(3, lanes)).astype(np.float32)
+    logits[1, : lanes // 2] = -np.inf                  # masked lanes
+    jks = jax.random.split(jax.random.key(33), 3)
+    want = np.asarray(jax.vmap(lambda k, l: jax.random.categorical(
+        k, l, shape=(2000,)))(jks, jnp.asarray(logits)))
+    got = _np(rand.keyed_categorical(rand.split(rand.key(33), 3),
+                                     torch.from_numpy(logits), (2000,)))
+    assert (got != want).sum() <= CATEGORICAL_MAX_FRACTION * want.size
+    assert (got[1] >= lanes // 2).all()
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 8, 64, 1625, 3000])
+def test_keyed_permutation_bit_equal(n):
+    assert jax.config.jax_threefry_partitionable
+    for seed in (0, 11):
+        np.testing.assert_array_equal(
+            _np(rand.keyed_permutation(rand.key(seed), n)),
+            np.asarray(jax.random.permutation(jax.random.key(seed), n)))
+    jks = jax.random.split(jax.random.key(5), 3)
+    np.testing.assert_array_equal(
+        _np(rand.keyed_permutation(rand.split(rand.key(5), 3), n)),
+        np.asarray(jax.vmap(lambda k: jax.random.permutation(k, n))(jks)))

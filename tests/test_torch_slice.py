@@ -35,10 +35,12 @@ from repro.core import run_fused as j_run_fused
 from repro.core.types import ExperimentState as JExperimentState
 from repro_torch import convert, rand
 from repro_torch.core import EAConfig, MigrationConfig, island, run_fused
+from repro_torch.core import run_experiment
 from repro_torch.core import make_f15, make_onemax, make_rastrigin
 from repro_torch.core import make_trap
 from repro_torch.kernels.ga import get_kernel
 from repro_torch.kernels.ga import ops as ga_ops
+from repro_torch.launch import evolve
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = dict(impl="pallas_ref", max_pop=32, min_pop=16, generations_per_epoch=5)
@@ -227,12 +229,21 @@ def test_convert_helpers_without_device_need_a_card(helper, monkeypatch):
 def test_unported_paths_raise_naming_the_roadmap():
     cfg = EAConfig(**CFG)
     run = dict(n_islands=2, max_epochs=1, w2=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        run_fused(make_onemax(64), cfg, MigrationConfig(topology="ring"),
-                  **run)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        run_fused(make_onemax(64), EAConfig(**dict(CFG, impl="jnp")),
-                  MigrationConfig(), **run)
+    # the ring topology (Queue A item 9) and the classic impl (item 8) run
+    for mig, c in ((MigrationConfig(topology="ring"), cfg),
+                   (MigrationConfig(), EAConfig(**dict(CFG, impl="jnp")))):
+        isl, _, epochs = run_fused(make_onemax(64), c, mig, **run)
+        assert int(epochs) == 1
+        assert bool(torch.isfinite(isl.best_fitness).all())
+    # what is still unported raises with its item named
+    with pytest.raises(NotImplementedError, match="Queue A item 12"):
+        run_experiment(make_onemax(64), cfg, host_bridge=object(), **run)
+    for flags, item in ((["--runtime", "async"], 10),
+                        (["--snapshot-every", "1"], 11), (["--bridge"], 12),
+                        (["--sharded"], 13)):
+        with pytest.raises(NotImplementedError,
+                           match=f"Queue A item {item}"):
+            evolve.main(["ea", "--device", "cpu"] + flags)
     # impl="pallas_tiled" runs, and equals impl="pallas" from the same seed
     runs = [run_fused(make_onemax(64), EAConfig(**dict(CFG, impl=impl)),
                       MigrationConfig(), rng=SEED, **run)
@@ -293,5 +304,5 @@ def test_import_scan_covers_every_subpackage():
     for sub in ("models", "configs", "launch", os.path.join("kernels",
                                                             "rwkv6"),
                 os.path.join("kernels", "flash_attention"),
-                "core", os.path.join("kernels", "ga")):
+                "core", "obs", os.path.join("kernels", "ga")):
         assert sub in walked, sub
