@@ -43,7 +43,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    m = 7 and 50; the kernel's edges (rows off its 16-byte pack, 1003 f32
    and 157 int8, populations 4 and 5 bytes off 16, 3 elite rows over
    blocks of 1, 2 and 8 rows, pop_size below n) against the plain version
-   and the untiled kernels; then the tiled kernel against the untiled
+   and the untiled kernels; the CDF kernel alone at its edges (1, 63, 64,
+   65, 127, 4096, 4097, 10,000, 16,384, 16,385 and 40,000 lanes, masked
+   lanes at segments' ends, all-masked and all-tied islands, 8 x 256,
+   islands off 16 bytes), bit-equal to ``common.roulette_cdf`` and
+   non-decreasing; then the tiled kernel against the untiled
    ones at the main paths' shapes, and three rows per block giving
    identical bits;
 4. the main path: ``run_fused`` at the paper's configuration (trap 40x4,
@@ -79,7 +83,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Fig. 4's shape, its gathered and sliced routes at 2048 rows (D 60,000;
    m 200 and 1000) against ``bound_of`` and the plain version; trap at the
    main path's shape against its bound; the ptxas report of both;
-   ``torch.cumsum`` of the masked weights beside the CDF kernel;
+   ``torch.cumsum`` of the masked weights beside the CDF kernel, and
+   both scan orders' (left to right, segmented) distance from an f64 sum;
 7a. the WKV6 kernel through ``kernels/rwkv6/ops.wkv`` against both plain
    chunked versions (``wkv_chunked``, the reference's form, and
    ``wkv_subchunked``, the kernel's) and the sequential recurrence, with
@@ -349,8 +354,9 @@ def plan_draws(spec) -> int:
 def cdf_work(n_isl: int, n: int):
     """(bytes, f32 operations) of the roulette-CDF kernel: the fitness and
     sizes read once and the (I, n) CDF written once; per lane the weight's
-    subtract and add and the running sum's add."""
-    return 4 * n_isl * n + 4 * n_isl + 4 * n_isl * n, 3 * n_isl * n
+    subtract and add, the segment's running sum's add and the carry's
+    add."""
+    return 4 * n_isl * n + 4 * n_isl + 4 * n_isl * n, 4 * n_isl * n
 
 
 def float_generation_work(seed, size, fit, spec, consts, n_isl: int,
@@ -1168,6 +1174,40 @@ def main() -> int:
     log(f"[tiled] roulette cases: {kernels.LAUNCHES['roulette_cdf']} "
         f"launches of the CDF kernel by the tiled path, each bit-equal to "
         f"the plain CDF (max_abs_err {max(cdf_errs)})")
+    # the CDF kernel's edges (uncounted launches): one lane, a segment's
+    # edges, the reference's 4096-lane block, Fig. 4's 10,000 lanes, the
+    # kernel's 16,384-lane chunk and three chunks; masked lanes at every
+    # segment's end, an all-masked island, an island of tied fitness, 8
+    # islands of 256 lanes; an island off 16 bytes (the 4-byte route)
+    cdf_edges = [(1, n_e, "random") for n_e in
+                 (1, 63, 64, 65, 127, 4096, 4097, 10000, 16384, 16385,
+                  40000)]
+    cdf_edges += [(3, 4200, "segment-ends"), (3, 1000, "all-masked"),
+                  (3, 10000, "tied"), (8, 256, "random"), (3, 999, "islands-off-16")]
+    for n_isl_e, n_e, fitness in cdf_edges:
+        e_fit = torch.randn(n_isl_e, n_e, generator=gen) * 10
+        e_size = torch.randint(max(1, n_e // 2), n_e + 1, (n_isl_e,),
+                               generator=gen, dtype=torch.int32)
+        if fitness == "segment-ends":
+            e_fit[:, 63::64] = float("-inf")
+            e_fit[:, 4030:4096] = float("-inf")
+        elif fitness == "all-masked":
+            e_fit[0] = float("-inf")
+            e_size[1] = 0
+        elif fitness == "tied":
+            e_fit[:] = 2.5
+        e_fit, e_size = e_fit.to(dev), e_size.to(dev)
+        got_c = torch.empty_like(e_fit)
+        tiling_k.launch_cdf(e_size, e_fit, got_c)   # uncounted
+        want_c = common.roulette_cdf(common.masked_fitness(e_fit, e_size))
+        cdf_eq = torch.equal(got_c, want_c)
+        rising = bool((got_c[:, 1:] >= got_c[:, :-1]).all())
+        cdf_errs.append((got_c - want_c).abs().max().item())
+        log(f"[tiled] CDF edge {n_isl_e}x{n_e} {fitness}: bit-equal="
+            f"{cdf_eq} non-decreasing={rising}")
+        if not (cdf_eq and rising):
+            fail(f"the CDF kernel differs from the plain CDF or decreases at"
+                 f" {n_isl_e}x{n_e} {fitness}")
     # the tiled path's F15 (the tiled kernel, then the F15 kernel and its
     # register-blocked tail) at m = 7 and 50
     for m_e, groups in ((7, 143), (50, 20)):
@@ -1500,8 +1540,8 @@ def main() -> int:
     cdf_bytes, cdf_ops = cdf_work(1, t_n)
     cdf_bound, cdf_by = bound_of(cdf_bytes, f32_ops=cdf_ops)
     # the library's prefix sum over the same masked weights (made once,
-    # outside the timed calls); its parallel scan rounds differently from
-    # the serial left-to-right sum that is the kernel's bit contract
+    # outside the timed calls); its parallel scan rounds otherwise than the
+    # segmented order (common.prefix_sum) that is the kernel's bit contract
     t_masked = common.masked_fitness(t_fit, t_size)
     t_valid = torch.isfinite(t_masked)
     t_lo = torch.where(t_valid, t_masked, float("inf")).amin(-1,
@@ -1509,13 +1549,28 @@ def main() -> int:
     t_weights = torch.where(t_valid, torch.where(t_valid, t_masked, 0.0)
                             - t_lo + 1e-6, 0.0)
     cumsum_ms = event_ms(lambda: torch.cumsum(t_weights, -1), TIMED_CALLS)
-    cumsum_err = (torch.cumsum(t_weights, -1)
-                  - tiling_k.roulette_cdf(t_size, t_fit)).abs().max().item()
+    t_cdf = tiling_k.roulette_cdf(t_size, t_fit)
+    cumsum_err = (torch.cumsum(t_weights, -1) - t_cdf).abs().max().item()
     log(f"[kernels] roulette_cdf at (1, {t_n}): {cdf_ms * 1e3:.2f} us, plain"
         f" {cdf_plain_ms * 1e3:.1f} us, bound {cdf_bound * 1e3:.4f} us "
         f"({cdf_by}: {cdf_bytes} B, {cdf_ops} f32 ops); torch.cumsum of the "
         f"masked weights {cumsum_ms * 1e3:.2f} us (another rounding: at most"
-        f" {cumsum_err:.4e} from the kernel's serial sum)")
+        f" {cumsum_err:.4e} from the kernel's segmented sum), "
+        f"{cdf_ms / cumsum_ms:.2f} times the library's time ({card})")
+    # each order's largest distance from the f64 sum of the same weights,
+    # by the plain versions: the left-to-right scan (the order the
+    # segmented one replaced) and the segmented one
+    exact = torch.cumsum(t_weights.double(), -1)
+    serial = torch.empty_like(t_weights)
+    acc = torch.zeros_like(t_weights[:, 0])
+    for j in range(t_n):
+        acc = acc + t_weights[:, j]
+        serial[:, j] = acc
+    log(f"[kernels] roulette_cdf at (1, {t_n}), largest distance from the "
+        f"f64 cumsum (total {exact[0, -1].item():.6e}): left-to-right "
+        f"{(serial.double() - exact).abs().max().item():.6e}, segmented "
+        f"{(common.prefix_sum(t_weights).double() - exact).abs().max().item():.6e}"
+        f", the kernel {(t_cdf.double() - exact).abs().max().item():.6e}")
     # the tiled kernel at paper-8's shape (8 x 256 x 160, fused trap), the
     # shape of its 500 launches in 4c, against the untiled binary kernel's
     # work and time (the same work), in turns
@@ -2432,7 +2487,7 @@ def main() -> int:
         f" 4's row (4d), library_ms index_select of both parents; "
         f"roulette_cdf (1, {t_n}), launches from Fig. 4's row under "
         f"roulette (4d), library_ms torch.cumsum of the masked weights "
-        f"(another rounding than the kernel's serial sum); wkv "
+        f"(another rounding than the kernel's segmented sum); wkv "
         f"({SERVE_BATCH}, "
         f"{SERVE_PROMPT}, {lm_cfg.n_heads}, 64) bf16 through ops.wkv, "
         f"launches from one rwkv6-3b prefill (7b); "

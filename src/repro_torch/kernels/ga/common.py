@@ -17,7 +17,9 @@ reference draw the same bits. The pipeline:
 * :func:`generation_math` - the three composed.
 
 Every f32 sum has a fixed order, which the kernels follow: the roulette
-prefix sum is a left-to-right scan, the trap, rastrigin and sphere row sums
+prefix sum is the segmented scan of :func:`prefix_sum` (left to right
+inside segments of :data:`SCAN_SEGMENT` lanes, each segment's carry added
+once per lane), the trap, rastrigin and sphere row sums
 and the F15 group sums are
 :func:`repro_torch.kernels.trap.ref.ordered_sum`, and the F15 rotation is
 the left-to-right sum of :mod:`repro_torch.kernels.rastrigin.ref`.
@@ -35,6 +37,9 @@ from ..rastrigin.ref import rastrigin_terms
 from ..trap.ref import ordered_sum, trap_scores
 
 NEG_INF = float("-inf")
+# The roulette scan's segment: lanes summed left to right before a carry
+# (plan_rows.cuh's SCAN_SEGMENT).
+SCAN_SEGMENT = 64
 
 # Draw-site stream salts: the protocol shared with the kernel and the
 # reference (repro/kernels/ga/common.py).
@@ -129,13 +134,32 @@ def _tournament(k0, k1, masked: torch.Tensor, maxval: torch.Tensor,
 
 
 def prefix_sum(w: torch.Tensor) -> torch.Tensor:
-    """Inclusive f32 prefix sum over the last axis, left to right."""
-    cum = torch.empty_like(w)
-    acc = torch.zeros_like(w[..., 0])
-    for j in range(w.shape[-1]):
-        acc = acc + w[..., j]
-        cum[..., j] = acc
-    return cum
+    """Inclusive f32 prefix sum over the last axis in the segmented order.
+
+    Lanes fall into segments ``[64 s, 64 s + 64)`` from lane 0. ``local[j]``
+    is the left-to-right f32 sum of ``w`` from its segment's first lane
+    through ``j``; ``cum[j] = carry_s + local[j]`` with ``carry_0 = 0`` and
+    ``carry_{s+1} = cum[64 s + 63]``: the reference's ``cb + carry`` with a
+    segment of 64 in place of its block of 4096. Up to 64 lanes it is the
+    left-to-right scan. For weights >= 0 the result never decreases: f32
+    rounding is monotone, and a segment's first lane adds its weight to
+    the previous segment's last ``cum``."""
+    n = w.shape[-1]
+    n_seg = -(-n // SCAN_SEGMENT)
+    x = torch.nn.functional.pad(w, (0, n_seg * SCAN_SEGMENT - n))
+    x = x.reshape(*w.shape[:-1], n_seg, SCAN_SEGMENT)
+    local = torch.empty_like(x)
+    acc = torch.zeros_like(x[..., 0])
+    for j in range(SCAN_SEGMENT):
+        acc = acc + x[..., j]
+        local[..., j] = acc
+    carry = torch.empty_like(acc)
+    c = torch.zeros_like(acc[..., 0])
+    for s in range(n_seg):
+        carry[..., s] = c
+        c = c + local[..., s, -1]
+    cum = carry[..., None] + local
+    return cum.reshape(*w.shape[:-1], -1)[..., :n]
 
 
 def masked_fitness(fitness: torch.Tensor,
@@ -149,7 +173,8 @@ def masked_fitness(fitness: torch.Tensor,
 def roulette_cdf(masked: torch.Tensor) -> torch.Tensor:
     """The (I, n) roulette CDF of masked fitness: weight ``(v - lo) +
     1e-6`` on each finite lane (``lo`` the island's smallest finite value)
-    and exactly 0 elsewhere, summed left to right (:func:`prefix_sum`)."""
+    and exactly 0 elsewhere, summed in the segmented order of
+    :func:`prefix_sum`."""
     valid = torch.isfinite(masked)
     finite = torch.where(valid, masked, 0.0)
     lo = torch.where(valid, masked, float("inf")).amin(-1, keepdim=True)

@@ -39,8 +39,9 @@
 // island starts at byte isl*n*L: the tile sits in shared memory at the
 // source's offset modulo 16, the aligned middle comes in bulk and the ragged
 // ends (under 16 bytes each) by plain loads. While the copy flies, each CTA
-// builds the roulette CDF (one thread of the eighth warp, the plain version's
-// left-to-right order) and draws the plan of its own ceil(n / C) rows. Only a
+// builds the roulette CDF (the eighth warp, in the plain version's segmented
+// order, plan_rows.cuh::roulette_cdf_warp) and draws the plan of its own
+// ceil(n / C) rows. Only a
 // CTA that holds rows below `elite` (CTA 0, and the next ones where a CTA has
 // fewer rows than elite) finds the elite, beside the CDF (an arg-max across
 // seven warps, plan_rows.cuh::elite_rows); the others read no elite row and
@@ -74,7 +75,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-// the elite's warps; the last warp scans the roulette CDF beside them
+// the elite's warps; the last warp builds the roulette CDF beside them
 constexpr int ELITE_WARPS = WARPS - 1;
 constexpr int MAX_CLUSTER = 16;
 // a tile that has not landed by then never will
@@ -234,8 +235,8 @@ generation_kernel(const int8_t* __restrict__ pop,
   if (threadIdx.x < ELITE_WARPS * 32) {
     if (row0 < elite)
       elite_rows(masked, n, elite, ELITE_WARPS, red, elite_idx);
-  } else if (threadIdx.x == ELITE_WARPS * 32 && p.selection == 1) {
-    roulette_cdf(masked, n, finite_min(masked, n), cum);
+  } else if (p.selection == 1) {
+    roulette_cdf_warp(masked, n, cum);
   }
   __syncthreads();
 

@@ -30,8 +30,8 @@
 // Design: an island's f32 tile (1 MB at 256 x 1000) does not fit a block's
 // shared memory. The grid is (row blocks, islands): each block recomputes
 // the island's elite (an arg-max across eight warps, plan_rows.cuh::
-// elite_rows) beside its roulette CDF (one thread of the ninth warp, left
-// to right) and draws the plan of its own ROWS rows; counter-based draws
+// elite_rows) beside its roulette CDF (the ninth warp, in the segmented
+// order of plan_rows.cuh::roulette_cdf_warp) and draws the plan of its own ROWS rows; counter-based draws
 // make every block's plan the one a single block would draw. Parents are
 // read straight from the island's input population in device memory (8 MB
 // for 8 islands, held in L2) and children are written straight out,
@@ -132,12 +132,12 @@ generation_float_kernel(const float* __restrict__ pop,
 
   // ---- phase 1a: the elite (an arg-max across warps, lowest index on a
   // tie; only where this block's rows start below it) beside the roulette
-  // CDF (one thread, left to right)
+  // CDF (the last warp, in the segmented order)
   if (threadIdx.x < ELITE_WARPS * 32) {
     if (row0 < elite)
       elite_rows(masked, n, elite, ELITE_WARPS, red, elite_idx);
-  } else if (threadIdx.x == ELITE_WARPS * 32 && p.selection == 1) {
-    roulette_cdf(masked, n, finite_min(masked, n), cum);
+  } else if (p.selection == 1) {
+    roulette_cdf_warp(masked, n, cum);
   }
   __syncthreads();
 

@@ -2,10 +2,11 @@
 // (generation.cu, generation_float.cu, generation_tiled.cu): the two
 // parents (tournament or roulette), the two-point cuts and the crossover
 // gate of output row elite + c, drawn with the counters and salts of
-// kernels/ga/common.py::selection_plan. Also the roulette CDF, a
-// left-to-right f32 scan as common.py::prefix_sum takes it (the untiled
-// kernels; roulette_cdf.cu scans the same weights in chunks), and the
-// elite, an arg-max across warps. The plan and the elite read the island's
+// kernels/ga/common.py::selection_plan. Also the roulette CDF in
+// common.py::prefix_sum's segmented order (SCAN_SEGMENT lanes left to
+// right, then each segment's carry; by one warp in the untiled kernels,
+// roulette_cdf.cu runs the same order across a block), and the elite, an
+// arg-max across warps. The plan and the elite read the island's
 // masked fitness through `masked[r]`: a float array in shared memory (the
 // untiled kernels) or MaskedFitness, which reads device memory (the tiled
 // kernel).
@@ -33,28 +34,51 @@ struct MaskedFitness {
   }
 };
 
-// The smallest finite value of masked[0, n), +inf when none is finite.
-__device__ __forceinline__ float finite_min(const float* masked, int n) {
-  float lo = pos_inf();
-  for (int r = 0; r < n; ++r)
-    if (isfinite(masked[r])) lo = fminf(lo, masked[r]);
-  return lo;
-}
+// The roulette scan's segment (common.py's SCAN_SEGMENT): lanes
+// [64 s, 64 s + 64) are summed left to right, then the segment's carry is
+// added to each.
+constexpr int SCAN_SEGMENT = 64;
 
 // A lane's roulette weight: (v - lo) + 1e-6 on a finite lane, 0 elsewhere.
 __device__ __forceinline__ float roulette_weight(float v, float lo) {
   return isfinite(v) ? __fadd_rn(__fsub_rn(v, lo), 1e-6f) : 0.0f;
 }
 
-// The roulette CDF of one island, by one thread: the weights summed from 0
-// left to right. The weights are non-negative and f32 addition rounds
-// monotonically, so cum never decreases.
-__device__ __forceinline__ void roulette_cdf(const float* masked, int n,
-                                             float lo, float* cum) {
-  float acc = 0.0f;
-  for (int r = 0; r < n; ++r) {
-    acc = __fadd_rn(acc, roulette_weight(masked[r], lo));
-    cum[r] = acc;
+// The roulette CDF of one island by one whole warp, in common.py::
+// prefix_sum's order: local[j], the left-to-right sum of the weights from
+// j's segment's first lane, and cum[j] = carry_s + local[j], where carry_0
+// = 0 and carry_{s+1} = cum[64 s + 63]. The warp takes 32 segments a pass:
+// lane i scans segment i into cum, then every lane runs the carry chain
+// over the pass's 32 segment totals (passed lane to lane by shuffles,
+// the same adds in every lane) and keeps its own segment's carry, which
+// it adds to its lanes. The weights are non-negative and f32 addition
+// rounds monotonically, so cum never decreases. `lo` is the island's
+// smallest finite value (fminf, exact in any order).
+__device__ __forceinline__ void roulette_cdf_warp(const float* masked, int n,
+                                                  float* cum) {
+  const int lane = threadIdx.x & 31;
+  float lo = pos_inf();
+  for (int r = lane; r < n; r += 32)
+    if (isfinite(masked[r])) lo = fminf(lo, masked[r]);
+  for (int off = 16; off > 0; off >>= 1)
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+  float carry = 0.0f;  // into the pass's first segment, alike in all lanes
+  for (int base = 0; base < n; base += 32 * SCAN_SEGMENT) {
+    const int s0 = base + lane * SCAN_SEGMENT;
+    const int len = max(0, min(SCAN_SEGMENT, n - s0));
+    float acc = 0.0f;
+    for (int j = 0; j < len; ++j) {
+      acc = __fadd_rn(acc, roulette_weight(masked[s0 + j], lo));
+      cum[s0 + j] = acc;
+    }
+    float mine = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float total = __shfl_sync(0xffffffffu, acc, i);
+      if (i == lane) mine = carry;
+      carry = __fadd_rn(carry, total);
+    }
+    for (int j = 0; j < len; ++j) cum[s0 + j] = __fadd_rn(mine, cum[s0 + j]);
   }
 }
 

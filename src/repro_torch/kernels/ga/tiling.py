@@ -8,8 +8,9 @@ their own few rows (elite, parents, cuts, gate: the reference's
 ``selection_plan``, computed outside its ``pallas_call``) and make those
 children, with the fused separable fitness summed per row. Under tournament
 selection that is the generation's one launch; under roulette
-``csrc/roulette_cdf.cu`` first writes each island's CDF, which the tiled
-kernel's blocks search. A fused F15 goes as the tiled generation and then
+``csrc/roulette_cdf.cu`` first writes each island's CDF (in
+:func:`.common.prefix_sum`'s segmented order, as the untiled kernels build
+it), which the tiled kernel's blocks search. A fused F15 goes as the tiled generation and then
 the F15 kernel (``kernels/rastrigin/f15.py``), as in the reference. Every
 draw is addressed by the absolute (row, gene), so the result is the
 untiled kernels' and the plain version's, bit for bit, whatever the rows

@@ -390,18 +390,24 @@ def _as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-@pytest.mark.parametrize("n", [64, 5000])
+@pytest.mark.parametrize("n_isl", [3, 8])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 256, 4097, 5000, 10000,
+                               16385])
 @pytest.mark.parametrize("fitness", ["random", "tied", "masked"])
-def test_roulette_cdf_kernel_bit_equal(card, fitness, n):
-    """The CDF kernel equals the plain CDF (a left-to-right f32 scan of the
-    masked fitness), -inf lanes, ties and all-masked islands included."""
+def test_roulette_cdf_kernel_bit_equal(card, fitness, n, n_isl):
+    """The CDF kernel equals the plain CDF (the segmented f32 scan of the
+    masked fitness, ``common.prefix_sum``): one lane, a segment's edges,
+    above the reference's 4096-lane block, Fig. 4's 10,000 lanes, past the
+    kernel's 16,384-lane chunk; -inf lanes, ties and all-masked islands
+    included. The CDF never decreases."""
     from repro_torch.kernels.ga import common, tiling
     g = torch.Generator().manual_seed(n)
-    _, size, _, fit = _edge_inputs("binary", 3, n, 4, fitness, g)
+    _, size, _, fit = _edge_inputs("binary", n_isl, n, 4, fitness, g)
     size, fit = size.to(card), fit.to(card)
     got = tiling.roulette_cdf(size, fit)
     want = common.roulette_cdf(common.masked_fitness(fit, size))
     assert torch.equal(got, want)
+    assert bool((got[:, 1:] >= got[:, :-1]).all())
 
 
 @pytest.mark.parametrize("selection", ["tournament", "roulette"])

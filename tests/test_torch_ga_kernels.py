@@ -5,9 +5,11 @@ the new population and the fused fitness must be equal for every
 selection x crossover x fused eval, against ``repro.kernels.ga.ref``
 (jitted and vmapped over islands, the way the drivers run it) and, for two
 cases, against the Pallas kernel itself in interpret mode. The roulette
-prefix sum is XLA's jitted ``tril @ w`` in the reference and a
-left-to-right scan in the port: the two orders agree up to 33 lanes, which
-covers the 32-lane populations here.
+prefix sum is XLA's jitted ``tril @ w`` in the reference and the
+segmented scan of ``common.prefix_sum`` in the port, which is the
+left-to-right scan up to 64 lanes: the two orders agreed below 50 lanes
+on five seeds (ROADMAP Queue C), which covers the 32-lane populations
+here.
 """
 import itertools
 

@@ -359,9 +359,9 @@ def test_route_sends_what_the_binary_kernel_cannot_hold_to_tiled():
 
 def test_roulette_plan_above_the_selection_block():
     """n = 4200 > the reference's SELECTION_BLOCK (4096): the reference's
-    blocked ``tril @ w`` CDF and the port's left-to-right scan differ by
-    ulps, so a few parents differ (ROADMAP Queue C); the elite, cuts and
-    gate are exact."""
+    blocked ``tril @ w`` CDF and the port's segmented scan
+    (``common.prefix_sum``) differ by ulps, so a parent may differ (ROADMAP
+    Queue C); the elite, cuts and gate are exact."""
     n = 4200
     fit = (np.random.default_rng(0).normal(size=n) * 10).astype(np.float32)
     kw = dict(kind="binary", length=160, elite=2, selection="roulette",
