@@ -139,7 +139,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    rejected);
 9d. the ``ea`` command (``python -m repro_torch.launch.evolve ea`` with no
    ``--device``) in a subprocess: exit 0 and the reference's final line;
-10. one JSON line with each kernel's launches, time, plain time, bound and
+10a. the asynchronous runtime at paper-8 width (``run_fused_async``,
+   ``AsyncConfig(min_rate=0.25, max_rate=1.0, staleness=3,
+   churn_fraction=0.25)``, 8 islands, 10 ticks, W²; depth cut as phase 4
+   cuts it): ``impl="pallas"``, ``pallas_tiled`` and ``pallas_ref`` equal
+   bit for bit under the fire masks (islands, pool, stats, ``AsyncState``,
+   the counter ledger); the degenerate ``AsyncConfig()`` equals
+   ``run_fused`` (3 ticks); ``run_experiment_async`` equals
+   ``run_fused_async``; paper-f15-8 over 2 ticks under the three impls,
+   equal; then one ``[main]`` epoch against one ``[async-main]`` tick in
+   turns (main, async, async, main): kernels, fires, device busy and wall
+   per epoch or tick, busy share and evals/s;
+10b. durability on the card: ``snapshot_every=2`` runs (sync and async, 4
+   epochs) equal their one-segment runs; the ``ea --fused --runtime async
+   --snapshot-every 2 --w2`` command in a child process killed by SIGKILL
+   once its second snapshot has landed, then ``--resume`` in a fresh process,
+   whose final snapshot must equal the uninterrupted run's leaf for leaf;
+   a resume at 12 islands from the 8-island snapshot, whose joiners take
+   uuids 8-11, never go down and fire;
+10c. the ``ea --runtime async`` command on the card by default, the host
+   loop and ``--fused``, in subprocesses: exit 0 and the reference's final
+   line;
+11. one JSON line with each kernel's launches, time, plain time, bound and
    library time, then the last line: ``{"ok": true, "device": {...}}``.
 
 It imports the port only (``src/repro_torch``), never JAX or the reference.
@@ -290,6 +311,11 @@ DENSE_BF16_TOL = 5e-2
 # tolerances of tests/test_torch_evolve.py (genes; fitness relative and
 # absolute); integer fields exact
 GENE_ATOL, FIT_RTOL, FIT_ATOL = 2e-6, 2e-4, 1e-3
+# phase 10: ticks of the async runs at paper-8, steps of each turn of the
+# [main] / [async-main] comparison, ticks of the killed and resumed command
+ASYNC_TICKS = 10
+PROFILE_TICKS = 2
+KILL_TICKS = 12
 
 
 def log(*args):
@@ -685,6 +711,323 @@ def device_profile(tag: str, fn, card: str, top: int = 6):
     log(f"[{tag}] copy and cast kernels (names with 'copy'): "
         f"{sum(c for c, _ in copies)} launches, "
         f"{sum(us for _, us in copies) / 1e3:.3f} ms")
+
+
+def loop_profile(tag: str, step, steps: int, card: str):
+    """Device kernels and busy time per call of ``step`` (profiler), the
+    calls' wall time measured unprofiled by the caller."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        log(f"[{tag}] device kernels: not measured (the profiler saw no "
+            f"device events); {card}")
+        return None, None
+    return (len(dev_events) / steps,
+            sum(e.device_time for e in dev_events) / steps)
+
+
+def async_phases(problem, f_problem, f_cfg, card: str):
+    """Phases 10a-10c: the asynchronous runtime and its durability on the
+    card (see the module docstring)."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+    from repro_torch import convert, kernels, rand
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.core import (AsyncConfig, EAConfig, MigrationConfig,
+                                  make_f15, make_trap, run_experiment_async,
+                                  run_fused, run_fused_async)
+    from repro_torch.core.async_migration import async_step
+    from repro_torch.core.evolution import epoch_step
+    from repro_torch.runtime.elastic import NEVER_CHURN
+
+    def same(tag, a, b, what):
+        for name, u, v in zip(a._fields, a, b):
+            if not torch.equal(u, v):
+                fail(f"{tag}: {what}.{name} differs")
+
+    def same_async(tag, a, b):
+        """Two run_fused_async results (islands, pool, ticks, stats,
+        astate[, harvest]) equal."""
+        for what, i in (("islands", 0), ("pool", 1), ("stats", 3),
+                        ("astate", 4)):
+            same(tag, a[i], b[i], what)
+        if int(a[2]) != int(b[2]):
+            fail(f"{tag}: tick counts differ")
+        if len(a) > 5 and a[5] != b[5]:
+            fail(f"{tag}: the counter ledgers differ: {a[5]} against {b[5]}")
+
+    # ---- 10a: the async runtime at paper-8 width -------------------------
+    cfg = EAConfig(impl="pallas", max_pop=256, min_pop=128,
+                   generations_per_epoch=100)
+    if cfg != dataclasses.replace(EAConfig(), impl="pallas"):
+        fail(f"paper-8's configuration is not EAConfig()'s: {cfg}")
+    mig = MigrationConfig(topology="pool")
+    acfg = AsyncConfig(min_rate=0.25, max_rate=1.0, staleness=3,
+                       churn_fraction=0.25)
+    ticks = ASYNC_TICKS
+
+    def run(prob, c, n_ticks, a=acfg, **kw):
+        t = time.perf_counter()
+        out = run_fused_async(prob, c, mig, a, n_islands=8,
+                              max_ticks=n_ticks, rng=SEED, w2=True,
+                              return_stats=True, return_astate=True,
+                              return_obs=True, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    run(problem, cfg, 1)                            # warm-up, not counted
+    kernels.reset_launches()
+    a_run, a_wall = run(problem, cfg, ticks)
+    a_launches = dict(kernels.LAUNCHES)
+    if min(a_launches["trap_fitness"], a_launches["generation"]) <= 0:
+        fail(f"async paper-8: a kernel of the path never launched: "
+             f"{a_launches}")
+    a_isl, _, _, a_stats, a_ast, a_obs = a_run
+    a_evals = int(a_isl.evaluations.sum())
+    fires = a_ast.fires.tolist()
+    tot = a_obs["totals"]
+    if tot["delivered"] != tot["accepted"] + tot["rejected"] or \
+            tot["fired"] > 8 * ticks or not bool(
+                torch.isfinite(a_isl.best_fitness).all()):
+        fail(f"async paper-8: ledger {tot} or best fitness out of order")
+    log(f"[async-main] paper-8 run_fused_async impl=pallas, {acfg}: 8 "
+        f"islands x {ticks} ticks: {a_evals} evaluations in {a_wall:.3f} s "
+        f"= {a_evals / a_wall:.1f} evals/s; fires per island {fires}; "
+        f"churn down-ticks {tot['churn_down']}; launches {a_launches}; "
+        f"ledger {tot}")
+    kernels.reset_launches()
+    t_run, _ = run(problem, dataclasses.replace(cfg, impl="pallas_tiled"),
+                   ticks)
+    t_launches = dict(kernels.LAUNCHES)
+    if t_launches["generation_tiled"] <= 0 or t_launches["generation"]:
+        fail(f"async paper-8 tiled: launches {t_launches}")
+    same_async("async paper-8 pallas_tiled vs pallas", t_run, a_run)
+    kernels.reset_launches()
+    r_run, r_wall = run(make_trap(40, 4),
+                        dataclasses.replace(cfg, impl="pallas_ref"), ticks)
+    if max(kernels.LAUNCHES.values()):
+        fail(f"async paper-8 plain run launched {dict(kernels.LAUNCHES)}")
+    same_async("async paper-8 pallas_ref vs pallas", r_run, a_run)
+    log(f"[async-main] impl=pallas == pallas_tiled == pallas_ref under the "
+        f"fire masks (islands, pool, stats, AsyncState, ledger); tiled "
+        f"launches {t_launches}; the plain run took {r_wall:.3f} s")
+    # the degenerate config is the sync driver
+    d_run, _ = run(problem, cfg, 3, a=AsyncConfig())
+    s_run = run_fused(problem, cfg, mig, n_islands=8, max_epochs=3,
+                      rng=SEED, w2=True, return_stats=True, return_obs=True)
+    for what, i in (("islands", 0), ("pool", 1), ("stats", 3)):
+        same("degenerate async vs run_fused", d_run[i], s_run[i], what)
+    if int(d_run[2]) != int(s_run[2]) or d_run[5] != s_run[4]:
+        fail("degenerate async vs run_fused: ticks or ledger differ")
+    # the host loop reaches the fused driver's state
+    t = time.perf_counter()
+    h = run_experiment_async(problem, cfg, mig, acfg, n_islands=8,
+                             max_ticks=ticks, rng=SEED, w2=True)
+    h_wall = time.perf_counter() - t
+    same("run_experiment_async vs run_fused_async", h.islands, a_isl,
+         "islands")
+    same("run_experiment_async vs run_fused_async", h.pool, a_run[1], "pool")
+    same("run_experiment_async vs run_fused_async", h.astate, a_ast,
+         "astate")
+    a_np = convert.to_numpy(a_stats)
+    for row, st in enumerate(h.stats):
+        for name in st._fields:
+            if getattr(st, name) != getattr(a_np, name)[row]:
+                fail(f"run_experiment_async stats row {row} {name} differs "
+                     f"from run_fused_async's")
+    log(f"[async-main] degenerate AsyncConfig() == run_fused (3 ticks: "
+        f"islands, pool, stats, ledger); run_experiment_async == "
+        f"run_fused_async (islands, pool, AsyncState, every stats row) in "
+        f"{h_wall:.3f} s, total fires {h.total_fires}")
+    # paper-f15-8 over 2 ticks: the float kernels under the fire masks
+    f_runs = {}
+    for impl in ("pallas", "pallas_tiled", "pallas_ref"):
+        prob = f_problem if impl != "pallas_ref" else make_f15()
+        kernels.reset_launches()
+        f_runs[impl], f_wall = run(prob, dataclasses.replace(f_cfg,
+                                                             impl=impl), 2)
+        f_launches = dict(kernels.LAUNCHES)
+        want = {"pallas": ("f15", "generation_float"),
+                "pallas_tiled": ("generation_tiled", "f15"),
+                "pallas_ref": ()}[impl]
+        if any(f_launches[k] <= 0 for k in want) or (
+                not want and max(f_launches.values())):
+            fail(f"async paper-f15-8 {impl}: launches {f_launches}")
+        log(f"[async-f15-main] paper-f15-8 impl={impl}: 8 islands x 2 ticks "
+            f"in {f_wall:.3f} s; launches {f_launches}; fires "
+            f"{f_runs[impl][4].fires.tolist()}")
+    for impl in ("pallas_tiled", "pallas_ref"):
+        same_async(f"async paper-f15-8 {impl} vs pallas", f_runs[impl],
+                   f_runs["pallas"])
+    log("[async-f15-main] impl=pallas == pallas_tiled == pallas_ref "
+        "(islands, pool, stats, AsyncState, ledger)")
+
+    # one epoch of [main] against one tick of [async-main], in turns
+    def loop(async_rt):
+        st = {"isl": a_isl, "pool": a_run[1], "ast": a_ast,
+              "key": rand.key(SEED + 7, device=a_isl.pop.device),
+              "t": torch.tensor(ticks, dtype=torch.int32,
+                                device=a_isl.pop.device)}
+
+        def step():
+            st["key"], k = rand.split(st["key"], 2)
+            st["t"] = st["t"] + 1
+            if async_rt:
+                st["isl"], st["pool"], st["ast"] = async_step(
+                    st["isl"], st["pool"], st["ast"], k, problem, cfg, mig,
+                    acfg, True, tick=st["t"])
+            else:
+                st["isl"], st["pool"] = epoch_step(
+                    st["isl"], st["pool"], k, problem, cfg, mig, True,
+                    epoch=st["t"])
+        return st, step
+
+    loops = {"main": loop(False), "async-main": loop(True)}
+    walls = {k: [] for k in loops}
+    evals = {k: 0 for k in loops}
+    fired = {k: 0 for k in loops}
+    for tag in ("main", "async-main", "async-main", "main"):
+        st, step = loops[tag]
+        e0, f0 = int(st["isl"].evaluations.sum()), int(st["ast"].fires.sum())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(PROFILE_TICKS):
+            step()
+        torch.cuda.synchronize()
+        walls[tag].append((time.perf_counter() - t) / PROFILE_TICKS)
+        evals[tag] += int(st["isl"].evaluations.sum()) - e0
+        fired[tag] += (int(st["ast"].fires.sum()) - f0 if tag != "main"
+                       else 8 * PROFILE_TICKS)
+    for tag in ("main", "async-main"):
+        wall_s = sum(walls[tag]) / len(walls[tag])
+        n_steps = 2 * PROFILE_TICKS
+        rate = evals[tag] / (wall_s * n_steps)
+        per, busy = loop_profile(tag, loops[tag][1], 1, card)
+        unit = "epoch" if tag == "main" else "tick"
+        if per is None:
+            continue
+        log(f"[{tag}] in turns (main, async, async, main; {PROFILE_TICKS} "
+            f"{unit}s each): {per:.0f} device kernels per {unit} "
+            f"({per / cfg.generations_per_epoch:.1f} per generation); "
+            f"{fired[tag] / n_steps:.2f} fires per {unit}; device busy "
+            f"{busy:.1f} us of {wall_s * 1e6:.1f} us wall per {unit} = "
+            f"{busy / (wall_s * 1e6):.3f}; {rate:.1f} evals/s "
+            f"({evals[tag] / max(fired[tag], 1):.0f} evaluations per fired "
+            f"island-epoch); {card}")
+
+    # ---- 10b: durability on the card -------------------------------------
+    snaps = os.path.join(ROOT, "build", "chip_smoke_snapshots")
+    shutil.rmtree(snaps, ignore_errors=True)
+    seg_cfg = dict(n_islands=8, rng=SEED, w2=True, return_stats=True,
+                   return_obs=True)
+    mono = run_fused(problem, cfg, mig, max_epochs=4, **seg_cfg)
+    segd = run_fused(problem, cfg, mig, max_epochs=4, snapshot_every=2,
+                     snapshot_dir=os.path.join(snaps, "sync"), **seg_cfg)
+    for what, i in (("islands", 0), ("pool", 1), ("stats", 3)):
+        same("segmented run_fused vs one segment", segd[i], mono[i], what)
+    a_mono, _ = run(problem, cfg, 4)
+    a_seg, _ = run(problem, cfg, 4, snapshot_every=2,
+                   snapshot_dir=os.path.join(snaps, "async"))
+    same_async("segmented run_fused_async vs one segment", a_seg, a_mono)
+    log(f"[durable] snapshot_every=2: segmented == one segment, sync and "
+        f"async (4 epochs/ticks at paper-8); snapshots "
+        f"{sorted(os.listdir(os.path.join(snaps, 'async')))}")
+    # kill -9 after the second snapshot lands, then --resume
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    kill_dir = os.path.join(snaps, "killed")
+    cmd = [sys.executable, "-m", "repro_torch.launch.evolve", "ea",
+           "--problem", "trap", "--islands", "8",
+           "--epochs", str(KILL_TICKS), "--impl", "pallas", "--fused",
+           "--runtime", "async", "--churn", "0.25", "--w2",
+           "--snapshot-every", "2", "--snapshot-dir", kill_dir]
+    t = time.perf_counter()
+    child = subprocess.Popen(cmd, env=env, cwd=ROOT,
+                             stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE)
+    second = os.path.join(kill_dir, "step_00000004")
+    while not os.path.isdir(second) and child.poll() is None and \
+            time.perf_counter() - t < 600:
+        time.sleep(0.02)
+    if child.poll() is not None:
+        fail(f"the child ended (rc {child.returncode}) before it was "
+             f"killed: {child.stderr.read()[-2000:]}")
+    child.send_signal(signal.SIGKILL)
+    child.wait()
+    child.stderr.close()
+    left = sorted(os.listdir(kill_dir))
+    proc = subprocess.run(cmd + ["--resume"], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=600)
+    if proc.returncode != 0:
+        fail(f"--resume: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    # the command's run in this process, uninterrupted: make_problem
+    # ("trap") is trap 40x4 with its plain fitness, seed 0; W² keeps the
+    # run going to its last tick (without it paper-8 stops at tick 4)
+    whole = os.path.join(snaps, "whole")
+    run_fused_async(make_trap(40, 4), cfg, mig, acfg, n_islands=8,
+                    max_ticks=KILL_TICKS, rng=0, w2=True, snapshot_every=2,
+                    snapshot_dir=whole)
+    last = latest_step(whole)
+    got, want = restore(kill_dir), restore(whole)
+    if latest_step(kill_dir) != last or sorted(got) != sorted(want) or any(
+            not np.array_equal(got[k], want[k]) for k in want):
+        fail("kill -9 + --resume: the resumed run's final snapshot differs "
+             "from the uninterrupted run's")
+    log(f"[durable] ea --fused --runtime async --w2 --snapshot-every 2, "
+        f"{KILL_TICKS} ticks, killed "
+        f"by SIGKILL after step 4 landed (left {left}), then --resume in a "
+        f"fresh process: final snapshot (step {last}, "
+        f"{len(want)} leaves) == the uninterrupted run's, in "
+        f"{time.perf_counter() - t:.1f} s; {proc.stdout.strip()}")
+    # an elastic resume: 12 islands from the 8-island async snapshot
+    g = run_fused_async(problem, cfg, mig, acfg, n_islands=12, max_ticks=8,
+                        rng=SEED, w2=True, return_stats=True,
+                        return_astate=True, return_obs=True,
+                        snapshot_dir=os.path.join(snaps, "async"),
+                        resume=True)
+    g_ast, g_obs = g[4], g[5]
+    if g[0].pop.shape[0] != 12 or int(g[2]) != 8 or \
+            sorted(g[0].uuid.tolist()) != list(range(12)) or \
+            g_ast.down_start[8:].tolist() != [NEVER_CHURN] * 4 or \
+            any(g_obs["churn_down"][8:]) or min(g_ast.fires[8:].tolist()) \
+            <= 0:
+        fail(f"elastic resume at 12: uuids {g[0].uuid.tolist()}, down "
+             f"{g_ast.down_start.tolist()}, fires {g_ast.fires.tolist()}")
+    log(f"[durable] resume at 12 islands from the 8-island snapshot (tick "
+        f"4 -> 8): joiners uuids 8-11, never down (down_start "
+        f"{NEVER_CHURN}), fires {g_ast.fires.tolist()}, rate "
+        f"{[round(x, 6) for x in g_ast.rate.tolist()]}")
+    shutil.rmtree(snaps, ignore_errors=True)
+
+    # ---- 10c: the ea command with --runtime async, on the card -----------
+    for extra, pattern in (
+            ([], r"success=(True|False) evals_to_solution=(None|\d+) "
+                 r"wall=\d+\.\ds fires=\d+"),
+            (["--fused"], r"final best=[0-9.]+ epochs=[12]")):
+        cmd = [sys.executable, "-m", "repro_torch.launch.evolve", "ea",
+               "--problem", "trap", "--islands", "8", "--epochs", "2",
+               "--runtime", "async"] + extra
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                              cwd=ROOT, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines or not re.fullmatch(
+                pattern, lines[-1]):
+            fail(f"ea --runtime async {extra}: rc {proc.returncode}, "
+                 f"stdout {lines[-3:]}, stderr {proc.stderr[-2000:]}")
+        log(f"[ea] {' '.join(cmd[3:])}: rc 0 in "
+            f"{time.perf_counter() - t:.1f} s; {' | '.join(lines[-3:])}")
 
 
 def main() -> int:
@@ -2408,6 +2751,11 @@ def main() -> int:
              f"stderr {proc.stderr[-2000:]}")
     log(f"[ea] {' '.join(cmd[1:])}: rc 0 in {time.perf_counter() - t:.1f} s"
         f"; {' | '.join(lines[-3:])}")
+
+    # ---- 10: the asynchronous runtime and its durability ------------------
+    t10 = time.perf_counter()
+    async_phases(problem, f_problem, f_cfg, card)
+    log(f"[async] phases 10a-10c in {time.perf_counter() - t10:.1f} s")
 
     result = {"kernels": [
         {"name": "trap_fitness", "route": "cuda",

@@ -6,6 +6,9 @@ with numpy leaves and its keys as their data words (the caller applies
 :func:`to_numpy` turns the port's state back into numpy, keys as uint32
 words, for comparison with the reference. :func:`f15_consts_from_numpy`
 carries F15's constants across, the weights of the float problems.
+:func:`to_device` puts a whole tree of numpy arrays or tensors on a device
+(a restored snapshot: its keys' uint32 words become the port's int64
+words).
 
 For the models, :func:`model_params_from_numpy` loads the reference's
 parameter tree (numpy leaves, each segment's blocks stacked on a leading
@@ -28,6 +31,7 @@ import torch
 
 from ._device import DeviceLike, resolve_device
 from .core.types import ExperimentState, IslandState, PoolState
+from .obs.counters import ObsCounters
 
 _KEY_FIELDS = ("rng", "key")
 
@@ -86,21 +90,68 @@ def pool_from_numpy(pool: Any, device: DeviceLike = None) -> PoolState:
     )
 
 
+def async_state_from_numpy(ast: Any, device: DeviceLike = None):
+    """An ``AsyncState`` batch with reference dtypes (the inbox's genomes
+    int8 or f32, as the genome)."""
+    from .core.async_migration import AsyncState
+    i32, f32 = torch.int32, torch.float32
+    return AsyncState(
+        clock=_tensor(ast.clock, f32, device),
+        rate=_tensor(ast.rate, f32, device),
+        down_start=_tensor(ast.down_start, i32, device),
+        down_end=_tensor(ast.down_end, i32, device),
+        inbox_genomes=_tensor(ast.inbox_genomes,
+                              _genome_dtype(ast.inbox_genomes), device),
+        inbox_fitness=_tensor(ast.inbox_fitness, f32, device),
+        inbox_born=_tensor(ast.inbox_born, i32, device),
+        inbox_ptr=_tensor(ast.inbox_ptr, i32, device),
+        fires=_tensor(ast.fires, i32, device),
+    )
+
+
+def obs_from_numpy(obs: Any, device: DeviceLike = None) -> ObsCounters:
+    return ObsCounters(*(_tensor(v, torch.int32, device) for v in obs))
+
+
 def experiment_from_numpy(st: Any,
                           device: DeviceLike = None) -> ExperimentState:
-    """The carried part of an ``ExperimentState`` (islands, pool, key,
-    epoch, stopped, next_uuid); async state, stats and counters are left
-    empty."""
+    """An ``ExperimentState``: islands, pool, async state (or ``()``),
+    key, epoch, stopped, next_uuid and counters (or ``()``); stats are
+    left empty."""
+    astate = getattr(st, "astate", ())
+    obs = getattr(st, "obs", ())
     return ExperimentState(
         islands=islands_from_numpy(st.islands, device),
         pool=pool_from_numpy(st.pool, device),
-        astate=(),
+        astate=(async_state_from_numpy(astate, device)
+                if hasattr(astate, "_fields") else ()),
         key=key_from_numpy(st.key, device),
         epoch=_tensor(st.epoch, torch.int32, device),
         stopped=_tensor(st.stopped, torch.bool, device),
         stats=(),
         next_uuid=_tensor(st.next_uuid, torch.int32, device),
+        obs=obs_from_numpy(obs, device) if hasattr(obs, "_fields") else (),
     )
+
+
+def to_device(tree: Any, device: DeviceLike = None) -> Any:
+    """Numpy arrays and tensors -> tensors on ``device`` through
+    NamedTuples, tuples, lists and dicts; uint32 arrays (keys' words) become
+    int64 words."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(resolve_device(device))
+    if isinstance(tree, (np.ndarray, np.generic)):
+        a = np.asarray(tree)
+        if a.dtype == np.uint32:
+            a = a.astype(np.int64)
+        return torch.from_numpy(np.array(a)).to(resolve_device(device))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_device(v, device) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_device(v, device) for v in tree)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree
 
 
 def to_numpy(tree: Any) -> Any:

@@ -16,9 +16,18 @@ Both walk the same keys, so from one seed they reach the same state. Every
 generation inside an epoch dispatches through the kernel table
 (``EAConfig.impl``), every migration through the topology registry
 (``MigrationConfig.topology``, ``.acceptance``). ``return_obs=True`` carries
-the counter ledger (:mod:`repro_torch.obs.counters`). Snapshots and resume
-(ROADMAP, Queue A item 11) and the host pool and its bridge (item 12) come
-in later slices.
+the counter ledger (:mod:`repro_torch.obs.counters`).
+
+Durability, as in the reference: :func:`run_segments` runs the fused
+drivers (this one and
+:func:`repro_torch.core.async_migration.run_fused_async`) as segments of
+:func:`segment_plan`'s lengths and snapshots the whole
+:class:`ExperimentState` after each (:mod:`repro_torch.checkpoint`);
+chaining segments is one long run, so a run resumed from its latest
+snapshot reaches the uninterrupted run's state bit for bit, and a resume
+at another island count resizes the state
+(:mod:`repro_torch.runtime.elastic`). The host pool and its bridge
+(ROADMAP, Queue A item 12) come in a later slice.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import torch
 
 from .. import convert, rand
 from .._device import resolve_device
+from ..checkpoint import Checkpointer
 from ..obs import counters as obs_lib
 from . import island as island_lib
 from . import migration as migration_lib
@@ -135,6 +145,128 @@ def fused_scan(islands: IslandState, pool: PoolState, key: torch.Tensor,
     return islands, pool, key, epoch, stopped, obs, stats
 
 
+def empty_stats(device=None) -> ExperimentStats:
+    """Zero-row stacked stats, the ``stats`` of a fresh
+    :class:`ExperimentState` (the dtypes of :func:`collect_stats`)."""
+    def z(dtype):
+        return torch.zeros((0,), dtype=dtype, device=device)
+    return ExperimentStats(epoch=z(torch.int32), best_fitness=z(torch.float32),
+                           mean_best=z(torch.float32),
+                           total_evaluations=z(torch.int32),
+                           n_done=z(torch.int32),
+                           experiments_solved=z(torch.int32))
+
+
+def segment_plan(done: int, total: int,
+                 snapshot_every: Optional[int]) -> List[int]:
+    """The remaining ``total - done`` epochs as segment lengths:
+    ``snapshot_every``-sized chunks and a remainder (``None`` or 0: one
+    segment)."""
+    if total <= done:
+        return []
+    if not snapshot_every or snapshot_every <= 0:
+        return [total - done]
+    out = []
+    at = done
+    while at < total:
+        n = min(snapshot_every, total - at)
+        out.append(n)
+        at += n
+    return out
+
+
+def resolve_checkpointer(snapshot_dir, checkpointer, keep: int = 3):
+    """One checkpointer per run: an explicit one wins, else one is made on
+    ``snapshot_dir`` (None: no snapshots)."""
+    if checkpointer is not None:
+        return checkpointer
+    if snapshot_dir is None:
+        return None
+    return Checkpointer(snapshot_dir, keep=keep)
+
+
+def restore_experiment_state(checkpointer, template: ExperimentState,
+                             device=None) -> ExperimentState:
+    """The latest snapshot in ``template``'s structure (the leaves' shapes
+    come from the snapshot, so another island count restores too), on
+    ``device``."""
+    state = checkpointer.restore_latest(target=template)
+    return convert.to_device(state, resolve_device(device))
+
+
+def run_segments(state: ExperimentState, max_steps: int, segment_fn, *,
+                 snapshot_every: Optional[int] = None, checkpointer=None,
+                 w2: bool = False, return_stats: bool = False
+                 ) -> ExperimentState:
+    """The segmented loop every fused driver shares.
+
+    ``segment_fn(state, seg_len) -> (state', seg_stats)`` runs ``seg_len``
+    epochs (ticks) from ``state``. After each segment the whole state is
+    snapshotted (:meth:`Checkpointer.save_async`: copied to the host here,
+    written on a thread), so a kill loses at most ``snapshot_every``
+    epochs. Early success (without W²) ends the loop; the stats rows are
+    then padded with the frozen final row to ``max_steps`` rows, as a
+    frozen epoch of the one-segment run gives. A state that has already
+    stopped (a resume of a run that ended early) runs no segment, so its
+    loop key too stays the uninterrupted run's; the reference runs one
+    frozen segment there, which splits the key on (ROADMAP, Reference
+    watch). Write errors surface at the end (``Checkpointer.wait``)."""
+    stats = state.stats if isinstance(state.stats, ExperimentStats) else None
+    for seg_len in segment_plan(int(state.epoch), max_steps,
+                                snapshot_every):
+        if not w2 and bool(state.stopped):
+            break
+        state, seg_stats = segment_fn(state, seg_len)
+        if return_stats:
+            stats = seg_stats if stats is None else ExperimentStats(
+                *(torch.cat([a, b]) for a, b in zip(stats, seg_stats)))
+            state = state._replace(stats=stats)
+        if checkpointer is not None:
+            checkpointer.save_async(int(state.epoch), state)
+        if not w2 and bool(state.stopped):
+            break
+    if return_stats and stats is not None:
+        rows = int(stats.epoch.shape[0])
+        if rows and rows < max_steps:
+            pad = max_steps - rows
+            stats = ExperimentStats(*(torch.cat([a, a[-1:].expand(
+                (pad,) + a.shape[1:])]) for a in stats))
+            state = state._replace(stats=stats)
+    if checkpointer is not None:
+        checkpointer.wait()
+    return state
+
+
+def resume_state(ckpt, template: ExperimentState, n_islands: int,
+                 problem: Problem, cfg: EAConfig, device) -> ExperimentState:
+    """The latest snapshot, resized to ``n_islands`` islands when it holds
+    another count (joiners seeded from the pool under new uuids)."""
+    if ckpt is None:
+        raise ValueError("resume=True needs snapshot_dir or checkpointer")
+    state = restore_experiment_state(ckpt, template, device)
+    if int(state.islands.pop.shape[0]) != n_islands:
+        from ..runtime import elastic  # deferred: elastic imports core
+        state = elastic.resize_experiment(state, n_islands, problem, cfg)
+    return state
+
+
+def carried_state(state: ExperimentState, n_islands: int, return_stats: bool,
+                  return_obs: bool, device) -> ExperimentState:
+    """A given state on ``device`` with the stats and counters the run
+    returns (fresh ones where the state has none)."""
+    state = convert.to_device(state, device)
+    if return_stats and not isinstance(state.stats, ExperimentStats):
+        state = state._replace(stats=empty_stats(device))
+    if not return_stats:
+        state = state._replace(stats=())
+    if return_obs and not hasattr(state.obs, "_fields"):
+        state = state._replace(obs=obs_lib.init_obs(n_islands,
+                                                    device=device))
+    if not return_obs:
+        state = state._replace(obs=())
+    return state
+
+
 def run_fused(problem: Problem,
               cfg: EAConfig = EAConfig(),
               mig: MigrationConfig = MigrationConfig(),
@@ -143,7 +275,12 @@ def run_fused(problem: Problem,
               rng: Union[int, torch.Tensor, None] = None,
               w2: bool = False,
               return_stats: bool = False,
-              return_obs: bool = False, *,
+              return_obs: bool = False,
+              snapshot_every: Optional[int] = None,
+              snapshot_dir: Optional[str] = None,
+              snapshot_keep: int = 3,
+              checkpointer=None,
+              resume: bool = False, *,
               device=None,
               state: Optional[ExperimentState] = None):
     """The whole experiment. ``rng`` is a key (``(2,)`` words) or an int
@@ -152,44 +289,64 @@ def run_fused(problem: Problem,
     harvested counter dict when ``return_obs`` (appended last). Stops
     early on global success without W².
 
+    Durability: ``snapshot_every=k`` runs ``k``-epoch segments and
+    snapshots the whole :class:`ExperimentState` to ``snapshot_dir`` (or
+    through ``checkpointer``) after each, keeping the newest
+    ``snapshot_keep``; ``resume=True`` restores the latest snapshot and
+    continues, bit for bit the uninterrupted run. A resume at another
+    ``n_islands`` resizes the restored state.
+
     ``state`` starts the run from a given :class:`ExperimentState` instead
-    of a fresh one (the parity tests carry the reference's initial state
-    across with :mod:`repro_torch.convert`); the run then covers the epochs
-    from ``state.epoch`` to ``max_epochs``. Runs on the card unless
-    ``device`` says otherwise."""
+    of a fresh one (the parity tests carry the reference's state across
+    with :mod:`repro_torch.convert`); the run then covers the epochs from
+    ``state.epoch`` to ``max_epochs``. Runs on the card unless ``device``
+    says otherwise."""
     dev = resolve_device(device)
-    if state is None:
-        if rng is None or isinstance(rng, int):
-            rng = rand.key(0 if rng is None else rng, device=dev)
-        keys = rand.split(rng.to(dev), 2)
-        islands = island_lib.init_islands(keys[0], n_islands, problem, cfg,
-                                          device=dev)
-        pool = pool_lib.pool_init(mig.pool_capacity, problem.genome,
-                                  device=dev)
-        state = ExperimentState(
-            islands=islands, pool=pool, astate=(), key=keys[1],
+    if rng is None or isinstance(rng, int):
+        rng = rand.key(0 if rng is None else rng, device=dev)
+    keys = rand.split(rng.to(dev), 2)
+    k_init, k_loop = keys[0], keys[1]
+    ckpt = resolve_checkpointer(snapshot_dir, checkpointer, snapshot_keep)
+
+    def fresh_state(n: int) -> ExperimentState:
+        return ExperimentState(
+            islands=island_lib.init_islands(k_init, n, problem, cfg,
+                                            device=dev),
+            pool=pool_lib.pool_init(mig.pool_capacity, problem.genome,
+                                    device=dev),
+            astate=(), key=k_loop,
             epoch=torch.zeros((), dtype=torch.int32, device=dev),
             stopped=torch.zeros((), dtype=torch.bool, device=dev),
-            stats=(), next_uuid=torch.tensor(n_islands, dtype=torch.int32,
-                                            device=dev))
-    islands = IslandState(*(t.to(dev) for t in state.islands))
-    pool = PoolState(*(t.to(dev) for t in state.pool))
-    done = int(state.epoch)
-    obs0 = ()
-    if return_obs:
-        obs0 = (obs_lib.ObsCounters(*(t.to(dev) for t in state.obs))
-                if hasattr(state.obs, "_fields")
-                else obs_lib.init_obs(islands.pop.shape[0], device=dev))
-    islands, pool, _, epoch, _, obs, stats = fused_scan(
-        islands, pool, state.key.to(dev), state.epoch.to(dev),
-        state.stopped.to(dev), obs0, problem=problem, cfg=cfg, mig=mig,
-        w2=w2, max_epochs=max(max_epochs - done, 0),
-        with_stats=return_stats)
-    out = (islands, pool, epoch)
+            stats=empty_stats(dev) if return_stats else (),
+            next_uuid=torch.tensor(n, dtype=torch.int32, device=dev),
+            obs=obs_lib.init_obs(n, device=dev) if return_obs else ())
+
+    if resume:
+        state = resume_state(ckpt, fresh_state(n_islands), n_islands,
+                             problem, cfg, dev)
+    elif state is not None:
+        state = carried_state(state, n_islands, return_stats, return_obs,
+                              dev)
+    else:
+        state = fresh_state(n_islands)
+
+    def segment_fn(state: ExperimentState, seg_len: int):
+        islands, pool, key, epoch, stopped, obs, seg_stats = fused_scan(
+            state.islands, state.pool, state.key, state.epoch,
+            state.stopped, state.obs, problem=problem, cfg=cfg, mig=mig,
+            w2=w2, max_epochs=seg_len, with_stats=return_stats)
+        return state._replace(islands=islands, pool=pool, key=key,
+                              epoch=epoch, stopped=stopped,
+                              obs=obs), seg_stats
+
+    state = run_segments(state, max_epochs, segment_fn,
+                         snapshot_every=snapshot_every, checkpointer=ckpt,
+                         w2=w2, return_stats=return_stats)
+    out = (state.islands, state.pool, state.epoch)
     if return_stats:
-        out += (stats,)
+        out += (state.stats,)
     if return_obs:
-        out += (obs_lib.harvest(obs),)
+        out += (obs_lib.harvest(state.obs),)
     return out
 
 

@@ -878,3 +878,103 @@ def test_flash_launches_once_per_layer_of_a_dense_prefill(card):
     torch.testing.assert_close(caches[0][0]["k"], want_caches[0][0]["k"])
     model.decode(logits.argmax(-1)[:, None], 37, caches)
     assert kernels.LAUNCHES["flash_attention"] == cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# The asynchronous runtime and its snapshots on the card
+# ---------------------------------------------------------------------------
+ASYNC_HETERO = dict(min_rate=0.3, max_rate=1.0, staleness=2,
+                    churn_fraction=0.5, seed=3)
+
+
+def _async_run(card, impl, topology, **kw):
+    from repro_torch.core import (AsyncConfig, EAConfig, MigrationConfig,
+                                  make_trap, run_fused_async)
+    problem = make_trap(8, 4, impl="pallas" if impl != "pallas_ref"
+                        else "jnp")
+    cfg = EAConfig(max_pop=64, min_pop=32, generations_per_epoch=3,
+                   impl=impl)
+    return run_fused_async(problem, cfg, MigrationConfig(
+        topology=topology, pool_capacity=16), AsyncConfig(**ASYNC_HETERO),
+        n_islands=6, max_ticks=5, rng=0, w2=True, return_stats=True,
+        return_astate=True, return_obs=True, device=card, **kw)
+
+
+@pytest.mark.parametrize("topology", ["pool", "ring", "broadcast_best"])
+def test_async_kernel_family_bit_equal_under_fire_masks(card, topology):
+    """``run_fused_async`` under heterogeneous clocks and churn: the
+    kernels (untiled and tiled) equal the plain versions bit for bit, the
+    async state and the ledger included."""
+    from repro_torch import kernels
+    kernels.reset_launches()
+    k = _async_run(card, "pallas", topology)
+    assert kernels.LAUNCHES["generation"] > 0
+    for impl in ("pallas_tiled", "pallas_ref"):
+        other = _async_run(card, impl, topology)
+        for a, b in zip(k[:2] + k[3:5], other[:2] + other[3:5]):
+            for name, u, v in zip(a._fields, a, b):
+                assert torch.equal(u, v), f"{impl}: {name}"
+        assert int(k[2]) == int(other[2]) and k[5] == other[5]
+
+
+def test_async_resume_on_the_card_equals_uninterrupted(card, tmp_path):
+    """Snapshots of card tensors (copied to the host before the writer
+    thread starts) restore onto the card, and the resumed run is the
+    uninterrupted one."""
+    full = _async_run(card, "pallas", "pool", snapshot_every=2,
+                      snapshot_dir=str(tmp_path))
+    steps = sorted(p.name for p in tmp_path.iterdir())
+    assert steps == ["step_00000002", "step_00000004", "step_00000005"]
+    import shutil
+    shutil.rmtree(tmp_path / steps[-1])
+    res = _async_run(card, "pallas", "pool", snapshot_every=2,
+                     snapshot_dir=str(tmp_path), resume=True)
+    for a, b in zip(full[:2] + full[3:5], res[:2] + res[3:5]):
+        for name, u, v in zip(a._fields, a, b):
+            assert u.device.type == "cuda" and torch.equal(u, v), name
+    assert full[5] == res[5]
+
+
+def test_async_tick_adds_no_host_sync(card):
+    """``fused_scan_async`` waits for the device no more often than
+    ``fused_scan`` (once per tick, for the early-stop latch): the
+    synchronizing calls ``torch.cuda.set_sync_debug_mode`` reports over 3
+    ticks are at most those of 3 sync epochs."""
+    import warnings
+
+    from repro_torch import rand
+    from repro_torch.core import (AsyncConfig, EAConfig, MigrationConfig,
+                                  make_trap)
+    from repro_torch.core import island as island_lib
+    from repro_torch.core import pool as pool_lib
+    from repro_torch.core.async_migration import (fused_scan_async,
+                                                  init_async_state)
+    from repro_torch.core.evolution import fused_scan
+    problem = make_trap(8, 4, impl="pallas")
+    cfg = EAConfig(max_pop=64, min_pop=32, generations_per_epoch=3,
+                   impl="pallas")
+    mig = MigrationConfig(pool_capacity=16)
+    k = rand.key(0, device=card)
+    islands = island_lib.init_islands(k, 6, problem, cfg, device=card)
+    pool = pool_lib.pool_init(16, problem.genome, device=card)
+    astate = init_async_state(k, 6, AsyncConfig(**ASYNC_HETERO), 3,
+                              problem.genome)
+    kw = dict(problem=problem, cfg=cfg, mig=mig, w2=False,
+              with_stats=False)
+
+    def syncs(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+    n_sync = syncs(lambda: fused_scan(islands, pool, k, max_epochs=3, **kw))
+    n_async = syncs(lambda: fused_scan_async(
+        islands, pool, astate, k, acfg=AsyncConfig(**ASYNC_HETERO),
+        max_ticks=3, **kw))
+    assert n_sync >= 3 and n_async <= n_sync, (n_sync, n_async)

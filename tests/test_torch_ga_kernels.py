@@ -145,14 +145,31 @@ def test_registry_names_what_is_not_ported():
         torch.tensor([6, 3], dtype=torch.int32), EAConfig(),
         GenomeSpec("binary", 8))
     assert new_pop.shape == (2, 6, 8) and new_pop.dtype == torch.int8
-    # the async runtime's per-island fire mask is still unported
+    # the async runtime's per-island fire mask (Queue A item 10) runs:
+    # only the firing island PUTs and GETs, as in the reference
+    from repro.core import migration as j_migration
+    from repro.core import pool as j_pool
+    from repro_torch import convert
     genome = GenomeSpec("binary", 8)
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        migration.migrate(pool_init(4, genome, device="cpu"),
-                          torch.zeros((2, 8), dtype=torch.int8),
-                          torch.zeros(2), torch.zeros(2, dtype=torch.int64),
-                          migration.MigrationConfig(),
-                          available=torch.tensor([True, False]))
+    bests = np.array([[1, 0, 1, 1, 0, 0, 1, 0], [0] * 8], np.int8)
+    fits = np.array([3.0, 5.0], np.float32)
+    got = migration.migrate(pool_init(4, genome, device="cpu"),
+                            torch.from_numpy(bests), torch.from_numpy(fits),
+                            torch.zeros(2, dtype=torch.int64),
+                            migration.MigrationConfig(),
+                            available=torch.tensor([True, False]))
+    with jax.threefry_partitionable(True):
+        want = j_migration.migrate(
+            j_pool.pool_init(4, JGenomeSpec("binary", 8)),
+            jnp.asarray(bests), jnp.asarray(fits),
+            jax.random.wrap_key_data(jnp.zeros(2, jnp.uint32)),
+            j_migration.MigrationConfig(),
+            available=jnp.asarray([True, False]))
+    assert int(got[0].count) == int(want[0].count) == 1
+    for g, w in zip(convert.to_numpy(got[0]) + tuple(
+            convert.to_numpy(t) for t in got[1:]),
+            tuple(want[0]) + tuple(want[1:])):
+        np.testing.assert_array_equal(g, np.asarray(w))
     with pytest.raises(KeyError):
         get_kernel("generation", "binary", "no_such_impl")
     spec = TSpec(kind="float", length=8, elite=1, selection="tournament",

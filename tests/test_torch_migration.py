@@ -4,8 +4,9 @@ against the reference's ``repro.core.migration`` and ``.acceptance``.
 Every topology x acceptance policy pair goes through ``migrate(...,
 with_ledger=True)`` on the same seeded inputs (binary genomes, a pool
 partly filled, bests with ties), and the pool, the immigrants and both
-ledger masks must equal the reference's bit for bit; so must the dead
-server, the empty pool, the torus on odd and even epochs and on a prime
+ledger masks must equal the reference's bit for bit, under the sync
+drivers' scalar gate and under the async runtime's per-island fire mask
+(a vector ``available``); so must the dead server, the empty pool, the torus on odd and even epochs and on a prime
 island count, ``gate_immigrants``, ``apply_policy`` (dedup at epsilon 0
 and above it, more candidates than slots) and the numpy mirror
 ``host_accept``.
@@ -112,6 +113,28 @@ def test_migrate_matches_reference(topo, policy):
     _check(got[1:], want[1:], "immigrants and ledger")
     delivered, accepted = got[3], got[4]
     assert bool((accepted <= delivered).all())
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("topo", TOPOLOGIES)
+def test_fire_mask_matches_reference(topo, policy):
+    """A vector ``available`` (the async runtime's fire mask): the pool
+    takes only the firing islands' PUTs and answers only their GETs; the
+    other topologies mask the silent *sources* and deliver unmasked."""
+    args = _inputs(50 + TOPOLOGIES.index(topo) * 4 + POLICIES.index(policy))
+    mask = np.array([True, False, False, True, True, False])
+    got, want = _both(topo, policy, *args, eps=1.0 if policy == "dedup"
+                      else 0.0, available=mask)
+    _check(got[0], want[0], "pool")
+    _check(got[1:], want[1:], "immigrants and ledger")
+    if topo == "pool":
+        assert not bool(torch.isfinite(got[2][~torch.from_numpy(mask)]).any())
+    # nobody fires: the pool is untouched and nothing is delivered
+    none = np.zeros(N_ISL, dtype=bool)
+    got, want = _both(topo, policy, *args, available=none)
+    _check(got, want, "no island fires")
+    _check(got[0], args[0], "pool unchanged")
+    assert not bool(got[3].any())
 
 
 @pytest.mark.parametrize("topo", TOPOLOGIES)
@@ -278,9 +301,12 @@ def test_registries_and_what_still_raises():
         acceptance.ACCEPTANCE_POLICIES.pop("test_none")
     with pytest.raises(KeyError):
         migration.get_topology("no_such_topology")
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        migration.migrate(*args, MigrationConfig(topology="ring"),
-                          available=torch.ones(N_ISL, dtype=torch.bool))
+    # a per-island fire mask (the async runtime's vector ``available``)
+    # runs, as the reference's does
+    mask = np.array([True, False, True, True, False, True])
+    got, want = _both("ring", "always", pool, best_g, best_f, words,
+                      available=mask)
+    _check(got, want, "ring under a fire mask")
     with pytest.raises(NotImplementedError, match="Queue A item 13"):
         migration.migrate(*args, MigrationConfig(topology="pool"),
                           axis="islands")

@@ -226,7 +226,7 @@ def test_convert_helpers_without_device_need_a_card(helper, monkeypatch):
         fn(*args)
 
 
-def test_unported_paths_raise_naming_the_roadmap():
+def test_unported_paths_raise_naming_the_roadmap(tmp_path):
     cfg = EAConfig(**CFG)
     run = dict(n_islands=2, max_epochs=1, w2=True, device="cpu")
     # the ring topology (Queue A item 9) and the classic impl (item 8) run
@@ -238,12 +238,24 @@ def test_unported_paths_raise_naming_the_roadmap():
     # what is still unported raises with its item named
     with pytest.raises(NotImplementedError, match="Queue A item 12"):
         run_experiment(make_onemax(64), cfg, host_bridge=object(), **run)
-    for flags, item in ((["--runtime", "async"], 10),
-                        (["--snapshot-every", "1"], 11), (["--bridge"], 12),
-                        (["--sharded"], 13)):
+    for flags, item in ((["--bridge"], 12), (["--sharded"], 13)):
         with pytest.raises(NotImplementedError,
                            match=f"Queue A item {item}"):
             evolve.main(["ea", "--device", "cpu"] + flags)
+    # the async runtime (item 10) and the snapshots (item 11) run
+    small = ["ea", "--device", "cpu", "--islands", "2", "--epochs", "2",
+             "--max-pop", "8", "--min-pop", "8", "--gens-per-epoch", "1"]
+    res = evolve.main(small + ["--runtime", "async"])
+    assert res.epochs == 2 and res.total_fires >= 0
+    snaps = str(tmp_path / "snaps")
+    isl, _ = evolve.main(small + ["--fused", "--runtime", "async",
+                                  "--snapshot-every", "1",
+                                  "--snapshot-dir", snaps])
+    assert sorted(os.listdir(snaps)) == ["step_00000001", "step_00000002"]
+    again, _ = evolve.main(small + ["--fused", "--runtime", "async",
+                                    "--snapshot-dir", snaps, "--resume"])
+    _assert_tree_equal(convert.to_numpy(again), convert.to_numpy(isl),
+                       "resumed")
     # impl="pallas_tiled" runs, and equals impl="pallas" from the same seed
     runs = [run_fused(make_onemax(64), EAConfig(**dict(CFG, impl=impl)),
                       MigrationConfig(), rng=SEED, **run)
@@ -304,5 +316,6 @@ def test_import_scan_covers_every_subpackage():
     for sub in ("models", "configs", "launch", os.path.join("kernels",
                                                             "rwkv6"),
                 os.path.join("kernels", "flash_attention"),
-                "core", "obs", os.path.join("kernels", "ga")):
+                "core", "obs", os.path.join("kernels", "ga"), "checkpoint",
+                "runtime"):
         assert sub in walked, sub
