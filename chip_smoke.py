@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 2. the trap kernel (a warp per row) against its plain version on the card
    (bit-equal): the main path's 2048 x 40 traps, 1000 and 77 rows, one
    row, 64, 65 and 80 traps, 13 traps of 5 genes, and a population that
-   starts 3 bytes off 16;
+   starts 3 bytes off 16; then the sum order's edges (``ordered_sum``,
+   XLA's windows of 32): 100, 200, 1000 and 1025 traps;
 2b. the F15 kernel (row tiles, each group's rotation by a bulk copy)
    against its plain version (bit-equal) at (10000, 1000, m 50), Fig. 4's
    shape, at (1000, 1000, 50) and at (256, 200, 20); at its edges (n = 1,
@@ -18,22 +19,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    scalar route; m = 64; D = 40,000, where a tile is one row); at the
    shapes whose rows it cannot stage, one launch each, through the route
    the wrapper picks (z gathered from device memory at D 60,000 and 51,950,
-   m 50, and at m 169; the sliced route at m 200, 500 and 1000, D 1000);
-   and at every rows per tile that phase 6 sweeps, whose shared memory the
-   kernel and the wrapper must count alike;
+   m 50, and at m 169; the sliced route at m 200, 500 and 1000, D 1000,
+   and at m 2000, slices that start the sum order's windows); the sum
+   order past 64 terms (m 65 and 100) and past 32 groups (100 groups of
+   10); and at every rows per tile that phase 6 sweeps, whose shared
+   memory the kernel and the wrapper must count alike;
 3. the binary generation kernel against its plain version on the card,
    every selection x crossover x fused eval, at 8 islands of 256 x 160
    with pop_size drawn in [128, 256]; then at its edges (n not a multiple
    of the CTAs per island, L not a multiple of 4, islands off 16 bytes,
    all-masked and all-tied fitness, a tile under 16 bytes, the largest
    island that routes untiled; clusters of 1, 3, 5, 8 and 16 CTAs through
-   n) (bit-equal);
+   n; fused trap at 100, 200 and 1025 traps) (bit-equal);
 3b. the float generation kernel against its plain version, every
    selection x {two_point, uniform, blend} x {none, rastrigin, sphere,
    f15}, at 8 islands of 256 x 1000 with pop_size drawn in [128, 256] and
    the problem's fitness; then with fused F15 at its edges (m = 7 and 13,
    n not a multiple of the rows per block, all-masked and all-tied
-   fitness, 365 x 1000; 4, 2 and 1 rows per block through L) (bit-equal);
+   fitness, 365 x 1000; 4, 2 and 1 rows per block through L; m 65 and
+   100, 100 groups of 10), and the fused rastrigin and sphere sums at L =
+   65, 100, 1000 and 2000, one launch each (bit-equal);
 3c. the tiled generation kernel (each block drawing its rows' plan) and,
    under roulette, the roulette-CDF kernel against their plain versions
    (bit-equal, genes, fitness and CDF): binary 2 x 2048 x 160 with fused
@@ -43,7 +48,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    m = 7 and 50; the kernel's edges (rows off its 16-byte pack, 1003 f32
    and 157 int8, populations 4 and 5 bytes off 16, 3 elite rows over
    blocks of 1, 2 and 8 rows, pop_size below n) against the plain version
-   and the untiled kernels; the CDF kernel alone at its edges (1, 63, 64,
+   and the untiled kernels; the fused rastrigin and sphere sums at L =
+   1000 and 2000; the CDF kernel alone at its edges (1, 63, 64,
    65, 127, 4096, 4097, 10,000, 16,384, 16,385 and 40,000 lanes, masked
    lanes at segments' ends, all-masked and all-tied islands, 8 x 256,
    islands off 16 bytes), bit-equal to ``common.roulette_cdf`` and
@@ -160,7 +166,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 10c. the ``ea --runtime async`` command on the card by default, the host
    loop and ``--fused``, in subprocesses: exit 0 and the reference's final
    line;
-11. one JSON line with each kernel's launches, time, plain time, bound and
+11a. the host tier at paper-8 width: ``run_experiment`` (5 epochs, W²)
+   with ``HostBridge(PoolServer(capacity=256, seed=8191), pull=4)``, the
+   server and the device pool down for epochs 2 and 3, under
+   ``impl="pallas"``, ``pallas_tiled`` and ``pallas_ref``: equal bit for
+   bit (islands, pool, stats rows, the bridge's counts, the server's
+   entries and stats), the kernels launched; the same for paper-f15-8
+   over 2 epochs;
+11b. over the wire: ``python -m repro_torch.server --port 0 --spool DIR``
+   in a child process; the paper-8 run bridged to its URL (experiment
+   seed 1, one shard) equals the in-process run with PoolServer(seed=8191);
+   then the async runtime's host loop (8 ticks, the paper-8 async
+   configuration) with ``AsyncHostBridge(url, cursor_id=...)`` while 256
+   ``AsyncWireClient`` volunteers on a second thread GET, hill-climb (the
+   plain trap on the host CPU) and PUT against 2 shards; the server is
+   killed by SIGKILL after tick 4 and restarted with ``--resume`` on the
+   same port before tick 6: no (shard, seq) reaches the device pool
+   twice, and the cursor ledger balances (delivered + dropped = the seqs
+   the cursor covers); ``/metricz``'s p50 and p99 per verb;
+11c. ``[main]`` against ``[bridge-main]`` (one epoch plus a HostBridge
+   sync) in turns (main, bridge, bridge, main): wall, kernels, busy share
+   and synchronizing host reads per epoch; against a slowed-server double
+   (each verb sleeps 200 ms) AsyncHostBridge.sync never waits (each call
+   under 50 ms) and HostBridge's epoch grows by its five verbs;
+11d. the commands: ``ea --bridge`` (sync and ``--runtime async``), the
+   ``volunteer_sim`` sync demo, its ``--runtime async --trace T --obs-json
+   O``, then ``python -m repro_torch.obs T --obs O``: each exits 0;
+12. one JSON line with each kernel's launches, time, plain time, bound and
    library time, then the last line: ``{"ok": true, "device": {...}}``.
 
 It imports the port only (``src/repro_torch``), never JAX or the reference.
@@ -228,7 +260,8 @@ F15_SWEEP_ROWS = (8, 16, 20, 26, 32, 38, 44)
 F15_ROUTE_CASES = (("gathered", 2048, 60000, 50), ("gathered", 7, 51950, 50),
                    ("gathered m 169", 333, 1014, 169),
                    ("sliced", 2048, 1000, 200), ("sliced", 2048, 1000, 1000),
-                   ("sliced", 1, 1000, 1000), ("sliced", 45, 1000, 500))
+                   ("sliced", 1, 1000, 1000), ("sliced", 45, 1000, 500),
+                   ("sliced", 300, 2000, 2000))
 TIMED_CALLS = 50
 # head start of the timed windows: the card spins this long while the host
 # enqueues the calls (the spin is counted in clock cycles; 2 GHz is above
@@ -316,6 +349,23 @@ GENE_ATOL, FIT_RTOL, FIT_ATOL = 2e-6, 2e-4, 1e-3
 ASYNC_TICKS = 10
 PROFILE_TICKS = 2
 KILL_TICKS = 12
+# phase 11: the bridged runs' epochs and the epochs their device pool and
+# in-process server are down; the wire experiment's seed (its one shard's
+# PoolServer seed is 8191 times it); the wire run's ticks, the tick after
+# whose sync the server is SIGKILLed and the tick before whose sync it is
+# back (--resume); the wire volunteers and their pause between PUTs; the
+# slow-server double's sleep per verb, the longest AsyncHostBridge.sync it
+# may cause, and its epochs
+BRIDGE_EPOCHS = 5
+BRIDGE_DOWN = (2, 3)
+WIRE_SEED = 1
+WIRE_TICKS = 8
+WIRE_KILL = (4, 6)
+VOLUNTEERS = 256
+VOLUNTEER_PAUSE_S = 0.5
+SLOW_VERB_S = 0.2
+SLOW_SYNC_MAX_MS = 50.0
+SLOW_EPOCHS = 3
 
 
 def log(*args):
@@ -1030,6 +1080,446 @@ def async_phases(problem, f_problem, f_cfg, card: str):
             f"{time.perf_counter() - t:.1f} s; {' | '.join(lines[-3:])}")
 
 
+class SlowServer:
+    """A test double of the host pool server: each verb sleeps
+    ``SLOW_VERB_S`` before the in-process PoolServer answers, as a slow
+    network would."""
+
+    VERBS = ("put", "get_random", "get_since", "get_best", "reset", "stats")
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):
+        attr = getattr(self.inner, name)
+        if name not in self.VERBS:
+            return attr
+
+        def slow(*args, **kw):
+            time.sleep(SLOW_VERB_S)
+            return attr(*args, **kw)
+        return slow
+
+
+def host_phases(paths, card: str, device=None):
+    """Phases 11a-11d: the host and server tier (see the module
+    docstring). ``paths``: (tag, kernel problem, plain problem, EAConfig,
+    epochs) of paper-8, then paper-f15-8; 11b and 11c run the first.
+    ``device`` None is the card."""
+    import asyncio
+    import shutil
+    import signal
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels, rand
+    from repro_torch.core import (AsyncConfig, AsyncHostBridge, HostBridge,
+                                  MigrationConfig, PoolServer, make_trap,
+                                  run_experiment)
+    from repro_torch.core import pool as pool_lib
+    from repro_torch.core.async_migration import async_step, init_async_state
+    from repro_torch.core.evolution import epoch_step
+    from repro_torch.core.island import init_islands
+    from repro_torch.server import AsyncWireClient, RemotePoolServer, wire
+
+    def sync():
+        if device is None:
+            torch.cuda.synchronize()
+
+    problem, cfg = paths[0][1], paths[0][3]
+    mig = MigrationConfig(topology="pool")
+
+    def bridged(prob, c, epochs, bridge, server=None):
+        """run_experiment at paper-8 width with ``bridge``; the device
+        pool down for BRIDGE_DOWN epochs, and ``server`` (in process)
+        killed for them too."""
+        def up(epoch):
+            alive = epoch not in BRIDGE_DOWN
+            if server is not None:
+                server.revive() if alive else server.kill()
+            return alive
+        sync()
+        t = time.perf_counter()
+        res = run_experiment(prob, c, mig, n_islands=8, max_epochs=epochs,
+                             rng=SEED, w2=True, server_up=up,
+                             host_bridge=bridge, device=device)
+        sync()
+        return res, time.perf_counter() - t
+
+    def entries_of(srv):
+        if isinstance(srv, PoolServer):
+            srv.revive()
+        got, _, _ = srv.get_since(-1, limit=1 << 20)
+        return [(e.seq, e.uuid, e.fitness, e.genome.tobytes())
+                for e in got]
+
+    def server_stats(srv):
+        st = srv.stats()
+        return {k: st[k] for k in ("size", "puts", "rejected", "experiment",
+                                   "best_fitness")}
+
+    def same_bridged(tag, a, b):
+        (ra, ba, sa), (rb, bb, sb) = a, b
+        for what, x, y in (("islands", ra.islands, rb.islands),
+                           ("pool", ra.pool, rb.pool)):
+            for name, u, v in zip(x._fields, x, y):
+                if not torch.equal(u, v):
+                    fail(f"{tag}: {what}.{name} differs")
+        if ra.epochs != rb.epochs or len(ra.stats) != len(rb.stats) or any(
+                not all(np.array_equal(u, v) for u, v in zip(p, q))
+                for p, q in zip(ra.stats, rb.stats)):
+            fail(f"{tag}: the stats rows differ")
+        if ba.stats() != bb.stats():
+            fail(f"{tag}: bridge counts {ba.stats()} against {bb.stats()}")
+        if sa != sb:
+            fail(f"{tag}: the servers' entries or stats differ")
+
+    # ---- 11a: the bridged host loop at paper-8 width ----------------------
+    for tag, k_problem, p_problem, c0, epochs in paths:
+        wanted = ({"pallas": ("generation_float", "f15"),
+                   "pallas_tiled": ("generation_tiled", "f15")}
+                  if k_problem.genome.kind == "float" else
+                  {"pallas": ("trap_fitness", "generation"),
+                   "pallas_tiled": ("generation_tiled",)})
+        runs = {}
+        for impl in ("pallas", "pallas_tiled", "pallas_ref"):
+            server = PoolServer(capacity=256, seed=8191 * WIRE_SEED)
+            bridge = HostBridge(server, pull=4)
+            kernels.reset_launches()
+            res, wall = bridged(p_problem if impl == "pallas_ref"
+                                else k_problem,
+                                dataclasses.replace(c0, impl=impl), epochs,
+                                bridge, server)
+            launches = dict(kernels.LAUNCHES)
+            want = wanted.get(impl, ())
+            if any(launches[k] <= 0 for k in want) or (
+                    not want and max(launches.values())) or (
+                    impl == "pallas_tiled" and launches["generation"]
+                    + launches["generation_float"]):
+                fail(f"bridged {tag} {impl}: launches {launches}")
+            st = bridge.stats()
+            if st["lost"] <= 0 or st["pulled"] <= 0 or st["pushed"] <= 0:
+                fail(f"bridged {tag} {impl}: bridge counts {st}")
+            runs[impl] = (res, bridge,
+                          (entries_of(server), server_stats(server)))
+            log(f"[bridge] {tag} run_experiment impl={impl}, HostBridge("
+                f"PoolServer(capacity=256, seed={8191 * WIRE_SEED}), pull=4)"
+                f", server and device pool down epochs {BRIDGE_DOWN}: 8 "
+                f"islands x {res.epochs} epochs in {wall:.3f} s; bridge "
+                f"{st}; server {server_stats(server)}; launches {launches}")
+        for impl in ("pallas_tiled", "pallas_ref"):
+            same_bridged(f"bridged {tag} {impl} vs pallas", runs[impl],
+                         runs["pallas"])
+        log(f"[bridge] {tag}: impl=pallas == pallas_tiled == pallas_ref "
+            f"(islands, pool, stats rows, bridge counts, the server's "
+            f"entries and stats)")
+        if k_problem is problem:
+            main_run = runs["pallas"]
+
+    # ---- 11b: over the wire --------------------------------------------
+    spool = os.path.join(ROOT, "build", "chip_smoke_spool")
+    shutil.rmtree(spool, ignore_errors=True)
+    os.makedirs(spool)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    children, logs = [], []
+
+    def start_server(port=0, resume=False):
+        logs.append(open(os.path.join(spool, f"server{len(logs)}.err"), "w"))
+        child = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.server", "--port", str(port),
+             "--spool", spool] + (["--resume"] if resume else []),
+            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=logs[-1],
+            text=True)
+        children.append(child)
+        line = child.stdout.readline()
+        m = re.search(r"listening on (http://\S+)", line)
+        if not m:
+            fail(f"python -m repro_torch.server did not start: {line!r}")
+        return child, m.group(1)
+
+    try:
+        child, url = start_server()
+        admin = RemotePoolServer(url, experiment="bridge",
+                                 client_id="chip-admin")
+        admin.create(capacity=256, shards=1, seed=WIRE_SEED)
+        local = PoolServer(capacity=256, seed=8191 * WIRE_SEED)
+        l_bridge = HostBridge(local, pull=4)
+        l_res, l_wall = bridged(problem, cfg, BRIDGE_EPOCHS, l_bridge)
+        w_bridge = HostBridge(url, pull=4, experiment="bridge")
+        w_res, w_wall = bridged(problem, cfg, BRIDGE_EPOCHS, w_bridge)
+        same_bridged("wire-bridged paper-8 vs in-process",
+                     (w_res, w_bridge, (entries_of(admin),
+                                        server_stats(admin))),
+                     (l_res, l_bridge, (entries_of(local),
+                                        server_stats(local))))
+        w_bridge.server.close()
+        log(f"[wire] paper-8 bridged over the wire (python -m "
+            f"repro_torch.server, experiment seed {WIRE_SEED}, one shard) "
+            f"== in process (PoolServer(seed={8191 * WIRE_SEED})): islands, "
+            f"pool, stats rows, bridge {w_bridge.stats()}, the server's "
+            f"{len(entries_of(admin))} entries and stats; {w_wall:.3f} s "
+            f"against {l_wall:.3f} s in process")
+
+        # the async host loop, 256 wire volunteers, a SIGKILL and --resume
+        admin.experiment = "volunteers"
+        admin.create(capacity=1024, shards=2, seed=WIRE_SEED)
+        port = int(url.rsplit(":", 1)[1])
+        vol_problem = make_trap(40, 4)   # the plain version, on the host
+        stop = threading.Event()
+        vol = {"puts": 0, "lost": 0, "throttled": 0}
+
+        def volunteers():
+            async def one(i):
+                rng = np.random.default_rng(i)
+                c = AsyncWireClient(url, experiment="volunteers",
+                                    client_id=f"volunteer-{i}", timeout=5.0)
+                try:
+                    while not stop.is_set():
+                        items = await c.get_random(1)
+                        g = (wire.decode_genome(items[0]).copy() if items
+                             else rng.integers(0, 2, 160).astype(np.int8))
+                        g[rng.integers(0, g.size, 4)] = 1  # hill-climb
+                        f = float(vol_problem.evaluate(
+                            vol_problem.consts, torch.from_numpy(g[None]))[0])
+                        if await c.put_batch([(g, f, 1000 + i)]) is not None:
+                            vol["puts"] += 1
+                        await asyncio.sleep(VOLUNTEER_PAUSE_S)
+                finally:
+                    vol["lost"] += c.lost
+                    vol["throttled"] += c.throttled
+                    await c.aclose()
+
+            async def fleet():
+                await asyncio.gather(*(one(i) for i in range(VOLUNTEERS)))
+            asyncio.run(fleet())
+
+        fleet = threading.Thread(target=volunteers, daemon=True)
+        fleet.start()
+        acfg = AsyncConfig(min_rate=0.25, max_rate=1.0, staleness=3,
+                           churn_fraction=0.25)
+        dev = torch.device("cuda") if device is None else torch.device(
+            device)
+        k_init, key = rand.split(rand.key(SEED, device=dev), 2)
+        islands = init_islands(k_init, 8, problem, cfg, device=dev)
+        pool = pool_lib.pool_init(mig.pool_capacity, problem.genome,
+                                  device=dev)
+        astate = init_async_state(rand.fold_in(k_init, 7), 8, acfg,
+                                  WIRE_TICKS, problem.genome)
+        bridge = AsyncHostBridge(url, pull=64, cursor_id="chip-bridge",
+                                 experiment="volunteers")
+        seen, drained, inner = [], {"n": 0, "dropped": 0, "cursor": None}, \
+            bridge.server.get_since
+
+        def recording(seq, limit=64, cursor_id=None):
+            got, cursor, dropped = inner(seq, limit=limit,
+                                         cursor_id=cursor_id)
+            seen.extend((e.shard, e.seq) for e in got)
+            drained["n"] += len(got)
+            drained["dropped"] += dropped
+            drained["cursor"] = list(cursor)
+            return got, cursor, dropped
+        bridge.server.get_since = recording
+        sync_ms = []
+        t_run = time.perf_counter()
+        for t in range(1, WIRE_TICKS + 1):
+            key, k = rand.split(key, 2)
+            islands, pool, astate = async_step(
+                islands, pool, astate, k, problem, cfg, mig, acfg, True,
+                tick=t)
+            if t == WIRE_KILL[1]:
+                # no drain in flight while the server comes back
+                pool = bridge.flush(pool)
+                child, url2 = start_server(port, resume=True)
+                if url2 != url:
+                    fail(f"the resumed server listens on {url2}, not {url}")
+            sync()
+            t0 = time.perf_counter()
+            pool = bridge.sync(pool, t)
+            sync_ms.append((time.perf_counter() - t0) * 1e3)
+            if t == WIRE_KILL[0]:
+                pool = bridge.flush(pool)    # nothing in flight at the kill
+                child.send_signal(signal.SIGKILL)
+                child.wait()
+        pool = bridge.flush(pool)
+        sync()
+        run_s = time.perf_counter() - t_run
+        stop.set()
+        fleet.join(timeout=60)
+        pool = bridge.flush(bridge.sync(pool, WIRE_TICKS + 1))
+        bridge.close()
+        st = bridge.stats()
+        cursor = drained["cursor"]
+        if len(seen) != len(set(seen)):
+            fail(f"a (shard, seq) reached the device pool twice: "
+                 f"{len(seen) - len(set(seen))} repeats")
+        if cursor is None or drained["n"] + drained["dropped"] != sum(
+                c + 1 for c in cursor):
+            fail(f"the cursor ledger does not balance: {drained['n']} "
+                 f"delivered + {drained['dropped']} dropped against cursor "
+                 f"{cursor}")
+        if st["lost"] <= 0 or st["pulled"] <= 0 or vol["puts"] <= 0 or \
+                st["dropped"] != drained["dropped"]:
+            fail(f"wire async run: bridge {st}, volunteers {vol}")
+        if fleet.is_alive():
+            fail("the volunteers' thread did not stop")
+        with urllib.request.urlopen(f"{url}/metricz?format=json",
+                                    timeout=10) as resp:
+            metricz = json.loads(resp.read())
+        lat = {v: (round(d["p50_ms"], 3), round(d["p99_ms"], 3), d["count"])
+               for v, d in metricz["latency"].items()}
+        log(f"[wire] run_experiment_async's loop, {WIRE_TICKS} ticks at "
+            f"paper-8 width, AsyncHostBridge(url, pull=64, cursor_id) + "
+            f"{VOLUNTEERS} AsyncWireClient volunteers (GET, hill-climb on "
+            f"the host CPU, PUT, {VOLUNTEER_PAUSE_S} s pause) against 2 "
+            f"shards; server SIGKILLed after tick {WIRE_KILL[0]}, restarted "
+            f"with --resume on port {port} before tick {WIRE_KILL[1]}'s "
+            f"sync: {run_s:.3f} s; bridge {st}; volunteers {vol}; "
+            f"{len(seen)} (shard, seq) delivered, none twice; cursor "
+            f"{cursor}: {drained['n']} delivered + {drained['dropped']} "
+            f"dropped = {sum(c + 1 for c in cursor)} seqs covered; sync "
+            f"calls max {max(sync_ms):.3f} ms")
+        log(f"[wire] /metricz after the restart (p50 ms, p99 ms, count): "
+            f"{lat}; {card}")
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.send_signal(signal.SIGTERM)
+                try:
+                    c.wait(timeout=20)
+                except subprocess.TimeoutExpired:
+                    c.kill()
+                    c.wait()
+            c.stdout.close()
+        for f in logs:
+            f.close()
+
+    # ---- 11c: [bridge-main], and a bridge against a slow server ----------
+    islands0, pool0 = main_run[0].islands, main_run[0].pool
+
+    def loop(bridge):
+        st = {"isl": islands0, "pool": pool0, "e": BRIDGE_EPOCHS,
+              "key": rand.key(SEED + 11, device=islands0.pop.device)}
+
+        def step():
+            st["key"], k = rand.split(st["key"], 2)
+            st["e"] += 1
+            st["isl"], st["pool"] = epoch_step(
+                st["isl"], st["pool"], k, problem, cfg, mig, True,
+                epoch=st["e"])
+            if bridge is not None:
+                st["pool"] = bridge.sync(st["pool"], st["e"])
+        return st, step
+
+    def host_reads(step):
+        import warnings
+        sync()
+        if device is not None:
+            step()
+            return None
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+    loops = {"main": loop(None), "bridge-main": loop(
+        HostBridge(PoolServer(capacity=256, seed=1), pull=4))}
+    walls = {k: [] for k in loops}
+    for tag in ("main", "bridge-main", "bridge-main", "main"):
+        _, step = loops[tag]
+        sync()
+        t = time.perf_counter()
+        for _ in range(PROFILE_TICKS):
+            step()
+        sync()
+        walls[tag].append((time.perf_counter() - t) / PROFILE_TICKS)
+    reads = {tag: host_reads(loops[tag][1]) for tag in loops}
+    for tag in loops:
+        wall_s = sum(walls[tag]) / len(walls[tag])
+        per, busy = (loop_profile(tag, loops[tag][1], 1, card)
+                     if device is None else (None, None))
+        log(f"[{tag}] in turns (main, bridge, bridge, main; "
+            f"{PROFILE_TICKS} epochs each): wall {wall_s * 1e3:.3f} ms per "
+            f"epoch; "
+            + (f"{per:.0f} device kernels, busy {busy:.1f} us = "
+               f"{busy / (wall_s * 1e6):.3f} of the wall; "
+               if per is not None else "device kernels not measured; ")
+            + f"host reads (synchronizing calls) per epoch {reads[tag]}; "
+            f"{card}")
+    # a server whose every verb takes SLOW_VERB_S: the async bridge's sync
+    # never waits on it, the blocking bridge's epoch grows
+    slow_async = AsyncHostBridge(SlowServer(PoolServer(capacity=256,
+                                                       seed=1)), pull=4)
+    slow_sync = HostBridge(SlowServer(PoolServer(capacity=256, seed=1)),
+                           pull=4)
+    grow = {}
+    for tag, bridge in (("async", slow_async), ("sync", slow_sync)):
+        st, step = loop(bridge)
+        calls = []
+        for _ in range(SLOW_EPOCHS):
+            st["key"], k = rand.split(st["key"], 2)
+            st["e"] += 1
+            st["isl"], st["pool"] = epoch_step(
+                st["isl"], st["pool"], k, problem, cfg, mig, True,
+                epoch=st["e"])
+            sync()
+            t0 = time.perf_counter()
+            st["pool"] = bridge.sync(st["pool"], st["e"])
+            calls.append((time.perf_counter() - t0) * 1e3)
+        grow[tag] = calls
+    slow_async.flush(pool0)
+    slow_async.close()
+    if max(grow["async"]) >= SLOW_SYNC_MAX_MS:
+        fail(f"AsyncHostBridge.sync waited on a slow server: "
+             f"{grow['async']} ms")
+    log(f"[bridge-slow] every verb sleeps {SLOW_VERB_S * 1e3:.0f} ms: "
+        f"AsyncHostBridge.sync {[round(x, 3) for x in grow['async']]} ms "
+        f"(longest under {SLOW_SYNC_MAX_MS} ms), HostBridge.sync "
+        f"{[round(x, 3) for x in grow['sync']]} ms added to each epoch "
+        f"(bridge {slow_sync.stats()}); {card}")
+
+    # ---- 11d: the commands ----------------------------------------------
+    trace = os.path.join(spool, "trace.json")
+    obs = os.path.join(spool, "obs.json")
+    dev_flag = [] if device is None else ["--device", device]
+    for args, pattern in (
+            (["repro_torch.launch.evolve", "ea", "--problem", "trap",
+              "--islands", "8", "--epochs", "2", "--bridge"] + dev_flag,
+             r"success=.* bridge=\{'pushed': \d+, 'pulled': \d+, "
+             r"'lost': \d+\}"),
+            (["repro_torch.launch.evolve", "ea", "--problem", "trap",
+              "--islands", "8", "--epochs", "2", "--bridge", "--runtime",
+              "async"] + dev_flag,
+             r"success=.* bridge=\{.*'dropped': \d+\} fires=\d+"),
+            (["repro_torch.launch.volunteer_sim"] + dev_flag,
+             r"  worker 3: work_scale=0\.\d+ <- straggler.*"),
+            (["repro_torch.launch.volunteer_sim", "--runtime", "async",
+              "--churn", "0.4", "--ticks", "10", "--trace", trace,
+              "--obs-json", obs] + dev_flag,
+             r"wrote Chrome trace \(\d+ events\) -> .*"),
+            (["repro_torch.obs", trace, "--obs", obs],
+             r"  delivery_rate=.*")):
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m"] + args,
+                              capture_output=True, text=True, env=env,
+                              cwd=ROOT, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines or not re.fullmatch(
+                pattern, lines[-1]):
+            fail(f"python -m {' '.join(args)}: rc {proc.returncode}, stdout "
+                 f"{lines[-3:]}, stderr {proc.stderr[-2000:]}")
+        log(f"[host-cmd] python -m {' '.join(args[:1] + args[1:4])} ...: rc "
+            f"0 in {time.perf_counter() - t:.1f} s; {' | '.join(lines[-2:])}")
+    shutil.rmtree(spool, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1083,11 +1573,15 @@ def main() -> int:
     trap_err = 0.0
     # (n, traps, l, bytes the population starts off 16): the main path's
     # batch, one row, 64 and 65 traps (two rounds of a warp's 32 lanes),
-    # rows of 65 bytes, and an (n, L) view of a flat buffer 3 bytes in
+    # rows of 65 bytes, and an (n, L) view of a flat buffer 3 bytes in;
+    # then ordered_sum's windows past 64 traps (100, 200, 1000) and its
+    # second level (1025 traps: 33 windows)
     for n, n_traps, l, off in ((8 * 256, 40, 4, 0), (1000, 40, 4, 0),
                                (77, 8, 4, 0), (1, 40, 4, 0), (2048, 80, 4, 0),
                                (2048, 64, 4, 0), (2048, 65, 4, 0),
-                               (1000, 13, 5, 0), (1000, 40, 4, 3)):
+                               (1000, 13, 5, 0), (1000, 40, 4, 3),
+                               (2048, 100, 4, 0), (2048, 200, 4, 0),
+                               (1000, 1000, 4, 0), (257, 1025, 4, 0)):
         flat = (torch.rand(off + n * n_traps * l, generator=gen) < 0.5).to(
             torch.int8).to(dev)
         pop = flat[off:].view(n, n_traps * l)
@@ -1141,10 +1635,12 @@ def main() -> int:
     # the shapes of the paths, then the kernel's edges: n of one row, 7,
     # one tile and one row more, a whole wave of tiles and one row more;
     # odd m (the scalar route) and m = 64; a D so wide a tile is one row;
-    # then the shapes whose rows it cannot stage, one launch each: z
-    # gathered from device memory (D 60,000 and 51,950 at m 50; m 169 at D
-    # 6 x 169) and the sliced route (m 200, 500 and 1000 at D 1000, m 1000
-    # in slices of 512 and 488; one row; a ragged last tile)
+    # ordered_sum's windows past 64 terms of a group (m 65, 100) and past
+    # 32 groups (100 groups of 10); then the shapes whose rows it cannot
+    # stage, one launch each: z gathered from device memory (D 60,000 and
+    # 51,950 at m 50; m 169 at D 6 x 169) and the sliced route (m 200, 500
+    # and 1000 at D 1000, slices that start ordered_sum's windows: m 1000
+    # at 512 columns in slices of 500 and 500; one row; a ragged last tile)
     fig4_shape = f15_k.card_shape(10000, 1000, 50, dev)
     f15_err = 0.0
     f15_routes = {}
@@ -1155,7 +1651,10 @@ def main() -> int:
             ("one tile + 1", fig4_shape.rows + 1, 1000, 50),
             ("a wave + 1", fig4_shape.grid * fig4_shape.rows + 1, 1000, 50),
             ("odd m", 1000, 91, 7), ("odd m", 1000, 91, 13),
-            ("m 64", 1000, 1024, 64), ("wide", 5, 40000, 50)) \
+            ("m 64", 1000, 1024, 64), ("wide", 5, 40000, 50),
+            ("sum order m 65", 1000, 130, 65),
+            ("sum order m 100", 1000, 300, 100),
+            ("sum order 100 groups", 1000, 1000, 10)) \
             + F15_ROUTE_CASES:
         c = f15_consts if (dim, m) == (1000, 50) else random_f15_consts(dim,
                                                                         m)
@@ -1288,6 +1787,9 @@ def main() -> int:
         (3, 8, 40, "trap", "tied", 1, 2),
         (3, 1, 40, "onemax", "masked", 3, 1),
         (2, 1227, 160, "trap", "random", 0, 2),
+        (2, 64, 400, "trap", "random", 0, 2),
+        (2, 64, 800, "trap", "tied", 0, 2),
+        (2, 32, 4100, "trap", "random", 0, 2),
     ]
     edge_evals = dict(fused_specs, royal_road3=(("eval", "royal_road"),
                                                 ("r", 3)))
@@ -1366,12 +1868,15 @@ def main() -> int:
     # rows, m = 7 and 13 (not a multiple of the tail's 4 columns),
     # all-masked and all-tied fitness, the largest island at L = 1000 that
     # routes untiled, and genomes wide enough that the wrapper takes 2 rows
-    # per block (L = 7300) and 1 (L = 14600)
+    # per block (L = 7300) and 1 (L = 14600); then ordered_sum's windows
+    # past 64 terms of a group (m 65, 100) and past 32 groups (100 of 10)
     smem_limit = gen_k.max_smem_bytes(0)
     for n_e, n_r, l_e, m_e, fitness, elite in (
             (3, 250, 91, 7, "random", 2), (2, 61, 91, 13, "tied", 4),
             (4, 37, 35, 7, "masked", 2), (2, 365, 1000, 50, "random", 2),
-            (2, 9, 7300, 50, "tied", 2), (2, 5, 14600, 50, "masked", 2)):
+            (2, 9, 7300, 50, "tied", 2), (2, 5, 14600, 50, "masked", 2),
+            (2, 64, 130, 65, "random", 2), (2, 64, 300, 100, "random", 2),
+            (2, 64, 1000, 10, "random", 2)):
         c_e = random_f15_consts(l_e, m_e)
         for selection in ("tournament", "roulette"):
             spec = GenerationSpec(
@@ -1392,6 +1897,30 @@ def main() -> int:
             log(f"[generation_float] edge {n_e}x{n_r}x{l_e} F15 m {m_e}, "
                 f"{fitness} fitness, elite {elite}, {selection}/blend: "
                 f"bit-equal at {rows} rows per block")
+
+    # the fused rastrigin and sphere sums past 64 genes (ordered_sum's
+    # windows; 2000 genes: 63 windows, their sums windowed again), one
+    # launch each
+    for l_s in (65, 100, 1000, 2000):
+        for prob in (make_rastrigin(l_s), make_sphere(l_s)):
+            g = prob.genome
+            spec = GenerationSpec(
+                kind="float", length=l_s, elite=2, selection="tournament",
+                tournament_k=2, crossover="blend", crossover_rate=0.9,
+                mutation_rate=0.05, mutation_sigma=0.3, low=g.low,
+                high=g.high, fused_eval=tuple(sorted(prob.fused.items())))
+            args = edge_case("float", 2, 64, l_s, "random")
+            before = kernels.LAUNCHES["generation_float"]
+            got = as_tuple(gen_k.generation_kernel(*args, spec))
+            torch.cuda.synchronize()
+            want = as_tuple(gen_ref.generation(*args, spec))
+            if kernels.LAUNCHES["generation_float"] != before + 1:
+                fail(f"float generation at {prob.name}: not one launch")
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"float generation kernel's fused {prob.name} differs "
+                     f"from its plain version")
+            log(f"[generation_float] sum order {prob.name} 2x64x{l_s}: "
+                f"bit-equal, one launch")
 
     # ---- 3c: the tiled kernel and the roulette-CDF kernel -----------------
     def random_case(kind, n_isl, n, length, selection, crossover, fused,
@@ -1514,6 +2043,15 @@ def main() -> int:
                     fail(f"tiled kernel differs from the untiled one at the "
                          f"edge {kind} L {l_e} {selection}, {rows} rows")
                 tiled_err = max(tiled_err, err)
+    # the fused rastrigin and sphere sums past 64 genes in ordered_sum's
+    # windows (2000 genes: their sums windowed again), 2 rows per block
+    for l_s in (1000, 2000):
+        for fname in ("rastrigin", "sphere"):
+            args, spec = random_case("float", 2, 37, l_s, "tournament",
+                                     "blend", (("eval", fname),), (20, 36))
+            _, err = tiled_check(f"sum order float 2x37x{l_s} {fname}",
+                                 args, spec, rows=2)
+            tiled_err = max(tiled_err, err)
     log(f"[tiled] roulette cases: {kernels.LAUNCHES['roulette_cdf']} "
         f"launches of the CDF kernel by the tiled path, each bit-equal to "
         f"the plain CDF (max_abs_err {max(cdf_errs)})")
@@ -2756,6 +3294,12 @@ def main() -> int:
     t10 = time.perf_counter()
     async_phases(problem, f_problem, f_cfg, card)
     log(f"[async] phases 10a-10c in {time.perf_counter() - t10:.1f} s")
+
+    # ---- 11: the host and server tier ------------------------------------
+    t11 = time.perf_counter()
+    host_phases([("paper-8", problem, make_trap(40, 4), cfg, BRIDGE_EPOCHS),
+                 ("paper-f15-8", f_problem, make_f15(), f_cfg, 2)], card)
+    log(f"[host] phases 11a-11d in {time.perf_counter() - t11:.1f} s")
 
     result = {"kernels": [
         {"name": "trap_fitness", "route": "cuda",

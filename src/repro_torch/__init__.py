@@ -14,12 +14,35 @@ Entry points (:func:`repro_torch.core.run_fused`,
 run on the card unless the
 caller passes ``device="cpu"``, and raise when there is no card. The port
 imports neither JAX nor the reference package.
-"""
-from . import rand
-from .core import EAConfig, MigrationConfig, make_f15, make_onemax
-from .core import make_rastrigin, make_royal_road, make_sphere, make_trap
-from .core import run_fused
 
-__all__ = ["EAConfig", "MigrationConfig", "make_f15", "make_onemax",
-           "make_rastrigin", "make_royal_road", "make_sphere", "make_trap",
-           "rand", "run_fused"]
+The names below load their modules at first use (PEP 562), so the
+stdlib-only parts (:mod:`repro_torch.obs.trace`, ``.metrics``, the
+timeline tool, :mod:`repro_torch.server`'s wire and client) import
+without torch.
+"""
+_EXPORTS = {
+    "rand": ("repro_torch.rand", None),
+    **{name: ("repro_torch.core", name) for name in (
+        "EAConfig", "MigrationConfig", "make_f15", "make_onemax",
+        "make_rastrigin", "make_royal_road", "make_sphere", "make_trap",
+        "run_fused")},
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    import importlib
+    try:
+        module, attr = _EXPORTS[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}") from None
+    mod = importlib.import_module(module)
+    value = mod if attr is None else getattr(mod, attr)
+    globals()[name] = value   # cache for the next lookup
+    return value
+
+
+def __dir__():
+    return __all__

@@ -37,11 +37,11 @@ FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (all return a cudaError_t as int)
 SIGNATURES: Dict[str, List] = {
-    # pop, out, n_rows, n_traps, l, group, a, b, z, l_minus_z, stream
+    # pop, out, n_rows, n_traps, l, lead, a, b, z, l_minus_z, stream
     "trap_fitness_launch": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
     # pop, fitness, seed, seed_stride, pop_size, new_pop, fit_out,
     # n_islands, n, L, elite, selection, tournament_k, crossover,
-    # crossover_rate, mutation_rate, eval_kind, trap_l, trap_group, a, b, z,
+    # crossover_rate, mutation_rate, eval_kind, trap_l, trap_lead, a, b, z,
     # l_minus_z, royal_r, stream
     "generation_launch": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                           _I, _I, _I, _I, _F,
@@ -53,14 +53,14 @@ SIGNATURES: Dict[str, List] = {
     # pop, fitness, seed, seed_stride, pop_size, o, perm, M, new_pop,
     # fit_out, n_islands, n, L, elite, selection, tournament_k, crossover,
     # crossover_rate, mutation_rate, sigma, low, high, blend_scale, alpha,
-    # eval_kind, sum_group, m, n_groups, k_group, rows, stream
+    # eval_kind, sum_lead, m, n_groups, k_lead, rows, stream
     "generation_float_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I,
                                 _F, _F, _F, _F, _F, _F, _F,
                                 _I, _I, _I, _I, _I, _I, _P],
     # n, L, elite, rows
     "generation_float_smem_bytes": [_I, _I, _I, _I],
-    # pop, o, perm, M, out, n_rows, D, m, G, k_group, rows, groups per
+    # pop, o, perm, M, out, n_rows, D, m, G, k_lead, rows, groups per
     # batch, columns per slice (0: the tiled route), gather, blocks, stream
     "f15_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P],
@@ -75,15 +75,15 @@ SIGNATURES: Dict[str, List] = {
     # pop, fitness, seed, seed_stride, pop_size, cum, new_pop, fit_out,
     # float_genes, n_islands, n, L, elite, rows, selection, tournament_k,
     # crossover, crossover_rate, mutation_rate, sigma, low, high,
-    # blend_scale, alpha, eval_kind, sum_group, trap_l, trap_group, a, b, z,
+    # blend_scale, alpha, eval_kind, sum_lead, trap_l, trap_lead, a, b, z,
     # l_minus_z, royal_r, stream
     "generation_tiled_launch": [_P, _P, _P, _I, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _F, _F, _F, _F, _F,
                                 _F, _F, _I, _I, _I, _I, _F, _F, _F,
                                 _F, _I, _P],
-    # rows, L, elite, float_genes, eval_kind, sum_group
-    "generation_tiled_smem_bytes": [_I, _I, _I, _I, _I, _I],
+    # rows, L, elite, float_genes, eval_kind
+    "generation_tiled_smem_bytes": [_I, _I, _I, _I, _I],
     # r, k, v, w, u, s0, y, s_out, B, S, H, hd, chunk, u_bf16, strides (an
     # int[12]: batch, seq, head of r, k, v, w), stream: bf16 r, k, v
     # (wkv.cu) and f32 (wkv_f32.cu)

@@ -23,6 +23,8 @@ Leaves may be numpy arrays or anything with ``detach().cpu().numpy()``
 host numpy on the caller's thread before its writer thread starts, so the
 caller may go on changing its tensors. :func:`restore` returns numpy
 arrays (keys as their uint32 words); the caller puts them on a device.
+The copy is the ``checkpoint.snapshot`` trace span, the write on the
+writer thread ``checkpoint.write`` (:mod:`repro_torch.obs.trace`).
 """
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ import threading
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from ..obs import trace as obs_trace
 
 _SEP = "::"
 _KEY_NAMES = ("rng", "key")
@@ -228,11 +232,13 @@ class Checkpointer:
 
     def save_async(self, step: int, tree, meta: Optional[Dict] = None
                    ) -> None:
-        flat = _host_tree(tree)
+        with obs_trace.span("checkpoint.snapshot", step=step):
+            flat = _host_tree(tree)
 
         def work():
             try:
-                _write(self.directory, step, flat, meta, self.keep)
+                with obs_trace.span("checkpoint.write", step=step):
+                    _write(self.directory, step, flat, meta, self.keep)
             except Exception as e:  # noqa: BLE001  -- raised at wait()
                 self._errors.append(e)
 

@@ -13,7 +13,9 @@ Public API (a slice of ``repro.core``):
     evolution.run_experiment / RunResult / run_fused (segments,
         snapshots, resume)
     async_migration.AsyncConfig / AsyncState / run_experiment_async /
-        run_fused_async (the asynchronous runtime)
+        run_fused_async (the asynchronous runtime) / AsyncHostBridge
+    async_pool.PoolServer / PoolClient / PoolUnavailable (the host pool
+        server and its write-ahead journal); migration.HostBridge
 """
 from .types import (AcceptanceConfig, EAConfig, ExperimentState,
                     ExperimentStats, GenomeSpec, IslandState, MigrationConfig,
@@ -21,14 +23,16 @@ from .types import (AcceptanceConfig, EAConfig, ExperimentState,
 from .problems import (Problem, make_f15, make_onemax, make_problem,
                        make_rastrigin, make_royal_road, make_sphere,
                        make_trap)
-from . import (acceptance, async_migration, evolution, ga, island, migration,
-               pool)
+from . import (acceptance, async_migration, async_pool, evolution, ga,
+               island, migration, pool)
 from .acceptance import (available_policies as available_acceptance_policies,
                          register_policy as register_acceptance_policy)
-from .async_migration import (AsyncConfig, AsyncState, run_experiment_async,
-                              run_fused_async)
+from .async_migration import (AsyncConfig, AsyncHostBridge, AsyncState,
+                              run_experiment_async, run_fused_async)
+from .async_pool import PoolClient, PoolServer, PoolUnavailable
 from .evolution import RunResult, run_experiment, run_fused
-from .migration import available_topologies, get_topology, register_topology
+from .migration import (HostBridge, available_topologies, get_topology,
+                        register_topology)
 
 __all__ = [
     "AcceptanceConfig", "EAConfig", "ExperimentState", "ExperimentStats",
@@ -40,4 +44,6 @@ __all__ = [
     "get_topology", "register_acceptance_policy", "register_topology",
     "run_experiment", "run_fused", "async_migration", "AsyncConfig",
     "AsyncState", "run_experiment_async", "run_fused_async",
+    "AsyncHostBridge", "HostBridge", "PoolClient", "PoolServer",
+    "PoolUnavailable", "async_pool",
 ]

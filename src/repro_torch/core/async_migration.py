@@ -31,20 +31,25 @@ Drivers: :func:`run_experiment_async`, the host loop (``server_up(tick)``
 takes the pool server down), and :func:`run_fused_async`, the fused driver
 with the durability of :func:`~repro_torch.core.evolution.run_fused`
 (segments, snapshots that carry the :class:`AsyncState`, resume, elastic
-resize). The reference's non-blocking ``AsyncHostBridge`` comes with the
-host tier (ROADMAP, Queue A item 12), its sharded driver with item 13.
+resize). :class:`AsyncHostBridge` syncs the host loop's device pool
+with a pool server without waiting on it. The sharded driver comes with
+ROADMAP Queue A item 13.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
 from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .. import convert, rand
 from .._device import resolve_device
 from ..obs import counters as obs_lib
+from ..obs import trace as obs_trace
 from . import acceptance as acceptance_lib
 from . import evolution as evolution_lib
 from . import island as island_lib
@@ -320,11 +325,10 @@ def run_experiment_async(problem: Problem,
     epochs are ticks, and a tick advances only the islands whose clock
     reached the period. ``server_up(tick) -> bool`` takes the pool server
     down for chosen ticks. Each tick's stats row is read back to the host.
-    Runs on the card unless ``device`` says otherwise."""
-    if host_bridge is not None:
-        raise NotImplementedError("the host bridges (AsyncHostBridge) come "
-                                  "with the host tier (ROADMAP, Queue A "
-                                  "item 12)")
+    ``host_bridge`` takes a blocking
+    :class:`~repro_torch.core.migration.HostBridge` or the non-blocking
+    :class:`AsyncHostBridge`, synced after every tick. Runs on the card
+    unless ``device`` says otherwise."""
     dev = resolve_device(device)
     if rng is None or isinstance(rng, int):
         rng = rand.key(0 if rng is None else rng, device=dev)
@@ -347,6 +351,8 @@ def run_experiment_async(problem: Problem,
         islands, dpool, astate = async_step(
             islands, dpool, astate, k_mig, problem, cfg, mig, acfg, w2,
             server_up=up, tick=tick)
+        if host_bridge is not None:
+            dpool = host_bridge.sync(dpool, tick)
         st = convert.to_numpy(collect_stats(islands, tick))
         stats.append(st)
         if verbose:
@@ -498,3 +504,124 @@ def run_fused_async(problem: Problem,
     if return_obs:
         out += (obs_lib.harvest(state.obs),)
     return out
+
+
+class AsyncHostBridge(migration_lib.HostBridge):
+    """A :class:`~repro_torch.core.migration.HostBridge` whose server round
+    trips run on a daemon worker thread, so the driver never waits on the
+    pool server (a browser island's asynchronous XHR).
+
+    :meth:`sync` puts into the device pool what the worker fetched since
+    the last call, then queues this tick's best (copied to host numpy: the
+    driver thread alone touches card tensors) and a fetch, and returns.
+    The worker PUTs the best and drains the server with
+    :meth:`~repro_torch.core.async_pool.PoolServer.get_since` (an advancing
+    sequence cursor), so each server entry enters the device pool at most
+    once, and drops the entries of its own uuid, so its pushes never come
+    back. Any exception of a round trip is a lost XHR, counted in
+    ``lost``. Entries the server retired before the cursor reached them
+    are counted in ``dropped`` (:meth:`stats`).
+
+    ``cursor_id`` names a server-side cursor, so the drain position
+    survives a restart of either end. ``server`` may be a URL: the worker
+    then speaks the wire protocol through
+    :class:`~repro_torch.server.client.RemotePoolServer`, whose cursor is
+    the service's per-shard vector. :meth:`flush` waits for the worker
+    (tests and shutdown); :meth:`close` stops it and closes a
+    RemotePoolServer the bridge built itself.
+    """
+
+    def __init__(self, server, pull: int = 4, uuid: int = -1,
+                 acceptance=None, cursor_id: Optional[str] = None,
+                 experiment: str = "default"):
+        self._owns_server = isinstance(server, str)
+        super().__init__(server, every=1, pull=pull, uuid=uuid,
+                         acceptance=acceptance, experiment=experiment)
+        self._jobs: "queue.Queue" = queue.Queue()
+        self._fetched: List[Tuple[np.ndarray, float]] = []
+        self._flock = threading.Lock()
+        self._last_seq = -1
+        self._cursor_id = cursor_id
+        self._absorbs = 0
+        self.dropped = 0
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    # -- worker side -------------------------------------------------------
+    def _run(self):
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                self._jobs.task_done()
+                return
+            genome, fitness = job
+            try:
+                if genome is not None:
+                    with obs_trace.span("bridge.put"):
+                        self.server.put(genome, fitness, uuid=self.uuid)
+                    with self._flock:
+                        self.pushed += 1
+                # the cursor read and the results published under the
+                # lock, the server's I/O outside it
+                with self._flock:
+                    cursor = self._last_seq
+                with obs_trace.span("bridge.drain"):
+                    entries, cursor, dropped = self.server.get_since(
+                        cursor, limit=self.pull, cursor_id=self._cursor_id)
+                fresh = [(e.genome.copy(), e.fitness) for e in entries
+                         if e.uuid != self.uuid]
+                with self._flock:
+                    self._last_seq = cursor
+                    self.dropped += dropped
+                    if fresh:
+                        self._fetched.extend(fresh)
+            except Exception:  # noqa: BLE001 -- a lost XHR: count it and
+                # keep the worker alive (a dead one would hang flush())
+                with self._flock:
+                    self.lost += 1
+            finally:
+                self._jobs.task_done()
+
+    # -- driver side -------------------------------------------------------
+    def _absorb_fetched(self, pool: PoolState) -> PoolState:
+        with self._flock:
+            got, self._fetched = self._fetched, []
+        if got:
+            self._absorbs += 1
+            key = rand.fold_in(rand.key(17, device=pool.genomes.device),
+                               self._absorbs)
+            pool = pool_lib.pool_insert_host(
+                pool, [g for g, _ in got], [f for _, f in got],
+                acc=self.acceptance, rng=key)
+            self.pulled += len(got)
+        return pool
+
+    def sync(self, pool: PoolState, epoch: int = 0) -> PoolState:
+        """Absorb fetched immigrants, queue best-out and a fetch; never
+        waits on the server."""
+        with obs_trace.span("bridge.sync", epoch=int(epoch)):
+            pool = self._absorb_fetched(pool)
+            if int(pool.count) > 0:
+                g, f = pool_lib.pool_best(pool)
+                self._jobs.put((g.cpu().numpy(), float(f)))
+            else:
+                self._jobs.put((None, 0.0))
+        return pool
+
+    def flush(self, pool: PoolState) -> PoolState:
+        """Wait for the worker, then absorb what it fetched."""
+        self._jobs.join()
+        return self._absorb_fetched(pool)
+
+    def stats(self):
+        with self._flock:
+            out = super().stats()
+            out["dropped"] = self.dropped
+        return out
+
+    def close(self):
+        if self._worker.is_alive():
+            self._jobs.put(None)
+            self._worker.join(timeout=5.0)
+        if self._owns_server:
+            self.server.close()

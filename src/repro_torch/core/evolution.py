@@ -26,8 +26,10 @@ drivers (this one and
 chaining segments is one long run, so a run resumed from its latest
 snapshot reaches the uninterrupted run's state bit for bit, and a resume
 at another island count resizes the state
-(:mod:`repro_torch.runtime.elastic`). The host pool and its bridge
-(ROADMAP, Queue A item 12) come in a later slice.
+(:mod:`repro_torch.runtime.elastic`). :func:`run_experiment` also mixes
+the device islands with a host pool server (``host_pool``) and syncs the
+device pool with one (``host_bridge``, :class:`~repro_torch.core.
+migration.HostBridge`).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from .. import convert, rand
 from .._device import resolve_device
 from ..checkpoint import Checkpointer
 from ..obs import counters as obs_lib
+from ..obs import trace as obs_trace
 from . import island as island_lib
 from . import migration as migration_lib
 from . import pool as pool_lib
@@ -216,7 +219,9 @@ def run_segments(state: ExperimentState, max_steps: int, segment_fn, *,
                                 snapshot_every):
         if not w2 and bool(state.stopped):
             break
-        state, seg_stats = segment_fn(state, seg_len)
+        with obs_trace.span("driver.segment", seg_len=seg_len,
+                            epoch=int(state.epoch)):
+            state, seg_stats = segment_fn(state, seg_len)
         if return_stats:
             stats = seg_stats if stats is None else ExperimentStats(
                 *(torch.cat([a, b]) for a, b in zip(stats, seg_stats)))
@@ -372,7 +377,7 @@ def run_experiment(problem: Problem,
                    w2: bool = False,
                    server_up: Optional[Callable[[int], bool]] = None,
                    host_pool=None,
-                   host_bridge=None,
+                   host_bridge: Optional[migration_lib.HostBridge] = None,
                    stop_on_success: bool = True,
                    verbose: bool = False, *,
                    device=None) -> RunResult:
@@ -383,11 +388,14 @@ def run_experiment(problem: Problem,
     with a success unless ``stop_on_success`` is false or under W².
     ``rng`` is a key or an int seed (default seed 0), and the loop walks
     the keys :func:`run_fused` walks. Runs on the card unless ``device``
-    says otherwise."""
-    if host_pool is not None or host_bridge is not None:
-        raise NotImplementedError("the host pool server and its bridge come "
-                                  "with the host tier (ROADMAP, Queue A "
-                                  "item 12)")
+    says otherwise.
+
+    ``host_pool`` (a :class:`~repro_torch.core.async_pool.PoolServer`)
+    receives every island's best after each epoch the server is up, so
+    volunteer clients of the same server see them (best effort: a failure
+    is a lost XHR). ``host_bridge`` (a
+    :class:`~repro_torch.core.migration.HostBridge`) syncs the device pool
+    with its server after each epoch: best out, volunteer entries in."""
     dev = resolve_device(device)
     if rng is None or isinstance(rng, int):
         rng = rand.key(0 if rng is None else rng, device=dev)
@@ -407,6 +415,10 @@ def run_experiment(problem: Problem,
         up = True if server_up is None else bool(server_up(epoch))
         islands, dpool = epoch_step(islands, dpool, k_mig, problem, cfg, mig,
                                     w2, available=up, epoch=epoch)
+        if host_pool is not None and up:
+            _host_pool_exchange(host_pool, islands)
+        if host_bridge is not None:
+            dpool = host_bridge.sync(dpool, epoch)
         st = convert.to_numpy(collect_stats(islands, epoch))
         stats.append(st)
         if verbose:
@@ -426,3 +438,16 @@ def run_experiment(problem: Problem,
         epochs=epoch, wall_time_s=time.perf_counter() - t0,
         evaluations=int(islands.evaluations.sum()),
         evaluations_to_solution=evals_at_solution)
+
+
+def _host_pool_exchange(host_pool, islands: IslandState) -> None:
+    """PUT every island's best into the host PoolServer, best effort: any
+    failure is swallowed, as a browser client loses its XHR."""
+    try:
+        bests = islands.best_genome.cpu().numpy()
+        fits = islands.best_fitness.cpu().numpy()
+        uuids = islands.uuid.cpu().numpy()
+        for g, f, u in zip(bests, fits, uuids):
+            host_pool.put(g, float(f), uuid=int(u))
+    except Exception:  # noqa: BLE001 -- a down server is tolerated
+        pass

@@ -29,6 +29,10 @@ Register another with :func:`register_topology` and select it with
 ``MigrationConfig(topology=...)``. :func:`migrate` runs the topology, then
 every delivery through the acceptance policy's receive gate.
 
+:class:`HostBridge` syncs the device pool with a host
+:class:`~repro_torch.core.async_pool.PoolServer` (or, given a URL, the
+networked service).
+
 Not ported yet, and raising with the ROADMAP item that brings it: the
 SPMD context (``axis``, Queue A item 13).
 """
@@ -37,12 +41,15 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import rand
+from ..obs import trace as obs_trace
 from . import acceptance as acceptance_lib
-from .pool import NEG_INF, pool_get_random, pool_put_batch
-from .types import MigrationConfig, PoolState
+from .pool import (NEG_INF, pool_best, pool_get_random, pool_insert_host,
+                   pool_put_batch)
+from .types import AcceptanceConfig, MigrationConfig, PoolState
 
 TOPOLOGIES: Dict[str, Callable] = {}
 
@@ -231,3 +238,91 @@ def broadcast_best_topology(pool: PoolState, bests_genome: torch.Tensor,
     imm_g = bests_genome[i].expand((n,) + bests_genome.shape[1:])
     imm_f = bests_fitness[i].expand((n,))
     return _deliver(pool, imm_g, imm_f, scalar, vec)
+
+
+# ---------------------------------------------------------------------------
+# Host <-> device pool bridge
+# ---------------------------------------------------------------------------
+class HostBridge:
+    """Periodic sync between the device-resident :class:`PoolState` and a
+    host :class:`~repro_torch.core.async_pool.PoolServer`.
+
+    Out: the device pool's best is PUT to the server, so volunteer clients
+    attached to it see the devices' progress. In: up to ``pull`` random
+    server entries go into the device pool through the acceptance policy,
+    so volunteer contributions become immigrants of the device islands.
+    Server loss is a browser client's lost XHR: :meth:`sync` swallows
+    :class:`~repro_torch.core.async_pool.PoolUnavailable` and counts it.
+
+    ``acceptance`` is the policy the device pool applies to pulled
+    entries; build the PoolServer with the same
+    :class:`~repro_torch.core.types.AcceptanceConfig` so both sides decide
+    alike. ``server`` may be a URL (``http://host:port`` or
+    ``host:port``): the bridge then speaks the JSON wire protocol to a
+    ``python -m repro_torch.server`` service through
+    :class:`~repro_torch.server.client.RemotePoolServer`.
+    """
+
+    def __init__(self, server, every: int = 1, pull: int = 4,
+                 uuid: int = -1,
+                 acceptance: Optional[AcceptanceConfig] = None,
+                 experiment: str = "default"):
+        if every < 1:
+            raise ValueError("every must be >= 1")
+        if isinstance(server, str):
+            # deferred: the server tier sits on top of core
+            from ..server.client import RemotePoolServer
+            server = RemotePoolServer(server, experiment=experiment)
+        self.server = server
+        self.every = every
+        self.pull = pull
+        self.uuid = uuid
+        self.acceptance = acceptance
+        self.pushed = 0
+        self.pulled = 0
+        self.lost = 0
+
+    def due(self, epoch: int) -> bool:
+        """True when this epoch is a sync epoch."""
+        return epoch % self.every == 0
+
+    def sync(self, pool: PoolState, epoch: int = 0) -> PoolState:
+        """Best out, immigrants in. Returns the (possibly updated) device
+        pool; a no-op off cycle or when the server is down."""
+        if not self.due(epoch):
+            return pool
+        from .async_pool import PoolUnavailable  # local: avoid a cycle
+
+        with obs_trace.span("bridge.sync", epoch=int(epoch)):
+            try:
+                if int(pool.count) > 0:
+                    g, f = pool_best(pool)
+                    with obs_trace.span("bridge.put"):
+                        self.server.put(g.cpu().numpy(), float(f),
+                                        uuid=self.uuid)
+                    self.pushed += 1
+            except PoolUnavailable:
+                self.lost += 1
+            genomes, fits = [], []
+            for _ in range(self.pull):
+                try:
+                    with obs_trace.span("bridge.get"):
+                        g, f = self.server.get_random()
+                except PoolUnavailable:
+                    # an up-but-empty server is a cold start, not an outage
+                    if not getattr(self.server, "up", False):
+                        self.lost += 1
+                    break
+                genomes.append(np.asarray(g))
+                fits.append(float(f))
+            if genomes:
+                key = rand.fold_in(rand.key(17, device=pool.genomes.device),
+                                   epoch)
+                pool = pool_insert_host(pool, genomes, fits,
+                                        acc=self.acceptance, rng=key)
+                self.pulled += len(genomes)
+        return pool
+
+    def stats(self) -> Dict[str, int]:
+        return {"pushed": self.pushed, "pulled": self.pulled,
+                "lost": self.lost}

@@ -7,8 +7,9 @@ as a no-op (server down, or cold start).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import rand
@@ -55,3 +56,20 @@ def pool_get_random(pool: PoolState,
 def pool_best(pool: PoolState) -> Tuple[torch.Tensor, torch.Tensor]:
     i = pool.fitness.argmax()
     return pool.genomes[i], pool.fitness[i]
+
+
+def pool_insert_host(pool: PoolState, genomes: Sequence[np.ndarray],
+                     fits: Sequence[float],
+                     acc: Optional[AcceptanceConfig] = None,
+                     rng: Optional[torch.Tensor] = None) -> PoolState:
+    """Insert host-side entries (a PoolServer's volunteer contributions,
+    pulled by a sync or async HostBridge) into the device pool through the
+    acceptance engine: the genomes stacked and cast to the pool's dtype,
+    the fitness to f32, both on the pool's device."""
+    device = pool.genomes.device
+    return pool_put_batch(
+        pool,
+        torch.from_numpy(np.stack(list(genomes))).to(
+            device=device, dtype=pool.genomes.dtype),
+        torch.tensor(list(fits), dtype=torch.float32, device=device),
+        acc=acc, rng=rng)

@@ -317,11 +317,11 @@ extern "C" int generation_launch(
     const void* pop_size, void* new_pop, void* fit_out, int n_islands, int n,
     int L, int elite, int selection, int tournament_k, int crossover,
     float crossover_rate, float mutation_rate, int eval_kind, int trap_l,
-    int trap_group, float a, float b, float z, float l_minus_z, int royal_r,
+    int trap_lead, float a, float b, float z, float l_minus_z, int royal_r,
     void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   const int cluster = cluster_size(n);
-  const BinaryEval ev{eval_kind, L, trap_l, trap_group, a, b, z, l_minus_z,
+  const BinaryEval ev{eval_kind, L, trap_l, trap_lead, a, b, z, l_minus_z,
                       royal_r};
   const int rows = (n + cluster - 1) / cluster;
   const Params p{n,         L,           elite,          selection,

@@ -78,7 +78,7 @@ constexpr int ELITE_WARPS = THREADS / 32 - 1;
 struct FloatParams {
   int n, L, elite, selection, tournament_k, crossover;
   float crossover_rate, mutation_rate, sigma, low, high, blend_scale, alpha;
-  int eval_kind, sum_group, m, n_groups, k_group;
+  int eval_kind, sum_lead, m, n_groups, k_lead;
 };
 
 __host__ __device__ inline size_t float_smem_bytes(int n, int L, int elite,
@@ -200,7 +200,7 @@ generation_float_kernel(const float* __restrict__ pop,
       buf1[i] = __fsub_rn(buf0[(size_t)t * L + q], o[q]);
     }
     __syncthreads();
-    f15_rows<ROWS>(buf1, buf0, rows, L, p.m, p.n_groups, p.k_group, M, out,
+    f15_rows<ROWS>(buf1, buf0, rows, L, p.m, p.n_groups, p.k_lead, M, out,
                    -1.0f);
     return;
   }
@@ -210,7 +210,7 @@ generation_float_kernel(const float* __restrict__ pop,
                                             : __fmul_rn(x, x);
   }
   __syncthreads();
-  neg_grouped_row_sums(buf1, buf0, rows, L, p.sum_group, out);
+  neg_grouped_row_sums(buf1, buf0, rows, L, p.sum_lead, out);
 }
 
 template <int ROWS>
@@ -247,13 +247,13 @@ extern "C" int generation_float_launch(
     void* new_pop, void* fit_out, int n_islands, int n, int L, int elite,
     int selection, int tournament_k, int crossover, float crossover_rate,
     float mutation_rate, float sigma, float low, float high,
-    float blend_scale, float alpha, int eval_kind, int sum_group, int m,
-    int n_groups, int k_group, int rows, void* stream) {
+    float blend_scale, float alpha, int eval_kind, int sum_lead, int m,
+    int n_groups, int k_lead, int rows, void* stream) {
   const FloatParams p{n,          L,           elite,         selection,
                       tournament_k, crossover, crossover_rate, mutation_rate,
                       sigma,      low,         high,          blend_scale,
-                      alpha,      eval_kind,   sum_group,     m,
-                      n_groups,   k_group};
+                      alpha,      eval_kind,   sum_lead,     m,
+                      n_groups,   k_lead};
   switch (rows) {
 #define ROWS_CASE(R)                                                        \
   case R:                                                                   \

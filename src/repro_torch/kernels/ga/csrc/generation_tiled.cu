@@ -87,7 +87,7 @@ constexpr uint32_t HALF_THRESHOLD = 1u << 23;  // unit_threshold(0.5f)
 struct TiledParams {
   int n, L, elite, rows, selection, tournament_k, crossover;
   float crossover_rate, mutation_rate, sigma, low, high, blend_scale, alpha;
-  int sum_group;  // rastrigin / sphere: ordered_sum's group
+  int sum_lead;  // rastrigin / sphere: window_lead(L), ordered_sum's order
   BinaryEval ev;  // ev.kind: the fused eval of either genome kind
 };
 
@@ -100,12 +100,11 @@ __host__ __device__ inline size_t words_bytes(int elite, int rows) {
 
 __host__ __device__ inline size_t tiled_smem_bytes(int rows, int L, int elite,
                                                    bool float_genes,
-                                                   int eval_kind,
-                                                   int sum_group) {
+                                                   int eval_kind) {
   const size_t bytes = words_bytes(elite, rows);
   if (eval_kind == EVAL_NONE) return bytes;
   if (!float_genes) return bytes + (size_t)rows * L;  // the int8 rows
-  const size_t n_parts = (L + sum_group - 1) / sum_group;
+  const size_t n_parts = n_windows(L);
   return bytes + (size_t)rows * ((size_t)L + n_parts) * sizeof(float);
 }
 
@@ -297,7 +296,7 @@ generation_tiled_kernel(const T* __restrict__ pop,
   float* out = fit_out + (size_t)isl * n + row0;
   if constexpr (FLOAT_GENES) {
     neg_grouped_row_sums(s_terms, s_terms + (size_t)rows * L, rows, L,
-                         p.sum_group, out);
+                         p.sum_lead, out);
   } else {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     for (int t = warp; t < rows; t += WARPS) {
@@ -315,7 +314,7 @@ int launch_route(const void* pop, const void* fitness, const void* seed,
                  const TiledParams& p, void* stream) {
   const size_t smem =
       tiled_smem_bytes(p.rows, p.L, p.elite, std::is_same<T, float>::value,
-                       p.ev.kind, p.sum_group);
+                       p.ev.kind);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         generation_tiled_kernel<T, N>,
@@ -351,10 +350,8 @@ int launch(const void* pop, const void* fitness, const void* seed,
 }  // namespace
 
 extern "C" int generation_tiled_smem_bytes(int rows, int L, int elite,
-                                           int float_genes, int eval_kind,
-                                           int sum_group) {
-  return (int)tiled_smem_bytes(rows, L, elite, float_genes != 0, eval_kind,
-                               sum_group);
+                                           int float_genes, int eval_kind) {
+  return (int)tiled_smem_bytes(rows, L, elite, float_genes != 0, eval_kind);
 }
 
 // cum: the (I, n) roulette CDF of roulette_cdf.cu under roulette selection
@@ -365,17 +362,17 @@ extern "C" int generation_tiled_launch(
     int float_genes, int n_islands, int n, int L, int elite, int rows,
     int selection, int tournament_k, int crossover, float crossover_rate,
     float mutation_rate, float sigma, float low, float high,
-    float blend_scale, float alpha, int eval_kind, int sum_group, int trap_l,
-    int trap_group, float a, float b, float z, float l_minus_z, int royal_r,
+    float blend_scale, float alpha, int eval_kind, int sum_lead, int trap_l,
+    int trap_lead, float a, float b, float z, float l_minus_z, int royal_r,
     void* stream) {
   if (rows < 1 || (selection == 1 && cum == nullptr))
     return (int)cudaErrorInvalidValue;
-  const BinaryEval ev{eval_kind, L, trap_l, trap_group, a, b, z, l_minus_z,
+  const BinaryEval ev{eval_kind, L, trap_l, trap_lead, a, b, z, l_minus_z,
                       royal_r};
   const TiledParams p{n,           L,         elite,          rows,
                       selection,   tournament_k, crossover,   crossover_rate,
                       mutation_rate, sigma,   low,            high,
-                      blend_scale, alpha,     sum_group,      ev};
+                      blend_scale, alpha,     sum_lead,      ev};
   return float_genes
              ? launch<float>(pop, fitness, seed, seed_stride, pop_size, cum,
                              new_pop, fit_out, n_islands, p, stream)

@@ -22,7 +22,7 @@ import torch
 from ... import _build
 from .. import LAUNCHES
 from ..rastrigin.f15 import check_consts
-from ..trap.ref import sum_group
+from ..trap.ref import window_lead
 from . import ref as _ref
 from .common import GenerationSpec, f15_consts, spec_needs_consts
 
@@ -203,7 +203,7 @@ def _launch_binary(seed, size, pop, fitness, spec):
             0 if spec.selection == "tournament" else 1, spec.tournament_k,
             CROSSOVERS[spec.crossover],
             float(spec.crossover_rate), float(spec.mutation_rate),
-            EVAL_KINDS[kind], trap_l, sum_group(length // trap_l),
+            EVAL_KINDS[kind], trap_l, window_lead(length // trap_l),
             float(ev.get("a", 0.0)), float(ev.get("b", 0.0)), z,
             float(trap_l - z), royal_r, stream)
     _build.check(err, "generation kernel")
@@ -245,8 +245,8 @@ def _launch_float(seed, size, pop, fitness, spec, consts):
             CROSSOVERS[spec.crossover], float(spec.crossover_rate),
             float(spec.mutation_rate), float(spec.mutation_sigma),
             float(spec.low), float(spec.high), float(1.0 + 2.0 * a),
-            float(a), EVAL_KINDS[kind], sum_group(length), m, n_groups,
-            sum_group(m), r, stream)
+            float(a), EVAL_KINDS[kind], window_lead(length), m, n_groups,
+            window_lead(m), r, stream)
     _build.check(err, "generation kernel (float)")
     LAUNCHES["generation_float"] += 1
     return new_pop if fit_out is None else (new_pop, fit_out)

@@ -28,7 +28,7 @@ import torch
 from ... import _build
 from .. import LAUNCHES
 from ..rastrigin import f15 as _f15
-from ..trap.ref import sum_group
+from ..trap.ref import window_lead
 from . import autotune as _autotune
 from . import generation as _k
 from . import ref as _ref
@@ -41,10 +41,10 @@ TILED_EVALS = {"binary": ("trap", "onemax", "royal_road"),
 
 @functools.lru_cache(maxsize=None)
 def tiled_smem_bytes(rows: int, length: int, elite: int, float_genes: bool,
-                     eval_kind: int, group: int) -> int:
+                     eval_kind: int) -> int:
     """Shared memory of one block of the tiled kernel."""
     return int(_build.library().generation_tiled_smem_bytes(
-        rows, length, elite, int(float_genes), eval_kind, group))
+        rows, length, elite, int(float_genes), eval_kind))
 
 
 def roulette_cdf(size: torch.Tensor, fitness: torch.Tensor) -> torch.Tensor:
@@ -91,7 +91,7 @@ def max_rows(length: int, spec, limit: int) -> int:
     rows)."""
     ev = spec.eval_spec or {}
     args = (length, spec.elite, spec.kind == "float",
-            _k.EVAL_KINDS[ev.get("eval")], sum_group(length))
+            _k.EVAL_KINDS[ev.get("eval")])
     lo, hi = 0, limit
     while lo < hi:
         mid = (lo + hi + 1) // 2
@@ -212,7 +212,7 @@ def launch_child(seed, size, pop, fitness, cum: Optional[torch.Tensor],
             float(spec.crossover_rate), float(spec.mutation_rate),
             float(spec.mutation_sigma), float(spec.low), float(spec.high),
             float(1.0 + 2.0 * a), float(a), _k.EVAL_KINDS[ev.get("eval")],
-            sum_group(length), trap_l, sum_group(length // trap_l),
+            window_lead(length), trap_l, window_lead(length // trap_l),
             float(ev.get("a", 0.0)), float(ev.get("b", 0.0)), z,
             float(trap_l - z), royal_r, stream)
     _build.check(err, "tiled generation kernel")

@@ -40,8 +40,8 @@
 //   (group, row) in ordered_sum's order, gather the next batch's z = x[perm]
 //   - o from the staged rows (a thread per column, down the rows), and,
 //   after a tile's last z, bring the next tile's rows in, a batch ahead;
-//   after a tile's last batch a thread per row adds its group sums in group
-//   order.
+//   after a tile's last batch a thread per row adds its group sums in
+//   ordered_sum's order.
 // Where no row fits shared memory beside the ring (D above 51,900 at m 50),
 // the rows are not staged: the helpers gather z from device memory (the
 // `gather` launch), and everything else stays as it is. Where not even two
@@ -185,14 +185,13 @@ __device__ __forceinline__ void rotate_pairs_shared(float (&acc)[ROWS][KB_],
   }
 }
 
-// ordered_sum (f15_rows.cuh) for groups of at most 32 terms (sum_group's),
-// each group's terms loaded at once ahead of its adds: the same adds in the
-// same order
-__device__ __forceinline__ float group_sum(const float* t, int n,
-                                           int group) {
-  float total = 0.0f;
-  for (int g0 = 0; g0 < n; g0 += group) {
-    const int len = min(group, n - g0);
+// ordered_sum (f15_rows.cuh) of a group of at most SHORT_ROW terms (this
+// route takes m up to 169), each window's terms (at most 32) loaded at
+// once ahead of its adds: the same adds in the same order
+__device__ __forceinline__ float group_sum(const float* t, int n, int lead) {
+  float sums = 0.0f;
+  for (int g0 = 0; g0 < n;) {
+    const int len = min(g0 == 0 ? lead : SUM_WINDOW, n - g0);
     float v[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) v[i] = i < len ? t[g0 + i] : 0.0f;
@@ -200,9 +199,17 @@ __device__ __forceinline__ float group_sum(const float* t, int n,
 #pragma unroll
     for (int i = 0; i < 32; ++i)
       if (i < len) part = __fadd_rn(part, v[i]);
-    total = __fadd_rn(total, part);
+    sums = __fadd_rn(sums, part);
+    g0 += len;
   }
-  return total;
+  return sums;
+}
+
+// a row's total over more than SHORT_ROW groups (the gathered route's
+// widest D), out of the kernel's frame
+__device__ __noinline__ float long_group_total(const float* gs, int G,
+                                               int R) {
+  return ordered_sum_strided(gs, G, window_lead(G), R);
 }
 
 // wait for a copy's barrier phase; the clock of the trapping wait
@@ -224,7 +231,7 @@ __global__ void __launch_bounds__(THREADS)
 f15_kernel(const float* __restrict__ pop, const float* __restrict__ o,
            const int* __restrict__ perm, const float* __restrict__ M,
            float* __restrict__ out, int n_rows, int D, int m, int G,
-           int k_group, int R, int gpb) {
+           int k_lead, int R, int gpb) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay = layout(R, D, m, gpb, GATHER);
   uint64_t* bar_x = reinterpret_cast<uint64_t*>(smem);
@@ -374,23 +381,21 @@ f15_kernel(const float* __restrict__ pop, const float* __restrict__ o,
   };
   // (helpers) batch q's terms summed, a thread per (group, row), each in
   // ordered_sum's order; after the tile's last batch, a thread per row adds
-  // its group sums in group order and writes the total
+  // its group sums in ordered_sum's order and writes the total
   float* gs = reinterpret_cast<float*>(smem + lay.gs);
   auto sum_terms = [&](int q) {
     const Batch b = batch(q);
     for (int i = h; i < b.pb * b.rows; i += HELPERS) {
       const int p = i / b.rows, r = i - p * b.rows;
       gs[(size_t)(b.g0 + p) * R + r] =
-          group_sum(buf(q) + ((size_t)p * R + r) * m, m, k_group);
+          group_sum(buf(q) + ((size_t)p * R + r) * m, m, k_lead);
     }
     if (!b.last) return;
     named_barrier(2, HELPERS);
-    for (int r = h; r < b.rows; r += HELPERS) {
-      float total = 0.0f;
-      for (int g = 0; g < G; ++g)
-        total = __fadd_rn(total, gs[(size_t)g * R + r]);
-      out[(size_t)b.tile * R + r] = total;
-    }
+    for (int r = h; r < b.rows; r += HELPERS)
+      out[(size_t)b.tile * R + r] =
+          G > SHORT_ROW ? long_group_total(gs + r, G, R)
+                        : ordered_sum_short(gs + r, G, window_lead(G), R);
   };
 
   // (helpers) batch q's z, from its tile's rows (waited for at the tile's
@@ -475,14 +480,17 @@ f15_kernel(const float* __restrict__ pop, const float* __restrict__ o,
 // group sums and buffers do not fit beside them even with z gathered, and
 // no m above 1536 (a group's micro-tiles outnumber its compute threads).
 // This route takes every (n, D, m): a block of SLICED_THREADS loops over
-// tiles of R rows; for each group in order, each slice of C columns of its
-// rotation (C a multiple of ordered_sum's group, or m), and each chunk of
+// tiles of R rows; for each group in order, each slice of its rotation's
+// columns (C of them, a multiple of 32, or m; the first slice C - 32 +
+// window_lead(m), so that every slice starts one of ordered_sum's windows),
+// and each chunk of
 // SLICE_J rows of M, it
 // gathers z = x[perm] - o of the chunk from device memory and stages M's
 // J x C block, and each thread carries its micro-tile's sums in registers
 // across the chunks, j in order. After a slice, its terms go to shared
-// memory and one thread per row adds them, in ordered_sum's groups, to its
-// group's sum; after a group, the group's sum to the row's total. So the
+// memory and one thread per row sums each of its windows and adds it to its
+// group's ordered sum; after a group, the group's sum to the row's ordered
+// total. So the
 // roundings and their order are those of the plain version, and shared
 // memory stays under 150 KB at any shape (R x C <= 4096; the launch model,
 // kernels/rastrigin/f15.py::sliced_shape, picks R and C).
@@ -518,7 +526,7 @@ __global__ void __launch_bounds__(SLICED_THREADS)
 f15_sliced_kernel(const float* __restrict__ pop, const float* __restrict__ o,
                   const int* __restrict__ perm, const float* __restrict__ M,
                   float* __restrict__ out, int n_rows, int D, int m, int G,
-                  int k_group, int R, int C) {
+                  int k_lead, int R, int C) {
   extern __shared__ __align__(16) float fs[];
   const int CP = sliced_pitch(C);
   float* zs = fs;                     // [R][ZP]
@@ -529,12 +537,16 @@ f15_sliced_kernel(const float* __restrict__ pop, const float* __restrict__ o,
   const int rbk = R / RB;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int row0 = tile * R, rows = min(R, n_rows - row0);
-    float total = 0.0f, gsum = 0.0f;  // thread r < rows: row r's sums
+    // thread r < rows: row r's sums
+    OrderedSum total(G, window_lead(G));
     for (int g = 0; g < G; ++g) {
       const int* pg = perm + (size_t)g * m;
       const float* Mg = M + (size_t)g * m * m;
-      for (int c0 = 0; c0 < m; c0 += C) {
-        const int cs = min(C, m - c0);
+      OrderedSum gsum(n_windows(m), window_lead(n_windows(m)));
+      for (int c0 = 0; c0 < m;) {
+        const int c1 =
+            C >= m ? m : min(m, c0 == 0 ? C - SUM_WINDOW + k_lead : c0 + C);
+        const int cs = c1 - c0;
         const int quads = (cs + KB - 1) / KB;
         const bool active = tid < rbk * quads;
         const int rb = tid / quads, k0 = (tid - rb * quads) * KB;
@@ -587,24 +599,23 @@ f15_sliced_kernel(const float* __restrict__ pop, const float* __restrict__ o,
                     rastrigin_term(acc[i][c]);
         }
         __syncthreads();
-        // the slice starts one of ordered_sum's groups: add its groups'
+        // the slice starts one of ordered_sum's windows: add its windows'
         // sums in order to the row's group sum
         if (tid < rows) {
-          const float* t = ts + tid * (C + 1);
-          for (int a = 0; a < cs; a += k_group) {
-            const int e = min(a + k_group, cs);
+          const float* t = ts + tid * (C + 1) - c0;
+          for (int a = c0; a < c1;) {
+            const int e = min(a == 0 ? k_lead : a + SUM_WINDOW, c1);
             float part = 0.0f;
             for (int i = a; i < e; ++i) part = __fadd_rn(part, t[i]);
-            gsum = __fadd_rn(gsum, part);
+            gsum.add(part);
+            a = e;
           }
         }
+        c0 = c1;
       }
-      if (tid < rows) {
-        total = __fadd_rn(total, gsum);
-        gsum = 0.0f;
-      }
+      if (tid < rows) total.add(gsum.total());
     }
-    if (tid < rows) out[row0 + tid] = total;
+    if (tid < rows) out[row0 + tid] = total.total();
   }
 }
 
@@ -660,17 +671,17 @@ extern "C" int f15_device_limits(int* out) {
 // The tiled route (cols 0: tiles of `rows` rows, batches of `gpb` groups,
 // the rows staged in shared memory or, gather 1, z gathered from device
 // memory) or the sliced route (cols > 0: tiles of `rows` rows, a multiple of
-// 4, slices of `cols` columns, a multiple of k_group or m, rows * cols <=
-// 4096), `blocks` blocks looping over the tiles.
+// 4, slices of `cols` columns, a multiple of 32 or m, rows * cols <=
+// 4096), `blocks` blocks looping over the tiles; k_lead is window_lead(m).
 extern "C" int f15_launch(const void* pop, const void* o, const void* perm,
                           const void* M, void* out, int n_rows, int D, int m,
-                          int G, int k_group, int rows, int gpb, int cols,
+                          int G, int k_lead, int rows, int gpb, int cols,
                           int gather, int blocks, void* stream) {
-  if (blocks < 1 || k_group < 1 || k_group > 32 || rows < 1 ||
+  if (blocks < 1 || k_lead != window_lead(m) || rows < 1 ||
       blocks > (n_rows + rows - 1) / rows)
     return (int)cudaErrorInvalidValue;
   if (cols > 0) {
-    if (rows % RB || cols > m || (cols < m && cols % k_group) ||
+    if (rows % RB || cols > m || (cols < m && cols % SUM_WINDOW) ||
         (rows / RB) * ((cols + KB - 1) / KB) > SLICED_THREADS)
       return (int)cudaErrorInvalidValue;
     const size_t smem = sliced_bytes(rows, cols);
@@ -682,10 +693,10 @@ extern "C" int f15_launch(const void* pop, const void* o, const void* perm,
     }
     f15_sliced_kernel<<<blocks, SLICED_THREADS, smem, (cudaStream_t)stream>>>(
         (const float*)pop, (const float*)o, (const int*)perm, (const float*)M,
-        (float*)out, n_rows, D, m, G, k_group, rows, cols);
+        (float*)out, n_rows, D, m, G, k_lead, rows, cols);
     return (int)cudaGetLastError();
   }
-  if (rows > HELPERS || gpb < 1 || gpb > G ||
+  if (rows > HELPERS || gpb < 1 || gpb > G || m > SHORT_ROW ||
       gpb * ((rows + RB - 1) / RB) * ((m + KB - 1) / KB) > COMPUTE)
     return (int)cudaErrorInvalidValue;
   const size_t smem = layout(rows, D, m, gpb, gather != 0).bytes;
@@ -697,6 +708,6 @@ extern "C" int f15_launch(const void* pop, const void* o, const void* perm,
   }
   kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)pop, (const float*)o, (const int*)perm, (const float*)M,
-      (float*)out, n_rows, D, m, G, k_group, rows, gpb);
+      (float*)out, n_rows, D, m, G, k_lead, rows, gpb);
   return (int)cudaGetLastError();
 }

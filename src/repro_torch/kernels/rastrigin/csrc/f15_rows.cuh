@@ -25,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../trap/csrc/ordered_sum.cuh"
+
 namespace {
 
 // f32(2 pi), the constant of the plain version's torch.tensor(2 * pi)
@@ -35,19 +37,11 @@ __device__ __forceinline__ float rastrigin_term(float r) {
   return __fadd_rn(__fsub_rn(__fmul_rn(r, r), __fmul_rn(10.0f, c)), 10.0f);
 }
 
-// Sum of n terms in groups of `group` consecutive terms: each group summed
-// from 0 left to right, the group sums added to 0 left to right
-// (kernels/trap/ref.py::ordered_sum).
+// Sum of n terms in XLA's window order, lead = window_lead(n)
+// (kernels/trap/ref.py::ordered_sum, kernels/trap/csrc/ordered_sum.cuh).
 __device__ __forceinline__ float ordered_sum(const float* t, int n,
-                                             int group) {
-  float total = 0.0f;
-  for (int g0 = 0; g0 < n; g0 += group) {
-    const int g1 = min(g0 + group, n);
-    float part = 0.0f;
-    for (int i = g0; i < g1; ++i) part = __fadd_rn(part, t[i]);
-    total = __fadd_rn(total, part);
-  }
-  return total;
+                                             int lead) {
+  return ordered_sum_strided(t, n, lead, 1);
 }
 
 // One step j of a micro-tile's sums: acc = z[j] M[j] (FIRST) or acc +
@@ -175,7 +169,7 @@ __device__ __forceinline__ void rotate_tile_pairs(float (&acc)[ROWS][KB],
 // `rows` repeat the last row; neither they nor columns past m are stored.
 template <int ROWS>
 __device__ void f15_rows(float* zp, float* terms, int rows, int D, int m,
-                         int G, int k_group, const float* __restrict__ M,
+                         int G, int k_lead, const float* __restrict__ M,
                          float* out, float sign) {
   constexpr int KB = 4;
   const int quads = (m + KB - 1) / KB;
@@ -208,13 +202,11 @@ __device__ void f15_rows(float* zp, float* terms, int rows, int D, int m,
   float* gsum = zp;
   for (int i = threadIdx.x; i < rows * G; i += blockDim.x) {
     const int r = i / G, g = i - r * G;
-    gsum[i] = ordered_sum(terms + (size_t)r * D + (size_t)g * m, m, k_group);
+    gsum[i] = ordered_sum(terms + (size_t)r * D + (size_t)g * m, m, k_lead);
   }
   __syncthreads();
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    float total = 0.0f;
-    for (int g = 0; g < G; ++g) total = __fadd_rn(total, gsum[r * G + g]);
-    out[r] = __fmul_rn(sign, total);
+    out[r] = __fmul_rn(sign, ordered_sum(gsum + r * G, G, window_lead(G)));
   }
 }
 

@@ -31,7 +31,7 @@ import torch
 
 from ... import _build
 from .. import LAUNCHES
-from ..trap.ref import sum_group
+from ..trap.ref import WINDOW, window_lead
 from . import ref as _ref
 
 # csrc/f15.cu: compute and helper threads of a block (a compute thread
@@ -113,14 +113,15 @@ def sliced_smem_bytes(rows: int, cols: int) -> int:
 def sliced_shape(n: int, dim: int, m: int, limits: Limits) -> Shape:
     """The sliced route's launch: the tallest tile (64 rows down to 4)
     that still leaves no SM without a tile, then the widest slice its 256
-    threads cover (rows x cols <= 4096), whole groups of ordered_sum's
-    order (``sum_group(m)`` columns) unless it is the whole rotation.
+    threads cover (rows x cols <= 4096), whole windows of ordered_sum's
+    order (a multiple of 32 columns; the kernel shortens the first slice
+    by ``32 - window_lead(m)``, so that each slice starts a window) unless
+    it is the whole rotation.
     Takes every shape: shared memory stays under 150 KB."""
     rows = next((r for r in SLICED_ROWS if -(-n // r) >= limits.sms),
                 SLICED_ROWS[-1])
     cap = SLICED_THREADS * MICRO_ROWS * MICRO_COLS // rows
-    k = sum_group(m)
-    cols = m if m <= cap else cap // k * k
+    cols = m if m <= cap else cap // WINDOW * WINDOW
     smem = sliced_smem_bytes(rows, cols)
     per_sm = min(SLICED_BLOCKS_PER_SM,
                  limits.smem_per_sm // (smem + limits.reserved_per_block))
@@ -312,7 +313,7 @@ def launch(consts: Dict[str, torch.Tensor], pop: torch.Tensor,
         err = lib.f15_launch(
             pop.data_ptr(), consts["o"].data_ptr(), consts["perm"].data_ptr(),
             consts["M"].data_ptr(), out.data_ptr(), n, dim, m, n_groups,
-            sum_group(m), shape.rows, shape.groups, shape.cols,
+            window_lead(m), shape.rows, shape.groups, shape.cols,
             int(shape.gather), shape.grid, stream)
     _build.check(err, "f15")
     LAUNCHES["f15"] += 1

@@ -10,10 +10,11 @@ that the CUDA kernels (``csrc/f15.cu`` and the fused tail of
 * the rotation is a left-to-right sum over ``j`` of separate multiplies and
   adds, starting from the ``j = 0`` product (not ``torch.matmul``, whose
   order is the BLAS library's);
-* the terms of a group are summed in the grouped order of
-  :func:`repro_torch.kernels.trap.ref.ordered_sum` (two halves of 25 at
-  m = 50, the order XLA's CPU backend uses for 33-64 terms);
-* the group sums are added to 0 in group order.
+* the terms of a group are summed in the window order of
+  :func:`repro_torch.kernels.trap.ref.ordered_sum`, XLA's CPU order for a
+  row reduction (two halves of 25 at m = 50);
+* the group sums are summed in the same order (left to right from 0 up to
+  32 groups).
 
 No lane padding: the reference pads m to 128 lanes for the TPU's matrix
 unit (``repro/kernels/rastrigin/ops.py``), which changes nothing here.
@@ -52,14 +53,9 @@ def rotate(zg: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
 
 
 def group_total(terms: torch.Tensor) -> torch.Tensor:
-    """(..., G, m) terms -> (...): each group in the grouped order, then the
-    group sums added to 0 in order."""
-    sums = ordered_sum(terms)
-    total = torch.zeros(sums.shape[:-1], dtype=sums.dtype,
-                        device=sums.device)
-    for g in range(sums.shape[-1]):
-        total = total + sums[..., g]
-    return total
+    """(..., G, m) terms -> (...): each group's sum, then the group sums,
+    in ordered_sum's order."""
+    return ordered_sum(ordered_sum(terms))
 
 
 def f15(consts: Dict[str, torch.Tensor], pop: torch.Tensor) -> torch.Tensor:

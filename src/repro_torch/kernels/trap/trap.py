@@ -43,7 +43,7 @@ def trap_fitness(consts: Dict[str, float], pop: torch.Tensor, *,
         stream = torch.cuda.current_stream(pop.device).cuda_stream
         err = lib.trap_fitness_launch(
             pop.data_ptr(), out.data_ptr(), n, n_traps, l,
-            _ref.sum_group(n_traps), a, b, z, float(l - z), stream)
+            _ref.window_lead(n_traps), a, b, z, float(l - z), stream)
     _build.check(err, "trap_fitness")
     LAUNCHES["trap_fitness"] += 1
     return out

@@ -8,7 +8,11 @@ asynchronous counterparts (:func:`~repro_torch.core.run_experiment_async`,
 ``--max-rate``, ``--staleness`` and ``--churn``. The fused drivers take
 ``--snapshot-every``, ``--snapshot-dir`` and ``--resume`` (kill the
 process, rerun with ``--resume``, and the final state is the uninterrupted
-run's; another ``--islands`` resizes the restored state). On the card:
+run's; another ``--islands`` resizes the restored state). ``--bridge``
+attaches an in-process :class:`~repro_torch.core.PoolServer` to a host
+loop through :class:`~repro_torch.core.HostBridge`
+(:class:`~repro_torch.core.AsyncHostBridge` under ``--runtime async``).
+On the card:
 
     python -m repro_torch.launch.evolve ea --problem trap --islands 8
 
@@ -17,12 +21,11 @@ and on the CPU:
     PYTHONPATH=src python -m repro_torch.launch.evolve ea --problem trap \\
         --islands 8 --epochs 3 --device cpu [--impl jnp|pallas|...] \\
         [--topology ...] [--acceptance ...] [--fused] [--runtime async] \\
-        [--snapshot-every 2 --snapshot-dir DIR [--resume]]
+        [--bridge] [--snapshot-every 2 --snapshot-dir DIR [--resume]]
 
 The reference's other drivers are not ported yet, and their flags raise
 ``NotImplementedError`` naming the ROADMAP item that brings them:
-``--bridge`` (Queue A item 12), ``--sharded`` (item 13) and the ``pbt``
-command (item 14).
+``--sharded`` (Queue A item 13) and the ``pbt`` command (item 14).
 """
 from __future__ import annotations
 
@@ -32,14 +35,15 @@ import time
 from functools import partial
 
 from .._device import DeviceLike, resolve_device
-from ..core import (AcceptanceConfig, AsyncConfig, EAConfig, MigrationConfig,
+from ..core import (AcceptanceConfig, AsyncConfig, AsyncHostBridge, EAConfig,
+                    HostBridge, MigrationConfig, PoolServer,
                     available_acceptance_policies, available_topologies,
                     make_problem, run_experiment, run_experiment_async,
                     run_fused, run_fused_async)
 from ..kernels.ga import available_impls
 
 # (flag, ROADMAP Queue A item) of the reference's drivers not ported yet
-_LATER = {"sharded": 13, "bridge": 12, "pbt": 14}
+_LATER = {"sharded": 13, "pbt": 14}
 
 
 def _later(what: str, key: str):
@@ -63,18 +67,22 @@ def run_ea(problem_name: str = "trap", islands: int = 8, epochs: int = 50,
     operator, ``fused`` the fused driver, ``runtime='async'`` the
     asynchronous runtime under ``acfg``. The fused drivers snapshot every
     ``snapshot_every`` epochs into ``snapshot_dir`` and ``resume`` from
-    there; the host loops take no snapshots. ``sharded`` and ``bridge``
-    raise. Returns the host loop's ``RunResult`` (``AsyncRunResult``), or
+    there; the host loops take no snapshots. ``bridge`` syncs a host
+    loop's device pool with an in-process ``PoolServer(capacity=256,
+    seed=seed)`` under the run's acceptance policy; ``sharded`` raises.
+    Returns the host loop's ``RunResult`` (``AsyncRunResult``), or
     ``(islands, pool)`` of the fused driver."""
     if sharded:
         _later("--sharded", "sharded")
-    if bridge:
-        _later("--bridge", "bridge")
     if runtime not in ("sync", "async"):
         raise ValueError(f"unknown runtime {runtime!r}")
     is_async = runtime == "async"
     if acfg is None:
         acfg = AsyncConfig()
+    if bridge and fused:
+        print("note: --bridge needs a host loop; the fused drivers run on "
+              "the device alone, so the bridge is off")
+        bridge = False
     snap_kw = {"snapshot_every": snapshot_every,
                "snapshot_dir": snapshot_dir, "resume": resume}
     if snapshot_dir is not None and not fused:
@@ -92,8 +100,14 @@ def run_ea(problem_name: str = "trap", islands: int = 8, epochs: int = 50,
     if gens_per_epoch is not None:
         ea_kw["generations_per_epoch"] = gens_per_epoch
     cfg = EAConfig(**ea_kw)
-    mig = MigrationConfig(topology=topology, acceptance=AcceptanceConfig(
-        policy=acceptance, epsilon=acceptance_epsilon))
+    acc = AcceptanceConfig(policy=acceptance, epsilon=acceptance_epsilon)
+    mig = MigrationConfig(topology=topology, acceptance=acc)
+    host_bridge = None
+    if bridge:
+        server = PoolServer(capacity=256, seed=seed, acceptance=(
+            acc if acceptance != "always" else None))
+        host_bridge = (AsyncHostBridge(server, acceptance=acc) if is_async
+                       else HostBridge(server, acceptance=acc))
     t0 = time.perf_counter()
     if fused:
         run = (partial(run_fused_async, acfg=acfg, max_ticks=epochs)
@@ -111,15 +125,20 @@ def run_ea(problem_name: str = "trap", islands: int = 8, epochs: int = 50,
         res = run_experiment_async(problem, cfg, mig, acfg,
                                    n_islands=islands, max_ticks=epochs,
                                    w2=w2, rng=seed, verbose=verbose,
-                                   device=dev)
+                                   host_bridge=host_bridge, device=dev)
+        if host_bridge is not None:
+            res.pool = host_bridge.flush(res.pool)
+            host_bridge.close()
     else:
         res = run_experiment(problem, cfg, mig, n_islands=islands,
                              max_epochs=epochs, w2=w2, rng=seed,
-                             verbose=verbose, device=dev)
+                             verbose=verbose, host_bridge=host_bridge,
+                             device=dev)
     if verbose:
         extra = f" fires={res.total_fires}" if is_async else ""
         print(f"success={res.success} evals_to_solution="
               f"{res.evaluations_to_solution} wall={res.wall_time_s:.1f}s"
+              + (f" bridge={host_bridge.stats()}" if host_bridge else "")
               + extra)
     return res
 
@@ -183,9 +202,12 @@ def main(argv=None):
                          "resizes the restored state)")
     ea.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
-    # the reference's flags of drivers not ported yet: they raise
+    ea.add_argument("--bridge", action="store_true",
+                    help="sync a host loop's device pool with an in-process "
+                         "PoolServer (HostBridge; AsyncHostBridge under "
+                         "--runtime async)")
+    # the reference's flag of a driver not ported yet: it raises
     ea.add_argument("--sharded", action="store_true")
-    ea.add_argument("--bridge", action="store_true")
     pbt = sub.add_parser("pbt")
     pbt.add_argument("--arch", default="minicpm-2b")
     pbt.add_argument("--members", type=int, default=4)

@@ -546,9 +546,19 @@ def test_host_loop_hetero_matches_reference_and_the_fused_driver():
     _same(res.islands, fused[0], "islands")
     _same(res.pool, fused[1], "pool")
     _same(res.astate, fused[3], "astate")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        run_experiment_async(*args, n_islands=2, max_ticks=1,
-                             host_bridge=object(), device="cpu")
+    # a host bridge rides the host loop (Queue A item 12): a blocking
+    # HostBridge keeps the run's keys, so a bridge that pulls nothing
+    # (pull 0) leaves the run as it was; it pushed the pool's best at
+    # every tick whose pool held one
+    from repro_torch.core import HostBridge, PoolServer
+    server = PoolServer(seed=1)
+    bridge = HostBridge(server, pull=0)
+    bridged = run_experiment_async(*args, n_islands=6, max_ticks=12, rng=6,
+                                   host_bridge=bridge, device="cpu")
+    _same(bridged.islands, res.islands, "bridged islands")
+    stats = bridge.stats()
+    assert stats["pulled"] == stats["lost"] == 0
+    assert 1 <= stats["pushed"] == server.stats()["puts"] <= bridged.epochs
 
 
 def test_float_genomes_within_queue_c_tolerances():

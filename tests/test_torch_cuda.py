@@ -9,6 +9,7 @@ The island kernels must be bit-equal to their plain versions: trap
 fitness, F15, and the generation kernels on binary and on float genomes.
 WKV6 and flash attention are held to the reference's kernel tolerances.
 """
+import dataclasses
 import importlib
 import itertools
 
@@ -978,3 +979,124 @@ def test_async_tick_adds_no_host_sync(card):
         islands, pool, astate, k, acfg=AsyncConfig(**ASYNC_HETERO),
         max_ticks=3, **kw))
     assert n_sync >= 3 and n_async <= n_sync, (n_sync, n_async)
+
+
+# ordered_sum's window order past 64 terms (kernels/trap/csrc/
+# ordered_sum.cuh): every kernel that sums a row, bit-equal to its plain
+# version, with one launch
+@pytest.mark.parametrize("n,n_traps", [(2048, 65), (2048, 100), (1000, 200),
+                                       (300, 1000), (257, 1025)])
+def test_trap_kernel_sum_order_past_64_traps(card, n, n_traps):
+    from repro_torch import kernels
+    g = torch.Generator().manual_seed(n_traps)
+    pop = (torch.rand(n, n_traps * 4, generator=g) < 0.55).to(
+        torch.int8).to(card)
+    before = kernels.LAUNCHES["trap_fitness"]
+    got = trap_k.trap_fitness(CONSTS, pop, n_traps=n_traps)
+    assert kernels.LAUNCHES["trap_fitness"] == before + 1
+    assert torch.equal(got, trap_ref.trap_fitness(pop, n_traps=n_traps, l=4,
+                                                  a=1.0, b=2.0, z=3.0))
+
+
+@pytest.mark.parametrize("n,dim,m", [(1000, 130, 65), (1000, 300, 100),
+                                     (1000, 1000, 10), (300, 2000, 2000),
+                                     (64, 4200, 100)])
+def test_f15_kernel_sum_order_past_64_terms(card, n, dim, m):
+    """m 65 and 100 (a group's terms), 100 and 42 groups (the group sums),
+    and the sliced route at m 2000 (slices that start windows)."""
+    g = torch.Generator().manual_seed(n + dim + m)
+    consts = _f15_consts(dim, m, g, card)
+    x = (torch.rand(n, dim, generator=g) * 10 - 5).to(card)
+    assert torch.equal(f15_k.f15(consts, x), f15_ref.f15(consts, x))
+
+
+@pytest.mark.parametrize("length", [65, 100, 1000, 2000])
+@pytest.mark.parametrize("fused", ["rastrigin", "sphere"])
+def test_fused_sums_past_64_genes_untiled_and_tiled(card, length, fused):
+    """The float generation kernel and the tiled kernel (2 and 8 rows per
+    block) with the fused rastrigin or sphere sum, bit-equal to the plain
+    version."""
+    gen_k = importlib.import_module("repro_torch.kernels.ga.generation")
+    from repro_torch.kernels.ga import tiling
+    spec, args, g = _tiled_case("float", "tournament", "blend", fused, 2, 24,
+                                length, length)
+    args = [t.to(card) for t in args]
+    want = _as_tuple(gen_ref.generation(*args, spec))
+    runs = [_as_tuple(gen_k.generation_kernel(*args, spec))]
+    runs += [_as_tuple(tiling.generation_tiled(*args, spec, tile_pop=rows))
+             for rows in (2, 8)]
+    for got in runs:
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("length,m", [(130, 65), (1000, 10)])
+def test_fused_f15_sum_order_past_64_terms(card, length, m):
+    gen_k = importlib.import_module("repro_torch.kernels.ga.generation")
+    spec, args, g = _tiled_case("float", "tournament", "blend", "f15", 2, 24,
+                                length, m)
+    spec = dataclasses.replace(spec, fused_eval=(
+        ("eval", "f15"), ("m", m), ("n_groups", length // m)))
+    consts = _f15_consts(length, m, g, card)
+    args = [t.to(card) for t in args]
+    got = _as_tuple(gen_k.generation_kernel(*args, spec, consts))
+    want = _as_tuple(gen_ref.generation(*args, spec, consts))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+# the host tier on the card: pool_insert_host into a card pool, and a
+# bridged host loop through the kernels against the plain run on the CPU
+@pytest.mark.parametrize("policy", ["always", "elitist"])
+def test_pool_insert_host_on_a_card_pool(card, policy):
+    import numpy as np
+
+    from repro_torch import rand
+    from repro_torch.core import AcceptanceConfig
+    from repro_torch.core import pool as pool_lib
+    from repro_torch.core.types import GenomeSpec
+    gen = np.random.default_rng(3)
+    pools = {d: pool_lib.pool_init(6, GenomeSpec("binary", 12), device=d)
+             for d in ("cpu", card)}
+    for epoch in range(1, 5):
+        genomes = [gen.integers(0, 2, 12) for _ in range(3)]
+        fits = [float(x) for x in gen.integers(0, 9, 3)]
+        for d in pools:
+            pools[d] = pool_lib.pool_insert_host(
+                pools[d], genomes, fits, acc=AcceptanceConfig(policy=policy),
+                rng=rand.fold_in(rand.key(17, device=d), epoch))
+    assert pools[card].genomes.device.type == "cuda"
+    assert pools[card].genomes.dtype == torch.int8
+    for a, b in zip(pools[card], pools["cpu"]):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_bridged_run_on_the_card_equals_the_plain_run_on_the_cpu(card):
+    from repro_torch.core import (EAConfig, HostBridge, MigrationConfig,
+                                  PoolServer, make_trap, run_experiment)
+    out = {}
+    for device, impl in ((card, "pallas"), ("cpu", "pallas_ref")):
+        server = PoolServer(capacity=256, seed=1)
+        bridge = HostBridge(server, pull=4)
+
+        def up(epoch):
+            server.revive() if epoch != 2 else server.kill()
+            return epoch != 2
+        res = run_experiment(
+            make_trap(12, 4, impl="pallas"),
+            EAConfig(impl=impl, max_pop=32, min_pop=16,
+                     generations_per_epoch=5),
+            MigrationConfig(), n_islands=4, max_epochs=4, rng=2, w2=True,
+            server_up=up, host_bridge=bridge, device=device)
+        server.revive()
+        entries, _, _ = server.get_since(-1, limit=1000)
+        out[device if device == "cpu" else "card"] = (
+            res, bridge.stats(),
+            [(e.seq, e.uuid, e.fitness, e.genome.tobytes()) for e in entries])
+    (a, sa, ea), (b, sb, eb) = out["card"], out["cpu"]
+    for x, y in zip(a.islands, b.islands):
+        assert torch.equal(x.cpu(), y)
+    for x, y in zip(a.pool, b.pool):
+        assert torch.equal(x.cpu(), y)
+    assert sa == sb and sa["lost"] > 0 and ea == eb

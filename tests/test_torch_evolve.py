@@ -228,12 +228,39 @@ def test_ea_command_runs_on_the_cpu(capsys):
     _equal(convert.to_numpy(res.islands), _jislands(want.islands), "islands")
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--sharded"], 13), (["--bridge"], 12)])
+@pytest.mark.parametrize("flags,item", [(["--sharded"], 13)])
 def test_ea_flags_of_later_items_raise(flags, item):
     with pytest.raises(NotImplementedError,
                        match=f"Queue A item {item}\\)"):
         evolve.main(["ea", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--bridge"], ["--bridge", "--acceptance", "elitist"],
+    ["--bridge", "--impl", "pallas"],
+    ["--bridge", "--runtime", "async"], ["--bridge", "--fused"]],
+    ids=["sync", "elitist", "pallas", "async", "fused"])
+def test_ea_bridge_flags_match_reference(flags, capsys):
+    """``--bridge`` (Queue A item 12): the host loop with a HostBridge
+    over PoolServer(capacity=256, seed=seed) prints the reference's lines,
+    its bridge counts included; under ``--runtime async`` the
+    AsyncHostBridge's counts depend on its worker's timing, so there
+    only the epochs' lines are compared; ``--fused`` turns the bridge off
+    with a note, as in the reference."""
+    from repro.launch import evolve as j_evolve
+    base = ["ea", "--problem", "trap", "--islands", "4", "--epochs", "3",
+            "--max-pop", "16", "--min-pop", "8", "--gens-per-epoch", "3"]
+    evolve.main(base + flags + ["--device", "cpu"])
+    port_lines = capsys.readouterr().out.strip().splitlines()
+    j_evolve.main(base + [f if f != "pallas" else "pallas_ref"
+                          for f in flags])
+    ref_lines = capsys.readouterr().out.strip().splitlines()
+    if "async" in flags:
+        port_lines, ref_lines = port_lines[:-1], ref_lines[:-1]
+    assert [_numbers(x) for x in port_lines if not x.startswith("note:")] \
+        == [_numbers(x) for x in ref_lines if not x.startswith("note:")]
+    assert any(x.startswith("note: --bridge") for x in port_lines) == (
+        "--fused" in flags)
 
 
 def _numbers(line):
@@ -290,16 +317,25 @@ def test_ea_async_and_snapshot_flags_match_reference(flags, tmp_path,
     assert int(islands.pop.shape[0]) == 4
 
 
-def test_pbt_and_host_tier_raise_naming_their_items():
+def test_pbt_raises_and_the_host_tier_runs():
+    """pbt (Queue A item 14) still raises; the host tier (item 12) runs:
+    a host pool receives every island's best each epoch, uuids and all,
+    and a broken one is a lost XHR."""
+    from repro_torch.core import PoolServer
     with pytest.raises(NotImplementedError, match="Queue A item 14"):
         evolve.main(["pbt"])
-    run = dict(n_islands=2, max_epochs=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        run_experiment(make_onemax(8), EAConfig(**CFG), host_bridge=object(),
-                       **run)
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        run_experiment(make_onemax(8), EAConfig(**CFG), host_pool=object(),
-                       **run)
+    run = dict(n_islands=2, max_epochs=2, device="cpu",
+               stop_on_success=False)
+    server = PoolServer(seed=0)
+    res = run_experiment(make_onemax(8), EAConfig(**CFG), host_pool=server,
+                         **run)
+    assert server.stats()["puts"] == 4
+    entries, _, _ = server.get_since(-1)
+    assert [e.uuid for e in entries] == [0, 1, 0, 1]
+    assert entries[-1].fitness == float(res.islands.best_fitness[1])
+    res2 = run_experiment(make_onemax(8), EAConfig(**CFG), host_pool=object(),
+                          **run)
+    assert torch.equal(res2.islands.pop, res.islands.pop)
 
 
 def test_run_experiment_without_device_needs_a_card():

@@ -28,7 +28,7 @@ from repro_torch.core import make_f15, make_problem
 from repro_torch.core.problems import F15_DEFAULT_CONSTS
 from repro_torch.kernels.rastrigin import f15 as t_f15
 from repro_torch.kernels.rastrigin import ref as t_ref
-from repro_torch.kernels.trap.ref import sum_group
+from repro_torch.kernels.trap.ref import WINDOW, window_edges, window_lead
 
 RTOL, ATOL = 3e-5, 2e-2
 
@@ -73,6 +73,33 @@ def test_plain_matches_reference_at_group_sizes_off_four(group, n_groups):
                  j_f15_ref(jc, jnp.asarray(pop))):
         np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL,
                                    atol=ATOL)
+
+
+# the sum order past 64 terms: m 65 and 100 (a group's terms), 100 groups
+# of 10 (the group sums); held to Queue C's F15 tolerance
+@pytest.mark.parametrize("dim,group", [(130, 65), (300, 100), (1000, 10)])
+def test_plain_matches_reference_past_64_terms(dim, group):
+    consts, pop = _case(dim, group, 16)
+    got = t_ref.f15(convert.f15_consts_from_numpy(consts, "cpu"),
+                    torch.from_numpy(pop)).numpy()
+    jc = {k: jnp.asarray(v) for k, v in consts.items()}
+    for want in (j_f15_ops.f15(jc, jnp.asarray(pop)),
+                 j_f15_ref(jc, jnp.asarray(pop))):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_group_total_is_ordered_sum_over_groups_and_terms():
+    """Up to 32 groups the group sums add left to right from 0, as before;
+    past that they take ordered_sum's windows."""
+    terms = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 40, (8, 100, 10)).astype(np.float32))
+    sums = t_ref.ordered_sum(terms)
+    assert torch.equal(t_ref.group_total(terms), t_ref.ordered_sum(sums))
+    ltr = torch.zeros(8)
+    for g in range(20):
+        ltr = ltr + sums[:, g]
+    assert torch.equal(t_ref.group_total(terms[:, :20]), ltr)
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_and_optimum_is_zero():
@@ -224,7 +251,7 @@ SLICED_CASES = [(2048, 1000, 200), (2048, 1000, 250), (2048, 1000, 500),
 def test_launch_shape_takes_the_sliced_route_where_rotations_do_not_fit(
         n, dim, m):
     """The sliced route's launch on an H100's limits: a slice's
-    micro-tiles within the block's threads, slices that start groups of
+    micro-tiles within the block's threads, slices that start windows of
     ordered_sum's order (so the terms sum in the plain version's order),
     shared memory within the card's, every row in one tile of one block."""
     limits = t_f15.H100
@@ -237,8 +264,12 @@ def test_launch_shape_takes_the_sliced_route_where_rotations_do_not_fit(
     micro = (shape.rows // t_f15.MICRO_ROWS) * -(-shape.cols
                                                  // t_f15.MICRO_COLS)
     assert micro <= t_f15.SLICED_THREADS
-    assert shape.cols == m or (shape.cols < m
-                               and shape.cols % sum_group(m) == 0)
+    assert shape.cols == m or (shape.cols < m and shape.cols % WINDOW == 0)
+    # the kernel's slices: the first C - 32 + window_lead(m) columns, then
+    # C each; each starts a window
+    starts = [0] if shape.cols >= m else [0] + list(
+        range(shape.cols - WINDOW + window_lead(m), m, shape.cols))
+    assert set(starts) <= set(window_edges(m))
     assert shape.smem == t_f15.sliced_smem_bytes(shape.rows, shape.cols)
     assert shape.smem <= limits.smem_per_block
     tiles = -(-n // shape.rows)

@@ -236,15 +236,19 @@ def test_unported_paths_raise_naming_the_roadmap(tmp_path):
         assert int(epochs) == 1
         assert bool(torch.isfinite(isl.best_fitness).all())
     # what is still unported raises with its item named
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        run_experiment(make_onemax(64), cfg, host_bridge=object(), **run)
-    for flags, item in ((["--bridge"], 12), (["--sharded"], 13)):
-        with pytest.raises(NotImplementedError,
-                           match=f"Queue A item {item}"):
-            evolve.main(["ea", "--device", "cpu"] + flags)
+    with pytest.raises(NotImplementedError, match="Queue A item 13"):
+        evolve.main(["ea", "--device", "cpu", "--sharded"])
+    # the host tier (item 12) runs: a bridged host loop and --bridge
+    from repro_torch.core import HostBridge, PoolServer
+    bridge = HostBridge(PoolServer(seed=0))
+    res = run_experiment(make_onemax(64), cfg, host_bridge=bridge,
+                         host_pool=PoolServer(seed=1), **run)
+    assert res.epochs == 1 and bridge.stats()["pushed"] == 1
     # the async runtime (item 10) and the snapshots (item 11) run
     small = ["ea", "--device", "cpu", "--islands", "2", "--epochs", "2",
              "--max-pop", "8", "--min-pop", "8", "--gens-per-epoch", "1"]
+    res = evolve.main(small + ["--bridge"])
+    assert res.epochs == 2
     res = evolve.main(small + ["--runtime", "async"])
     assert res.epochs == 2 and res.total_fires >= 0
     snaps = str(tmp_path / "snaps")
@@ -317,5 +321,5 @@ def test_import_scan_covers_every_subpackage():
                                                             "rwkv6"),
                 os.path.join("kernels", "flash_attention"),
                 "core", "obs", os.path.join("kernels", "ga"), "checkpoint",
-                "runtime"):
+                "runtime", "server"):
         assert sub in walked, sub
