@@ -192,7 +192,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 11d. the commands: ``ea --bridge`` (sync and ``--runtime async``), the
    ``volunteer_sim`` sync demo, its ``--runtime async --trace T --obs-json
    O``, then ``python -m repro_torch.obs T --obs O``: each exits 0;
-12. one JSON line with each kernel's launches, time, plain time, bound and
+12a. the sharded drivers on the one card: 2 ranks of 4 islands sharing
+   it (gloo with every collective's tensors copied to the host), paper-8
+   depth cut to 2 epochs: ``run_sharded``, ``run_fused_sharded`` (stats,
+   counters) and ``run_fused_sharded_async`` (phase 10a's
+   ``AsyncConfig``) under ``impl="pallas"`` and ``"pallas_ref"``, each
+   pair bit-equal, the generation kernel launched on every rank, every
+   rank's pool replica and global islands equal to rank 0's; the other
+   four topologies for 2 epochs; paper-f15-8 for 2 epochs (both of its
+   kernels launched on every rank); ``[main]`` (rank 0 alone, 8 islands)
+   and ``[sharded]`` epochs in turns (main, sharded, sharded, main): wall
+   per epoch, evals/s, collectives and their host time per epoch;
+12b. a world of one rank at cuda:0: the fused driver over NCCL equals it
+   over a gloo group with host copies bit for bit; then whether NCCL takes
+   2 ranks on one card (printed: refused or accepted);
+12c. ``ea --sharded --shards 2 --fused --w2 --snapshot-every 1`` in a
+   child process group killed by SIGKILL once its first snapshot has
+   landed, then ``--resume`` in a fresh one: its final snapshot equals the
+   uninterrupted run's (12a's world ran it) leaf for leaf; the killed
+   snapshot resumed by ``--shards 4`` runs to the end with the 8 islands;
+13. one JSON line with each kernel's launches, time, plain time, bound and
    library time, then the last line: ``{"ok": true, "device": {...}}``.
 
 It imports the port only (``src/repro_torch``), never JAX or the reference.
@@ -366,6 +385,15 @@ VOLUNTEER_PAUSE_S = 0.5
 SLOW_VERB_S = 0.2
 SLOW_SYNC_MAX_MS = 50.0
 SLOW_EPOCHS = 3
+# phase 12: ranks sharing the card, paper-8 epochs of each sharded run and
+# of each turn of the [main] / [sharded] comparison, epochs of the killed
+# and resumed ea --sharded command, and the seconds that bound each
+# spawned world (every collective and the whole world)
+SHARD_RANKS = 2
+SHARD_EPOCHS = 2
+SHARD_TURN_EPOCHS = 2
+SHARD_KILL_EPOCHS = 4
+SHARD_TIMEOUT = 600.0
 
 
 def log(*args):
@@ -1518,6 +1546,365 @@ def host_phases(paths, card: str, device=None):
         log(f"[host-cmd] python -m {' '.join(args[:1] + args[1:4])} ...: rc "
             f"0 in {time.perf_counter() - t:.1f} s; {' | '.join(lines[-2:])}")
     shutil.rmtree(spool, ignore_errors=True)
+
+
+def _digest(tree) -> str:
+    """sha256 of every tensor of a (nested) result, in order."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            h.update(str((x.dtype, tuple(x.shape))).encode())
+            h.update(x.detach().cpu().contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes())
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                h.update(str(k).encode())
+                walk(x[k])
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+        else:
+            h.update(repr(x).encode())
+    walk(tree)
+    return h.hexdigest()
+
+
+def _first_difference(a, b, path="") -> str:
+    """The first field where two results differ ('' when none)."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return "" if torch.equal(a, b) and a.dtype == b.dtype else path
+    if isinstance(a, dict):
+        for k in a:
+            d = _first_difference(a[k], b[k], f"{path}.{k}")
+            if d:
+                return d
+        return ""
+    if isinstance(a, (tuple, list)):
+        names = getattr(a, "_fields", range(len(a)))
+        for n, u, v in zip(names, a, b):
+            d = _first_difference(u, v, f"{path}.{n}")
+            if d:
+                return d
+        return ""
+    return "" if a == b else path
+
+
+def _sharded_rank_12a(group, kill_epochs, whole_dir):
+    """Phase 12a on one rank of the card's shared world (see the module
+    docstring): the three drivers under the kernels and the plain
+    versions, the other topologies, paper-f15-8, [main] and [sharded]
+    epochs in turns, and the uninterrupted run of 12c's command."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import (AcceptanceConfig, AsyncConfig, EAConfig,
+                                  MigrationConfig, make_f15, make_problem,
+                                  make_trap, run_fused)
+    from repro_torch.core.sharded import (run_fused_sharded,
+                                          run_fused_sharded_async,
+                                          run_sharded)
+    per = 8 // group.world
+    mig = MigrationConfig(topology="pool")
+    acfg = AsyncConfig(min_rate=0.25, max_rate=1.0, staleness=3,
+                       churn_fraction=0.25)
+    paper = dict(max_pop=256, min_pop=128, generations_per_epoch=100)
+    cfg = {i: EAConfig(impl=i, **paper) for i in ("pallas", "pallas_ref")}
+    trap = {"pallas": make_trap(40, 4, impl="pallas"),
+            "pallas_ref": make_trap(40, 4)}
+    out = {"rank": group.rank, "backend": group.name, "runs": {}}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        group.barrier()
+        calls, host = group.calls, group.host_s
+        kernels.reset_launches()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        return res, {"wall": wall, "calls": group.calls - calls,
+                     "host_s": group.host_s - host,
+                     "launches": dict(kernels.LAUNCHES)}
+
+    def record(tag, res, info, epochs):
+        # the collectives of the driver's final gather of the global
+        # state: the islands' fields, the counters' and the async rows'
+        end = len(res[0]) + sum(len(x) for x in res[4:5]
+                                if hasattr(x, "_fields"))
+        end += 6 if isinstance(res[-1], dict) else 0
+        info.update(digest=_digest(res[:2]), pool=res[1], epochs=epochs,
+                    evals=int(res[0].evaluations.sum()), end=end)
+        out["runs"][tag] = info
+        return res
+
+    drivers = {
+        "run_sharded": lambda p, c, t=None, e=SHARD_EPOCHS: run_sharded(
+            group, p, c, MigrationConfig(topology=t or "pool"), per, e,
+            rng=SEED, w2=True),
+        "run_fused_sharded": lambda p, c, t=None, e=SHARD_EPOCHS:
+            run_fused_sharded(group, p, c, MigrationConfig(
+                topology=t or "pool"), per, e, rng=SEED, w2=True,
+                return_stats=True, return_obs=True),
+        "run_fused_sharded_async": lambda p, c, t=None, e=SHARD_EPOCHS:
+            run_fused_sharded_async(group, p, c, mig, acfg, per, e,
+                                    rng=SEED, w2=True, return_stats=True,
+                                    return_astate=True, return_obs=True),
+    }
+    # warm-up (the library's load, the first launches), not recorded
+    run_fused_sharded(group, trap["pallas"], cfg["pallas"], mig, per, 1,
+                      rng=SEED + 1, w2=True)
+    for name, drive in drivers.items():
+        k_res, k_info = timed(lambda: drive(trap["pallas"], cfg["pallas"]))
+        p_res, p_info = timed(lambda: drive(trap["pallas_ref"],
+                                            cfg["pallas_ref"]))
+        k_info["same_as_plain"] = _first_difference(k_res, p_res) or "equal"
+        k_info["plain_wall"] = p_info["wall"]
+        k_info["plain_launches"] = p_info["launches"]
+        record(name, k_res, k_info, SHARD_EPOCHS)
+    for topo in ("ring", "torus", "random_graph", "broadcast_best"):
+        res, info = timed(lambda: drivers["run_fused_sharded"](
+            trap["pallas"], cfg["pallas"], topo, 2))
+        record(f"topology {topo}", res, info, 2)
+    f_cfg = EAConfig(impl="pallas", crossover="blend", mutation_sigma=0.3,
+                     **paper)
+    res, info = timed(lambda: drivers["run_fused_sharded"](
+        make_f15(impl="pallas", device=group.device), f_cfg, None, 2))
+    record("paper-f15-8", res, info, 2)
+    # [main] (rank 0 alone, 8 islands) and [sharded] epochs in turns
+    turns = []
+    for tag in ("main", "sharded", "sharded", "main"):
+        if tag == "main":
+            res, info = timed(lambda: run_fused(
+                trap["pallas"], cfg["pallas"], mig, n_islands=8,
+                max_epochs=SHARD_TURN_EPOCHS, rng=SEED, w2=True,
+                device=group.device) if group.rank == 0 else None)
+            group.barrier()
+            evals = int(res[0].evaluations.sum()) if res else 0
+        else:
+            res, info = timed(lambda: run_fused_sharded(
+                group, trap["pallas"], cfg["pallas"], mig, per,
+                SHARD_TURN_EPOCHS, rng=SEED, w2=True))
+            evals = int(res[0].evaluations.sum())
+            # the final gather of the islands is not the epochs'
+            info["calls"] -= len(res[0])
+        turns.append((tag, info["wall"], evals, info["calls"],
+                      info["host_s"]))
+    out["turns"] = turns
+    # 12c's command run here uninterrupted: make_problem("trap") (trap 40x4,
+    # the plain fitness), EAConfig(impl="pallas"), seed 0, W², one
+    # snapshot an epoch
+    run_fused_sharded(group, make_problem("trap"), EAConfig(impl="pallas"),
+                      MigrationConfig(topology="pool",
+                                      acceptance=AcceptanceConfig()),
+                      per, kill_epochs, rng=0, w2=True, snapshot_every=1,
+                      snapshot_dir=whole_dir)
+    return out
+
+
+def _sharded_rank_12b(group):
+    """Phase 12b: one rank at cuda:0, the fused driver over NCCL and over
+    a gloo group of the same rank with host copies."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import EAConfig, MigrationConfig, make_trap
+    from repro_torch.core.sharded import ShardGroup, run_fused_sharded
+    gloo = ShardGroup.from_default(device=group.device,
+                                   pg=dist.new_group(backend="gloo"))
+    cfg = EAConfig(impl="pallas", max_pop=256, min_pop=128,
+                   generations_per_epoch=100)
+    out = {}
+    for g in (group, gloo):
+        g.barrier()   # NCCL sets its communicator up at the first call
+        g.calls, g.host_s = 0, 0.0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = run_fused_sharded(g, make_trap(40, 4, impl="pallas"), cfg,
+                                MigrationConfig(topology="pool"), 8, 2,
+                                rng=SEED, w2=True, return_stats=True,
+                                return_obs=True)
+        torch.cuda.synchronize()
+        out[g.name] = {"res": res, "wall": time.perf_counter() - t,
+                       "calls": g.calls, "host_s": g.host_s}
+    a, b = out[group.name]["res"], out[gloo.name]["res"]
+    out["same"] = _first_difference(a, b) or "equal"
+    for v in out.values():
+        if isinstance(v, dict):
+            v.pop("res")
+    return out
+
+
+def _sharded_rank_barrier(group):
+    group.barrier()
+    return group.name
+
+
+def sharded_phases(card: str):
+    """Phases 12a-12c: the sharded drivers on the card (see the module
+    docstring)."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import latest_step, restore
+    from repro_torch.core.sharded import spawn
+
+    snaps = os.path.join(ROOT, "build", "chip_smoke_sharded")
+    shutil.rmtree(snaps, ignore_errors=True)
+    os.makedirs(snaps)
+    whole = os.path.join(snaps, "whole")
+
+    # ---- 12a: 2 ranks sharing the card, gloo with host copies ------------
+    t = time.perf_counter()
+    ranks = spawn(_sharded_rank_12a, SHARD_RANKS, "gloo", "cuda",
+                  timeout=SHARD_TIMEOUT, args=(SHARD_KILL_EPOCHS, whole))
+    log(f"[sharded] 12a: {SHARD_RANKS} ranks on one card, backend "
+        f"{ranks[0]['backend']}, in {time.perf_counter() - t:.1f} s; {card}")
+    zero = ranks[0]["runs"]
+    for tag, info in zero.items():
+        for r in ranks[1:]:
+            other = r["runs"][tag]
+            if other["digest"] != info["digest"] or not all(
+                    torch.equal(u, v) for u, v in zip(other["pool"],
+                                                      info["pool"])):
+                fail(f"sharded {tag}: rank {r['rank']}'s islands or pool "
+                     f"replica differ from rank 0's")
+        gen = "generation_float" if tag == "paper-f15-8" else "generation"
+        for r in ranks:
+            if r["runs"][tag]["launches"][gen] <= 0:
+                fail(f"sharded {tag}: rank {r['rank']} launched no {gen} "
+                     f"kernel: {r['runs'][tag]['launches']}")
+        if tag == "paper-f15-8" and min(
+                r["runs"][tag]["launches"]["f15"] for r in ranks) <= 0:
+            fail("sharded paper-f15-8: a rank launched no f15 kernel")
+        epochs = info["epochs"]
+        line = (f"[sharded] {tag}: {epochs} epochs of {SHARD_RANKS} x "
+                f"{8 // SHARD_RANKS} islands in {info['wall']:.3f} s, "
+                f"{info['wall'] / epochs:.4f} s per epoch, "
+                f"{info['evals'] / info['wall']:.1f} evals/s; collectives "
+                f"(rank 0) {info['calls']}, {info['end']} of them the final "
+                f"gather: {(info['calls'] - info['end']) / epochs:.1f} per "
+                f"epoch; their host time {1e3 * info['host_s']:.3f} ms in "
+                f"the run; launches (rank 0) {info['launches']}")
+        if "same_as_plain" in info:
+            if info["same_as_plain"] != "equal":
+                fail(f"sharded {tag}: the kernel run differs from the plain "
+                     f"run at {info['same_as_plain']}")
+            if max(info["plain_launches"].values()) != 0:
+                fail(f"sharded {tag}: the plain run launched a kernel")
+            line += (f"; == plain run (impl=pallas_ref, "
+                     f"{info['plain_wall']:.3f} s, no launch), every rank's "
+                     f"pool replica == rank 0's")
+        log(line + f"; {card}")
+    turns = ranks[0]["turns"]
+    rate = {tag: [e / w for t_, w, e, _, _ in turns if t_ == tag]
+            for tag in ("main", "sharded")}
+    for tag, wall, evals, calls, host in turns:
+        log(f"[sharded] turn {tag}: {SHARD_TURN_EPOCHS} epochs, {evals} "
+            f"evaluations in {wall:.3f} s = {evals / wall:.1f} evals/s, "
+            f"{wall / SHARD_TURN_EPOCHS:.4f} s per epoch, collectives "
+            f"{calls / SHARD_TURN_EPOCHS:.1f} and "
+            f"{1e3 * host / SHARD_TURN_EPOCHS:.3f} ms host per epoch; {card}")
+    log(f"[sharded] evals/s in turns (main, sharded, sharded, main): "
+        f"[sharded] / [main] = "
+        f"{sum(rate['sharded']) / sum(rate['main']):.3f}; {card}")
+
+    # ---- 12b: world 1, NCCL at cuda:0 against gloo with host copies ------
+    t = time.perf_counter()
+    one = spawn(_sharded_rank_12b, 1, "nccl", "cuda:0",
+                timeout=SHARD_TIMEOUT)[0]
+    if one["same"] != "equal":
+        fail(f"world 1: NCCL and gloo with host copies differ at "
+             f"{one['same']}")
+    log(f"[sharded] 12b: world 1 at cuda:0, nccl == gloo+host bit for bit "
+        f"(islands, pool, stats, counters; 2 epochs of 8 islands): "
+        + "; ".join(f"{k} {v['wall']:.3f} s, {v['calls']} collectives, "
+                    f"{1e3 * v['host_s']:.3f} ms host"
+                    for k, v in one.items() if isinstance(v, dict))
+        + f", in {time.perf_counter() - t:.1f} s; {card}")
+    t = time.perf_counter()
+    try:
+        spawn(_sharded_rank_barrier, 2, "nccl", "cuda:0", timeout=90)
+        verdict = "accepted"
+    except (RuntimeError, TimeoutError) as e:
+        tail = [ln for ln in str(e).splitlines() if ln.strip()][-1]
+        verdict = f"refused ({tail.strip()[:200]})"
+    log(f"[sharded] NCCL with 2 ranks on one card: {verdict}, in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    # ---- 12c: ea --sharded --fused, SIGKILL after its first snapshot,
+    # --resume, and the snapshot resumed on 4 ranks ----------------------
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    kill_dir = os.path.join(snaps, "killed")
+
+    def ea(shards: int, snapshot_dir: str):
+        return [sys.executable, "-m", "repro_torch.launch.evolve", "ea",
+                "--problem", "trap", "--islands", "8", "--epochs",
+                str(SHARD_KILL_EPOCHS), "--impl", "pallas", "--fused",
+                "--w2", "--sharded", "--shards", str(shards),
+                "--snapshot-every", "1", "--snapshot-dir", snapshot_dir,
+                "--timeout", str(SHARD_TIMEOUT)]
+
+    cmd = ea(SHARD_RANKS, kill_dir)
+    t = time.perf_counter()
+    child = subprocess.Popen(cmd, env=env, cwd=ROOT, start_new_session=True,
+                             stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE)
+    first = os.path.join(kill_dir, "step_00000001")
+    while not os.path.isdir(first) and child.poll() is None and \
+            time.perf_counter() - t < SHARD_TIMEOUT:
+        time.sleep(0.02)
+    if child.poll() is not None:
+        fail(f"ea --sharded ended (rc {child.returncode}) before it was "
+             f"killed: {child.stderr.read()[-2000:]}")
+    os.killpg(child.pid, signal.SIGKILL)
+    child.wait()
+    child.stderr.close()
+    left = sorted(s for s in os.listdir(kill_dir) if s.startswith("step_"))
+    if f"step_{SHARD_KILL_EPOCHS:08d}" in left:
+        fail(f"ea --sharded reached its last snapshot before the kill: {left}")
+    elastic = os.path.join(snaps, "elastic")
+    shutil.copytree(kill_dir, elastic)
+    proc = subprocess.run(cmd + ["--resume"], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=SHARD_TIMEOUT)
+    if proc.returncode != 0:
+        fail(f"ea --sharded --resume: rc {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    last = latest_step(whole)
+    got, want = restore(kill_dir), restore(whole)
+    if latest_step(kill_dir) != last or sorted(got) != sorted(want) or any(
+            not np.array_equal(got[k], want[k]) for k in want):
+        fail("ea --sharded: kill -9 + --resume: the final snapshot differs "
+             "from the uninterrupted run's")
+    log(f"[sharded] 12c: ea --sharded --shards {SHARD_RANKS} --fused --w2, "
+        f"{SHARD_KILL_EPOCHS} epochs, killed by SIGKILL after step 1 landed "
+        f"(left {left}), --resume in a fresh process: final snapshot (step "
+        f"{last}, {len(want)} leaves) == the uninterrupted run's, in "
+        f"{time.perf_counter() - t:.1f} s; "
+        f"{' | '.join(proc.stdout.strip().splitlines()[-2:])}")
+    t = time.perf_counter()
+    proc = subprocess.run(ea(4, elastic) + ["--resume"], capture_output=True,
+                          text=True, env=env, cwd=ROOT,
+                          timeout=SHARD_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or not lines[-1].endswith(
+            f"epochs={SHARD_KILL_EPOCHS}") or "[sharded x4 fused" not in \
+            lines[-2]:
+        fail(f"ea --sharded --shards 4 --resume: rc {proc.returncode}, "
+             f"{lines[-2:]}, {proc.stderr[-2000:]}")
+    final = restore(elastic)
+    if final["islands::pop"].shape[0] != 8:
+        fail(f"the 4-rank resume holds {final['islands::pop'].shape[0]} "
+             f"islands")
+    log(f"[sharded] 12c: the 2-rank snapshot (step {left[-1]}) resumed on "
+        f"4 ranks of 2 islands, to step {latest_step(elastic)} in "
+        f"{time.perf_counter() - t:.1f} s; {' | '.join(lines[-2:])}")
 
 
 def main() -> int:
@@ -3300,6 +3687,11 @@ def main() -> int:
     host_phases([("paper-8", problem, make_trap(40, 4), cfg, BRIDGE_EPOCHS),
                  ("paper-f15-8", f_problem, make_f15(), f_cfg, 2)], card)
     log(f"[host] phases 11a-11d in {time.perf_counter() - t11:.1f} s")
+
+    # ---- 12: the sharded drivers -----------------------------------------
+    t12 = time.perf_counter()
+    sharded_phases(card)
+    log(f"[sharded] phases 12a-12c in {time.perf_counter() - t12:.1f} s")
 
     result = {"kernels": [
         {"name": "trap_fitness", "route": "cuda",

@@ -14,10 +14,16 @@ Each C entry point takes its pointers and the CUDA stream as ``void*``
 that stream without synchronising, and returns ``cudaGetLastError()``;
 :func:`check` raises when that is not 0. ``--use_fast_math`` is not used:
 IEEE division and rounding are part of the parity with the plain versions.
+
+The check, the compiles and the link hold an ``fcntl.flock`` on
+``BUILD_DIR/build.lock``, so processes that meet a fresh tree at once (the
+ranks of a sharded run, parallel commands) build once and load the same
+library.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -146,11 +152,20 @@ def _compile(nvcc: str, src: Path, obj: Path):
 def build() -> Path:
     """Compile every source in parallel and link one library; return its
     path. Each source's compile time and the compiler's resource report
-    go to :data:`BUILD_LOG`."""
+    go to :data:`BUILD_LOG`. Another process's build of the same sources
+    is waited for and reused."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not target.exists():
+            _compile_and_link(target)
+    return target
+
+
+def _compile_and_link(target: Path) -> None:
     nvcc = _nvcc()
     srcs = sources()
     objs = [BUILD_DIR / f"{src.stem}-{target.stem}.o" for src in srcs]
@@ -171,7 +186,6 @@ def build() -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, target)
-    return target
 
 
 def library() -> ctypes.CDLL:

@@ -16,6 +16,9 @@ Public API (a slice of ``repro.core``):
         run_fused_async (the asynchronous runtime) / AsyncHostBridge
     async_pool.PoolServer / PoolClient / PoolUnavailable (the host pool
         server and its write-ahead journal); migration.HostBridge
+    sharded.ShardGroup / spawn / run_sharded / run_fused_sharded /
+        run_fused_sharded_async (the islands split over the ranks of a
+        torch.distributed group)
 """
 from .types import (AcceptanceConfig, EAConfig, ExperimentState,
                     ExperimentStats, GenomeSpec, IslandState, MigrationConfig,
@@ -24,7 +27,7 @@ from .problems import (Problem, make_f15, make_onemax, make_problem,
                        make_rastrigin, make_royal_road, make_sphere,
                        make_trap)
 from . import (acceptance, async_migration, async_pool, evolution, ga,
-               island, migration, pool)
+               island, migration, pool, sharded)
 from .acceptance import (available_policies as available_acceptance_policies,
                          register_policy as register_acceptance_policy)
 from .async_migration import (AsyncConfig, AsyncHostBridge, AsyncState,
@@ -33,6 +36,8 @@ from .async_pool import PoolClient, PoolServer, PoolUnavailable
 from .evolution import RunResult, run_experiment, run_fused
 from .migration import (HostBridge, available_topologies, get_topology,
                         register_topology)
+from .sharded import (ShardGroup, run_fused_sharded, run_fused_sharded_async,
+                      run_sharded)
 
 __all__ = [
     "AcceptanceConfig", "EAConfig", "ExperimentState", "ExperimentStats",
@@ -45,5 +50,6 @@ __all__ = [
     "run_experiment", "run_fused", "async_migration", "AsyncConfig",
     "AsyncState", "run_experiment_async", "run_fused_async",
     "AsyncHostBridge", "HostBridge", "PoolClient", "PoolServer",
-    "PoolUnavailable", "async_pool",
+    "PoolUnavailable", "async_pool", "sharded", "ShardGroup",
+    "run_sharded", "run_fused_sharded", "run_fused_sharded_async",
 ]

@@ -32,8 +32,8 @@ takes the pool server down), and :func:`run_fused_async`, the fused driver
 with the durability of :func:`~repro_torch.core.evolution.run_fused`
 (segments, snapshots that carry the :class:`AsyncState`, resume, elastic
 resize). :class:`AsyncHostBridge` syncs the host loop's device pool
-with a pool server without waiting on it. The sharded driver comes with
-ROADMAP Queue A item 13.
+with a pool server without waiting on it. The sharded driver is
+:func:`repro_torch.core.sharded.run_fused_sharded_async`.
 """
 from __future__ import annotations
 
@@ -55,7 +55,8 @@ from . import evolution as evolution_lib
 from . import island as island_lib
 from . import migration as migration_lib
 from . import pool as pool_lib
-from .evolution import RunResult, collect_stats, success_mask
+from .evolution import (RunResult, collect_stats, global_success,
+                        success_mask)
 from .pool import NEG_INF
 from .problems import Problem
 from .types import (EAConfig, ExperimentState, ExperimentStats, GenomeSpec,
@@ -225,14 +226,16 @@ def async_step(islands: IslandState, pool: PoolState, astate: AsyncState,
                rng: torch.Tensor, problem: Problem, cfg: EAConfig,
                mig: MigrationConfig, acfg: AsyncConfig, w2: bool,
                server_up: Union[bool, torch.Tensor] = True, tick=0,
-               obs=None):
+               axis=None, obs=None):
     """One global tick: clocks accrue, the firing islands evolve an epoch
     and trade through the topology, every other island is left as it was.
 
     ``server_up=False`` loses the whole exchange (the dead pool server)
     and stops neither evolution nor the clocks; an island inside its
     churn window freezes whole. In the degenerate config this is
-    :func:`~repro_torch.core.evolution.epoch_step`. With ``obs`` (an
+    :func:`~repro_torch.core.evolution.epoch_step`. Under ``axis`` (a
+    shard group) the islands are this rank's and the fire mask is the
+    topologies' vector availability of its islands. With ``obs`` (an
     :class:`~repro_torch.obs.counters.ObsCounters`) the counters record the
     down ticks, the exchange ledger and the absorbed entries' ages, and
     the return grows to ``(islands, pool, astate, obs)``."""
@@ -256,12 +259,12 @@ def async_step(islands: IslandState, pool: PoolState, astate: AsyncState,
     if obs is not None:
         pool, imm_g, imm_f, delivered, accepted = migration_lib.migrate(
             pool, islands.best_genome, islands.best_fitness, rng, mig,
-            epoch=tick, available=exchange, with_ledger=True)
+            axis=axis, epoch=tick, available=exchange, with_ledger=True)
         obs = obs_lib.record_exchange(obs, exchange, delivered, accepted)
     else:
         pool, imm_g, imm_f = migration_lib.migrate(
             pool, islands.best_genome, islands.best_fitness, rng, mig,
-            epoch=tick, available=exchange)
+            axis=axis, epoch=tick, available=exchange)
 
     # deliveries wait in the destinations' inboxes; each island absorbs
     # at its own fire
@@ -382,21 +385,23 @@ def fused_scan_async(islands: IslandState, pool: PoolState,
                      astate: AsyncState, key: torch.Tensor, tick0=0,
                      stopped0=False, obs0=(), *, problem: Problem,
                      cfg: EAConfig, mig: MigrationConfig, acfg: AsyncConfig,
-                     w2: bool, max_ticks: int, with_stats: bool = True):
+                     w2: bool, max_ticks: int, axis=None,
+                     with_stats: bool = True):
     """``max_ticks`` ticks; returns ``(islands, pool, astate, key, tick,
     stopped, obs, stats)``, the async mirror of
     :func:`~repro_torch.core.evolution.fused_scan` (the same key schedule,
     early-stop freeze and stats rows). It is a resumable segment: the
     whole carry goes in and comes out. The early-stop latch is read on the
-    host once per tick (never under W²); nothing else waits for the
-    device."""
+    host once per tick (never under W²; under ``axis`` after its
+    all-reduce, so every rank stops at the same tick); nothing else waits
+    for the device."""
     with_obs = hasattr(obs0, "_fields")
     obs = obs0
     dev = islands.pop.device
     tick = torch.as_tensor(tick0, dtype=torch.int32, device=dev)
     stopped = torch.as_tensor(stopped0, dtype=torch.bool, device=dev)
     if not w2:
-        stopped = stopped | success_mask(islands, problem, cfg).any()
+        stopped = stopped | global_success(islands, problem, cfg, axis)
     rows = []
     for _ in range(max_ticks):
         keys = rand.split(key, 2)
@@ -405,17 +410,17 @@ def fused_scan_async(islands: IslandState, pool: PoolState,
             # tick + 1: the host loop's 1-based tick numbers
             out = async_step(islands, pool, astate, k_mig, problem, cfg, mig,
                              acfg, w2, server_up=True, tick=tick + 1,
-                             obs=obs if with_obs else None)
+                             axis=axis, obs=obs if with_obs else None)
             islands, pool, astate = out[:3]
             if with_obs:
                 obs = out[3]
             tick = tick + 1
         if not w2:
-            stopped = stopped | success_mask(islands, problem, cfg).any()
+            stopped = stopped | global_success(islands, problem, cfg, axis)
         if with_obs:
             obs = obs_lib.record_early_stop(obs, stopped, tick)
         if with_stats:
-            rows.append(collect_stats(islands, tick))
+            rows.append(collect_stats(islands, tick, axis))
     stats = (ExperimentStats(*(torch.stack(col) for col in zip(*rows)))
              if with_stats and rows else ())
     return islands, pool, astate, key, tick, stopped, obs, stats

@@ -59,18 +59,20 @@ def success_mask(islands: IslandState, problem: Problem,
 
 def epoch_step(islands: IslandState, pool: PoolState, rng: torch.Tensor,
                problem: Problem, cfg: EAConfig, mig: MigrationConfig,
-               w2: bool, available=True, epoch=0, obs=None):
+               w2: bool, available=True, epoch=0, axis=None, obs=None):
     """One epoch of every island: evolve, migrate, absorb the immigrants,
     and under W² restart the islands that solved their experiment.
 
-    With ``obs`` (an :class:`~repro_torch.obs.counters.ObsCounters`) the
-    migration keeps its ledger and the return grows to ``(islands, pool,
-    obs)``."""
+    With ``axis`` (a :class:`~repro_torch.core.sharded.ShardGroup`) the
+    islands are this rank's and migration goes through the group's
+    collectives. With ``obs`` (an
+    :class:`~repro_torch.obs.counters.ObsCounters`) the migration keeps its
+    ledger and the return grows to ``(islands, pool, obs)``."""
     islands = island_lib.island_epoch(islands, problem, cfg)
     if obs is not None:
         pool, imm_g, imm_f, delivered, accepted = migration_lib.migrate(
             pool, islands.best_genome, islands.best_fitness, rng, mig,
-            epoch=epoch, available=available, with_ledger=True)
+            axis=axis, epoch=epoch, available=available, with_ledger=True)
         n = islands.best_fitness.shape[0]
         fired = torch.as_tensor(available, device=delivered.device).expand(n)
         obs = obs_lib.record_exchange(obs, fired, delivered, accepted)
@@ -80,7 +82,7 @@ def epoch_step(islands: IslandState, pool: PoolState, rng: torch.Tensor,
     else:
         pool, imm_g, imm_f = migration_lib.migrate(
             pool, islands.best_genome, islands.best_fitness, rng, mig,
-            epoch=epoch, available=available)
+            axis=axis, epoch=epoch, available=available)
     islands = island_lib.receive_immigrant(islands, imm_g, imm_f,
                                            replace=mig.replace)
     if w2:
@@ -92,36 +94,60 @@ def epoch_step(islands: IslandState, pool: PoolState, rng: torch.Tensor,
     return islands, pool
 
 
-def collect_stats(islands: IslandState, epoch) -> ExperimentStats:
+def collect_stats(islands: IslandState, epoch,
+                  axis=None) -> ExperimentStats:
     """Per-epoch record: global best, f32 mean of island bests, summed
-    evaluations, islands done, solved experiments (all 0-d tensors)."""
+    evaluations, islands done, solved experiments (all 0-d tensors).
+
+    Under ``axis`` every rank returns the global record, as the
+    reference's ``pmax``/``psum`` give it: the best's max over the ranks,
+    the mean as the ranks' means summed in rank order over the world size
+    (each rank holds as many islands), the counts summed."""
     dev = islands.best_fitness.device
+    best = islands.best_fitness.max()
+    mean = islands.best_fitness.mean()
+    counts = torch.stack([islands.evaluations.sum(dtype=torch.int32),
+                          islands.done.sum(dtype=torch.int32),
+                          islands.experiments.sum(dtype=torch.int32)])
+    if axis is not None:
+        best = axis.all_reduce(best, "max")
+        mean = axis.sum_in_order(mean) / axis.world
+        counts = axis.all_reduce(counts, "sum")
     return ExperimentStats(
         epoch=torch.as_tensor(epoch, dtype=torch.int32, device=dev),
-        best_fitness=islands.best_fitness.max(),
-        mean_best=islands.best_fitness.mean(),
-        total_evaluations=islands.evaluations.sum(dtype=torch.int32),
-        n_done=islands.done.sum(dtype=torch.int32),
-        experiments_solved=islands.experiments.sum(dtype=torch.int32),
+        best_fitness=best,
+        mean_best=mean,
+        total_evaluations=counts[0],
+        n_done=counts[1],
+        experiments_solved=counts[2],
     )
+
+
+def global_success(islands: IslandState, problem: Problem, cfg: EAConfig,
+                   axis=None) -> torch.Tensor:
+    """True when an island (of any rank, under ``axis``) has solved."""
+    s = success_mask(islands, problem, cfg).any()
+    return s if axis is None else axis.any(s)
 
 
 def fused_scan(islands: IslandState, pool: PoolState, key: torch.Tensor,
                epoch0=0, stopped0=False, obs0=(), *, problem: Problem,
                cfg: EAConfig, mig: MigrationConfig, w2: bool,
-               max_epochs: int, with_stats: bool = True):
+               max_epochs: int, axis=None, with_stats: bool = True):
     """``max_epochs`` epochs; returns ``(islands, pool, key, epoch,
     stopped, obs, stats)`` like the reference's scan. ``obs0`` is an
     :class:`~repro_torch.obs.counters.ObsCounters` to accumulate (``()``:
     none, returned as ``()``); ``stats`` is stacked over epochs, or
-    ``()``."""
+    ``()``. Under ``axis`` (a shard group) the islands are this rank's,
+    the stats are the global ones, and the stop flag is all-reduced before
+    the host reads it, so every rank stops at the same epoch."""
     with_obs = hasattr(obs0, "_fields")
     obs = obs0
     dev = islands.pop.device
     epoch = torch.as_tensor(epoch0, dtype=torch.int32, device=dev)
     stopped = torch.as_tensor(stopped0, dtype=torch.bool, device=dev)
     if not w2:
-        stopped = stopped | success_mask(islands, problem, cfg).any()
+        stopped = stopped | global_success(islands, problem, cfg, axis)
     rows = []
     for _ in range(max_epochs):
         keys = rand.split(key, 2)
@@ -130,19 +156,19 @@ def fused_scan(islands: IslandState, pool: PoolState, key: torch.Tensor,
         # it never sets, and the loop never waits for the device
         if w2 or not bool(stopped):
             out = epoch_step(islands, pool, k_mig, problem, cfg, mig, w2,
-                             True, epoch=epoch + 1,
+                             True, epoch=epoch + 1, axis=axis,
                              obs=obs if with_obs else None)
             islands, pool = out[:2]
             if with_obs:
                 obs = out[2]
             epoch = epoch + 1
         if not w2:
-            stopped = stopped | success_mask(islands, problem, cfg).any()
+            stopped = stopped | global_success(islands, problem, cfg, axis)
         if with_obs:
             # latches the first stopping epoch, idempotent after
             obs = obs_lib.record_early_stop(obs, stopped, epoch)
         if with_stats:
-            rows.append(collect_stats(islands, epoch))
+            rows.append(collect_stats(islands, epoch, axis))
     stats = (ExperimentStats(*(torch.stack(col) for col in zip(*rows)))
              if with_stats and rows else ())
     return islands, pool, key, epoch, stopped, obs, stats

@@ -33,8 +33,27 @@ every delivery through the acceptance policy's receive gate.
 :class:`~repro_torch.core.async_pool.PoolServer` (or, given a URL, the
 networked service).
 
-Not ported yet, and raising with the ROADMAP item that brings it: the
-SPMD context (``axis``, Queue A item 13).
+Every topology also runs in the SPMD context of the sharded drivers
+(:mod:`repro_torch.core.sharded`): ``axis`` is then a
+:class:`~repro_torch.core.sharded.ShardGroup`, the bests and ``available``
+are this rank's islands, the pool is this rank's replica, and the exchange
+goes through the group's collectives, as the reference's goes through a
+mesh axis:
+
+``pool``            the bests (and a fire mask) are gathered, so every
+                    replica applies the same PUT with the key
+                    ``fold_in(rng, 0xACC)``; each rank GETs with
+                    ``fold_in(rng, rank)``;
+``ring``            rank ``s``'s islands go to rank ``s + 1``'s (island
+                    ``j`` to island ``j``: the slab moves, not one island);
+``torus``           the ranks on the most-square grid; the replicated
+                    epoch picks the one permute that runs;
+``random_graph``    rank ``s`` receives rank ``perm[s]``'s islands, ``perm``
+                    drawn over the ranks from the replicated key;
+``broadcast_best``  the fitness is gathered, and the elite's genome is the
+                    f32 sum of its owner's row and every other rank's
+                    zeros (so a ``-0.0`` gene reads ``+0.0`` past one
+                    rank, as the reference's ``psum`` gives it).
 """
 from __future__ import annotations
 
@@ -111,11 +130,8 @@ def _avail_parts(available, axis, device
                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Split ``available`` into ``(scalar, vector)`` bool tensors, exactly
     one of them set: the sync drivers' whole-step gate, or the async
-    runtime's per-island fire mask. The SPMD context raises."""
-    if axis is not None:
-        raise NotImplementedError("the SPMD topologies (axis=...) come with "
-                                  "the sharded drivers (ROADMAP, Queue A "
-                                  "item 13)")
+    runtime's per-island fire mask (under ``axis``, this rank's
+    islands')."""
     avail = torch.as_tensor(available, dtype=torch.bool, device=device)
     return (avail, None) if avail.dim() == 0 else (None, avail)
 
@@ -154,15 +170,26 @@ def pool_topology(pool: PoolState, bests_genome: torch.Tensor,
     Under a fire mask only the firing islands' bests are valid PUTs (no
     whole-pool select) and only the firing islands' GETs are kept."""
     scalar, vec = _avail_parts(available, axis, bests_fitness.device)
-    new_pool = pool_put_batch(pool, bests_genome, bests_fitness, valid=vec,
-                              acc=mig.acceptance,
-                              rng=rand.fold_in(rng, 0xACC))
+    n_local = bests_genome.shape[0]
+    k_put = rand.fold_in(rng, 0xACC)    # replicated: taken before the rank
+    put_g, put_f, put_valid = bests_genome, bests_fitness, vec
+    if axis is not None:
+        # every replica applies the same PUT of every rank's bests
+        put_g, put_f = axis.gather(bests_genome), axis.gather(bests_fitness)
+        if vec is not None:
+            put_valid = axis.gather(vec)
+    new_pool = pool_put_batch(pool, put_g, put_f, valid=put_valid,
+                              acc=mig.acceptance, rng=k_put)
     if vec is None:
         pool = PoolState(*(torch.where(scalar, a, b)
                            for a, b in zip(new_pool, pool)))
     else:
         pool = new_pool
-    keys = rand.split(rng, bests_genome.shape[0])
+    if axis is not None:
+        # the ranks draw apart, as the reference's fold_in of axis_index
+        # repro-lint: disable=RNG01  -- fold_in derives, as jax.random's does
+        rng = rand.fold_in(rng, axis.rank)
+    keys = rand.split(rng, n_local)
     genomes, fits = pool_get_random(pool, keys)
     gate = scalar if vec is None else vec
     return pool, genomes, torch.where(gate, fits, NEG_INF)
@@ -177,8 +204,14 @@ def ring_topology(pool: PoolState, bests_genome: torch.Tensor,
     bypassed."""
     scalar, vec = _avail_parts(available, axis, bests_fitness.device)
     bests_fitness = _source_masked(bests_fitness, vec)
-    imm_g = torch.roll(bests_genome, 1, dims=0)
-    imm_f = torch.roll(bests_fitness, 1, dims=0)
+    if axis is not None:
+        n = axis.world
+        perm = [(i, (i + 1) % n) for i in range(n)]
+        imm_g = axis.permute(bests_genome, perm)
+        imm_f = axis.permute(bests_fitness, perm)
+    else:
+        imm_g = torch.roll(bests_genome, 1, dims=0)
+        imm_f = torch.roll(bests_fitness, 1, dims=0)
     return _deliver(pool, imm_g, imm_f, scalar, vec)
 
 
@@ -192,6 +225,18 @@ def torus_topology(pool: PoolState, bests_genome: torch.Tensor,
     A prime count factors as (1, n) and migrates east every epoch."""
     scalar, vec = _avail_parts(available, axis, bests_fitness.device)
     bests_fitness = _source_masked(bests_fitness, vec)
+    if axis is not None:
+        rows, cols = _grid(axis.world)
+        perm = [(r * cols + c, r * cols + (c + 1) % cols)
+                for r in range(rows) for c in range(cols)]
+        # the epoch is replicated, so every rank runs the same single
+        # permute (a host read of a device epoch)
+        if rows > 1 and int(epoch) % 2 != 0:
+            perm = [(r * cols + c, ((r + 1) % rows) * cols + c)
+                    for r in range(rows) for c in range(cols)]
+        imm_g = axis.permute(bests_genome, perm)
+        imm_f = axis.permute(bests_fitness, perm)
+        return _deliver(pool, imm_g, imm_f, scalar, vec)
     n = bests_genome.shape[0]
     rows, cols = _grid(n)
     east = torch.as_tensor(epoch, device=bests_fitness.device) % 2 == 0
@@ -218,6 +263,13 @@ def random_graph_topology(pool: PoolState, bests_genome: torch.Tensor,
     from the epoch's key: a fresh 1-regular exchange graph every epoch."""
     scalar, vec = _avail_parts(available, axis, bests_fitness.device)
     bests_fitness = _source_masked(bests_fitness, vec)
+    if axis is not None:
+        # a permutation of the ranks, the same on every rank
+        perm = rand.keyed_permutation(rng, axis.world)
+        src = perm[axis.rank:axis.rank + 1]
+        imm_g = axis.gather_stack(bests_genome).index_select(0, src)[0]
+        imm_f = axis.gather_stack(bests_fitness).index_select(0, src)[0]
+        return _deliver(pool, imm_g, imm_f, scalar, vec)
     perm = rand.keyed_permutation(rng, bests_genome.shape[0])
     return _deliver(pool, bests_genome[perm], bests_fitness[perm], scalar,
                     vec)
@@ -234,9 +286,22 @@ def broadcast_best_topology(pool: PoolState, bests_genome: torch.Tensor,
     scalar, vec = _avail_parts(available, axis, bests_fitness.device)
     bests_fitness = _source_masked(bests_fitness, vec)
     n = bests_fitness.shape[0]
-    i = bests_fitness.argmax()
-    imm_g = bests_genome[i].expand((n,) + bests_genome.shape[1:])
-    imm_f = bests_fitness[i].expand((n,))
+    if axis is not None:
+        all_f = axis.gather(bests_fitness)
+        g = all_f.argmax().reshape(1)
+        owner, local_i = g // n, g % n
+        row = bests_genome.index_select(0, local_i)[0]
+        # the owner contributes its row, every other rank zeros, summed in
+        # f32 as the reference's psum sums them
+        contrib = torch.where(owner == axis.rank, row,
+                              torch.zeros_like(row)).to(torch.float32)
+        elite_g = axis.sum_in_order(contrib).to(bests_genome.dtype)
+        elite_f = all_f.index_select(0, g)[0]
+    else:
+        i = bests_fitness.argmax()
+        elite_g, elite_f = bests_genome[i], bests_fitness[i]
+    imm_g = elite_g.expand((n,) + bests_genome.shape[1:])
+    imm_f = elite_f.expand((n,))
     return _deliver(pool, imm_g, imm_f, scalar, vec)
 
 

@@ -90,11 +90,14 @@ def record_early_stop(obs: ObsCounters, stopped, epoch) -> ObsCounters:
         obs.early_stop_epoch))
 
 
-def harvest(obs: ObsCounters) -> Dict[str, Any]:
+def harvest(obs: ObsCounters, axis=None) -> Dict[str, Any]:
     """Device to host: per-island lists plus summable totals, as plain
-    Python values (JSON-ready)."""
+    Python values (JSON-ready). Under ``axis`` (a shard group) the rows of
+    every rank are gathered first, in rank order, so each rank returns
+    the global ledger; ``early_stop_epoch`` is replicated."""
+    rows = obs[:6] if axis is None else [axis.gather(t) for t in obs[:6]]
     fired, delivered, accepted, rejected, churn, ages = (
-        t.cpu().numpy() for t in obs[:6])
+        t.cpu().numpy() for t in rows)
     return {
         "n_islands": int(fired.shape[0]),
         "fired": fired.tolist(),

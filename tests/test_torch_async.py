@@ -30,6 +30,7 @@ the reference's ``repro.core.async_migration``.
   2e-4 and atol 1e-3 (ROADMAP Queue C, "Float genes" and "Float
   fitness").
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import dataclasses
 
 import jax

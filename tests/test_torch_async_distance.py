@@ -2,6 +2,7 @@
 distance policies (``crowding``, ``dedup`` at epsilon 1), every topology
 and every generation impl; ``tests/test_torch_async.py`` holds the case
 (its ``check_hetero``) and the ``always`` and ``elitist`` pairs."""
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import jax
 import pytest
 

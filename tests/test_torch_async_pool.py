@@ -6,6 +6,7 @@ mirror, each case as the reference's tests hold it; then
 the same seed in both packages, and the outage demo of the reference's
 ``tests/test_fault.py`` against the reference.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import threading
 
 import jax

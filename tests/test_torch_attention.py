@@ -19,6 +19,7 @@ wrapper runs its plain version, ``ref.attention``. Tolerances:
   is 0.4 %), and the attention sums in another order: measured at most
   3.4e-3 (relative L2), held to 1e-2.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import functools
 
 import jax

@@ -19,6 +19,7 @@ timed by its worker thread, so it is held to its ledger, not to bits.
 Small size: 4 islands, trap 12x4, ``max_pop`` 16, ``min_pop`` 8, 3
 generations per epoch, 5 epochs.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import jax
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ The island kernels must be bit-equal to their plain versions: trap
 fitness, F15, and the generation kernels on binary and on float genomes.
 WKV6 and flash attention are held to the reference's kernel tolerances.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import dataclasses
 import importlib
 import itertools

@@ -18,6 +18,7 @@ Tolerances:
   6.2e-3 on the caches; held to 5e-2 on logits and 3e-2 on caches, as the
   rwkv6 tests hold theirs.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import dataclasses
 import functools
 

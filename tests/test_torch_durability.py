@@ -31,6 +31,7 @@ Sizes: onemax 24 (96 where a resumed run must go on), ``max_pop`` =
 ``min_pop`` = 32, 3 generations per epoch, 4 islands (8 for the elastic
 cases); the reference's cases use trap 4x4, 6 islands, ``max_pop`` 16.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import json
 import os
 import random

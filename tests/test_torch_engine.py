@@ -13,6 +13,7 @@ must be equal, and the ledger must balance. The port's host loop
 ``run_experiment`` from the same seed must reach the fused driver's
 state and stats, since both walk the same keys.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import jax
 import numpy as np
 import pytest

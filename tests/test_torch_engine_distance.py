@@ -2,6 +2,7 @@
 ``dedup`` at epsilon 1) through both drivers, held as
 ``tests/test_torch_engine.py`` holds the other pairs (its
 :func:`check_pair`)."""
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import jax
 import pytest
 

@@ -12,6 +12,7 @@ The float classic path (F15 at D 64, m 8, blend, gaussian sigma 0.3) is
 held to that file's float tolerances: integer fields exact, genes 2e-6,
 fitness rtol 2e-4 and atol 1e-3.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import os
 import re
 import shutil
@@ -228,11 +229,40 @@ def test_ea_command_runs_on_the_cpu(capsys):
     _equal(convert.to_numpy(res.islands), _jislands(want.islands), "islands")
 
 
-@pytest.mark.parametrize("flags,item", [(["--sharded"], 13)])
-def test_ea_flags_of_later_items_raise(flags, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"Queue A item {item}\\)"):
-        evolve.main(["ea", "--device", "cpu"] + flags)
+@pytest.mark.parametrize("flags,title", [
+    (["--bridge"], "[sharded x2 topo=pool]"),
+    (["--fused", "--snapshot-every", "1"], "[sharded x2 fused topo=pool]"),
+    (["--runtime", "async", "--bridge"], "[sharded x2 async topo=pool]")],
+    ids=["loop-bridge", "fused-snapshots", "async"])
+def test_ea_sharded_runs_each_driver(flags, title, tmp_path, capsys,
+                                     monkeypatch):
+    """``--sharded`` (Queue A item 13) on 2 gloo ranks of the CPU: the
+    host loop (with ``--bridge``; it takes no snapshot), the fused driver
+    (its snapshots, one an epoch, written by rank 0) and the async driver
+    (fused only, so ``--bridge`` is off with the reference's note, and
+    its one segment snapshotted) print the reference's two lines and
+    return the global islands."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    snaps = tmp_path / "snaps"
+    isl, pool = evolve.main(
+        ["ea", "--device", "cpu", "--sharded", "--shards", "2", "--islands",
+         "4", "--epochs", "2", "--max-pop", "8", "--min-pop", "8",
+         "--gens-per-epoch", "1", "--snapshot-dir", str(snaps)] + flags)
+    lines = capsys.readouterr().out.strip().splitlines()
+    best = float(isl.best_fitness.max())
+    assert re.fullmatch(re.escape(f"{title} best={best} epochs=2 (")
+                        + r"\d+\.\ds\) backend=gloo", lines[-2])
+    assert lines[-1] == f"final best={best!r} epochs=2"
+    assert isl.pop.shape == (4, 8, 160) and int(pool.count) > 0
+    if "--bridge" in flags and "async" in flags:
+        assert lines[0].startswith("note: --bridge needs a host loop")
+    if "--fused" in flags:
+        assert sorted(os.listdir(snaps)) == ["step_00000001",
+                                             "step_00000002"]
+    elif "async" in flags:   # fused too: one segment, one snapshot
+        assert sorted(os.listdir(snaps)) == ["step_00000002"]
+    else:                    # the host loop takes none
+        assert not snaps.exists()
 
 
 @pytest.mark.parametrize("flags", [

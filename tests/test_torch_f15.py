@@ -12,6 +12,7 @@ change to that recipe, rewrite them with
 
     PYTHONPATH=src python tests/test_torch_f15.py --regen
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import sys
 
 import jax

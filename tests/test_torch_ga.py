@@ -20,6 +20,7 @@ Tolerances:
   1e-6 (an ulp of a gene near the bounds is 4.8e-7); the hit mask is
   exact.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ left-to-right scan up to 64 lanes: the two orders agreed below 50 lanes
 on five seeds (ROADMAP Queue C), which covers the 32-lane populations
 here.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import itertools
 
 import jax

@@ -15,6 +15,7 @@ On float genomes the L2 distances of crowding and dedup are held to rtol
 2.4e-7 (the sum of squares is ordered differently by XLA and PyTorch);
 the policies' decisions on the seeded float inputs are exact.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -307,9 +308,29 @@ def test_registries_and_what_still_raises():
     got, want = _both("ring", "always", pool, best_g, best_f, words,
                       available=mask)
     _check(got, want, "ring under a fire mask")
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        migration.migrate(*args, MigrationConfig(topology="pool"),
-                          axis="islands")
+    # the SPMD context runs: every topology on one gloo rank equals the
+    # reference's shard_map over a mesh of this process's one device
+    from jax.sharding import Mesh, PartitionSpec as P
+    from repro.compat import shard_map
+    from repro_torch.core import sharded
+    import _torch_sharded_ranks as ranks
+    got = sharded.spawn(ranks.migrate_every_topology, 1, "gloo", "cpu",
+                        timeout=60, args=(pool, best_g, best_f, words, 3,
+                                          "elitist"), threads=1)[0]
+    mesh = Mesh(np.array(jax.devices()[:1]), ("islands",))
+    for topo in TOPOLOGIES:
+        jm = JMigrationConfig(topology=topo, acceptance=JAcceptanceConfig(
+            policy="elitist"))
+        fn = jax.jit(shard_map(
+            lambda p, g, f, k, jm=jm: j_mig.migrate(
+                p, g, f, k, jm, axis="islands", epoch=3, with_ledger=True),
+            mesh=mesh, in_specs=(JPoolState(*[P()] * 4), P("islands"),
+                                 P("islands"), P()),
+            out_specs=(JPoolState(*[P()] * 4),) + (P("islands"),) * 4,
+            check=False))
+        want = fn(_jpool(pool), jnp.asarray(best_g), jnp.asarray(best_f),
+                  jax.random.wrap_key_data(jnp.asarray(words)))
+        _check(got[topo], want, f"{topo} on one rank")
 
 
 def test_pool_put_hands_its_key_to_the_policy():

@@ -23,6 +23,7 @@ Tolerances:
   (prefill logits), 0.0225 (decode logits), 0.0084 (caches). Held to a
   relative L2 of 5e-2 on logits and 3e-2 on caches.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import dataclasses
 import functools
 

@@ -10,6 +10,7 @@ count as the reference's open them, and each package's CLI on the other's
 trace. The counters tier is held in ``tests/test_torch_async.py`` and
 ``tests/test_torch_migration.py``.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import itertools
 import json
 import os
@@ -265,7 +266,7 @@ class TestTimelineCLI:
                 "repro_torch.obs.metrics, repro_torch.obs.trace; "
                 "assert 'jax' not in sys.modules, 'obs CLI pulled in jax'; "
                 "assert 'torch' not in sys.modules, 'obs CLI pulled in torch'")
-        env = dict(os.environ,
+        env = dict(os.environ, OMP_NUM_THREADS="1",
                    PYTHONPATH=os.path.join(REPO, "src") + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
         proc = subprocess.run([sys.executable, "-c", code], env=env,

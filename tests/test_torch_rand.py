@@ -8,6 +8,7 @@ inputs: it is held to 4e-7 absolute plus 4e-7 relative (about 3 ulp at the
 magnitudes drawn). The keyed recipes must equal ``jax.random`` bit for bit
 under ``jax_threefry_partitionable=True``.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ the reference's blocked ``tril @ w`` at 10,000 lanes (a count of differing
 parents, ROADMAP Queue C). Run as a script, it prints the measurements of
 Queue C's roulette entries (:func:`main`).
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

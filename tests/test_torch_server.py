@@ -11,6 +11,7 @@ port's ``aclose`` reaps idle keep-alive connections before
 The golden transcript is the reference's fixture,
 ``tests/data/server_wire_golden.json``.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import http.client
 import json
 import os
@@ -611,6 +612,7 @@ def test_client_wire_and_obs_import_without_torch_or_jax():
             "print(sorted(m for m in ('torch', 'jax') if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True,
-                         env=dict(os.environ, PYTHONPATH=os.path.join(
-                             ROOT, "src")), timeout=60)
+                         env=dict(os.environ, OMP_NUM_THREADS="1",
+                                  PYTHONPATH=os.path.join(ROOT, "src")),
+                         timeout=60)
     assert out.stdout.strip() == "[]"

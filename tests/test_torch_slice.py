@@ -14,6 +14,7 @@ the pool's pointer and count and the initial population are exact; genes
 are held to 2e-6 and fitness to rtol 2e-4, atol 1e-3, the tolerances of
 ``tests/test_torch_ga_kernels.py``.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import ast
 import os
 from types import SimpleNamespace
@@ -226,7 +227,7 @@ def test_convert_helpers_without_device_need_a_card(helper, monkeypatch):
         fn(*args)
 
 
-def test_unported_paths_raise_naming_the_roadmap(tmp_path):
+def test_unported_paths_raise_naming_the_roadmap(tmp_path, monkeypatch):
     cfg = EAConfig(**CFG)
     run = dict(n_islands=2, max_epochs=1, w2=True, device="cpu")
     # the ring topology (Queue A item 9) and the classic impl (item 8) run
@@ -235,9 +236,9 @@ def test_unported_paths_raise_naming_the_roadmap(tmp_path):
         isl, _, epochs = run_fused(make_onemax(64), c, mig, **run)
         assert int(epochs) == 1
         assert bool(torch.isfinite(isl.best_fitness).all())
-    # what is still unported raises with its item named
-    with pytest.raises(NotImplementedError, match="Queue A item 13"):
-        evolve.main(["ea", "--device", "cpu", "--sharded"])
+    # what is still unported raises with its item named: the pbt command
+    with pytest.raises(NotImplementedError, match="Queue A item 14"):
+        evolve.main(["pbt"])
     # the host tier (item 12) runs: a bridged host loop and --bridge
     from repro_torch.core import HostBridge, PoolServer
     bridge = HostBridge(PoolServer(seed=0))
@@ -260,6 +261,12 @@ def test_unported_paths_raise_naming_the_roadmap(tmp_path):
                                     "--snapshot-dir", snaps, "--resume"])
     _assert_tree_equal(convert.to_numpy(again), convert.to_numpy(isl),
                        "resumed")
+    # the sharded drivers (item 13) run: --sharded on the CPU is one gloo
+    # rank (one thread), and its fused driver's islands are the 2 of the
+    # command's --islands
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    isl, pool = evolve.main(small + ["--sharded", "--fused"])
+    assert isl.pop.shape[0] == 2 and int(pool.count) > 0
     # impl="pallas_tiled" runs, and equals impl="pallas" from the same seed
     runs = [run_fused(make_onemax(64), EAConfig(**dict(CFG, impl=impl)),
                       MigrationConfig(), rng=SEED, **run)

@@ -16,6 +16,7 @@ Queue C), and the autotune cache. The reference's ``best_tiles`` rewrites
 its committed cache on a miss, so every reference call here passes its
 tiles or points the cache at ``tmp_path``.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ traps and the all-ones / all-zeros extremes included; sphere's sums are
 exact at 65-2000 genes too, and rastrigin's are held to the tolerance of
 its ``cos``.
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

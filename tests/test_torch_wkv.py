@@ -21,6 +21,7 @@ Inputs are drawn with numpy and handed to both packages. The reference's
   L_prev - L carry that much error (2.7e-3 against an f64 oracle at
   S = 1024, where the sequential recurrence is 3.7e-5 off).
 """
+import _torch_threads  # noqa: F401  (first: one CPU thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest
