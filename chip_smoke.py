@@ -211,7 +211,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    landed, then ``--resume`` in a fresh one: its final snapshot equals the
    uninterrupted run's (12a's world ran it) leaf for leaf; the killed
    snapshot resumed by ``--shards 4`` runs to the end with the 8 islands;
-13. one JSON line with each kernel's launches, time, plain time, bound and
+13a. training at the published size: ``launch/train.py``'s ``train`` of
+   minicpm-2b (40 layers, d 2304, 2.7 B parameters, bf16 with the f32
+   master, random weights from the seed), batch 8 x seq 512, remat per
+   layer, the WSD schedule at lr 3e-3, 6 steps: every step's ce, gnorm
+   and lr finite; ms per step (CUDA events, the median of 5 after one
+   warm step), tokens/s, peak memory, the share of the dense bf16 peak
+   that 6 N tokens a step make; two more steps, the second profiled
+   (launches, device busy against the first's wall, the largest kernels);
+13b. the card against the CPU: smoke minicpm-2b and rwkv6-3b in f32 from
+   the same state and batches, 5 steps each, ce, gnorm and final
+   parameters within ``CARD_CPU_TOL``; ``train`` for 6 steps with a
+   checkpoint at 3, the last checkpoint removed and ``resume``: bit for
+   bit the uninterrupted run (both archs); one step of a bf16 reduced
+   minicpm-2b, its params its f32 master rounded;
+13c. rwkv6-3b at full width with its depth cut to 4 layers, batch 8 x seq
+   512, 3 steps through the plain sequential WKV under autograd: finite
+   ce and gnorm, ms per step, peak memory;
+13d. the ``pbt`` command (``evolve.main(["pbt"])``, the reference's
+   defaults: 4 members, 5 epochs of 20 steps) on the card: its lines and
+   best member, the pool's puts = members x epochs; then
+   ``examples/evolve_lm.py``'s epoch with the pool killed: the member
+   trains on and ``migrate`` returns False;
+13e. ``make_train_step(use_flash=True)`` and ``(use_rwkv_kernel=True)``
+   raise; the flash and WKV wrappers raise on CUDA inputs that require
+   grad under grad mode and launch under ``torch.no_grad``;
+14. one JSON line with each kernel's launches, time, plain time, bound and
    library time, then the last line: ``{"ok": true, "device": {...}}``.
 
 It imports the port only (``src/repro_torch``), never JAX or the reference.
@@ -394,6 +419,24 @@ SHARD_EPOCHS = 2
 SHARD_TURN_EPOCHS = 2
 SHARD_KILL_EPOCHS = 4
 SHARD_TIMEOUT = 600.0
+# Phase 13: training. 13a trains minicpm-2b at its published size for
+# TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens (the first a warm
+# step, the median of the others timed); 13c rwkv6-3b at full width cut to
+# RWKV_TRAIN_LAYERS layers; 13b the smoke configs for CARD_CPU_STEPS steps
+# on the card and on the CPU, held to CARD_CPU_TOL (ce and gnorm relative,
+# parameters absolute: card against CPU, other sum orders; RWKV6's LoRA
+# factors start at zero, so their first gradients are sums of near-zero
+# terms whose signs the order flips, and Adam makes a flipped sign a step
+# of about lr); 13d the pbt command at the reference's defaults.
+TRAIN_STEPS = 6
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+RWKV_TRAIN_LAYERS = 4
+RWKV_TRAIN_STEPS = 3
+CARD_CPU_STEPS = 5
+CARD_CPU_TOL = {"minicpm-2b": dict(ce=1e-5, gnorm=1e-4, params=1e-5),
+                "rwkv6-3b": dict(ce=1e-5, gnorm=1e-3, params=1e-3)}
+# dense bf16 tensor-core peak of the card (H100 SXM data sheet)
+BF16_FLOPS_PER_S = 989e12
 
 
 def log(*args):
@@ -1905,6 +1948,281 @@ def sharded_phases(card: str):
     log(f"[sharded] 12c: the 2-rank snapshot (step {left[-1]}) resumed on "
         f"4 ranks of 2 islands, to step {latest_step(elastic)} in "
         f"{time.perf_counter() - t:.1f} s; {' | '.join(lines[-2:])}")
+
+
+def training_phases(card: str):
+    """Phases 13a-13e: training on the card (see the module docstring)."""
+    import contextlib
+    import io
+    import math
+    import shutil
+    import statistics
+
+    import torch
+    from repro_torch import convert, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.launch import evolve
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import Model
+    from repro_torch.optim import make_schedule
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def finite(tag, metrics):
+        for k in ("ce", "grad_norm", "lr"):
+            if not bool(torch.isfinite(metrics[k])):
+                fail(f"{tag}: {k} is {float(metrics[k])}")
+
+    # ---- 13a: minicpm-2b at its published size -----------------------------
+    cfg = get_config("minicpm-2b")
+    n_params = Model(cfg, device="meta").param_count()
+    ends, ms_seen = [], []
+
+    def on_step(i, state, metrics):
+        finite(f"13a step {i}", metrics)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+
+    # what the earlier phases still hold counts in the peak: print both
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state, losses = train_mod.train(
+            "minicpm-2b", smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+            seq=TRAIN_SEQ, lr=3e-3, seed=SEED, log_every=1, device="cuda",
+            on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    for line in buf.getvalue().splitlines():
+        log(f"[train-main] {line}")
+    peak = torch.cuda.max_memory_allocated()
+    for a, b in zip(ends, ends[1:]):
+        ms_seen.append(a.elapsed_time(b))
+    step_ms = statistics.median(ms_seen)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6.0 * n_params * tokens
+    log(f"[train-main] minicpm-2b published size ({n_params:,} parameters, "
+        f"40 layers, d 2304, bf16 with the f32 master), batch "
+        f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, remat layer, wsd lr 3e-3: "
+        f"{TRAIN_STEPS} steps in {wall:.1f} s (the weights' draw "
+        f"included); ce {[round(x, 4) for x in losses]}")
+    log(f"[train-main] ms per step {step_ms:.3f} (median of "
+        f"{len(ms_seen)} after one warm step, CUDA events; each "
+        f"{[round(x, 3) for x in ms_seen]}); tokens/s "
+        f"{tokens / step_ms * 1e3:.1f}; peak memory {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated; {(peak - held) / 2**30:.2f} GiB above the "
+        f"{held / 2**30:.2f} GiB held before 13a); model FLOPs 6 N tokens = "
+        f"{flops:.4g} a "
+        f"step = {flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s = "
+        f"{flops / (step_ms / 1e3) / BF16_FLOPS_PER_S:.3f} of the dense "
+        f"bf16 peak (989 TFLOP/s); {card}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"13a: ce {losses}")
+    # two more steps: one unprofiled, one profiled (launches, busy share)
+    step = steps_lib.make_train_step(
+        Model(cfg, device="meta"),
+        schedule=make_schedule(cfg.schedule, 3e-3, TRAIN_STEPS, 2))
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, SEED,
+                        device=dev).batch_for_step(TRAIN_STEPS)
+    # (the step updates the state in place: each call is one more step)
+    device_profile("train-main", lambda: step(state, batch), card)
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 13b: the card against the CPU, smoke f32 ------------------------
+    for arch in ("minicpm-2b", "rwkv6-3b"):
+        tol = CARD_CPU_TOL[arch]
+        scfg = get_config(arch, smoke=True)
+        init = steps_lib.init_train_state(Model(
+            scfg, device="cpu", generator=torch.Generator().manual_seed(SEED)))
+        states = {"cpu": convert.to_device(init, "cpu"),
+                  "cuda": convert.to_device(init, dev)}
+        sched = make_schedule(scfg.schedule, 3e-3, 10, 2)
+        worst = dict(ce=0.0, gnorm=0.0)
+        step = steps_lib.make_train_step(Model(scfg, device="meta"),
+                                         schedule=sched)
+        for i in range(CARD_CPU_STEPS):
+            ms = {}
+            for d in ("cpu", "cuda"):
+                b = SyntheticLM(scfg.vocab_size, 64, 8, SEED,
+                                device=d).batch_for_step(i)
+                states[d], ms[d] = step(states[d], b)
+            finite(f"13b {arch}", ms["cuda"])
+            for k, key in (("ce", "ce"), ("gnorm", "grad_norm")):
+                rel = abs(float(ms["cuda"][key]) - float(ms["cpu"][key])) / (
+                    abs(float(ms["cpu"][key])))
+                worst[k] = max(worst[k], rel)
+        dp = max((states["cuda"].params[k].cpu() - v).abs().max().item()
+                 for k, v in states["cpu"].params.items())
+        log(f"[train-cpu] {arch} smoke f32, {CARD_CPU_STEPS} steps from the "
+            f"same state and batches: card against CPU, ce {worst['ce']:.3g} "
+            f"(tolerance {tol['ce']}), gnorm {worst['gnorm']:.3g} "
+            f"({tol['gnorm']}) relative at worst, final parameters "
+            f"{dp:.3g} ({tol['params']}) absolute")
+        if worst["ce"] > tol["ce"] or worst["gnorm"] > tol["gnorm"] \
+                or dp > tol["params"]:
+            fail(f"13b: {arch} on the card differs from the CPU beyond the "
+                 f"tolerance: {worst}, parameters {dp}")
+    # a resume equals the uninterrupted run, bit for bit
+    ckpts = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(ckpts, ignore_errors=True)
+    for arch in ("minicpm-2b", "rwkv6-3b"):
+        kw = dict(smoke=True, steps=6, batch=8, seq=64, ckpt_every=3,
+                  verbose=False, device="cuda", seed=SEED)
+        whole, losses = train_mod.train(
+            arch, ckpt_dir=os.path.join(ckpts, arch, "whole"), **kw)
+        part = os.path.join(ckpts, arch, "part")
+        train_mod.train(arch, ckpt_dir=part, **kw)
+        shutil.rmtree(os.path.join(part, "step_00000006"))
+        resumed, tail = train_mod.train(arch, ckpt_dir=part, resume=True,
+                                        **kw)
+        same = tail == losses[3:] and all(
+            torch.equal(a[k], b[k])
+            for a, b in ((whole.params, resumed.params),
+                         (whole.opt.m, resumed.opt.m),
+                         (whole.opt.v, resumed.opt.v)) for k in a)
+        log(f"[train-resume] {arch} smoke, 6 steps with a checkpoint at 3: "
+            f"the resumed run equals the uninterrupted one bit for bit: "
+            f"{same}")
+        if not same:
+            fail(f"13b: {arch}'s resumed run differs from the uninterrupted "
+                 f"run")
+    shutil.rmtree(ckpts, ignore_errors=True)
+    # the master path: a bf16 reduced model, one step
+    bcfg = get_config("minicpm-2b").reduced(param_dtype=torch.bfloat16,
+                                             activation_dtype=torch.bfloat16)
+    bstate = steps_lib.init_train_state(Model(bcfg, device=dev))
+    bstep = steps_lib.make_train_step(
+        Model(bcfg, device="meta"),
+        schedule=make_schedule("constant", 3e-3, 1))
+    bstate, bm = bstep(bstate, SyntheticLM(bcfg.vocab_size, 64, 8, SEED,
+                                           device=dev).batch_for_step(0))
+    finite("13b bf16", bm)
+    ok = bstate.opt.master is not None and all(
+        torch.equal(p, bstate.opt.master[k].to(torch.bfloat16))
+        and bstate.opt.master[k].dtype == torch.float32
+        for k, p in bstate.params.items())
+    log(f"[train-bf16] minicpm-2b reduced in bf16, one step: ce "
+        f"{float(bm['ce']):.4f} gnorm {float(bm['grad_norm']):.4f}; f32 "
+        f"master kept, the bf16 params its rounding: {ok}")
+    if not ok:
+        fail("13b: the bf16 step's params are not its f32 master rounded")
+    del bstate, bstep
+
+    # ---- 13c: rwkv6-3b at full width, depth cut --------------------------
+    rcfg = dataclasses.replace(get_config("rwkv6-3b"),
+                               n_layers=RWKV_TRAIN_LAYERS)
+    rmodel = Model(rcfg, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    randomize_decay_lora(rmodel, torch.Generator(device=dev).manual_seed(
+        SEED))
+    rstate = steps_lib.init_train_state(rmodel)
+    rmodel.to_empty(device="meta")
+    rstep = steps_lib.make_train_step(rmodel, schedule=make_schedule(
+        "cosine", 3e-3, RWKV_TRAIN_STEPS, 1))
+    rdata = SyntheticLM(rcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, SEED,
+                        device=dev)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    r_ms = []
+    for i in range(RWKV_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rstate, rm = rstep(rstate, rdata.batch_for_step(i))
+        finite(f"13c step {i}", rm)
+        torch.cuda.synchronize()
+        r_ms.append((time.perf_counter() - t) * 1e3)
+        log(f"[train-rwkv] step {i} ce={float(rm['ce']):.4f} "
+            f"gnorm={float(rm['grad_norm']):.3f} lr={float(rm['lr']):.2e}")
+    log(f"[train-rwkv] rwkv6-3b at full width (d 2560, 40 heads of 64, "
+        f"d_ff 8960, vocab 65,536, bf16), depth cut from 32 to "
+        f"{RWKV_TRAIN_LAYERS} layers, batch {TRAIN_BATCH} x seq {TRAIN_SEQ},"
+        f" the plain sequential WKV under autograd: ms per step (wall) "
+        f"{[round(x, 1) for x in r_ms]} (the first a warm step); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ("
+        f"{held / 2**30:.2f} GiB held before the steps: the state and what "
+        f"earlier phases hold); {card}")
+    del rstate, rstep, rmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 13d: the pbt command on the card --------------------------------
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ctrl = evolve.main(["pbt"])
+    for line in buf.getvalue().splitlines():
+        log(f"[pbt] {line}")
+    puts = ctrl.pool.stats()["puts"]
+    n_members, n_epochs = 4, 5
+    log(f"[pbt] evolve pbt at the reference's defaults ({n_members} "
+        f"members, {n_epochs} epochs of 20 steps, batch 8 x seq 64, smoke "
+        f"minicpm-2b) on the card in {time.perf_counter() - t:.1f} s: pool "
+        f"puts {puts}, exploits "
+        f"{sum(h['exploited'] for h in ctrl.history)}")
+    if puts != n_members * n_epochs:
+        fail(f"13d: {puts} pool puts, want {n_members * n_epochs}")
+    # examples/evolve_lm.py's dead-pool epoch
+    ctrl.pool.kill()
+    pcfg = get_config("minicpm-2b", smoke=True)
+    pdata = SyntheticLM(pcfg.vocab_size, 64, 8, device=dev)
+    m = ctrl.members[0]
+    stats = ctrl.train_epoch(m, (pdata.batch_for_step(s) for s in range(10)),
+                             pdata.batch_for_step(99_999))
+    migrated = ctrl.migrate(m)
+    log(f"[pbt] member 0 epoch with dead pool: val={stats['val_loss']:.4f} "
+        f"migrated={migrated} (expected False)")
+    if migrated or not math.isfinite(stats["val_loss"]):
+        fail("13d: a dead pool's migrate must return False")
+
+    # ---- 13e: the kernels refuse autograd ----------------------------------
+    for flag in ("use_flash", "use_rwkv_kernel"):
+        try:
+            steps_lib.make_train_step(Model(pcfg, device="meta"),
+                                      schedule=make_schedule("constant",
+                                                             1e-3, 1),
+                                      **{flag: True})
+        except NotImplementedError as e:
+            log(f"[train-kernels] make_train_step({flag}=True) raises: "
+                f"{str(e)[:80]}...")
+        else:
+            fail(f"13e: make_train_step({flag}=True) did not raise")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, r, kk, vv = (torch.randn(1, 64, 2, 64, generator=g, device=dev)
+                          for _ in range(6))
+    w = torch.rand(1, 64, 2, 64, generator=g, device=dev) * 0.5 + 0.4
+    u = torch.randn(2, 64, generator=g, device=dev)
+    s0 = torch.zeros(1, 2, 64, 64, device=dev)
+    for name, call, x in (
+            ("flash_attention",
+             lambda: flash_ops.flash_attention(q, k, v, scale=0.125), q),
+            ("wkv", lambda: wkv_ops.wkv(r, kk, vv, w, u, s0), r)):
+        x.requires_grad_(True)
+        try:
+            call()
+        except RuntimeError as e:
+            log(f"[train-kernels] {name} on a CUDA input that requires grad "
+                f"raises: {str(e)[:80]}...")
+        else:
+            fail(f"13e: {name} launched on an input that requires grad")
+        before = kernels.LAUNCHES[name]
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES[name] != before + 1:
+            fail(f"13e: {name} did not launch under no_grad")
+        log(f"[train-kernels] {name} under torch.no_grad launches")
+        x.requires_grad_(False)
 
 
 def main() -> int:
@@ -3692,6 +4010,11 @@ def main() -> int:
     t12 = time.perf_counter()
     sharded_phases(card)
     log(f"[sharded] phases 12a-12c in {time.perf_counter() - t12:.1f} s")
+
+    # ---- 13: training ----------------------------------------------------
+    t13 = time.perf_counter()
+    training_phases(card)
+    log(f"[train] phases 13a-13e in {time.perf_counter() - t13:.1f} s")
 
     result = {"kernels": [
         {"name": "trap_fitness", "route": "cuda",

@@ -18,10 +18,14 @@ leaf. A leaf named ``rng`` or ``key`` is a Threefry key: its words are
 stored as uint32 with ``prng_impl`` ``"threefry2x32"``, as the reference
 stores ``jax.random.key_data`` of its keys.
 
-Leaves may be numpy arrays or anything with ``detach().cpu().numpy()``
-(a tensor on any device): :meth:`Checkpointer.save_async` copies them to
-host numpy on the caller's thread before its writer thread starts, so the
-caller may go on changing its tensors. :func:`restore` returns numpy
+Leaves may be numpy arrays or tensors on any device. numpy has no
+bfloat16, so a bf16 tensor is held as its bits (:class:`BF16Bits`, an
+int16 array) and written with the dtype ``bfloat16``, as the reference
+writes its bf16 leaves; such a leaf restores as :class:`BF16Bits`, which
+:func:`repro_torch.convert.to_device` turns back into bf16.
+:meth:`Checkpointer.save_async` copies the leaves to host numpy on the
+caller's thread before its writer thread starts, so the caller may go on
+changing its tensors. :func:`restore` returns numpy
 arrays (keys as their uint32 words); the caller puts them on a device.
 The copy is the ``checkpoint.snapshot`` trace span, the write on the
 writer thread ``checkpoint.write`` (:mod:`repro_torch.obs.trace`).
@@ -42,6 +46,21 @@ from ..obs import trace as obs_trace
 _SEP = "::"
 _KEY_NAMES = ("rng", "key")
 _PRNG_IMPL = "threefry2x32"
+
+
+class BF16Bits(np.ndarray):
+    """The bits of a bf16 array as int16 (numpy has no bfloat16)."""
+
+
+def bf16_bits(t) -> "BF16Bits":
+    """A host copy of a bf16 tensor's bits."""
+    return t.detach().view(_torch().int16).cpu().numpy().copy().view(
+        BF16Bits)
+
+
+def _torch():
+    import torch
+    return torch
 
 
 def _leaves(tree, prefix: Tuple[str, ...] = ()
@@ -87,9 +106,14 @@ def _is_key(path: str) -> bool:
 
 
 def _host(path: str, leaf) -> np.ndarray:
-    """A host copy of ``leaf`` that owns its bytes; key words as uint32."""
+    """A host copy of ``leaf`` that owns its bytes; key words as uint32,
+    bf16 tensors as their bits."""
     if hasattr(leaf, "detach"):
+        if str(leaf.dtype) == "torch.bfloat16":
+            return bf16_bits(leaf)
         leaf = leaf.detach().cpu().numpy()
+    if isinstance(leaf, BF16Bits):
+        return leaf.copy()
     arr = np.array(leaf, copy=True)
     if _is_key(path) and np.issubdtype(arr.dtype, np.integer):
         arr = arr.astype(np.uint32)
@@ -115,8 +139,9 @@ def _write(directory: str, step: int, flat: Dict[str, np.ndarray],
                 np.frombuffer(np.ascontiguousarray(arr).tobytes(),
                               dtype=np.uint8))
         key = _is_key(path) and arr.dtype == np.uint32
+        dtype = "bfloat16" if isinstance(arr, BF16Bits) else str(arr.dtype)
         manifest["keys"][path] = {"file": fname, "shape": list(arr.shape),
-                                  "dtype": str(arr.dtype),
+                                  "dtype": dtype,
                                   "prng_impl": _PRNG_IMPL if key else None}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -176,13 +201,15 @@ def sweep_tmp(directory: str) -> List[str]:
 
 def _load(path: str, info: Dict) -> np.ndarray:
     raw = np.load(os.path.join(path, info["file"]))
-    dtype = np.dtype(info["dtype"])
+    bf16 = info["dtype"] == "bfloat16"
+    dtype = np.dtype(np.int16 if bf16 else info["dtype"])
     shape = tuple(info["shape"])
     want = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
     if raw.dtype != np.uint8 or raw.size != want:
         raise ValueError(f"{info['file']}: {raw.size} bytes, want {want} "
                          f"for {info['dtype']} {list(shape)} (truncated?)")
-    return np.frombuffer(raw.tobytes(), dtype=dtype).reshape(shape)
+    arr = np.frombuffer(raw.tobytes(), dtype=dtype).reshape(shape)
+    return arr.view(BF16Bits) if bf16 else arr
 
 
 def restore(directory: str, step: Optional[int] = None,

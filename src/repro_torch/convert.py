@@ -8,7 +8,7 @@ words, for comparison with the reference. :func:`f15_consts_from_numpy`
 carries F15's constants across, the weights of the float problems.
 :func:`to_device` puts a whole tree of numpy arrays or tensors on a device
 (a restored snapshot: its keys' uint32 words become the port's int64
-words).
+words, bf16 bits bf16 tensors).
 
 For the models, :func:`model_params_from_numpy` loads the reference's
 parameter tree (numpy leaves, each segment's blocks stacked on a leading
@@ -17,6 +17,10 @@ parameter tree (numpy leaves, each segment's blocks stacked on a leading
 caches (per segment, a tuple of dicts of stacked arrays: RWKV states and
 attention ring caches) both ways, each leaf's dtype set by its name. bf16
 leaves go through f32, which holds them exactly.
+:func:`train_state_from_numpy` carries the reference's ``TrainState``
+(parameters, AdamW moments, master copy and step) into the port's, whose
+trees are dicts by parameter name, one tensor a layer;
+:func:`params_to_numpy` stacks such a dict back into the reference's tree.
 
 The ``*_from_numpy`` helpers put their tensors on the card unless the
 caller asks for another device, as every entry point of the port does
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
+from .checkpoint.checkpointer import BF16Bits, bf16_bits
 from .core.types import ExperimentState, IslandState, PoolState
 from .obs.counters import ObsCounters
 
@@ -140,6 +145,9 @@ def to_device(tree: Any, device: DeviceLike = None) -> Any:
     int64 words."""
     if isinstance(tree, torch.Tensor):
         return tree.to(resolve_device(device))
+    if isinstance(tree, BF16Bits):
+        return torch.from_numpy(np.array(tree, dtype=np.int16)).view(
+            torch.bfloat16).to(resolve_device(device))
     if isinstance(tree, (np.ndarray, np.generic)):
         a = np.asarray(tree)
         if a.dtype == np.uint32:
@@ -155,10 +163,14 @@ def to_device(tree: Any, device: DeviceLike = None) -> Any:
 
 
 def to_numpy(tree: Any) -> Any:
-    """Tensors -> numpy through NamedTuples and tuples; key fields become
-    uint32 words."""
+    """Tensors -> numpy copies through NamedTuples, tuples and dicts; key
+    fields become uint32 words, bf16 tensors their bits (``BF16Bits``)."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        if tree.dtype == torch.bfloat16:
+            return bf16_bits(tree)
+        a = tree.detach().cpu().numpy()
+        # a CPU tensor's numpy view would follow its in-place updates
+        return a.copy() if tree.device.type == "cpu" else a
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(
             to_numpy(v).astype(np.uint32) if name in _KEY_FIELDS
@@ -166,6 +178,8 @@ def to_numpy(tree: Any) -> Any:
             for name, v in zip(tree._fields, tree)))
     if isinstance(tree, tuple):
         return tuple(to_numpy(v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
     return tree
 
 
@@ -237,3 +251,66 @@ def caches_from_numpy(caches: List, activation_dtype: torch.dtype,
 
     return [tuple({k: leaf(k, v) for k, v in c.items()} for c in seg)
             for seg in caches]
+
+
+# ---------------------------------------------------------------------------
+# Training state
+# ---------------------------------------------------------------------------
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _by_name(model, tree, dtype_of, device) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, (path, layer) in model.param_paths().items():
+        a = np.asarray(_at(tree, path))
+        if layer is not None:
+            a = a[layer]
+        out[name] = _from_numpy(a, dtype_of(name), device)
+    return out
+
+
+def train_state_from_numpy(model, state: Any, device: DeviceLike = None):
+    """The reference's ``TrainState`` (numpy leaves: ``params`` in the
+    model's parameter dtypes, ``opt.m``/``opt.v``/``opt.master`` f32 or a
+    None master, ``opt.step``) as the port's
+    :class:`~repro_torch.launch.steps.TrainState` on ``device``."""
+    from .launch.steps import TrainState
+    from .optim import AdamWState
+    dev = resolve_device(device)
+    dtypes = {n: p.dtype for n, p in model.named_parameters()}
+    f32 = lambda _: torch.float32  # noqa: E731
+    opt = state.opt
+    return TrainState(
+        params=_by_name(model, state.params, dtypes.get, dev),
+        opt=AdamWState(
+            m=_by_name(model, opt.m, f32, dev),
+            v=_by_name(model, opt.v, f32, dev),
+            master=(None if opt.master is None
+                    else _by_name(model, opt.master, f32, dev)),
+            step=torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                              device=dev)))
+
+
+def params_to_numpy(model, params: Mapping[str, torch.Tensor]) -> Dict:
+    """A dict of the port's parameters by name (a train state's) as the
+    reference's tree: each segment's layers stacked, f32 numpy leaves."""
+    by_path: Dict[tuple, Dict] = {}
+    for name, (path, layer) in model.param_paths().items():
+        a = params[name].detach().float().cpu().numpy()
+        by_path.setdefault(path, {})[layer] = a
+    tree: Dict = {}
+    for path, layers in by_path.items():
+        leaf = (layers[None] if None in layers
+                else np.stack([layers[i] for i in range(len(layers))]))
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    if "segments" in tree:   # {si: {j: block}} -> [(block, ...), ...]
+        segs = tree["segments"]
+        tree["segments"] = [tuple(segs[si][j] for j in sorted(segs[si]))
+                            for si in sorted(segs)]
+    return tree

@@ -18,10 +18,17 @@ index, the prefill of the dense models).
 :data:`LAUNCHES` counts the kernel launches of each wrapper; a run sets the
 counts to 0 with :func:`reset_launches` and reads them afterwards to show
 that its path went through the kernels.
+
+No kernel has a backward: the kernels' inputs carry no autograd graph
+through the launch, so :func:`refuse_autograd` makes the wrappers raise
+on CUDA tensors that require grad under grad mode, rather than return
+outputs whose gradient would be silently zero.
 """
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 LAUNCHES: Dict[str, int] = {"trap_fitness": 0, "generation": 0,
                             "generation_float": 0, "f15": 0,
@@ -32,3 +39,17 @@ LAUNCHES: Dict[str, int] = {"trap_fitness": 0, "generation": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def refuse_autograd(kernel: str, plain: str, *tensors: torch.Tensor) -> None:
+    """Raise when a kernel would launch on CUDA tensors that need a
+    gradient (grad mode on and an input requiring grad). ``plain`` names
+    the plain version, which autograd can differentiate."""
+    if not torch.is_grad_enabled():
+        return
+    if any(t.is_cuda and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, but the CUDA kernel has no "
+            f"backward kernel, so its gradient would be silently zero; run "
+            f"the plain version {plain} for training, or call the kernel "
+            f"under torch.no_grad()")

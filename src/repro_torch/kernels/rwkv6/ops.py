@@ -10,6 +10,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from .. import refuse_autograd
 from . import ref as _ref
 from . import rwkv6 as _k
 
@@ -27,9 +28,13 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     (:func:`rwkv6.wkv_kernel` names what it refuses). A ragged sequence is
     right-padded to a chunk multiple with w = 1 and r = k = v = 0: log 1 =
     0 and k = 0 leave the state as it was, and the padded rows are cut
-    from y. ``force_ref`` runs the sequential oracle instead."""
+    from y. ``force_ref`` runs the sequential oracle instead. On the card
+    it refuses inputs that require grad under grad mode: the kernel has no
+    backward, so their gradient would be silently zero."""
     if force_ref:
         return _ref.wkv(r, k, v, w, u, state)
+    refuse_autograd("wkv", "kernels/rwkv6/ref.py::wkv (use_rwkv_kernel="
+                    "False)", r, k, v, w, u, state)
     seq = r.shape[1]
     pad = (-seq) % chunk
     if pad:

@@ -34,8 +34,13 @@ and on the CPU:
         [--bridge] [--snapshot-every 2 --snapshot-dir DIR [--resume]] \\
         [--sharded --shards 2]
 
-The ``pbt`` command is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP item (Queue A item 14).
+The ``pbt`` command (:func:`run_pbt`) trains ``--members`` smoke models of
+``--arch`` as the islands of a :class:`~repro_torch.core.PoolServer`
+(:mod:`repro_torch.core.pbt`), on the card or, with ``--device cpu``, on
+the CPU:
+
+    PYTHONPATH=src python -m repro_torch.launch.evolve pbt \
+        --arch minicpm-2b --members 2 --epochs 2 --device cpu
 """
 from __future__ import annotations
 
@@ -54,16 +59,15 @@ from ..core import (AcceptanceConfig, AsyncConfig, AsyncHostBridge, EAConfig,
                     make_problem, run_experiment, run_experiment_async,
                     run_fused, run_fused_async, run_fused_sharded,
                     run_fused_sharded_async, run_sharded)
+from ..configs import ARCHS, get_config
+from ..core import pbt as pbt_lib
 from ..core import sharded as sharded_lib
+from ..data import SyntheticLM
 from ..kernels.ga import available_impls
-
-# (flag, ROADMAP Queue A item) of the reference's drivers not ported yet
-_LATER = {"pbt": 14}
-
-
-def _later(what: str, key: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP, Queue A "
-                              f"item {_LATER[key]})")
+from ..models import build_model
+from ..optim import adamw_update
+from .steps import (TrainState, deterministic, init_train_state,
+                    make_eval_fn, make_grad_fn)
 
 
 def run_ea(problem_name: str = "trap", islands: int = 8, epochs: int = 50,
@@ -245,6 +249,62 @@ def _run_ea_sharded(kw, device, shards, timeout):
     return out["islands"], out["pool"]
 
 
+def run_pbt(arch: str = "minicpm-2b", members: int = 4, epochs: int = 5,
+            steps_per_epoch: int = 20, batch: int = 8, seq: int = 64,
+            seed: int = 0, verbose: bool = True, device: DeviceLike = None):
+    """Population-based training of ``members`` smoke models of ``arch``
+    through a :class:`PoolServer` (capacity 64, seeded ``seed``). Member
+    ``uid`` starts from weights drawn from a generator seeded ``seed +
+    uid`` on ``device``, trains on its own slice of the step space and is
+    evaluated on a shared batch per epoch. Returns the controller."""
+    dev = resolve_device(device)
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, dev)
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
+                       global_batch=batch, seed=seed, device=dev)
+    grads_of = make_grad_fn(model)
+    loss_of = make_eval_fn(model)
+    order = model.leaf_groups()
+
+    def step_fn(state, batch_, lr, wd):
+        with deterministic(dev):
+            grads, metrics = grads_of(state.params, batch_)
+            params, opt, om = adamw_update(grads, state.opt, state.params,
+                                           lr=lr, weight_decay=wd,
+                                           order=order)
+        return TrainState(params, opt), {**metrics, **om}
+
+    def eval_fn(state, batch_):
+        return loss_of(state.params, batch_)[0]
+
+    def init_state_fn(uid):
+        return init_train_state(model, torch.Generator(
+            device=dev).manual_seed(seed + uid))
+
+    ctrl = pbt_lib.PBTController(
+        step_fn=step_fn, eval_fn=eval_fn, init_state_fn=init_state_fn,
+        pool=PoolServer(capacity=64, seed=seed), seed=seed)
+
+    def batches(uid, epoch):
+        # each member trains on its own slice of the step space (islands
+        # see different data: the volunteers' heterogeneity); offsetting
+        # by uid avoids any divisibility constraint between batch and
+        # members
+        return (data.batch_for_step(
+            uid * 1_000_000 + epoch * steps_per_epoch + s, 0, 1)
+            for s in range(steps_per_epoch))
+
+    def eval_batch(uid, epoch):
+        return data.batch_for_step(10_000 + epoch, 0, 1)
+
+    ctrl.run(members, epochs, batches, eval_batch, verbose=verbose)
+    best = ctrl.best_member()
+    if verbose:
+        print(f"best member {best.uuid}: val={-best.fitness:.4f} "
+              f"lr={best.hypers['lr']:.2e} exploits={best.exploits}")
+    return ctrl
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="mode", required=True)
@@ -320,13 +380,16 @@ def main(argv=None):
                     help="seconds that bound each collective and the whole "
                          "world of --sharded")
     pbt = sub.add_parser("pbt")
-    pbt.add_argument("--arch", default="minicpm-2b")
+    pbt.add_argument("--arch", choices=ARCHS, default="minicpm-2b")
     pbt.add_argument("--members", type=int, default=4)
     pbt.add_argument("--epochs", type=int, default=5)
     pbt.add_argument("--steps-per-epoch", type=int, default=20)
+    pbt.add_argument("--device", default=None,
+                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
     if args.mode == "pbt":
-        _later("the pbt command", "pbt")
+        return run_pbt(args.arch, args.members, args.epochs,
+                       args.steps_per_epoch, device=args.device)
     acfg = AsyncConfig(min_rate=args.min_rate, max_rate=args.max_rate,
                        staleness=args.staleness, churn_fraction=args.churn)
     return run_ea(args.problem, args.islands, args.epochs, args.w2,

@@ -11,8 +11,11 @@ naming the ROADMAP item that brings their layers. Parameters are one
 :class:`Block` per layer (the reference stacks them on a leading
 ``layers`` axis and scans); caches keep the reference's stacked layout,
 per segment a tuple (one entry per pattern position) of dicts of (L, ...)
-tensors. :func:`plan_apply` is a loop over the layers: no remat, no scan.
-``mode`` is train | prefill | decode.
+tensors. :func:`plan_apply` is a loop over the layers (no scan); in train
+mode it recomputes each layer's activations in the backward pass
+(``remat_mode="layer"``, the reference's ``remat=True``) or also groups of
+layers (``"nested"``), through ``torch.utils.checkpoint``. ``mode`` is
+train | prefill | decode.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention, mlp, rwkv
 from .common import Maker, ModelConfig, rmsnorm
@@ -48,6 +52,10 @@ _UNPORTED = {
     "encdec": "ROADMAP Queue A item 14: the encoder-decoder plan",
 }
 _BLOCKS = {("rwkv", "rwkv_cm"), ("attn", "mlp")}
+# the auxiliary losses a block returns (the MoE router's; zero for the
+# ported families)
+AUX_KEYS = ("load_balance", "router_z", "dropped_frac")
+REMAT_MODES = ("none", "layer", "nested")
 
 
 def make_plan(cfg: ModelConfig) -> List[Segment]:
@@ -195,18 +203,83 @@ def block_apply(bc: BlockCfg, cfg: ModelConfig, p: Dict[str, Any],
     return x + o, new_cache
 
 
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX_KEYS}
+
+
+def _nested_group(n: int) -> int:
+    """Group size for two-level remat: the divisor of n nearest sqrt(n)
+    (1 below 16 layers). Live activation boundaries go from n to about
+    2 sqrt(n) at the cost of one more forward recompute per group."""
+    if n < 16:
+        return 1
+    target = max(int(n ** 0.5), 2)
+    for delta in range(target):
+        for g in (target - delta, target + delta):
+            if 1 < g < n and n % g == 0:
+                return g
+    return 1
+
+
+def _train_layers(cfg: ModelConfig, seg: Segment, layers, x: torch.Tensor,
+                  positions, use_flash: bool, use_rwkv_kernel: bool,
+                  remat: bool) -> torch.Tensor:
+    """``x`` through ``layers`` (each a list of the pattern's parameter
+    trees) in train mode, each layer recomputed in the backward pass when
+    ``remat``. The trees are read before the call, so a recompute uses the
+    tensors of this forward pass (those of ``torch.func.functional_call``,
+    say) and never reads the module again."""
+    def layer_fn(h, trees):
+        for bc, p in zip(seg.pattern, trees):
+            h, _ = block_apply(bc, cfg, p, h, mode="train",
+                               positions=positions, use_flash=use_flash,
+                               use_rwkv_kernel=use_rwkv_kernel)
+        return h
+
+    for trees in layers:
+        if remat:
+            x = checkpoint(layer_fn, x, trees, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer_fn(x, trees)
+    return x
+
+
 def plan_apply(cfg: ModelConfig, plan: List[Segment], segments: nn.ModuleList,
                x: torch.Tensor, *, mode: str,
                caches: Optional[List] = None, index=None,
                positions: Optional[torch.Tensor] = None,
                use_flash: bool = False, use_rwkv_kernel: bool = False,
-               cache_len: Optional[int] = None
-               ) -> Tuple[torch.Tensor, Optional[List]]:
-    """Run x through every layer. Returns (x, new caches): the caches in
-    decode and prefill, None in train. In decode the attention caches are
-    updated in place and returned as they came."""
+               cache_len: Optional[int] = None, remat_mode: str = "layer"
+               ) -> Tuple[torch.Tensor, Optional[List],
+                          Dict[str, torch.Tensor]]:
+    """Run x through every layer. Returns (x, new caches, summed aux): the
+    caches in decode and prefill, None in train. In decode the attention
+    caches are updated in place and returned as they came. ``remat_mode``
+    (train only): ``"layer"`` recomputes each layer in the backward pass,
+    ``"nested"`` also each group of :func:`_nested_group` layers (the
+    group's boundaries alone are kept between the passes), ``"none"``
+    keeps every activation."""
+    if remat_mode not in REMAT_MODES:
+        raise ValueError(f"remat_mode {remat_mode!r} is not one of "
+                         f"{REMAT_MODES}")
+    aux = _zero_aux(x.device)
     new_caches: List = []
     for si, seg in enumerate(plan):
+        if mode == "train":
+            layers = [[b.tree() for b in layer] for layer in segments[si]]
+            remat = remat_mode != "none"
+            G = _nested_group(seg.n) if remat_mode == "nested" else 1
+            if G == 1:
+                x = _train_layers(cfg, seg, layers, x, positions, use_flash,
+                                  use_rwkv_kernel, remat)
+                continue
+            for g0 in range(0, seg.n, G):
+                x = checkpoint(_train_layers, cfg, seg, layers[g0:g0 + G], x,
+                               positions, use_flash, use_rwkv_kernel, True,
+                               use_reentrant=False, preserve_rng_state=False)
+            continue
         per_pos: List[List[Dict[str, torch.Tensor]]] = [[] for _ in
                                                          seg.pattern]
         for layer in range(seg.n):
@@ -218,13 +291,10 @@ def plan_apply(cfg: ModelConfig, plan: List[Segment], segments: nn.ModuleList,
                     cache=cache, index=index, positions=positions,
                     use_flash=use_flash, use_rwkv_kernel=use_rwkv_kernel,
                     cache_len=cache_len)
-                if mode != "train":
-                    per_pos[j].append(cache)
-        if mode != "train":
-            new_caches.append(tuple(
-                caches[si][j] if mode == "decode" and bc.mixer == "attn"
-                else {key: torch.stack([c[key] for c in layers])
-                      for key in layers[0]}
-                for j, (bc, layers) in enumerate(zip(seg.pattern,
-                                                     per_pos))))
-    return x, (new_caches if mode != "train" else None)
+                per_pos[j].append(cache)
+        new_caches.append(tuple(
+            caches[si][j] if mode == "decode" and bc.mixer == "attn"
+            else {key: torch.stack([c[key] for c in layers])
+                  for key in layers[0]}
+            for j, (bc, layers) in enumerate(zip(seg.pattern, per_pos))))
+    return x, (new_caches if mode != "train" else None), aux

@@ -210,6 +210,48 @@ def run_resume(c, meshes):
     return out
 
 
+def compress_inputs(c):
+    """Per-rank gradients (``a`` f32, ``b`` bf16 from f32, ``t`` the
+    rounding ties) and carried errors, seeded; one row per rank."""
+    rng = np.random.default_rng(c["seed"])
+    W = c["W"]
+    a = (rng.normal(size=(W, 64)) * 3).astype(np.float32)
+    b = rng.normal(size=(W, 33)).astype(np.float32)
+    t = np.tile(np.array([127, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -126.5],
+                         np.float32), (W, 1)) * np.arange(
+        1, W + 1, dtype=np.float32)[:, None]
+    errs = {k: (rng.normal(size=v.shape) * 0.01).astype(np.float32)
+            for k, v in (("a", a), ("b", b), ("t", t))}
+    if c.get("zero_error"):
+        errs = {k: np.zeros_like(v) for k, v in errs.items()}
+    return {"a": a, "b": b, "t": t}, errs
+
+
+def run_compress(c, mesh):
+    from repro.optim.compression import compress_psum
+    grads, errs = compress_inputs(c)
+    keys = sorted(grads)
+
+    def body(*xs):
+        g = {k: x[0] for k, x in zip(keys, xs[:len(keys)])}
+        g["b"] = g["b"].astype(jnp.bfloat16)
+        e = {k: x[0] for k, x in zip(keys, xs[len(keys):])}
+        out, err = compress_psum(g, e, AX, method=c["method"])
+        return ({k: v[None] for k, v in out.items()},
+                {k: v[None] for k, v in err.items()})
+
+    spec = {k: P(AX) for k in keys}
+    fn = shard_map(body, mesh=mesh, in_specs=(P(AX),) * (2 * len(keys)),
+                   out_specs=(spec, spec), check=False)
+    out, err = jax.jit(fn)(*[grads[k] for k in keys],
+                           *[errs[k] for k in keys])
+    res = {}
+    for k in keys:
+        res[f"out.{k}"] = np.asarray(out[k].astype(jnp.float32))
+        res[f"err.{k}"] = np.asarray(err[k])
+    return res
+
+
 def run_ea(c, meshes):
     evolve.make_host_mesh = lambda: meshes[c["W"]]
     buf = io.StringIO()
@@ -230,6 +272,8 @@ def main():
             res = run_resume(c, meshes)
         elif kind == "ea":
             res = run_ea(c, meshes)
+        elif kind == "compress":
+            res = run_compress(c, meshes[c["W"]])
         else:
             res = run_driver(c, meshes[c["W"]])
         for k, v in res.items():

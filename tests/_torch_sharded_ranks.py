@@ -191,6 +191,39 @@ def resume(group, c):
     return out
 
 
+def compress_inputs(c):
+    """The reference's inputs (``_sharded_reference.compress_inputs``,
+    copied: this module imports no jax)."""
+    rng = np.random.default_rng(c["seed"])
+    W = c["W"]
+    a = (rng.normal(size=(W, 64)) * 3).astype(np.float32)
+    b = rng.normal(size=(W, 33)).astype(np.float32)
+    t = np.tile(np.array([127, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -126.5],
+                         np.float32), (W, 1)) * np.arange(
+        1, W + 1, dtype=np.float32)[:, None]
+    errs = {k: (rng.normal(size=v.shape) * 0.01).astype(np.float32)
+            for k, v in (("a", a), ("b", b), ("t", t))}
+    if c.get("zero_error"):
+        errs = {k: np.zeros_like(v) for k, v in errs.items()}
+    return {"a": a, "b": b, "t": t}, errs
+
+
+def run_compress(group, c):
+    """This rank's row of the inputs through ``compress_psum``."""
+    from repro_torch.optim.compression import compress_psum
+    grads, errs = compress_inputs(c)
+    r, dev = group.rank, group.device
+    g = {k: torch.from_numpy(v[r].copy()).to(dev) for k, v in grads.items()}
+    g["b"] = g["b"].to(torch.bfloat16)
+    e = {k: torch.from_numpy(v[r].copy()).to(dev) for k, v in errs.items()}
+    out, err = compress_psum(g, e, group, method=c["method"])
+    res = {}
+    for k in sorted(out):
+        res[f"out.{k}"] = out[k].float().cpu().numpy()
+        res[f"err.{k}"] = err[k].cpu().numpy()
+    return res
+
+
 def run_cases(group, cases):
     """Every case of this world size, in order: name -> this rank's dict
     of arrays."""
@@ -204,6 +237,8 @@ def run_cases(group, cases):
             out[c["name"]] = snapshot(group, c)
         elif c["kind"] == "resume":
             out[c["name"]] = resume(group, c)
+        elif c["kind"] == "compress":
+            out[c["name"]] = run_compress(group, c)
         else:
             out[c["name"]] = run_driver(group, c)
     return out

@@ -1101,3 +1101,76 @@ def test_bridged_run_on_the_card_equals_the_plain_run_on_the_cpu(card):
     for x, y in zip(a.pool, b.pool):
         assert torch.equal(x.cpu(), y)
     assert sa == sb and sa["lost"] > 0 and ea == eb
+
+
+# ---------------------------------------------------------------------------
+# the kernels refuse autograd; training on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_refuse_inputs_that_require_grad(card, dtype):
+    """Neither kernel has a backward: under grad mode an input that
+    requires grad raises (naming the plain version); under no_grad, or
+    with no input requiring grad, both launch."""
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    g = torch.Generator(device=card).manual_seed(0)
+    q, k, v = (torch.randn(1, 64, 2, 64, generator=g, device=card,
+                           dtype=dtype) for _ in range(3))
+    r, kk, vv = (torch.randn(1, 64, 2, 64, generator=g, device=card,
+                             dtype=dtype) for _ in range(3))
+    w = torch.rand(1, 64, 2, 64, generator=g, device=card) * 0.5 + 0.4
+    u = torch.randn(2, 64, generator=g, device=card)
+    s0 = torch.zeros(1, 2, 64, 64, device=card)
+    for t in (q, r, w):
+        t.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="ref.py::attention"):
+        flash_ops.flash_attention(q, k, v, scale=0.125)
+    with pytest.raises(RuntimeError, match="ref.py::wkv"):
+        wkv_ops.wkv(r, kk, vv, w, u, s0)
+    before = dict(LAUNCHES)
+    with torch.no_grad():
+        flash_ops.flash_attention(q, k, v, scale=0.125)
+        wkv_ops.wkv(r, kk, vv, w, u, s0)
+    flash_ops.flash_attention(q.detach(), k, v, scale=0.125)
+    assert LAUNCHES["flash_attention"] == before["flash_attention"] + 2
+    assert LAUNCHES["wkv"] == before["wkv"] + 1
+
+
+# card against CPU over the steps (the tolerances of chip_smoke.py's
+# CARD_CPU_TOL): ce and gnorm relative, final parameters absolute
+CARD_CPU_TOL = {"minicpm-2b": dict(ce=1e-5, gnorm=1e-4, params=1e-5),
+                "rwkv6-3b": dict(ce=1e-5, gnorm=1e-3, params=1e-3)}
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "rwkv6-3b"])
+def test_train_step_on_the_card_matches_the_cpu(card, arch):
+    """Smoke f32 from the same state and batches, 3 steps: ce, gnorm and
+    the parameters within :data:`CARD_CPU_TOL` (other sum orders on the
+    card; RWKV6's zero-started LoRA factors make Adam amplify them)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import make_schedule
+    tol = CARD_CPU_TOL[arch]
+    cfg = get_config(arch, smoke=True)
+    state = init_train_state(Model(cfg, device="cpu"))
+    sched = make_schedule("wsd", 3e-3, 10, 2)
+    steps = {d: make_train_step(Model(cfg, device="meta"), schedule=sched)
+             for d in ("cpu", "cuda")}
+    states = {"cuda": convert.to_device(state, card), "cpu": state}
+    for i in range(3):
+        ms = {}
+        for d in states:
+            batch = SyntheticLM(256, 64, 8, device=d).batch_for_step(i)
+            states[d], ms[d] = steps[d](states[d], batch)
+        torch.testing.assert_close(ms["cuda"]["ce"].cpu(), ms["cpu"]["ce"],
+                                   rtol=tol["ce"], atol=0)
+        torch.testing.assert_close(ms["cuda"]["grad_norm"].cpu(),
+                                   ms["cpu"]["grad_norm"],
+                                   rtol=tol["gnorm"], atol=0)
+    for k, v in states["cpu"].params.items():
+        torch.testing.assert_close(states["cuda"].params[k].cpu(), v,
+                                   rtol=0, atol=tol["params"])

@@ -177,7 +177,8 @@ def test_forward_matches_reference(arch, dtype):
     tok = _tokens(1, (BATCH, SEQ))
     want, _ = j_model.forward(params, {"tokens": jnp.asarray(tok)})
     with torch.no_grad():
-        got = model({"tokens": torch.from_numpy(tok).long()})
+        got, aux = model({"tokens": torch.from_numpy(tok).long()})
+    assert all(float(v) == 0.0 for v in aux.values())
     assert got.shape == (BATCH, SEQ, 256) and got.dtype == torch.float32
     _check(dtype, got, want)
 

@@ -348,12 +348,14 @@ def test_ea_async_and_snapshot_flags_match_reference(flags, tmp_path,
 
 
 def test_pbt_raises_and_the_host_tier_runs():
-    """pbt (Queue A item 14) still raises; the host tier (item 12) runs:
-    a host pool receives every island's best each epoch, uuids and all,
-    and a broken one is a lost XHR."""
+    """pbt (the PBT part of Queue A item 14) now runs, one PUT a member
+    and epoch; the host tier (item 12) runs: a host pool receives every
+    island's best each epoch, uuids and all, and a broken one is a lost
+    XHR."""
     from repro_torch.core import PoolServer
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        evolve.main(["pbt"])
+    ctrl = evolve.main(["pbt", "--device", "cpu", "--members", "2",
+                        "--epochs", "2", "--steps-per-epoch", "1"])
+    assert ctrl.pool.stats()["puts"] == 4 and len(ctrl.history) == 4
     run = dict(n_islands=2, max_epochs=2, device="cpu",
                stop_on_success=False)
     server = PoolServer(seed=0)

@@ -236,9 +236,14 @@ def test_unported_paths_raise_naming_the_roadmap(tmp_path, monkeypatch):
         isl, _, epochs = run_fused(make_onemax(64), c, mig, **run)
         assert int(epochs) == 1
         assert bool(torch.isfinite(isl.best_fitness).all())
-    # what is still unported raises with its item named: the pbt command
+    # what is still unported raises with its item named: the MoE family;
+    # the pbt command (the PBT part of item 14) runs
+    from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        evolve.main(["pbt"])
+        get_config("olmoe-1b-7b")
+    ctrl = evolve.main(["pbt", "--device", "cpu", "--members", "2",
+                        "--epochs", "1", "--steps-per-epoch", "1"])
+    assert ctrl.pool.stats()["puts"] == 2
     # the host tier (item 12) runs: a bridged host loop and --bridge
     from repro_torch.core import HostBridge, PoolServer
     bridge = HostBridge(PoolServer(seed=0))
@@ -328,5 +333,9 @@ def test_import_scan_covers_every_subpackage():
                                                             "rwkv6"),
                 os.path.join("kernels", "flash_attention"),
                 "core", "obs", os.path.join("kernels", "ga"), "checkpoint",
-                "runtime", "server"):
+                "runtime", "server", "data", "optim"):
         assert sub in walked, sub
+    files = {os.path.relpath(p, REPO) for p in _port_files()}
+    for mod in ("launch/train.py", "core/pbt.py", "optim/compression.py",
+                "data/synthetic.py"):
+        assert os.path.join("src", "repro_torch", mod) in files, mod
