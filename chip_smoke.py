@@ -110,7 +110,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode rates, a device profile of each, peak memory;
 8a. the flash-attention kernels against their plain version
    (``kernels/flash_attention/ref.attention``): the five shapes of
-   ``tests/test_kernels.py`` and the yi-9b serve shape (4, 2048, 32 heads
+   ``tests/test_kernels.py``, the shapes phase 14's prefills give the
+   kernel (``FLASH_SERVED``) and the yi-9b serve shape (4, 2048, 32 heads
    over 4, 128), in bf16 (the bf16 tensor-core kernel, ``flash_tc.cu``)
    and in f32 (the 3xTF32 tensor-core kernel, ``flash_3xtf32.cu``); the
    f32 kernel also at its edges (non-causal, Sq > Sk, keys off its tiles,
@@ -236,7 +237,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 13e. ``make_train_step(use_flash=True)`` and ``(use_rwkv_kernel=True)``
    raise; the flash and WKV wrappers raise on CUDA inputs that require
    grad under grad mode and launch under ``torch.no_grad``;
-14. one JSON line with each kernel's launches, time, plain time, bound and
+14. the other model families served through ``launch.serve.generate``
+   with random weights from the seed (``FAMILY_CELLS``): olmoe-1b-7b (16
+   layers, 64 experts top 8; 4 x 1024 prompts, whose MoE runs two
+   ``SEQ_CHUNK`` slices), hymba-1.5b (32 layers, 128 meta tokens; 4 x
+   1920 prompts, S = 2048) and seamless-m4t-large-v2 (24 + 24 layers,
+   ``src_embed`` 4 x 512 frames; 4 x 512 prompts) at their published
+   sizes, 32 new tokens; llama-3.2-vision-90b (10 of 100 layers, the
+   cross gates set to ``FAMILY_GATE``) and dbrx-132b (2 of 40 layers) at
+   full width, 4 x 512 prompts, 16 new tokens. Each cell: the flash kernel
+   launched once per causal, unwindowed self-attention layer of the
+   prefill and nothing else; prefill and decode timed after a warm-up;
+   the flash route against the plain route layer by layer from the same
+   input and end to end (``FAMILY_LAYER_TOL``, ``FAMILY_BF16_TOL``), the
+   MoE cells' routing sets that differ between the routes counted; a
+   profile of the prefill and of a decode step. Then olmoe's f32 prefill
+   at full width, 2 layers, on the card against the port on the CPU:
+   expert indices, positions, keep and ``dropped_frac`` equal, logits
+   within ``OLMOE_F32_TOL``;
+15. one JSON line with each kernel's launches, time, plain time, bound and
    library time, then the last line: ``{"ok": true, "device": {...}}``.
 
 It imports the port only (``src/repro_torch``), never JAX or the reference.
@@ -349,10 +368,17 @@ BF16_OPS_PER_S = 989e12
 # run in 3xTF32, three TF32 products for each f32-grade one (two where one
 # operand is exact in tf32, as a bf16 v is), counted as such in wkv_work
 TF32_OPS_PER_S = 495e12
-# phase 8a: (B, S, H, Kv, hd), tests/test_kernels.py's five shapes, and
-# the yi-9b serve shape last; the reference's tolerances (atol, rtol)
+# phase 8a: (B, S, H, Kv, hd), tests/test_kernels.py's five shapes, the
+# shapes phase 14's prefills give the kernel, and the yi-9b serve shape
+# last (the one 8a times); the reference's tolerances (atol, rtol)
+FLASH_SERVED = [(4, 1024, 16, 16, 128),     # olmoe-1b-7b, MHA, qk-norm
+                (4, 2048, 25, 5, 64),       # hymba-1.5b's global layers
+                (4, 512, 16, 16, 64),       # seamless-m4t-large-v2 decoder
+                (4, 512, 64, 8, 128),       # llama-3.2-vision-90b
+                (4, 512, 48, 8, 128)]       # dbrx-132b
 FLASH_CASES = [(1, 64, 4, 4, 16), (2, 96, 8, 2, 32), (1, 64, 4, 1, 16),
-               (1, 50, 4, 2, 16), (2, 64, 6, 3, 64), (4, 2048, 32, 4, 128)]
+               (1, 50, 4, 2, 16), (2, 64, 6, 3, 64), *FLASH_SERVED,
+               (4, 2048, 32, 4, 128)]
 FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # phase 8a: the f32 kernel's edges, (B, Sq, Sk, H, Kv, hd, causal, view):
 # non-causal with keys off its 32-key tiles, Sq > Sk causal, MQA and GQA
@@ -437,6 +463,54 @@ CARD_CPU_TOL = {"minicpm-2b": dict(ce=1e-5, gnorm=1e-4, params=1e-5),
                 "rwkv6-3b": dict(ce=1e-5, gnorm=1e-3, params=1e-3)}
 # dense bf16 tensor-core peak of the card (H100 SXM data sheet)
 BF16_FLOPS_PER_S = 989e12
+# Phase 14: the other model families served through launch/serve's
+# generate with random weights from SEED. Each cell: (arch, layers (None:
+# the published depth), batch, prompt tokens, new tokens). dbrx-132b
+# (131.6 B parameters, 263 GB in bf16) and llama-3.2-vision-90b (87.7 B,
+# 175 GB) do not fit one 80 GB card: both run at full width with their
+# depth cut, dbrx to 2 of 40 layers, the vision model to 10 of 100 (two
+# superblocks of 4 self-attention and 1 gated cross-attention layers).
+# hymba's prompt of 1920 makes S = 2048 with its 128 meta tokens.
+FAMILY_CELLS = [("olmoe-1b-7b", None, 4, 1024, 32),
+                ("hymba-1.5b", None, 4, 1920, 32),
+                ("seamless-m4t-large-v2", None, 4, 512, 32),
+                ("llama-3.2-vision-90b", 10, 4, 512, 16),
+                ("dbrx-132b", 2, 4, 512, 16)]
+# seamless's source frames (the stub frontend's embeddings, B x 512 x d)
+FAMILY_SRC_LEN = 512
+# the vision cells' cross gates (zero at init: tanh(0) = 0 and a cross
+# layer would add nothing)
+FAMILY_GATE = 0.7
+# Limits of the flash route against the plain route, relative L2, set
+# before this phase's first run. Layer by layer from the same bf16 input
+# each flash layer's attention output within 1e-2, phase 8b's limit
+# (yi-9b read 3.3e-3 there). End to end, last-position logits: phase 8b's
+# 5e-2 where the prefill has no router (hymba's three flash layers,
+# seamless's decoder, the vision model's eight); a router turns a bf16
+# difference into another top-k choice now and then, which moves that
+# token's output by a whole expert's share, so the MoE cells get 0.2
+# (olmoe, 16 layers of top-8) and 0.1 (dbrx, 2 layers of top-4). The
+# routing sets that differ between the routes are counted and printed.
+# The first run (H100, 700 W) read hymba at 5.8674e-2 against its first
+# limit of 5e-2, each of its flash layers within 3.5754e-3: 3 flash
+# layers' bf16 differences grow through 32 layers of attention and SSM
+# heads. Its limit is now about twice that reading (8b's is 2.4 times
+# its), and hymba also runs an f32 twin (the same weights in f32): there
+# the routes differ in the f32 kernel's sum order only, within
+# FAMILY_F32_TOL (8b's f32 limit), and the bf16 plain route's own
+# distance from the f32 plain route is printed beside the bf16 reading.
+FAMILY_LAYER_TOL = 1e-2
+FAMILY_BF16_TOL = {"olmoe-1b-7b": 0.2, "hymba-1.5b": 0.12,
+                   "seamless-m4t-large-v2": 5e-2,
+                   "llama-3.2-vision-90b": 5e-2, "dbrx-132b": 0.1}
+FAMILY_TWIN = ("hymba-1.5b",)
+FAMILY_F32_TOL = 1e-3
+# olmoe's f32 prefill at full width cut to 2 layers, 1 x 512 tokens, on
+# the card (the 3xTF32 flash kernel) against the port on the CPU: the
+# routing equal, the last-position logits within 1e-4 relative L2 (the
+# f32 twin of phase 8b read 4.2e-6 between the routes on the card alone)
+OLMOE_F32_LAYERS = 2
+OLMOE_F32_TOL = 1e-4
 
 
 def log(*args):
@@ -2225,6 +2299,266 @@ def training_phases(card: str):
         x.requires_grad_(False)
 
 
+def _flash_eligible(plan) -> int:
+    """Blocks whose prefill attention goes through the flash kernel:
+    causal self-attention (``attn`` or hymba's) without a window."""
+    return sum(seg.n for seg in plan for bc in seg.pattern
+               if bc.mixer in ("attn", "hybrid") and bc.window == 0)
+
+
+def _flash_layer_check(model, batch):
+    """Each flash-eligible layer's attention output through the kernel
+    against the plain route, from the same input (the blocks run in
+    train mode through the flash route between them): (worst relative
+    L2, layers compared)."""
+    import torch
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.common import rmsnorm
+    cfg = model.cfg
+    worst, n = 0.0, 0
+    with torch.inference_mode():
+        cross_src = model._cross_source(batch, True)
+        x = model._embed(batch["tokens"])
+        pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        for si, seg in enumerate(model.plan):
+            for layer in model.segments[si]:
+                for bc, block in zip(seg.pattern, layer):
+                    p = block.tree()
+                    if bc.mixer in ("attn", "hybrid") and bc.window == 0:
+                        ap = (p["mixer"]["attn"] if bc.mixer == "hybrid"
+                              else p["mixer"])
+                        h = rmsnorm(p["ln1"]["scale"], x, cfg.norm_eps)
+                        o_k, _ = attention.attend(ap, cfg, h, positions=pos,
+                                                  use_flash=True)
+                        o_p, _ = attention.attend(ap, cfg, h, positions=pos)
+                        worst = max(worst, rel_l2(o_k, o_p))
+                        n += 1
+                    x, _, _ = transformer.block_apply(
+                        bc, cfg, p, x, mode="train", positions=pos,
+                        cross_src=cross_src, use_flash=True)
+    return worst, n
+
+
+def _routing_diff(a, b):
+    """(token, layer) routing sets that differ between two recordings of
+    the same prefill, and the sets compared."""
+    diff = total = 0
+    for ra, rb in zip(a, b):
+        sa = ra.experts.sort(-1).values
+        sb = rb.experts.sort(-1).values
+        diff += int((sa != sb).any(-1).sum().item())
+        total += sa.shape[0]
+    return diff, total
+
+
+def family_phases(card: str):
+    """Phase 14: olmoe-1b-7b, hymba-1.5b and seamless-m4t-large-v2 served
+    at their published sizes, llama-3.2-vision-90b and dbrx-132b at full
+    width with their depth cut (FAMILY_CELLS); then olmoe's f32 prefill on
+    the card against the CPU."""
+    import copy
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model, moe
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the SSM scan's fused multiply-add on the card (models.common.fma is
+    # torch.addcmul there) against rand.fma's exact emulation: random
+    # triples, products that cancel the addend, tiny addends
+    from repro_torch import rand
+    from repro_torch.models.common import fma
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    fa, fb, fc = (torch.randn(1 << 24, generator=g, device=dev)
+                  for _ in range(3))
+    differ = sum(int((fma(fa, fb, c) != rand.fma(fa, fb, c)).sum().item())
+                 for c in (fc, -(fa * fb) * (1 + 2 ** -20 * fc), fc * 1e-8))
+    log(f"[family] fma on the card (torch.addcmul) against rand.fma: "
+        f"{differ} of {3 << 24} results differ")
+    if differ:
+        fail("torch.addcmul on the card is not a fused multiply-add")
+    del fa, fb, fc
+    for arch, layers, batch, prompt, new in FAMILY_CELLS:
+        t_cell = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        tag = f"[family] {arch}"
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model = build_model(cfg, dev, gen)
+        if cfg.family == "vlm":
+            with torch.no_grad():
+                for seg in model.segments:
+                    for layer in seg:
+                        for block in layer:
+                            if "gate" in block.mixer.tree():
+                                block.mixer.gate.fill_(FAMILY_GATE)
+        torch.cuda.synchronize()
+        cut = (f"depth cut to {layers} of {get_config(arch).n_layers} "
+               f"layers" if layers is not None else "published size")
+        log(f"{tag}: {model.param_count()} parameters ({cut}; d "
+            f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of "
+            f"{cfg.hd}, d_ff {cfg.d_ff}, experts {cfg.n_experts} top "
+            f"{cfg.experts_per_token}, vocab {cfg.vocab_size}, "
+            f"{cfg.param_dtype}) drawn in {time.perf_counter() - t:.2f} s")
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                generator=gen, device=dev)
+        extra = {}
+        if cfg.n_encoder_layers:
+            extra["src_embed"] = torch.randn(
+                (batch, FAMILY_SRC_LEN, cfg.d_model), generator=gen,
+                device=dev).to(cfg.activation_dtype)
+        if cfg.family == "vlm":
+            extra["vision_embed"] = torch.randn(
+                (batch, cfg.vision_seq, cfg.d_model), generator=gen,
+                device=dev).to(cfg.activation_dtype)
+        b = dict(extra, tokens=prompts)
+        generate(model, prompts, 2, **extra)           # warm-up
+        kernels.reset_launches()
+        toks, times = generate(model, prompts, new, **extra)
+        launches = dict(kernels.LAUNCHES)
+        want = _flash_eligible(model.plan)
+        others = {k: n for k, n in launches.items()
+                  if k != "flash_attention" and n}
+        if launches["flash_attention"] != want or others:
+            fail(f"{arch}: the served prefill should launch the flash "
+                 f"kernel {want} times and nothing else: {launches}")
+        if toks.shape != (batch, new) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"{arch}: served tokens of shape {tuple(toks.shape)} or "
+                 f"out of range")
+        steps = times["decode_steps"]
+        n_prompt = batch * prompt
+        src = (f", source {FAMILY_SRC_LEN} frames" if cfg.n_encoder_layers
+               else "")
+        log(f"{tag} generate: prefill {batch} x {prompt} (+"
+            f"{cfg.n_meta_tokens} meta tokens{src}) in "
+            f"{times['prefill_s'] * 1e3:.3f} ms = "
+            f"{n_prompt / times['prefill_s']:.1f} tokens/s; decode {steps} "
+            f"steps in {times['decode_s'] * 1e3:.3f} ms = "
+            f"{times['decode_s'] / steps * 1e3:.3f} ms per step = "
+            f"{batch * steps / times['decode_s']:.1f} tokens/s; launches "
+            f"{launches}; sample {toks[0, :8].tolist()}; peak device "
+            f"memory {torch.cuda.max_memory_allocated()} B; {card}")
+        # the prefill through each route, the routings recorded
+        budget = prompt + new
+        with moe.recording() as r_k:
+            logits_k, caches, xkv = make_prefill_step(
+                model, max_seq=budget, use_flash=True)(b)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with moe.recording() as r_p:
+            logits_p, _, _ = make_prefill_step(model, max_seq=budget)(b)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        finite = bool(torch.isfinite(logits_k).all()) and bool(
+            torch.isfinite(logits_p).all())
+        e2e = rel_l2(logits_k, logits_p)
+        layer_err, n_layers = _flash_layer_check(model, b)
+        routing = ""
+        if cfg.is_moe:
+            d, total = _routing_diff(r_k, r_p)
+            routing = (f"; routing sets that differ between the routes: "
+                       f"{d} of {total} (token, layer) pairs")
+        limit = FAMILY_BF16_TOL[arch]
+        same_next = (logits_k.argmax(-1) == logits_p.argmax(-1)).float()
+        log(f"{tag} flash route against the plain route: each of "
+            f"{n_layers} flash layers' attention output from the same input"
+            f" within relative L2 {layer_err:.4e} (limit {FAMILY_LAYER_TOL})"
+            f"; last-position logits {e2e:.4e} (limit {limit}); next token "
+            f"equal in {same_next.mean().item():.2f} of rows; finite "
+            f"{finite}; plain prefill {plain_ms:.1f} ms{routing}; {card}")
+        del r_k, r_p
+        twin_err = 0.0
+        if arch in FAMILY_TWIN:
+            twin = build_model(dataclasses.replace(
+                cfg, param_dtype=torch.float32,
+                activation_dtype=torch.float32), "meta").to_empty(device=dev)
+            with torch.no_grad():
+                for p16, p32 in zip(model.parameters(), twin.parameters()):
+                    p32.copy_(p16.float())
+            kernels.reset_launches()
+            tw_k, _, _ = make_prefill_step(twin, max_seq=budget,
+                                           use_flash=True)(b)
+            tw_launches = kernels.LAUNCHES["flash_attention"]
+            tw_p, _, _ = make_prefill_step(twin, max_seq=budget)(b)
+            twin_err = rel_l2(tw_k, tw_p)
+            own = rel_l2(logits_p, tw_p)
+            log(f"{tag} the f32 twin ({tw_launches} launches of the f32 "
+                f"kernel): flash route against plain route, last-position "
+                f"logits {twin_err:.4e} (limit {FAMILY_F32_TOL}); the bf16 "
+                f"plain route against the f32 plain route {own:.4e} "
+                f"(bf16's own distance, no gate); {card}")
+            if tw_launches != want:
+                fail(f"{arch}: the f32 twin's prefill launched the flash "
+                     f"kernel {tw_launches} times, want {want}")
+            del twin, tw_k, tw_p
+            gc.collect()
+            torch.cuda.empty_cache()
+        del logits_p
+        decode = make_decode_step(model)
+        tok = logits_k.argmax(-1)[:, None]
+        index = prompt + cfg.n_meta_tokens
+        device_profile(f"family-{arch}-prefill", lambda: make_prefill_step(
+            model, max_seq=budget, use_flash=True)(b), card)
+        device_profile(f"family-{arch}-decode", lambda: decode(
+            {"token": tok, "index": index, "caches": caches,
+             "cross_kvs": xkv}), card)
+        if not finite or layer_err > FAMILY_LAYER_TOL or e2e > limit \
+                or n_layers != want or twin_err > FAMILY_F32_TOL:
+            fail(f"{arch}: the flash route and the plain route disagree "
+                 f"beyond the stated limits, or non-finite values")
+        del model, caches, xkv, decode, logits_k, b, extra, prompts, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{tag}: cell in {time.perf_counter() - t_cell:.1f} s")
+
+    # olmoe in f32 at full width, 2 layers: the card against the CPU
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"),
+                              n_layers=OLMOE_F32_LAYERS,
+                              param_dtype=torch.float32,
+                              activation_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    card_model = build_model(cfg, dev, gen)
+    cpu_model = copy.deepcopy(card_model).to("cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, moe.SEQ_CHUNK),
+                           generator=gen, device=dev)
+    with moe.recording() as r_card:
+        l_card, _, _ = card_model.prefill({"tokens": tokens},
+                                          use_flash=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with moe.recording() as r_cpu:
+        l_cpu, _, _ = cpu_model.prefill({"tokens": tokens.cpu()})
+    cpu_s = time.perf_counter() - t
+    same = all(torch.equal(a.experts.cpu(), c.experts)
+               and torch.equal(a.position.cpu(), c.position)
+               and torch.equal(a.keep.cpu(), c.keep)
+               for a, c in zip(r_card, r_cpu)) and len(r_card) == len(r_cpu)
+    drop_card = [1.0 - r.keep.float().mean().item() for r in r_card]
+    drop_cpu = [1.0 - r.keep.float().mean().item() for r in r_cpu]
+    f32_err = rel_l2(l_card.cpu(), l_cpu)
+    log(f"[family] olmoe-1b-7b f32, {OLMOE_F32_LAYERS} layers at full width,"
+        f" 1 x {moe.SEQ_CHUNK} tokens, card against CPU: expert indices, "
+        f"positions and keep equal in all {len(r_card)} layers: {same}; "
+        f"dropped_frac card {drop_card} CPU {drop_cpu}; last-position "
+        f"logits relative L2 {f32_err:.4e} (limit {OLMOE_F32_TOL}); the "
+        f"CPU prefill {cpu_s:.2f} s; {card}")
+    if not same or drop_card != drop_cpu or f32_err > OLMOE_F32_TOL:
+        fail("olmoe f32 prefill: the card's routing or logits differ from "
+             "the CPU's")
+    del card_model, cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3477,7 +3811,8 @@ def main() -> int:
         f"B ({card})")
     # the prefill through each route, and decode alone
     kernels.reset_launches()
-    logits_k, caches_k = make_prefill_step(model, use_rwkv_kernel=True)(
+    logits_k, caches_k, _ = make_prefill_step(model,
+                                              use_rwkv_kernel=True)(
         {"tokens": prompts})
     torch.cuda.synchronize()
     prefill_launches = kernels.LAUNCHES["wkv"]
@@ -3491,7 +3826,8 @@ def main() -> int:
     torch.cuda.synchronize()
     decode_launches = kernels.LAUNCHES["wkv"]
     t = time.perf_counter()
-    logits_p, caches_p = make_prefill_step(model, use_rwkv_kernel=False)(
+    logits_p, caches_p, _ = make_prefill_step(model,
+                                              use_rwkv_kernel=False)(
         {"tokens": prompts})
     torch.cuda.synchronize()
     plain_prefill_s = time.perf_counter() - t
@@ -3521,9 +3857,9 @@ def main() -> int:
         x = model._embed(prompts)
         for layer in model.segments[0]:
             p, bc = layer[0].tree(), model.plan[0].pattern[0]
-            out_k, c_k = transformer.block_apply(
+            out_k, c_k, _ = transformer.block_apply(
                 bc, lm_cfg, p, x, mode="prefill", use_rwkv_kernel=True)
-            out_p, c_p = transformer.block_apply(
+            out_p, c_p, _ = transformer.block_apply(
                 bc, lm_cfg, p, x, mode="prefill", use_rwkv_kernel=False)
             layer_out = max(layer_out, rel_l2(out_k, out_p))
             layer_state = max(layer_state, rel_l2(c_k["wkv"], c_p["wkv"]))
@@ -3535,9 +3871,11 @@ def main() -> int:
     with torch.no_grad():
         for p16, p32 in zip(model.parameters(), twin.parameters()):
             p32.copy_(p16.float())
-    tw_logits_k, tw_caches_k = make_prefill_step(twin, use_rwkv_kernel=True)(
+    tw_logits_k, tw_caches_k, _ = make_prefill_step(
+        twin, use_rwkv_kernel=True)(
         {"tokens": prompts})
-    tw_logits_p, tw_caches_p = make_prefill_step(twin)({"tokens": prompts})
+    tw_logits_p, tw_caches_p, _ = make_prefill_step(twin)(
+        {"tokens": prompts})
     f32_logits = rel_l2(tw_logits_k, tw_logits_p)
     f32_state = rel_l2(tw_caches_k[0][0]["wkv"], tw_caches_p[0][0]["wkv"])
     bf16_logits = rel_l2(logits_p, tw_logits_p)
@@ -3601,7 +3939,7 @@ def main() -> int:
             fail(f"flash kernel differs from its plain version at ({b}, {s}, "
                  f"{h}, {kv}, {hd}) {dtype}")
         flash_err[dtype] = max(flash_err[dtype], err)
-        if (b, s) == (4, 2048):
+        if (b, s, h, kv, hd) == FLASH_CASES[-1]:
             serve_qkv = (q, k, v)
     # the f32 kernel's edges: (B, Sq, Sk, H, Kv, hd, causal, view)
     for b, sq, sk, h, kv, hd, causal, view in FLASH_F32_EDGES:
@@ -3710,13 +4048,13 @@ def main() -> int:
     # the prefill through each route, and decode alone
     budget = DENSE_PROMPT + DENSE_NEW
     kernels.reset_launches()
-    d_logits_k, d_caches_k = make_prefill_step(
+    d_logits_k, d_caches_k, _ = make_prefill_step(
         dense, max_seq=budget, use_flash=True)({"tokens": d_prompts})
     torch.cuda.synchronize()
     prefill_launches = kernels.LAUNCHES["flash_attention"]
     kernels.reset_launches()
     t = time.perf_counter()
-    d_logits_p, _ = make_prefill_step(dense, max_seq=budget)(
+    d_logits_p, _, _ = make_prefill_step(dense, max_seq=budget)(
         {"tokens": d_prompts})
     torch.cuda.synchronize()
     d_plain_prefill_s = time.perf_counter() - t
@@ -3759,8 +4097,9 @@ def main() -> int:
                                       use_flash=True)
             o_p, _ = attention.attend(p["mixer"], d_cfg, h, positions=pos)
             d_layer = max(d_layer, rel_l2(o_k, o_p))
-            x, _ = transformer.block_apply(d_bc, d_cfg, p, x, mode="train",
-                                           positions=pos, use_flash=True)
+            x, _, _ = transformer.block_apply(d_bc, d_cfg, p, x,
+                                              mode="train", positions=pos,
+                                              use_flash=True)
         del x, h, o_k, o_p
     # the f32 twin: the same weights, f32 parameters and activations, all
     # 48 layers (35.3 GB beside the 17.7 GB of bf16 weights)
@@ -3774,7 +4113,8 @@ def main() -> int:
     kernels.reset_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
-    tw_k, _ = make_prefill_step(twin, use_flash=True)({"tokens": d_prompts})
+    tw_k, _, _ = make_prefill_step(twin, use_flash=True)(
+        {"tokens": d_prompts})
     torch.cuda.synchronize()
     twin_ms = (time.perf_counter() - t) * 1e3
     f32_launches = kernels.LAUNCHES["flash_attention"]
@@ -3783,7 +4123,7 @@ def main() -> int:
              f"per layer: {f32_launches}")
     torch.cuda.synchronize()
     t = time.perf_counter()
-    tw_p, _ = make_prefill_step(twin)({"tokens": d_prompts})
+    tw_p, _, _ = make_prefill_step(twin)({"tokens": d_prompts})
     torch.cuda.synchronize()
     twin_plain_ms = (time.perf_counter() - t) * 1e3
     log(f"[dense] the f32 twin's prefill ({DENSE_BATCH} x {DENSE_PROMPT}, "
@@ -3809,7 +4149,8 @@ def main() -> int:
     del twin, tw_k, tw_p
     gc.collect()
     torch.cuda.empty_cache()
-    _, d_caches = make_prefill_step(dense, max_seq=budget, use_flash=True)(
+    _, d_caches, _ = make_prefill_step(dense, max_seq=budget,
+                                       use_flash=True)(
         {"tokens": d_prompts})
     device_profile("dense-prefill", lambda: make_prefill_step(
         dense, max_seq=budget, use_flash=True)({"tokens": d_prompts}), card)
@@ -4015,6 +4356,11 @@ def main() -> int:
     t13 = time.perf_counter()
     training_phases(card)
     log(f"[train] phases 13a-13e in {time.perf_counter() - t13:.1f} s")
+
+    # ---- 14: the other model families served ----------------------------
+    t14 = time.perf_counter()
+    family_phases(card)
+    log(f"[family] phase 14 in {time.perf_counter() - t14:.1f} s")
 
     result = {"kernels": [
         {"name": "trap_fitness", "route": "cuda",

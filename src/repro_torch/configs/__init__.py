@@ -2,10 +2,12 @@
 
 ``get_config(name)`` returns the published configuration and
 ``get_config(name, smoke=True)`` the reduced same-family variant, as
-``repro/configs/__init__.py`` does. ``ARCHS`` lists all ten ids. Ported:
-``rwkv6-3b`` (the ``ssm`` family) and the ``dense`` family, ``yi-9b``,
-``qwen3-32b``, ``granite-34b`` and ``minicpm-2b``; the others raise
-``NotImplementedError`` naming the ROADMAP item that brings their layers.
+``repro/configs/__init__.py`` does. ``ARCHS`` lists all ten ids, every
+one ported: the ``dense`` family (``yi-9b``, ``qwen3-32b``,
+``granite-34b``, ``minicpm-2b``), the ``moe`` one (``olmoe-1b-7b``,
+``dbrx-132b``), ``rwkv6-3b`` (``ssm``), ``hymba-1.5b`` (``hybrid``),
+``seamless-m4t-large-v2`` (``encdec``) and ``llama-3.2-vision-90b``
+(``vlm``).
 """
 from __future__ import annotations
 
@@ -27,31 +29,23 @@ ARCHS: List[str] = [
     "hymba-1.5b",
 ]
 
-_QUEUE_A = "ROADMAP Queue A item 14"
-# what each unported arch waits for
-UNPORTED: Dict[str, str] = {
-    "seamless-m4t-large-v2": f"{_QUEUE_A}: the encoder-decoder plan and "
-                             f"cross-attention",
-    "dbrx-132b": f"{_QUEUE_A}: models/moe.py",
-    "olmoe-1b-7b": f"{_QUEUE_A}: models/moe.py",
-    "llama-3.2-vision-90b": f"{_QUEUE_A}: the cross-attention plan",
-    "hymba-1.5b": f"{_QUEUE_A}: models/ssm.py and the hybrid plan",
-}
 # arch id -> module of its CONFIG
 _MODULES: Dict[str, str] = {
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "dbrx-132b": "dbrx_132b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "granite-34b": "granite_34b",
     "yi-9b": "yi_9b",
     "qwen3-32b": "qwen3_32b",
     "minicpm-2b": "minicpm_2b",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
     "rwkv6-3b": "rwkv6_3b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; have {ARCHS}")
-    if name in UNPORTED:
-        raise NotImplementedError(f"{name} is not ported yet: "
-                                  f"{UNPORTED[name]}")
     cfg = importlib.import_module(f".{_MODULES[name]}", __name__).CONFIG
     return cfg.reduced() if smoke else cfg

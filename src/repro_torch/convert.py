@@ -14,9 +14,10 @@ For the models, :func:`model_params_from_numpy` loads the reference's
 parameter tree (numpy leaves, each segment's blocks stacked on a leading
 ``layers`` axis) into a port :class:`~repro_torch.models.Model`, and
 :func:`caches_to_numpy` / :func:`caches_from_numpy` carry the decode
-caches (per segment, a tuple of dicts of stacked arrays: RWKV states and
-attention ring caches) both ways, each leaf's dtype set by its name. bf16
-leaves go through f32, which holds them exactly.
+caches (per segment, a tuple of dicts of stacked arrays: RWKV states,
+attention ring caches, hymba's ``{'attn', 'ssm'}`` pairs, None at
+cross-attention positions) both ways, each leaf's dtype set by its name.
+bf16 leaves go through f32, which holds them exactly.
 :func:`train_state_from_numpy` carries the reference's ``TrainState``
 (parameters, AdamW moments, master copy and step) into the port's, whose
 trees are dicts by parameter name, one tensor a layer;
@@ -208,38 +209,65 @@ def _load(dst: Any, src: Any, layer: Optional[int], where: str) -> None:
         _load(dst[key], src[key], layer, f"{where}.{key}")
 
 
+def _load_tree(dst: Any, src: Any, where: str) -> None:
+    """``_load`` over a model tree: a ``segments`` entry (the port's list
+    over layers of each segment's blocks) takes the reference's stacked
+    blocks layer by layer."""
+    if not isinstance(dst, dict):
+        _load(dst, src, None, where)
+        return
+    if set(dst) != set(src):
+        raise ValueError(f"{where}: keys {sorted(src)}, want {sorted(dst)}")
+    for key, sub in dst.items():
+        if key != "segments":
+            _load_tree(sub, src[key], f"{where}.{key}".lstrip("."))
+            continue
+        for si, seg in enumerate(sub):
+            for layer, blocks in enumerate(seg):
+                for j, block in enumerate(blocks):
+                    _load(block, src[key][si][j], layer,
+                          f"{where}.segments[{si}][{j}][layer {layer}]"
+                          .lstrip("."))
+
+
 def model_params_from_numpy(model, tree: Mapping[str, Any]) -> None:
     """Copy the reference's parameters (``Model.init``'s tree with numpy
     leaves) into ``model`` in place, layer by layer."""
-    dst = model.tree()
-    for key in dst:
-        if key != "segments":
-            _load(dst[key], tree[key], None, key)
-    for si, seg in enumerate(dst["segments"]):
-        for layer, blocks in enumerate(seg):
-            for j, block in enumerate(blocks):
-                _load(block, tree["segments"][si][j], layer,
-                      f"segments[{si}][{j}][layer {layer}]")
+    _load_tree(model.tree(), tree, "")
 
 
-# cache leaves whose dtype is not the activations': the RWKV state and the
-# ring caches' positions
-CACHE_DTYPES = {"wkv": torch.float32, "pos": torch.int32}
+# cache leaves whose dtype is not the activations': the RWKV and SSM
+# states and the ring caches' positions
+CACHE_DTYPES = {"wkv": torch.float32, "h": torch.float32,
+                "pos": torch.int32}
+
+
+def _map_caches(fn, caches: List) -> List:
+    """``fn(key, leaf)`` over every leaf of the caches (per segment, a
+    tuple of nested dicts, None at cross-attention positions)."""
+    def walk(key, c):
+        if c is None:
+            return None
+        if isinstance(c, dict):
+            return {k: walk(k, v) for k, v in c.items()}
+        return fn(key, c)
+
+    return [tuple(walk(None, c) for c in seg) for seg in caches]
 
 
 def caches_to_numpy(caches: List) -> List:
     """The port's caches as numpy (bf16 as f32), in the reference's
     layout."""
-    return [tuple({k: (v.detach().float() if v.dtype == torch.bfloat16
-                       else v.detach()).cpu().numpy()
-                   for k, v in c.items()} for c in seg) for seg in caches]
+    return _map_caches(lambda _, v: (
+        v.detach().float() if v.dtype == torch.bfloat16
+        else v.detach()).cpu().numpy(), caches)
 
 
 def caches_from_numpy(caches: List, activation_dtype: torch.dtype,
                       device: DeviceLike = None) -> List:
-    """The reference's caches as tensors: ``wkv`` f32, ``pos`` int32, the
-    others (``k``, ``v``, ``tm_prev``, ``cm_prev``) in
-    ``activation_dtype``."""
+    """The reference's caches as tensors: ``wkv`` and ``h`` f32, ``pos``
+    int32, the others (``k``, ``v``, ``tm_prev``, ``cm_prev``, ``conv``)
+    in ``activation_dtype``; None stays None."""
     device = resolve_device(device)
 
     def leaf(key, a) -> torch.Tensor:
@@ -249,8 +277,7 @@ def caches_from_numpy(caches: List, activation_dtype: torch.dtype,
         return torch.from_numpy(np.ascontiguousarray(a)).to(dtype=dtype,
                                                              device=device)
 
-    return [tuple({k: leaf(k, v) for k, v in c.items()} for c in seg)
-            for seg in caches]
+    return _map_caches(leaf, caches)
 
 
 # ---------------------------------------------------------------------------
@@ -309,8 +336,11 @@ def params_to_numpy(model, params: Mapping[str, torch.Tensor]) -> Dict:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
-    if "segments" in tree:   # {si: {j: block}} -> [(block, ...), ...]
-        segs = tree["segments"]
-        tree["segments"] = [tuple(segs[si][j] for j in sorted(segs[si]))
-                            for si in sorted(segs)]
+    # {si: {j: block}} -> [(block, ...), ...], the decoder's and the
+    # encoder's
+    for node in (tree, tree.get("encoder", {})):
+        if "segments" in node:
+            segs = node["segments"]
+            node["segments"] = [tuple(segs[si][j] for j in sorted(segs[si]))
+                                for si in sorted(segs)]
     return tree

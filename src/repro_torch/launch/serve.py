@@ -8,24 +8,29 @@ and on the CPU, at the reduced size:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --device cpu
 
-The ported archs are rwkv6-3b (the default) and the dense ones (yi-9b,
-qwen3-32b, granite-34b, minicpm-2b). The prefill runs every attention
-layer through the flash-attention kernel and every RWKV layer's WKV
-through its kernel (``serve(use_flash=False, use_rwkv_kernel=False)``
-runs the plain versions instead); decode steps in plain PyTorch, as the
+Every arch of ``configs.ARCHS`` serves (rwkv6-3b by default). An
+encoder-decoder arch (seamless-m4t-large-v2) also takes ``src_embed``
+frames, a vision arch (llama-3.2-vision-90b) ``vision_embed`` patches,
+both drawn by :func:`make_inputs`; hymba's meta tokens sit before the
+prompt, so its ring caches hold them and its decode positions count
+them. The prefill runs every causal attention layer without a window
+through the flash-attention kernel and every RWKV layer's WKV through its
+kernel (``serve(use_flash=False, use_rwkv_kernel=False)`` runs the plain
+versions instead); windowed, bidirectional and cross-attention take the
+plain route, as in the reference; decode steps in plain PyTorch, as the
 reference does.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .._device import DeviceLike, resolve_device
 from ..configs import ARCHS, get_config
-from ..models import Model, build_model
+from ..models import Model, ModelConfig, build_model
 from .steps import make_decode_step, make_prefill_step
 
 
@@ -35,28 +40,40 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(model: Model, prompts: torch.Tensor, new_tokens: int, *,
-             use_flash: bool = True, use_rwkv_kernel: bool = True
+             use_flash: bool = True, use_rwkv_kernel: bool = True,
+             src_embed: Optional[torch.Tensor] = None,
+             vision_embed: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """Prefill ``prompts`` (B, S) and decode ``new_tokens`` greedily (the
-    first from the prefill's logits). Returns the tokens (B, new_tokens)
-    and the wall seconds of the prefill and of the decode steps, each
-    ending in a device synchronise."""
+    first from the prefill's logits). ``src_embed`` (an encoder-decoder
+    arch's source) and ``vision_embed`` (a vision arch's patches) join the
+    prefill's batch; the decode positions count the meta tokens. Returns
+    the tokens (B, new_tokens) and the wall seconds of the prefill (the
+    encoder and the cross keys and values included) and of the decode
+    steps, each ending in a device synchronise."""
     batch, prompt_len = prompts.shape
+    meta = model.cfg.n_meta_tokens
     prefill = make_prefill_step(model, max_seq=prompt_len + new_tokens,
                                 use_flash=use_flash,
                                 use_rwkv_kernel=use_rwkv_kernel)
     decode = make_decode_step(model)
+    b = {"tokens": prompts}
+    if src_embed is not None:
+        b["src_embed"] = src_embed
+    if vision_embed is not None:
+        b["vision_embed"] = vision_embed
     dev = prompts.device
     t0 = time.perf_counter()
-    logits, caches = prefill({"tokens": prompts})
+    logits, caches, cross_kvs = prefill(b)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     tok = logits.argmax(-1)[:, None]
     out = [tok]
     t0 = time.perf_counter()
     for t in range(new_tokens - 1):
-        logits, caches = decode({"token": tok, "index": prompt_len + t,
-                                 "caches": caches})
+        logits, caches = decode({"token": tok,
+                                 "index": prompt_len + t + meta,
+                                 "caches": caches, "cross_kvs": cross_kvs})
         tok = logits.argmax(-1)[:, None]
         out.append(tok)
     _sync(dev)
@@ -66,13 +83,41 @@ def generate(model: Model, prompts: torch.Tensor, new_tokens: int, *,
                                    "decode_steps": new_tokens - 1}
 
 
+# source frames of an encoder-decoder arch's stub frontend, as the
+# reference serves them
+SRC_LEN = 16
+
+
+def make_inputs(cfg: ModelConfig, batch: int, prompt_len: int, seed: int,
+                device: torch.device
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prompts (B, S) from a generator seeded ``seed``, and the arch's
+    other inputs from the same generator: ``src_embed`` (B, SRC_LEN, d)
+    for an encoder-decoder arch, ``vision_embed`` (B, vision_seq, d) for
+    a vision arch, normal draws in the activations' dtype."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=gen, device=device)
+    extra = {}
+    if cfg.n_encoder_layers:
+        extra["src_embed"] = torch.randn(
+            (batch, SRC_LEN, cfg.d_model), generator=gen,
+            device=device).to(cfg.activation_dtype)
+    if cfg.family == "vlm":
+        extra["vision_embed"] = torch.randn(
+            (batch, cfg.vision_seq, cfg.d_model), generator=gen,
+            device=device).to(cfg.activation_dtype)
+    return prompts, extra
+
+
 def serve(arch: str = "rwkv6-3b", smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, new_tokens: int = 16, seed: int = 0,
           greedy: bool = True, verbose: bool = True,
           device: DeviceLike = None, use_flash: bool = True,
           use_rwkv_kernel: bool = True) -> torch.Tensor:
-    """Weights from a generator seeded ``seed``, prompts from one seeded
-    ``seed + 1``; returns the (B, new_tokens) greedy tokens."""
+    """Weights from a generator seeded ``seed``, the inputs
+    (:func:`make_inputs`) from one seeded ``seed + 1``; returns the
+    (B, new_tokens) greedy tokens."""
     if not greedy:
         raise NotImplementedError("sampling is not ported: the reference "
                                   "serves greedy tokens only")
@@ -80,12 +125,9 @@ def serve(arch: str = "rwkv6-3b", smoke: bool = True, batch: int = 4,
     dev = resolve_device(device)
     model = build_model(cfg, dev, torch.Generator(device=dev).manual_seed(
         seed))
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
-                            generator=torch.Generator(
-                                device=dev).manual_seed(seed + 1),
-                            device=dev)
+    prompts, extra = make_inputs(cfg, batch, prompt_len, seed + 1, dev)
     toks, t = generate(model, prompts, new_tokens, use_flash=use_flash,
-                       use_rwkv_kernel=use_rwkv_kernel)
+                       use_rwkv_kernel=use_rwkv_kernel, **extra)
     if verbose:
         steps = t["decode_steps"]
         print(f"{arch}: prefill({batch}x{prompt_len}) "
@@ -100,7 +142,8 @@ def serve(arch: str = "rwkv6-3b", smoke: bool = True, batch: int = 4,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCHS, default="rwkv6-3b")
+    ap.add_argument("--arch", choices=ARCHS, default="rwkv6-3b",
+                    help="one of the ten archs (default rwkv6-3b)")
     ap.add_argument("--full", action="store_true",
                     help="the published size (default: the reduced one)")
     ap.add_argument("--batch", type=int, default=4)

@@ -194,13 +194,19 @@ def _micro(x: torch.Tensor, k: int, i: int) -> torch.Tensor:
 def make_prefill_step(model: Model, *, max_seq: Optional[int] = None,
                       use_flash: bool = False,
                       use_rwkv_kernel: bool = False
-                      ) -> Callable[[Dict], Tuple[torch.Tensor, List]]:
-    """prefill(batch) -> (last-position logits (B, V), caches). With
-    ``use_flash`` every attention layer runs the flash-attention kernel,
-    with ``use_rwkv_kernel`` every RWKV layer the WKV kernel; each is
-    ignored by the blocks without its mixer."""
+                      ) -> Callable[[Dict], Tuple[torch.Tensor, List,
+                                                  Optional[List]]]:
+    """prefill(batch) -> (last-position logits (B, V), caches, cross_kvs
+    or None). ``max_seq`` is the decode budget in tokens (the prompt and
+    the new tokens); the ring caches hold the model's meta tokens
+    besides. With ``use_flash`` every causal attention layer without a
+    window runs the flash-attention kernel, with ``use_rwkv_kernel`` every
+    RWKV layer the WKV kernel; each is ignored by the blocks without its
+    mixer."""
+    if max_seq is not None:
+        max_seq += model.cfg.n_meta_tokens
 
-    def prefill(batch: Dict) -> Tuple[torch.Tensor, List]:
+    def prefill(batch: Dict) -> Tuple[torch.Tensor, List, Optional[List]]:
         return model.prefill(batch, use_flash=use_flash,
                              use_rwkv_kernel=use_rwkv_kernel,
                              max_seq=max_seq)
@@ -210,9 +216,11 @@ def make_prefill_step(model: Model, *, max_seq: Optional[int] = None,
 
 def make_decode_step(model: Model
                      ) -> Callable[[Dict], Tuple[torch.Tensor, List]]:
-    """decode({'token', 'index', 'caches'}) -> (logits (B, V), caches)."""
+    """decode({'token', 'index', 'caches'[, 'cross_kvs']}) -> (logits
+    (B, V), caches); ``index`` counts the meta tokens."""
 
     def decode(batch: Dict) -> Tuple[torch.Tensor, List]:
-        return model.decode(batch["token"], batch["index"], batch["caches"])
+        return model.decode(batch["token"], batch["index"], batch["caches"],
+                            batch.get("cross_kvs"))
 
     return decode

@@ -1,5 +1,5 @@
-"""Attention: GQA, MQA and MHA, qk-norm, sliding windows, the ring-buffer
-KV cache.
+"""Attention: GQA, MQA and MHA, qk-norm, sliding windows with meta tokens,
+cross-attention, the ring-buffer KV cache.
 
 Port of ``repro/models/attention.py``. GQA groups the query heads as
 (B, S, Kv, G, hd), G = H / Kv; the query head h reads KV head h // G.
@@ -12,13 +12,17 @@ with ``use_flash=True`` (:mod:`repro_torch.kernels.flash_attention`), as
 the reference routes it (``attention.py:251``): causal, self-attention,
 no window. Otherwise sequences of ``CHUNKED_THRESHOLD`` or more tokens
 take the q-chunked path and shorter ones the whole score matrix.
+Cross-attention (``cross_src``, or a precomputed ``cross_cache`` in
+decode) reads its keys and values from a source sequence, without rope
+and without a causal mask; ``Attention(cross=True)`` adds the tanh
+``gate`` (zero at init) of the vision model's cross layers.
 
 The ring cache: slot = position % W, with ``pos`` holding each slot's
 position (-1 for an empty slot), so the mask is exact; full attention is
 W = max_seq. Unlike the reference, which returns a new cache,
 :func:`decode_step` writes the new key and value into the cache in place
 and returns it: a new cache would copy every layer's keys and values per
-token. Cross-attention is not ported (ROADMAP Queue A item 14).
+token.
 """
 from __future__ import annotations
 
@@ -35,12 +39,11 @@ NEG = -1e30
 # memory is (B, Kv, G, Q_CHUNK, Sk) rather than (B, Kv, G, Sq, Sk).
 CHUNKED_THRESHOLD = 2048
 Q_CHUNK = 512
-_CROSS = ("cross-attention is not ported yet: ROADMAP Queue A item 14 "
-          "(the encoder-decoder and vision plans)")
 
 
 class Attention(Params):
-    def __init__(self, cfg: ModelConfig, mk: Maker, prefix: str):
+    def __init__(self, cfg: ModelConfig, mk: Maker, prefix: str,
+                 cross: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.hd
         h, kv = cfg.n_heads, cfg.n_kv_heads
@@ -53,6 +56,9 @@ class Attention(Params):
                                            1.0))
             self._param("k_norm.scale", mk(f"{prefix}.k_norm.scale", (hd,),
                                            1.0))
+        if cross:
+            # the vision model's tanh gate, zero at init
+            self._param("gate", mk(f"{prefix}.gate", (1,), 0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -157,13 +163,15 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # Projections
 # ---------------------------------------------------------------------------
 def _project_qkv(p: Tree, cfg: ModelConfig, x: torch.Tensor,
-                 q_pos: torch.Tensor, kv_pos: torch.Tensor, use_rope: bool
+                 kv_src: torch.Tensor, q_pos: torch.Tensor,
+                 kv_pos: torch.Tensor, use_rope: bool
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
+    sk = kv_src.shape[1]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p["wq"]).reshape(b, s, h, hd)
-    k = (x @ p["wk"]).reshape(b, s, kv, hd)
-    v = (x @ p["wv"]).reshape(b, s, kv, hd)
+    k = (kv_src @ p["wk"]).reshape(b, sk, kv, hd)
+    v = (kv_src @ p["wv"]).reshape(b, sk, kv, hd)
     if cfg.qk_norm:
         q = rmsnorm_1d(p["q_norm.scale"], q, cfg.norm_eps)
         k = rmsnorm_1d(p["k_norm.scale"], k, cfg.norm_eps)
@@ -179,7 +187,10 @@ def _project_qkv(p: Tree, cfg: ModelConfig, x: torch.Tensor,
 
 def _out(p: Tree, y: torch.Tensor) -> torch.Tensor:
     b, s, h, hd = y.shape
-    return y.reshape(b, s, h * hd) @ p["wo"]
+    o = y.reshape(b, s, h * hd) @ p["wo"]
+    if "gate" in p:
+        o = torch.tanh(p["gate"].float()).to(o.dtype) * o
+    return o
 
 
 # ---------------------------------------------------------------------------
@@ -191,24 +202,30 @@ def attend(p: Tree, cfg: ModelConfig, x: torch.Tensor, *,
            cross_src: Optional[torch.Tensor] = None, use_rope: bool = True,
            use_flash: bool = False, make_cache: int = 0
            ) -> Tuple[torch.Tensor, Optional[Tree]]:
-    """Self-attention over x (B, S, d). ``make_cache`` > 0 also returns a
-    ring cache of that window holding the last positions (prefill).
-    Returns (out, cache or None)."""
-    if cross_src is not None:
-        raise NotImplementedError(_CROSS)
+    """Attention over x (B, S, d): self-attention, or cross-attention over
+    ``cross_src`` (B, S_src, d) (no rope, not causal). ``make_cache`` > 0
+    also returns a ring cache of that window holding the last positions
+    (prefill). Returns (out, cache or None)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(p, cfg, x, positions, positions, use_rope)
+    if cross_src is not None:
+        kv_src = cross_src
+        kv_pos = torch.arange(kv_src.shape[1], dtype=torch.int32,
+                              device=x.device)
+        causal, use_rope = False, False
+    else:
+        kv_src, kv_pos = x, positions
+    q, k, v = _project_qkv(p, cfg, x, kv_src, positions, kv_pos, use_rope)
     scale = 1.0 / cfg.hd ** 0.5
-    if use_flash and causal and window == 0:
+    if use_flash and causal and cross_src is None and window == 0:
         y = flash_ops.flash_attention(q, k, v, causal=True, scale=scale)
     elif s >= CHUNKED_THRESHOLD:
-        y = _sdpa_chunked(q, k, v, q_pos=positions, kv_pos=positions,
+        y = _sdpa_chunked(q, k, v, q_pos=positions, kv_pos=kv_pos,
                           causal=causal, window=window, n_meta=n_meta,
                           scale=scale)
     else:
-        y = _sdpa(q, k, v, _mask(positions, positions, causal, window,
+        y = _sdpa(q, k, v, _mask(positions, kv_pos, causal, window,
                                  n_meta), scale)
     out = _out(p, y)
     if not make_cache:
@@ -237,12 +254,22 @@ def decode_step(p: Tree, cfg: ModelConfig, x: torch.Tensor, cache: Tree,
                 ) -> Tuple[torch.Tensor, Tree]:
     """One decode step. x (B, 1, d); ``index`` (an int or a 0-d int
     tensor) the position of this token. Writes its key and value into
-    ``cache`` in place and returns (out, cache)."""
+    ``cache`` in place and returns (out, cache). With ``cross_cache``
+    (``{'k', 'v'}`` (B, S_src, Kv, hd), from :func:`precompute_cross_kv`)
+    it attends over the source instead and returns ``cache`` as it
+    came."""
     if cross_cache is not None:
-        raise NotImplementedError(_CROSS)
+        b = x.shape[0]
+        q = (x @ p["wq"]).reshape(b, 1, cfg.n_heads, cfg.hd)
+        if cfg.qk_norm:
+            q = rmsnorm_1d(p["q_norm.scale"], q, cfg.norm_eps)
+        k, v = cross_cache["k"], cross_cache["v"]
+        mask = torch.ones((1, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        return _out(p, _sdpa(q, k, v, mask, 1.0 / cfg.hd ** 0.5)), cache
     index = int(index)
     pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(p, cfg, x, pos, pos, use_rope)
+    q, k_new, v_new = _project_qkv(p, cfg, x, x, pos, pos, use_rope)
     slot = _slot(index, cache["k"].shape[1], n_meta)
     cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
@@ -250,3 +277,15 @@ def decode_step(p: Tree, cfg: ModelConfig, x: torch.Tensor, cache: Tree,
     mask = _mask(pos, cache["pos"], True, window, n_meta)
     y = _sdpa(q, cache["k"], cache["v"], mask, 1.0 / cfg.hd ** 0.5)
     return _out(p, y), cache
+
+
+def precompute_cross_kv(p: Tree, cfg: ModelConfig, src: torch.Tensor
+                        ) -> Tree:
+    """The source's keys and values (B, S_src, Kv, hd) for a
+    cross-attention layer's decode steps."""
+    b, s, _ = src.shape
+    k = (src @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = (src @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = rmsnorm_1d(p["k_norm.scale"], k, cfg.norm_eps)
+    return {"k": k, "v": v}

@@ -27,6 +27,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from .. import rand
+
 Maker = Callable[..., torch.Tensor]
 Tree = Dict[str, torch.Tensor]
 
@@ -86,6 +88,22 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Whether the arch's state is bounded in the context (an SSM state
+        or a sliding window)."""
+        return self.family in ("ssm", "hybrid")
+
+    def window_for_layer(self, i: int) -> int:
+        """Attention window of layer i (0: the whole sequence)."""
+        if self.sliding_window == 0 or i in self.global_layers:
+            return 0
+        return self.sliding_window
 
     def reduced(self, **overrides) -> "ModelConfig":
         """Tiny same-family variant for CPU tests (the reference's
@@ -247,3 +265,28 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     lowers ``jax.nn.sigmoid``, which in bf16 rounds differently from
     ``torch.sigmoid`` in about a third of the values."""
     return 1 / (1 + torch.exp(-x))
+
+
+class _FusedMulAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        return rand.fma(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return g * b, g * a, g
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of f32 tensors of one shape, rounded once, as XLA's
+    compiled form fuses a product into its add, with the gradient of the
+    unfused expression. On the card ``torch.addcmul``, whose kernel the
+    compiler contracts into one ``fmaf`` (``chip_smoke.py`` phase 14 and
+    ``tests/test_torch_cuda.py`` hold it bit for bit against
+    :func:`repro_torch.rand.fma`); elsewhere ``rand.fma``, exact in f64
+    with a round-to-odd sum."""
+    if a.is_cuda:
+        return torch.addcmul(c, a, b)
+    return _FusedMulAdd.apply(a, b, c)

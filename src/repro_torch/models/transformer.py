@@ -1,21 +1,28 @@
 """Layer-stack assembly: the block plan, its parameters, caches and
 application.
 
-Port of ``repro/models/transformer.py`` for the ``ssm`` and ``dense``
-families. An ``ssm`` plan is one :class:`Segment` of ``n_layers`` blocks,
-each an RWKV6 TimeMix (mixer ``rwkv``) and ChannelMix (FFN ``rwkv_cm``); a
-``dense`` plan one segment of causal self-attention (mixer ``attn``,
-window ``sliding_window``) and an MLP (FFN ``mlp``). Every block is
-pre-norm residual. The other families raise ``NotImplementedError``
-naming the ROADMAP item that brings their layers. Parameters are one
-:class:`Block` per layer (the reference stacks them on a leading
-``layers`` axis and scans); caches keep the reference's stacked layout,
-per segment a tuple (one entry per pattern position) of dicts of (L, ...)
-tensors. :func:`plan_apply` is a loop over the layers (no scan); in train
-mode it recomputes each layer's activations in the backward pass
-(``remat_mode="layer"``, the reference's ``remat=True``) or also groups of
-layers (``"nested"``), through ``torch.utils.checkpoint``. ``mode`` is
-train | prefill | decode.
+Port of ``repro/models/transformer.py``. A model is a *plan*: a list of
+:class:`Segment`s, each ``n`` repeats of a *pattern* of :class:`BlockCfg`
+(one block, or the vision model's superblock of self-attention blocks
+and a gated cross-attention block). Mixers: ``attn`` (causal
+self-attention, window and meta tokens static per segment), ``bidir``
+(the encoder's), ``cross`` (gated cross-attention over a source),
+``rwkv`` (RWKV6 TimeMix) and ``hybrid`` (hymba's attention and SSM heads
+in parallel); FFNs: ``mlp``, ``moe`` and ``rwkv_cm``; an encoder-decoder
+block (``has_cross``) adds cross-attention between its mixer and its FFN.
+Every block is pre-norm residual; an MoE block also returns its
+router's auxiliary losses (the reference's other blocks return zeros,
+which add nothing to the sum).
+
+Parameters are one :class:`Block` per layer (the reference stacks them on
+a leading ``layers`` axis and scans); caches keep the reference's stacked
+layout, per segment a tuple (one entry per pattern position) of dicts of
+(L, ...) tensors, ``None`` at cross positions (their keys and values are
+the model's ``cross_kvs``). :func:`plan_apply` is a loop over the layers
+(no scan); in train mode it recomputes each layer's activations in the
+backward pass (``remat_mode="layer"``, the reference's ``remat=True``) or
+also groups of layers (``"nested"``), through ``torch.utils.checkpoint``.
+``mode`` is train | prefill | decode.
 """
 from __future__ import annotations
 
@@ -26,8 +33,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from . import attention, mlp, rwkv
-from .common import Maker, ModelConfig, rmsnorm
+from . import attention, mlp, moe, rwkv, ssm
+from .common import Maker, ModelConfig, fma, rmsnorm, rmsnorm_1d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,71 +52,118 @@ class Segment:
     n: int
 
 
-_UNPORTED = {
-    "moe": "ROADMAP Queue A item 14: models/moe.py",
-    "hybrid": "ROADMAP Queue A item 14: models/ssm.py and the hybrid plan",
-    "vlm": "ROADMAP Queue A item 14: the cross-attention plan",
-    "encdec": "ROADMAP Queue A item 14: the encoder-decoder plan",
-}
-_BLOCKS = {("rwkv", "rwkv_cm"), ("attn", "mlp")}
-# the auxiliary losses a block returns (the MoE router's; zero for the
-# ported families)
+# the auxiliary losses a block returns (the MoE router's)
 AUX_KEYS = ("load_balance", "router_z", "dropped_frac")
 REMAT_MODES = ("none", "layer", "nested")
 
 
 def make_plan(cfg: ModelConfig) -> List[Segment]:
-    """Decoder plan for the configured family (``ssm`` and ``dense``)."""
+    """Decoder (or backbone) plan for the configured family."""
     if cfg.family == "ssm":
         return [Segment((BlockCfg(mixer="rwkv", ffn="rwkv_cm"),),
                         cfg.n_layers)]
-    if cfg.family == "dense" and not cfg.is_moe:
-        return [Segment((BlockCfg(mixer="attn", ffn="mlp",
-                                  window=cfg.sliding_window),),
+    ffn = "moe" if cfg.is_moe else "mlp"
+    if cfg.family == "hybrid":
+        # one segment per run of layers with the same window
+        segs: List[Segment] = []
+        i = 0
+        while i < cfg.n_layers:
+            w = cfg.window_for_layer(i)
+            j = i
+            while j < cfg.n_layers and cfg.window_for_layer(j) == w:
+                j += 1
+            segs.append(Segment((BlockCfg(mixer="hybrid", window=w,
+                                          ffn=ffn),), j - i))
+            i = j
+        return segs
+    if cfg.family == "vlm" and cfg.cross_attn_every:
+        k = cfg.cross_attn_every
+        if cfg.n_layers % k:
+            raise ValueError(f"{cfg.n_layers} layers do not divide into "
+                             f"superblocks of {k}")
+        pattern = tuple([BlockCfg(mixer="attn", ffn=ffn)] * (k - 1)
+                        + [BlockCfg(mixer="cross", ffn=ffn)])
+        return [Segment(pattern, cfg.n_layers // k)]
+    if cfg.family == "encdec":
+        return [Segment((BlockCfg(mixer="attn", ffn=ffn, has_cross=True),),
                         cfg.n_layers)]
-    family = "moe" if cfg.is_moe else cfg.family
-    where = _UNPORTED.get(family, "ROADMAP Queue A item 14")
-    raise NotImplementedError(f"the {family} family is not ported yet: "
-                              f"{where}")
+    return [Segment((BlockCfg(mixer="attn", ffn=ffn,
+                              window=cfg.sliding_window),), cfg.n_layers)]
+
+
+def make_encoder_plan(cfg: ModelConfig) -> List[Segment]:
+    ffn = "moe" if cfg.is_moe else "mlp"
+    return [Segment((BlockCfg(mixer="bidir", ffn=ffn, use_rope=True),),
+                    cfg.n_encoder_layers)]
 
 
 def plan_layers(plan: List[Segment]) -> int:
     return sum(len(s.pattern) * s.n for s in plan)
 
 
-def _check_block(bc: BlockCfg) -> None:
-    if (bc.mixer, bc.ffn) not in _BLOCKS or bc.has_cross:
-        raise NotImplementedError(f"block {bc} is not ported yet: ROADMAP "
-                                  f"Queue A item 14")
-
-
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
+class Hybrid(nn.Module):
+    """hymba's mixer: attention and SSM heads over the same input, the
+    attention output normalised, the two averaged with weights ``beta``."""
+
+    def __init__(self, cfg: ModelConfig, mk: Maker, prefix: str):
+        super().__init__()
+        self.attn = attention.Attention(cfg, mk, f"{prefix}.attn")
+        self.ssm = ssm.SSM(cfg, mk, f"{prefix}.ssm")
+        self.attn_norm = nn.Parameter(mk(f"{prefix}.attn_norm.scale",
+                                         (cfg.d_model,), 1.0))
+        self.beta = nn.Parameter(mk(f"{prefix}.beta", (2,), 1.0))
+
+    def tree(self) -> Dict[str, Any]:
+        return {"attn": self.attn.tree(), "ssm": self.ssm.tree(),
+                "attn_norm.scale": self.attn_norm, "beta": self.beta}
+
+
 class Block(nn.Module):
-    """The parameters of one pre-norm residual block (ln1, mixer, ln2,
-    ffn); :func:`block_apply` computes it from :meth:`tree`."""
+    """The parameters of one pre-norm residual block (ln1, mixer, the
+    cross-attention of an encoder-decoder block, ln2, ffn);
+    :func:`block_apply` computes it from :meth:`tree`."""
 
     def __init__(self, cfg: ModelConfig, bc: BlockCfg, mk: Maker,
                  prefix: str):
         super().__init__()
-        _check_block(bc)
         d = cfg.d_model
         self.ln1 = nn.Parameter(mk(f"{prefix}.ln1.norm.scale", (d,), 1.0))
-        if bc.mixer == "rwkv":
-            self.mixer = rwkv.TimeMix(cfg, mk, f"{prefix}.tm")
-        else:
+        if bc.mixer in ("attn", "bidir"):
             self.mixer = attention.Attention(cfg, mk, f"{prefix}.attn")
+        elif bc.mixer == "cross":
+            self.mixer = attention.Attention(cfg, mk, f"{prefix}.xattn",
+                                             cross=True)
+        elif bc.mixer == "rwkv":
+            self.mixer = rwkv.TimeMix(cfg, mk, f"{prefix}.tm")
+        elif bc.mixer == "hybrid":
+            self.mixer = Hybrid(cfg, mk, prefix)
+        else:
+            raise ValueError(bc.mixer)
+        if bc.has_cross:
+            self.ln_cross = nn.Parameter(mk(f"{prefix}.ln_cross.norm.scale",
+                                            (d,), 1.0))
+            self.cross = attention.Attention(cfg, mk, f"{prefix}.cross")
         self.ln2 = nn.Parameter(mk(f"{prefix}.ln2.norm.scale", (d,), 1.0))
-        if bc.ffn == "rwkv_cm":
+        if bc.ffn == "mlp":
+            self.ffn = mlp.MLP(cfg, mk, f"{prefix}.mlp")
+        elif bc.ffn == "moe":
+            self.ffn = moe.MoE(cfg, mk, f"{prefix}.moe")
+        elif bc.ffn == "rwkv_cm":
             self.ffn = rwkv.ChannelMix(cfg, mk, f"{prefix}.cm")
         else:
-            self.ffn = mlp.MLP(cfg, mk, f"{prefix}.mlp")
+            raise ValueError(bc.ffn)
 
     def tree(self) -> Dict[str, Any]:
         """The parameters under the reference's keys."""
-        return {"ln1": {"scale": self.ln1}, "mixer": self.mixer.tree(),
-                "ln2": {"scale": self.ln2}, "ffn": self.ffn.tree()}
+        t = {"ln1": {"scale": self.ln1}, "mixer": self.mixer.tree(),
+             "ln2": {"scale": self.ln2}, "ffn": self.ffn.tree()}
+        if hasattr(self, "cross"):
+            t["ln_cross"] = {"scale": self.ln_cross}
+            t["cross"] = self.cross.tree()
+        return t
 
 
 def plan_params(cfg: ModelConfig, plan: List[Segment], mk: Maker,
@@ -135,77 +189,172 @@ def _cache_window(bc: BlockCfg, cfg: ModelConfig, max_seq: int) -> int:
 def blank_plan_cache(cfg: ModelConfig, plan: List[Segment], batch: int,
                      max_seq: int, device) -> List[Tuple[Any, ...]]:
     """Decode caches mirroring the plan (stacked per segment): ring caches
-    of ``max_seq`` slots (or the window) for attention, the recurrent
-    state for RWKV."""
+    of ``max_seq`` slots (or the window and the meta tokens) for
+    attention, the recurrent state for RWKV and the SSM, None for
+    cross-attention."""
     out = []
     for seg in plan:
         caches = []
         for bc in seg.pattern:
-            _check_block(bc)
-            if bc.mixer == "attn":
-                caches.append(attention.blank_cache(
+            if bc.mixer in ("attn", "bidir"):
+                c = attention.blank_cache(
                     cfg, batch, _cache_window(bc, cfg, max_seq), seg.n,
-                    device))
+                    device)
+            elif bc.mixer == "cross":
+                c = None
+            elif bc.mixer == "rwkv":
+                c = rwkv.blank_state(cfg, batch, seg.n, device)
+            elif bc.mixer == "hybrid":
+                c = {"attn": attention.blank_cache(
+                        cfg, batch, _cache_window(bc, cfg, max_seq), seg.n,
+                        device),
+                     "ssm": ssm.blank_state(cfg, batch, seg.n, device)}
             else:
-                caches.append(rwkv.blank_state(cfg, batch, seg.n, device))
+                raise ValueError(bc.mixer)
+            caches.append(c)
         out.append(tuple(caches))
     return out
+
+
+def _layer_of(tree: Any, layer: int) -> Any:
+    """One layer's slice (views) of a stacked cache tree."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _layer_of(v, layer) for k, v in tree.items()}
+    return tree[layer]
+
+
+def _restack(layers: List[Any], before: Any) -> Any:
+    """The layers' caches stacked again. A ring cache (a dict with
+    ``pos``) that decode wrote in place is ``before`` itself."""
+    first = layers[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        if before is not None and "pos" in first:
+            return before
+        return {k: _restack([c[k] for c in layers],
+                            None if before is None else before[k])
+                for k in first}
+    return torch.stack(layers)
 
 
 # ---------------------------------------------------------------------------
 # Application
 # ---------------------------------------------------------------------------
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX_KEYS}
+
+
+def _self_attention(p, cfg, bc, h, mode, cache, index, positions,
+                    use_flash, cache_len, causal=True):
+    n_meta = cfg.n_meta_tokens if bc.window > 0 else 0
+    if mode == "decode":
+        return attention.decode_step(p, cfg, h, cache, index,
+                                     window=bc.window, n_meta=n_meta,
+                                     use_rope=bc.use_rope)
+    return attention.attend(
+        p, cfg, h, causal=causal, window=bc.window, n_meta=n_meta,
+        positions=positions, use_rope=bc.use_rope, use_flash=use_flash,
+        make_cache=_cache_window(bc, cfg, cache_len or h.shape[1])
+        if mode == "prefill" and causal else 0)
+
+
+def _cross_attention(p, cfg, h, mode, index, cross_src, cross_kv):
+    if mode == "decode":
+        return attention.decode_step(p, cfg, h, None, index,
+                                     cross_cache=cross_kv)[0]
+    return attention.attend(p, cfg, h, cross_src=cross_src)[0]
+
+
 def block_apply(bc: BlockCfg, cfg: ModelConfig, p: Dict[str, Any],
                 x: torch.Tensor, *, mode: str, cache: Any = None,
-                index=None, positions: Optional[torch.Tensor] = None,
+                index=None, cross_src: Optional[torch.Tensor] = None,
+                cross_kv: Optional[Dict] = None,
+                positions: Optional[torch.Tensor] = None,
                 use_flash: bool = False, use_rwkv_kernel: bool = False,
                 cache_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Any]:
-    """Apply one block given its parameter tree. Returns (x, new_cache).
+                ) -> Tuple[torch.Tensor, Any,
+                           Optional[Dict[str, torch.Tensor]]]:
+    """Apply one block given its parameter tree. Returns (x, new_cache,
+    aux): the router's aux terms of an MoE block, None for the others.
 
     Attention: decode steps over the ring cache ``cache`` at position
     ``index`` (updating it in place); train and prefill attend over the
     sequence at ``positions``, through the flash kernel when
-    ``use_flash``, and prefill builds a ring cache of ``cache_len`` slots
-    (by default the prompt length). RWKV: decode runs the time mix one
-    step in plain PyTorch, as the reference does; train and prefill start
-    from ``cache`` or a blank state and take the kernel when
-    ``use_rwkv_kernel``."""
-    _check_block(bc)
+    ``use_flash`` (causal self-attention without a window only, as the
+    reference routes it), and prefill builds a ring cache of
+    ``cache_len`` slots (by default the prompt length). Cross-attention
+    reads ``cross_src`` (train, prefill) or the layer's ``cross_kv``
+    (decode). RWKV: decode runs the time mix one step in plain PyTorch,
+    as the reference does; train and prefill start from ``cache`` or a
+    blank state and take the kernel when ``use_rwkv_kernel``. The SSM
+    heads scan the sequence from ``cache`` or zero, or step once."""
+    aux = None
     h = rmsnorm(p["ln1"]["scale"], x, cfg.norm_eps)
-    if bc.mixer == "attn":
-        n_meta = cfg.n_meta_tokens if bc.window > 0 else 0
+    new_cache = cache
+    if bc.mixer in ("attn", "bidir"):
+        o, new_cache = _self_attention(p["mixer"], cfg, bc, h, mode, cache,
+                                       index, positions, use_flash,
+                                       cache_len, causal=bc.mixer == "attn")
+    elif bc.mixer == "cross":
+        o = _cross_attention(p["mixer"], cfg, h, mode, index, cross_src,
+                             cross_kv)
+    elif bc.mixer == "rwkv":
         if mode == "decode":
-            o, new_cache = attention.decode_step(
-                p["mixer"], cfg, h, cache, index, window=bc.window,
-                n_meta=n_meta, use_rope=bc.use_rope)
+            o, new_cache = rwkv.tm_apply(p["mixer"], cfg, h, cache,
+                                         use_kernel=False)
         else:
-            o, new_cache = attention.attend(
-                p["mixer"], cfg, h, causal=True, window=bc.window,
-                n_meta=n_meta, positions=positions, use_rope=bc.use_rope,
-                use_flash=use_flash,
-                make_cache=_cache_window(bc, cfg, cache_len or h.shape[1])
-                if mode == "prefill" else 0)
-        x = x + o
-        h = rmsnorm(p["ln2"]["scale"], x, cfg.norm_eps)
-        return x + mlp.apply(p["ffn"], cfg, h), new_cache
-    if mode == "decode":
-        o, new_cache = rwkv.tm_apply(p["mixer"], cfg, h, cache,
-                                     use_kernel=False)
+            state = cache if cache is not None else rwkv.blank_state(
+                cfg, h.shape[0], None, h.device)
+            o, new_cache = rwkv.tm_apply(p["mixer"], cfg, h, state,
+                                         use_kernel=use_rwkv_kernel)
+    elif bc.mixer == "hybrid":
+        pm = p["mixer"]
+        oa, ca = _self_attention(pm["attn"], cfg, bc, h, mode,
+                                 None if cache is None else cache["attn"],
+                                 index, positions, use_flash, cache_len)
+        if mode == "decode":
+            os_, cs = ssm.apply_step(pm["ssm"], cfg, h, cache["ssm"])
+        else:
+            st = cache["ssm"] if cache is not None else ssm.blank_state(
+                cfg, h.shape[0], None, h.device)
+            os_, cs = ssm.apply_seq(pm["ssm"], cfg, h, st)
+        oa = rmsnorm_1d(pm["attn_norm.scale"], oa, cfg.norm_eps)
+        beta = pm["beta"].float()
+        # in f32, the first product's add fused as the compiled reference
+        # fuses it
+        oaf, osf = oa.float(), os_.float()
+        o = (fma(beta[0].expand_as(oaf), oaf, beta[1] * osf) * 0.5).to(
+            x.dtype)
+        new_cache = {"attn": ca, "ssm": cs}
     else:
-        state = cache if cache is not None else rwkv.blank_state(
-            cfg, h.shape[0], None, h.device)
-        o, new_cache = rwkv.tm_apply(p["mixer"], cfg, h, state,
-                                     use_kernel=use_rwkv_kernel)
+        raise ValueError(bc.mixer)
     x = x + o
+    if bc.has_cross:
+        h = rmsnorm(p["ln_cross"]["scale"], x, cfg.norm_eps)
+        x = x + _cross_attention(p["cross"], cfg, h, mode, index, cross_src,
+                                 cross_kv)
     h = rmsnorm(p["ln2"]["scale"], x, cfg.norm_eps)
-    o, new_cache = rwkv.cm_apply(p["ffn"], cfg, h, new_cache)
-    return x + o, new_cache
+    if bc.ffn == "mlp":
+        o = mlp.apply(p["ffn"], cfg, h)
+    elif bc.ffn == "moe":
+        o, aux = moe.apply(p["ffn"], cfg, h)
+    else:
+        o, new_cache = rwkv.cm_apply(p["ffn"], cfg, h, new_cache)
+    return x + o, new_cache, aux
 
 
-def _zero_aux(device) -> Dict[str, torch.Tensor]:
-    return {k: torch.zeros((), dtype=torch.float32, device=device)
-            for k in AUX_KEYS}
+def _add_aux(total: Dict[str, torch.Tensor],
+             aux: Optional[Dict[str, torch.Tensor]]
+             ) -> Dict[str, torch.Tensor]:
+    """The running sum of the blocks' aux terms (a block without a router
+    adds the reference's zeros: nothing)."""
+    if aux is None:
+        return total
+    return {k: total[k] + aux[k] for k in AUX_KEYS}
 
 
 def _nested_group(n: int) -> int:
@@ -223,32 +372,38 @@ def _nested_group(n: int) -> int:
 
 
 def _train_layers(cfg: ModelConfig, seg: Segment, layers, x: torch.Tensor,
-                  positions, use_flash: bool, use_rwkv_kernel: bool,
-                  remat: bool) -> torch.Tensor:
+                  aux: Dict[str, torch.Tensor], positions, cross_src,
+                  use_flash: bool, use_rwkv_kernel: bool, remat: bool
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``x`` through ``layers`` (each a list of the pattern's parameter
-    trees) in train mode, each layer recomputed in the backward pass when
-    ``remat``. The trees are read before the call, so a recompute uses the
-    tensors of this forward pass (those of ``torch.func.functional_call``,
-    say) and never reads the module again."""
-    def layer_fn(h, trees):
+    trees) in train mode, the aux terms added to ``aux``, each layer
+    recomputed in the backward pass when ``remat``. The trees are read
+    before the call, so a recompute uses the tensors of this forward pass
+    (those of ``torch.func.functional_call``, say) and never reads the
+    module again."""
+    def layer_fn(h, aux, trees):
         for bc, p in zip(seg.pattern, trees):
-            h, _ = block_apply(bc, cfg, p, h, mode="train",
-                               positions=positions, use_flash=use_flash,
-                               use_rwkv_kernel=use_rwkv_kernel)
-        return h
+            h, _, a = block_apply(bc, cfg, p, h, mode="train",
+                                  positions=positions, cross_src=cross_src,
+                                  use_flash=use_flash,
+                                  use_rwkv_kernel=use_rwkv_kernel)
+            aux = _add_aux(aux, a)
+        return h, aux
 
     for trees in layers:
         if remat:
-            x = checkpoint(layer_fn, x, trees, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(layer_fn, x, aux, trees, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x = layer_fn(x, trees)
-    return x
+            x, aux = layer_fn(x, aux, trees)
+    return x, aux
 
 
 def plan_apply(cfg: ModelConfig, plan: List[Segment], segments: nn.ModuleList,
                x: torch.Tensor, *, mode: str,
                caches: Optional[List] = None, index=None,
+               cross_src: Optional[torch.Tensor] = None,
+               cross_kvs: Optional[List] = None,
                positions: Optional[torch.Tensor] = None,
                use_flash: bool = False, use_rwkv_kernel: bool = False,
                cache_len: Optional[int] = None, remat_mode: str = "layer"
@@ -256,11 +411,13 @@ def plan_apply(cfg: ModelConfig, plan: List[Segment], segments: nn.ModuleList,
                           Dict[str, torch.Tensor]]:
     """Run x through every layer. Returns (x, new caches, summed aux): the
     caches in decode and prefill, None in train. In decode the attention
-    caches are updated in place and returned as they came. ``remat_mode``
-    (train only): ``"layer"`` recomputes each layer in the backward pass,
-    ``"nested"`` also each group of :func:`_nested_group` layers (the
-    group's boundaries alone are kept between the passes), ``"none"``
-    keeps every activation."""
+    caches are updated in place and returned as they came. ``cross_kvs``
+    (decode) mirrors the plan: per segment and position the stacked
+    source keys and values of a cross layer, None elsewhere.
+    ``remat_mode`` (train, under autograd only): ``"layer"`` recomputes
+    each layer in the backward pass, ``"nested"`` also each group of
+    :func:`_nested_group` layers (the group's boundaries alone are kept
+    between the passes), ``"none"`` keeps every activation."""
     if remat_mode not in REMAT_MODES:
         raise ValueError(f"remat_mode {remat_mode!r} is not one of "
                          f"{REMAT_MODES}")
@@ -269,32 +426,31 @@ def plan_apply(cfg: ModelConfig, plan: List[Segment], segments: nn.ModuleList,
     for si, seg in enumerate(plan):
         if mode == "train":
             layers = [[b.tree() for b in layer] for layer in segments[si]]
-            remat = remat_mode != "none"
-            G = _nested_group(seg.n) if remat_mode == "nested" else 1
-            if G == 1:
-                x = _train_layers(cfg, seg, layers, x, positions, use_flash,
-                                  use_rwkv_kernel, remat)
-                continue
+            remat = remat_mode != "none" and torch.is_grad_enabled()
+            G = _nested_group(seg.n) if remat and remat_mode == "nested" \
+                else 1
             for g0 in range(0, seg.n, G):
-                x = checkpoint(_train_layers, cfg, seg, layers[g0:g0 + G], x,
-                               positions, use_flash, use_rwkv_kernel, True,
-                               use_reentrant=False, preserve_rng_state=False)
+                args = (cfg, seg, layers[g0:g0 + G], x, aux, positions,
+                        cross_src, use_flash, use_rwkv_kernel, remat)
+                x, aux = (_train_layers(*args) if G == 1 else checkpoint(
+                    _train_layers, *args, use_reentrant=False,
+                    preserve_rng_state=False))
             continue
-        per_pos: List[List[Dict[str, torch.Tensor]]] = [[] for _ in
-                                                         seg.pattern]
+        per_pos: List[List[Any]] = [[] for _ in seg.pattern]
         for layer in range(seg.n):
             for j, bc in enumerate(seg.pattern):
-                cache = None if caches is None else {
-                    key: val[layer] for key, val in caches[si][j].items()}
-                x, cache = block_apply(
+                cache = None if caches is None else _layer_of(caches[si][j],
+                                                              layer)
+                xkv = None if cross_kvs is None else _layer_of(
+                    cross_kvs[si][j], layer)
+                x, cache, a = block_apply(
                     bc, cfg, segments[si][layer][j].tree(), x, mode=mode,
-                    cache=cache, index=index, positions=positions,
-                    use_flash=use_flash, use_rwkv_kernel=use_rwkv_kernel,
-                    cache_len=cache_len)
+                    cache=cache, index=index, cross_src=cross_src,
+                    cross_kv=xkv, positions=positions, use_flash=use_flash,
+                    use_rwkv_kernel=use_rwkv_kernel, cache_len=cache_len)
+                aux = _add_aux(aux, a)
                 per_pos[j].append(cache)
         new_caches.append(tuple(
-            caches[si][j] if mode == "decode" and bc.mixer == "attn"
-            else {key: torch.stack([c[key] for c in layers])
-                  for key in layers[0]}
-            for j, (bc, layers) in enumerate(zip(seg.pattern, per_pos))))
+            _restack(layers, caches[si][j] if mode == "decode" else None)
+            for j, layers in enumerate(per_pos)))
     return x, (new_caches if mode != "train" else None), aux

@@ -482,10 +482,30 @@ def test_decode_step_over_a_ring_that_wraps(dtype, window, n_meta, W):
 
 
 def test_cross_attention_raises_naming_the_roadmap():
-    _, _, t_cfg, t_p = _layer("yi-9b", "f32")
-    x = torch.zeros(1, 4, 64)
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        attention.attend(t_p, t_cfg, x, cross_src=x)
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        attention.decode_step(t_p, t_cfg, x[:, :1], {}, 0,
-                              cross_cache={"k": x, "v": x})
+    """Cross-attention (refused until the encoder-decoder and vision plans
+    were ported) against the reference: ``attend(cross_src=...)``, then
+    a decode step over ``precompute_cross_kv``'s keys and values, with
+    the tanh gate set nonzero (zero at init, it would compare nothing)
+    and qk-norm on (qwen3's layer)."""
+    for dtype in ("f32", "bf16"):
+        j_cfg, j_p, t_cfg, t_p = _layer("qwen3-32b", dtype)
+        j_p = dict(j_p, gate=jnp.full((1,), 0.6, j_p["wq"].dtype))
+        t_p = dict(t_p, gate=torch.full((1,), 0.6, dtype=t_p["wq"].dtype))
+        (jx,), (tx,) = _x(dtype, (2, 9, 64), 3)
+        (jsrc,), (tsrc,) = _x(dtype, (2, 13, 64), 4)
+        want, _ = j_attn.attend(j_p, j_cfg, jx, cross_src=jsrc)
+        with torch.no_grad():
+            got, cache = attention.attend(t_p, t_cfg, tx, cross_src=tsrc)
+        assert cache is None
+        _check(dtype, got, want)
+        j_kv = j_attn.precompute_cross_kv(j_p, j_cfg, jsrc)
+        with torch.no_grad():
+            t_kv = attention.precompute_cross_kv(t_p, t_cfg, tsrc)
+            got, kept = attention.decode_step(t_p, t_cfg, tx[:, :1], None,
+                                              9, cross_cache=t_kv)
+        for key in ("k", "v"):
+            _check(dtype, t_kv[key], j_kv[key])
+        want, _ = j_attn.decode_step(j_p, j_cfg, jx[:, :1], None,
+                                     jnp.int32(9), cross_cache=j_kv)
+        assert kept is None
+        _check(dtype, got, want)

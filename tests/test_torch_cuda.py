@@ -694,10 +694,11 @@ def test_wkv_launches_once_per_layer_of_a_prefill(card):
             tm.decay_base.uniform_(-5.0, 1.0)
     tok = torch.randint(0, cfg.vocab_size, (2, 37), device=card)
     kernels.reset_launches()
-    logits, caches = model.prefill({"tokens": tok}, use_rwkv_kernel=True)
+    logits, caches, _ = model.prefill({"tokens": tok},
+                                      use_rwkv_kernel=True)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["wkv"] == cfg.n_layers
-    want, want_caches = model.prefill({"tokens": tok})
+    want, want_caches, _ = model.prefill({"tokens": tok})
     model.decode(logits.argmax(-1)[:, None], 37, caches)
     assert kernels.LAUNCHES["wkv"] == cfg.n_layers
     torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
@@ -871,11 +872,11 @@ def test_flash_launches_once_per_layer_of_a_dense_prefill(card):
                   generator=torch.Generator(device=card).manual_seed(0))
     tok = torch.randint(0, cfg.vocab_size, (2, 37), device=card)
     kernels.reset_launches()
-    logits, caches = model.prefill({"tokens": tok}, use_flash=True,
-                                   max_seq=40)
+    logits, caches, _ = model.prefill({"tokens": tok}, use_flash=True,
+                                      max_seq=40)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flash_attention"] == cfg.n_layers
-    want, want_caches = model.prefill({"tokens": tok}, max_seq=40)
+    want, want_caches, _ = model.prefill({"tokens": tok}, max_seq=40)
     torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(caches[0][0]["k"], want_caches[0][0]["k"])
     model.decode(logits.argmax(-1)[:, None], 37, caches)
@@ -1174,3 +1175,46 @@ def test_train_step_on_the_card_matches_the_cpu(card, arch):
     for k, v in states["cpu"].params.items():
         torch.testing.assert_close(states["cuda"].params[k].cpu(), v,
                                    rtol=0, atol=tol["params"])
+
+
+def test_fma_on_the_card_is_rand_fma(card):
+    """``models.common.fma`` on the card (``torch.addcmul``) against
+    ``rand.fma``'s exact emulation, bit for bit: random triples, products
+    that cancel the addend, and the SSM scan's range."""
+    from repro_torch import rand
+    from repro_torch.models.common import fma
+    g = torch.Generator(device=card).manual_seed(7)
+    a = torch.randn(1 << 22, generator=g, device=card)
+    b = torch.randn(1 << 22, generator=g, device=card)
+    c = torch.randn(1 << 22, generator=g, device=card)
+    for c_ in (c, -(a * b) * (1 + 2 ** -20 * c), c * 1e-8,
+               torch.rand(1 << 22, generator=g, device=card)):
+        assert torch.equal(fma(a, b, c_), rand.fma(a, b, c_))
+
+
+def test_moe_routing_on_the_card_equals_the_cpu(card):
+    """olmoe-1b-7b reduced in f32, the same weights and a 1024-token
+    prompt (two SEQ_CHUNK slices, drops at capacity factor 0.3) on the
+    card and on the CPU: expert indices, positions, keep equal; logits
+    close."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, moe
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b", smoke=True),
+                              capacity_factor=0.3)
+    cpu = Model(cfg, device="cpu")
+    dev = copy.deepcopy(cpu).to(card)
+    tok = torch.randint(0, 256, (2, 1024),
+                        generator=torch.Generator().manual_seed(3))
+    with moe.recording() as r_cpu:
+        want, _, _ = cpu.prefill({"tokens": tok})
+    with moe.recording() as r_card:
+        got, _, _ = dev.prefill({"tokens": tok.to(card)}, use_flash=True)
+    assert len(r_card) == len(r_cpu) == 2 * cfg.n_layers
+    for a, b in zip(r_card, r_cpu):
+        assert torch.equal(a.experts.cpu(), b.experts)
+        assert torch.equal(a.position.cpu(), b.position)
+        assert torch.equal(a.keep.cpu(), b.keep)
+    assert not all(bool(r.keep.all()) for r in r_cpu)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

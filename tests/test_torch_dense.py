@@ -148,10 +148,23 @@ def test_plan_and_tree_have_the_references_shapes(arch):
 
 
 def test_moe_plans_still_raise():
+    """A dense config given experts plans MoE blocks (they were refused
+    before the MoE family was ported), as the reference plans them, and
+    its model has the reference's parameter shapes."""
     cfg = dataclasses.replace(get_config("yi-9b", smoke=True), n_experts=4,
                               experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="moe.py"):
-        transformer.make_plan(cfg)
+    j_cfg = dataclasses.replace(j_get_config("yi-9b", smoke=True),
+                                n_experts=4, experts_per_token=2)
+    from repro.models import transformer as j_transformer
+    plan = transformer.make_plan(cfg)
+    assert [(s.n, s.pattern) for s in plan] == [(cfg.n_layers, (
+        transformer.BlockCfg(mixer="attn", ffn="moe"),))]
+    assert [(s.n, dataclasses.asdict(s.pattern[0])) for s in plan] == [
+        (s.n, dataclasses.asdict(s.pattern[0]))
+        for s in j_transformer.make_plan(j_cfg)]
+    want = JModel(j_cfg).abstract_params()["segments"][0][0]["ffn"]
+    got = Model(cfg, device="meta").tree()["segments"][0][0][0]["ffn"]
+    assert _shapes(got) == {k: v[1:] for k, v in _shapes(want).items()}
 
 
 def test_params_from_numpy_refuses_a_wrong_tree():
@@ -194,7 +207,7 @@ def test_prefill_and_decode_match_reference(arch, dtype, use_flash):
     want, want_c, _ = j_model.prefill(params, {"tokens": jnp.asarray(tok)},
                                       use_flash=use_flash, max_seq=BUDGET)
     before = LAUNCHES["flash_attention"]
-    got, got_c = make_prefill_step(model, max_seq=BUDGET,
+    got, got_c, _ = make_prefill_step(model, max_seq=BUDGET,
                                    use_flash=use_flash)(
         {"tokens": torch.from_numpy(tok).long()})
     assert LAUNCHES["flash_attention"] == before
@@ -228,7 +241,7 @@ def test_blank_caches_have_the_references_layout():
 @pytest.mark.parametrize("arch", ["yi-9b", "minicpm-2b"])
 def test_caches_round_trip_through_numpy(arch):
     _, _, model = _models(arch, "bf16")
-    _, caches = model.prefill({"tokens": torch.from_numpy(
+    _, caches, _ = model.prefill({"tokens": torch.from_numpy(
         _tokens(6, (2, 9))).long()}, max_seq=12)
     back = convert.caches_from_numpy(convert.caches_to_numpy(caches),
                                      torch.bfloat16, "cpu")
@@ -243,8 +256,8 @@ def test_prefill_routes_agree_and_count_no_launch_on_cpu():
     _, _, model = _models("yi-9b", "f32")
     tok = torch.from_numpy(_tokens(5, (3, 64))).long()
     before = LAUNCHES["flash_attention"]
-    a, ca = model.prefill({"tokens": tok}, use_flash=True)
-    b, cb = model.prefill({"tokens": tok}, use_flash=False)
+    a, ca, _ = model.prefill({"tokens": tok}, use_flash=True)
+    b, cb, _ = model.prefill({"tokens": tok}, use_flash=False)
     with torch.no_grad():
         model({"tokens": tok}, use_flash=True)
     assert LAUNCHES["flash_attention"] == before
@@ -272,7 +285,7 @@ def test_generate_is_prefill_then_greedy_decode_over_the_ring():
     prompts = torch.from_numpy(_tokens(7, (2, 11))).long()
     toks, t = serve_mod.generate(model, prompts, 4)
     assert t["decode_steps"] == 3
-    logits, caches = model.prefill({"tokens": prompts}, max_seq=15)
+    logits, caches, _ = model.prefill({"tokens": prompts}, max_seq=15)
     assert caches[0][0]["k"].shape[2] == 15
     want = [logits.argmax(-1)]
     for step in range(3):

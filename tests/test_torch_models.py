@@ -157,20 +157,60 @@ def test_model_tree_has_the_references_shapes():
         assert _shapes(layer[0]) == want_block
 
 
-# the archs whose layers are not ported yet (the dense family is, in
-# tests/test_torch_dense.py)
+# the archs ported after the dense family (tests/test_torch_moe.py,
+# test_torch_hybrid.py and test_torch_encdec.py hold them end to end)
 UNPORTED_ARCHS = ["seamless-m4t-large-v2", "dbrx-132b", "olmoe-1b-7b",
                   "llama-3.2-vision-90b", "hymba-1.5b"]
 
 
+def _leaf_shapes(tree, prefix=""):
+    """Every leaf's shape by path, a segment's blocks per layer (the
+    port's) or stacked (the reference's)."""
+    if isinstance(tree, dict):
+        out = {}
+        for key, val in tree.items():
+            out.update(_leaf_shapes(val, f"{prefix}.{key}"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, val in enumerate(tree):
+            out.update(_leaf_shapes(val, f"{prefix}[{i}]"))
+        return out
+    return {prefix: tuple(tree.shape)}
+
+
 @pytest.mark.parametrize("arch", UNPORTED_ARCHS)
 def test_other_archs_raise_naming_the_roadmap(arch):
+    """Each of these archs (refused until their families were ported)
+    builds on ``device="meta"`` with the reference's parameter shapes and
+    count at the published size."""
     assert arch in ARCHS and arch in J_ARCHS
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.make_plan(dataclasses.replace(
-            get_config(ARCH), family=j_get_config(arch).family))
+    cfg, j_cfg = get_config(arch), j_get_config(arch)
+    model = Model(cfg, device="meta")
+    want = JModel(j_cfg).abstract_params()
+    got = model.tree()
+    assert set(got) == set(want)
+    # the port's segments hold one block tree per layer: stack them
+    for node, ref in ((got, want), (got.get("encoder"), want.get("encoder"))):
+        if node is None:
+            continue
+        for si, seg in enumerate(node["segments"]):
+            for j in range(len(seg[0])):
+                layers = {k: (len(seg),) + v for k, v in
+                          _leaf_shapes(seg[0][j]).items()}
+                assert layers == _leaf_shapes(ref["segments"][si][j]), \
+                    (arch, si, j)
+        node = dict(node, segments=None)
+        ref = dict(ref, segments=None)
+        assert _leaf_shapes({k: v for k, v in node.items() if v is not None
+                             and k != "encoder"}) == _leaf_shapes(
+            {k: v for k, v in ref.items() if v is not None
+             and k != "encoder"})
+    # the reference's Model.param_count sums in int32: count its leaves
+    leaves = jax.tree.leaves(want)
+    assert model.param_count() == sum(int(np.prod(leaf.shape))
+                                      for leaf in leaves)
+    assert cfg.param_count() == j_cfg.param_count()
 
 
 def test_model_without_device_needs_a_card():
@@ -269,7 +309,7 @@ def test_block_apply_matches_reference(dtype, mode):
         j_bc, j_cfg, j_block, jx, mode=mode,
         cache=j_state if cache else None, use_rwkv_kernel=True)
     with torch.no_grad():
-        got, got_c = transformer.block_apply(
+        got, got_c, _ = transformer.block_apply(
             bc, t_cfg, t_block.tree(), tx, mode=mode,
             cache=t_state if cache else None, use_rwkv_kernel=True)
     _check(dtype, got, want, "act")
@@ -315,7 +355,7 @@ def test_prefill_and_decode_match_reference(dtype, use_kernel):
     tok = _tokens(1, (BATCH, SEQ))
     want, want_c, _ = j_model.prefill(params, {"tokens": jnp.asarray(tok)},
                                       use_rwkv_kernel=use_kernel)
-    got, got_c = make_prefill_step(model, use_rwkv_kernel=use_kernel)(
+    got, got_c, _ = make_prefill_step(model, use_rwkv_kernel=use_kernel)(
         {"tokens": torch.from_numpy(tok).long()})
     assert got.shape == (BATCH, 256)
     _check(dtype, got, want, "act")
@@ -338,8 +378,8 @@ def test_prefill_routes_agree_and_count_launches():
     _, _, model = _models("f32")
     tok = torch.from_numpy(_tokens(5, (3, 64))).long()
     before = LAUNCHES["wkv"]
-    a, ca = model.prefill({"tokens": tok}, use_rwkv_kernel=True)
-    b, cb = model.prefill({"tokens": tok}, use_rwkv_kernel=False)
+    a, ca, _ = model.prefill({"tokens": tok}, use_rwkv_kernel=True)
+    b, cb, _ = model.prefill({"tokens": tok}, use_rwkv_kernel=False)
     assert LAUNCHES["wkv"] == before
     np.testing.assert_allclose(a.numpy(), b.numpy(), **F32["act"])
     np.testing.assert_allclose(ca[0][0]["wkv"].numpy(),
@@ -348,7 +388,7 @@ def test_prefill_routes_agree_and_count_launches():
 
 def test_caches_round_trip_through_numpy():
     _, _, model = _models("bf16")
-    _, caches = model.prefill({"tokens": torch.from_numpy(
+    _, caches, _ = model.prefill({"tokens": torch.from_numpy(
         _tokens(6, (2, 9))).long()})
     back = convert.caches_from_numpy(
         convert.caches_to_numpy(caches), torch.bfloat16, "cpu")
@@ -391,7 +431,7 @@ def test_generate_is_prefill_then_greedy_decode():
     prompts = torch.from_numpy(_tokens(7, (2, 11))).long()
     toks, t = serve_mod.generate(model, prompts, 4)
     assert t["decode_steps"] == 3 and t["prefill_s"] > 0
-    logits, caches = model.prefill({"tokens": prompts})
+    logits, caches, _ = model.prefill({"tokens": prompts})
     want = [logits.argmax(-1)]
     for step in range(3):
         logits, caches = model.decode(want[-1][:, None], 11 + step, caches)

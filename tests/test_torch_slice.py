@@ -236,11 +236,13 @@ def test_unported_paths_raise_naming_the_roadmap(tmp_path, monkeypatch):
         isl, _, epochs = run_fused(make_onemax(64), c, mig, **run)
         assert int(epochs) == 1
         assert bool(torch.isfinite(isl.best_fitness).all())
-    # what is still unported raises with its item named: the MoE family;
-    # the pbt command (the PBT part of item 14) runs
-    from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="Queue A item 14"):
-        get_config("olmoe-1b-7b")
+    # every arch of item 14 has its config now (the MoE family was the
+    # last refused here); the pbt command (the PBT part of item 14) runs
+    from repro_torch.configs import ARCHS, get_config
+    assert len(ARCHS) == 10
+    for arch in ARCHS:
+        assert get_config(arch).name == arch
+        assert get_config(arch, smoke=True).name == arch + "-smoke"
     ctrl = evolve.main(["pbt", "--device", "cpu", "--members", "2",
                         "--epochs", "1", "--steps-per-epoch", "1"])
     assert ctrl.pool.stats()["puts"] == 2
