@@ -255,7 +255,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at full width, 2 layers, on the card against the port on the CPU:
    expert indices, positions, keep and ``dropped_frac`` equal, logits
    within ``OLMOE_F32_TOL``;
-15. one JSON line with each kernel's launches, time, plain time, bound and
+15. model land on a (data, model) mesh (``sharding_phases``): the flash
+   and WKV kernels at the local-head shapes the mesh gives them
+   (``MESH_FLASH_SHAPE``, ``MESH_WKV_SHAPE``) against their plain
+   versions, timed beside their bounds; the one-rank runs below; then 2
+   ranks sharing the card (gloo with host copies): 15a yi-9b at its
+   published size served on (1, 2) under the serve rules (prefill with
+   the flash kernel on each rank's 16 q and 2 kv heads, ``MESH_NEW``
+   greedy decode steps), its logits within ``DENSE_BF16_TOL`` of the
+   one-rank prefill, each rank's peak memory beside what the rules give
+   it; 15c rwkv6-3b's prefill on (1, 2) (the WKV kernel on 20 local
+   heads) within phase 7b's bf16 limits of the one-rank prefill; 15b
+   olmoe-1b-7b at full width, ``MESH_TRAIN_LAYERS`` layers, trained
+   ``MESH_TRAIN_STEPS`` steps on (1, 2) (expert parallelism, 32 local
+   experts, and the heads) and on (2, 1) (data parallel, ZeRO-1), ce and
+   gnorm within ``MESH_TRAIN_TOL`` of the one-rank run; 15d a world of one
+   rank over NCCL: a (1, 1) mesh equals the mesh-less train, prefill and
+   decode steps bit for bit; 15e ``python -m repro_torch.launch.dryrun
+   --arch yi-9b --shape decode_32k`` in a subprocess (its own fake group
+   of 256), its per-rank GiB against the card's memory;
+16. one JSON line with each kernel's launches, time, plain time, bound and
    library time, then the last line: ``{"ok": true, "device": {...}}``.
 
 It imports the port only (``src/repro_torch``), never JAX or the reference.
@@ -511,6 +530,57 @@ FAMILY_F32_TOL = 1e-3
 # f32 twin of phase 8b read 4.2e-6 between the routes on the card alone)
 OLMOE_F32_LAYERS = 2
 OLMOE_F32_TOL = 1e-4
+# phase 15: model land on a (data, model) mesh of ranks that share the
+# card (gloo with host copies; NCCL refuses two ranks on one card, 12b).
+# 15a serves yi-9b at DENSE_BATCH x DENSE_PROMPT on (1, 2), MESH_NEW
+# decode steps; its last-position logits are held to the one-rank
+# prefill's at DENSE_BF16_TOL. 15b trains olmoe-1b-7b at full width, its
+# depth cut to MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS steps of
+# MESH_TRAIN_BATCH x MESH_TRAIN_SEQ on (1, 2) (32 local experts, the
+# heads split) and on (2, 1) (data parallel, ZeRO-1), each held to the
+# one-rank run. The limits, set before the first run: on (1, 2) the
+# function is the one-rank one (one data rank routes every token with the
+# global capacity), apart by the bf16 rounding of the ranks' partial sums:
+# ce within 2e-2 absolute, gnorm within 5e-2 relative; on (2, 1) each
+# data rank routes its own rows with its own capacity, so other tokens
+# drop (the reference's test_moe_ep.py allows 0.05 on the loss between
+# the routes): ce within 5e-2, gnorm within 0.1. 15c prefills rwkv6-3b at
+# SERVE_BATCH x SERVE_PROMPT on (1, 2), the WKV kernel on 20 local heads,
+# held to the one-rank prefill at phase 7b's bf16 limits
+# (SERVE_BF16_TOL). 15d: a (1, 1) mesh over NCCL equals the mesh-less
+# steps bit for bit (yi-9b at full width, MESH_EQUAL_LAYERS layers).
+MESH_RANKS = 2
+MESH_NEW = 8
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 4, 3
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 256
+MESH_TRAIN_TOL = {(1, 2): dict(ce=2e-2, gnorm=5e-2),
+                  (2, 1): dict(ce=5e-2, gnorm=0.1)}
+MESH_EQUAL_LAYERS = 2
+MESH_TIMEOUT = 900.0
+# 15c's f32 twin: the weights and activations in f32, the ranks' partial
+# sums in f32, held to the one-rank f32 prefill at SERVE_F32_TOL (a head
+# placed or merged wrongly moves a whole head's output, far beyond it).
+# The dry run (python -m repro_torch.launch.dryrun --mesh ...) of 15a's
+# and 15b's cells, run beside them on the host, against each rank's
+# measured peak: its per-rank bytes count the same allocations (the
+# blocks, the inputs, the step's live temporaries) but not the caching
+# allocator's rounding or cuBLAS's workspaces, and it frees a temporary
+# when its Python object dies, so it may read a little above or below:
+# within MESH_DRY_TOL relative of the peak, set before the first run.
+MESH_DRY_TOL = 0.25
+MESH_DRY_CELLS = {
+    "15a (1, 2)": ["--mesh", "1x2", "--arch", "yi-9b", "--shape",
+                   "prefill_32k", "--batch", str(DENSE_BATCH), "--seq",
+                   str(DENSE_PROMPT)],
+    **{f"15b {shape}": ["--mesh", f"{shape[0]}x{shape[1]}", "--arch",
+                        "olmoe-1b-7b", "--shape", "train_4k", "--batch",
+                        str(MESH_TRAIN_BATCH), "--seq", str(MESH_TRAIN_SEQ),
+                        "--layers", str(MESH_TRAIN_LAYERS), "--accum", "1"]
+       for shape in ((1, MESH_RANKS), (MESH_RANKS, 1))}}
+# the local-head shapes phase 15 gives the kernels: yi-9b's 32 query and
+# 4 kv heads over 2 ranks, rwkv6-3b's 40 heads over 2
+MESH_FLASH_SHAPE = (DENSE_BATCH, DENSE_PROMPT, 16, 2, 128)
+MESH_WKV_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 20, 64)
 
 
 def log(*args):
@@ -849,23 +919,29 @@ def rel_l2(a, b) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
-def randomize_decay_lora(model, gen) -> None:
+def randomize_decay_lora(model, gen, layout=None) -> None:
     """Draw ``mix_B``, ``decay_B`` (0.1 N(0, 1)) and ``decay_base``
     (U(-5, 1)) of every layer, as the CPU tests do: the init leaves them
     zero, so a served model would never run the mixing LoRA or a varying
-    decay."""
+    decay. With ``layout`` (a model of this rank's blocks) each is drawn
+    whole and cut to the rank's block, so the blocks are those of the
+    one-rank model."""
     import torch
+    names = {id(p): n for n, p in model.named_parameters()}
     with torch.no_grad():
         for layer in model.segments[0]:
             tm = layer[0].mixer
             for p, draw in ((tm.mix_B, "normal"), (tm.decay_B, "normal"),
                             (tm.decay_base, "uniform")):
-                x = torch.empty(p.shape, dtype=torch.float32,
-                                device=p.device)
+                name = names[id(p)]
+                shape = p.shape if layout is None else layout.shapes[name]
+                x = torch.empty(shape, dtype=torch.float32, device=p.device)
                 if draw == "normal":
                     x.normal_(0.0, 0.1, generator=gen)
                 else:
                     x.uniform_(-5.0, 1.0, generator=gen)
+                if layout is not None:
+                    x = layout.local(name, x)
                 p.copy_(x.to(p.dtype))
 
 
@@ -2557,6 +2633,598 @@ def family_phases(card: str):
     del card_model, cpu_model
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: model land across ranks
+# ---------------------------------------------------------------------------
+def _olmoe_cut():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("olmoe-1b-7b"),
+                               n_layers=MESH_TRAIN_LAYERS)
+
+
+def _tree_bytes(tree) -> int:
+    import torch
+    if tree is None:
+        return 0
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return 0
+
+
+def _yi_serve(dev, mesh=None):
+    """yi-9b at its published size from SEED: a prefill of DENSE_BATCH x
+    DENSE_PROMPT through the flash kernel and MESH_NEW greedy decode
+    steps, on one device or on ``mesh`` (this rank's blocks)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import partition
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import build_model
+    cfg = get_config("yi-9b")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kw = {}
+    if mesh is None:
+        model = build_model(cfg, dev, gen)
+    else:
+        # the rank draws its blocks alone: the whole model is never here
+        model = partition.build_local(cfg, mesh, "serve", dev, gen)
+        kw = dict(mesh=mesh, batch=DENSE_BATCH)
+    build_peak = torch.cuda.max_memory_allocated()
+    prompts = torch.randint(0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT),
+                            generator=gen, device=dev)
+    budget = DENSE_PROMPT + MESH_NEW
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = sum(p.numel() * p.element_size() for p in model.parameters())
+    prefill = steps_lib.make_prefill_step(model, max_seq=budget,
+                                          use_flash=True, **kw)
+    decode = steps_lib.make_decode_step(
+        model, **(dict(kw, max_seq=budget) if kw else {}))
+    group = None if mesh is None else mesh.group("model")
+
+    def collectives():
+        return (0, 0.0) if group is None else (group.calls, group.host_s)
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    pre_launches = dict(kernels.LAUNCHES)
+    c0 = collectives()
+    t = time.perf_counter()
+    logits, caches, _ = prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    c1 = collectives()
+    kernels.reset_launches()
+    tok = logits.argmax(-1)[:, None]
+    toks = [tok]
+    t = time.perf_counter()
+    for step in range(MESH_NEW):
+        d_logits, caches = decode({"token": tok,
+                                   "index": DENSE_PROMPT + step,
+                                   "caches": caches})
+        tok = d_logits.argmax(-1)[:, None]
+        toks.append(tok)
+    torch.cuda.synchronize()
+    c2 = collectives()
+    out = {"logits": logits.float().cpu(),
+           "collectives": (c1[0] - c0[0], c1[1] - c0[1], c2[0] - c1[0],
+                           c2[1] - c1[1]),
+           "tokens": torch.cat(toks, 1).cpu(),
+           "prefill_s": prefill_s, "first_s": first_s,
+           "decode_s": time.perf_counter() - t,
+           "launches": pre_launches, "decode_launches": dict(kernels.LAUNCHES),
+           "held": held + _tree_bytes(caches), "weights": held,
+           "peak": torch.cuda.max_memory_allocated(),
+           "build_peak": build_peak,
+           "finite": bool(torch.isfinite(d_logits).all())}
+    del model, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rwkv_prefill(dev, mesh=None, f32=False):
+    """rwkv6-3b at its published size from SEED (the decay and mixing
+    LoRAs drawn too): a prefill of SERVE_BATCH x SERVE_PROMPT through the
+    WKV kernel, on one device or on ``mesh``; ``f32``: the weights and
+    activations in f32 (the f32 kernel)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import partition
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import build_model
+    cfg = get_config("rwkv6-3b")
+    if f32:
+        cfg = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                  activation_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kw, layout = {}, None
+    if mesh is None:
+        model = build_model(cfg, dev, gen)
+    else:
+        model = partition.build_local(cfg, mesh, "serve", dev, gen)
+        layout = partition.param_layout(model, mesh, "serve")
+        kw = dict(mesh=mesh, batch=SERVE_BATCH)
+    randomize_decay_lora(model, gen, layout)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=gen, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, caches, _ = steps_lib.make_prefill_step(
+        model, use_rwkv_kernel=True, **kw)({"tokens": prompts})
+    torch.cuda.synchronize()
+    out = {"logits": logits.float().cpu(), "wkv": caches[0][0]["wkv"].cpu(),
+           "launches": dict(kernels.LAUNCHES),
+           "prefill_s": time.perf_counter() - t}
+    del model, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _olmoe_train(dev, mesh=None):
+    """olmoe-1b-7b at full width, MESH_TRAIN_LAYERS layers, from SEED:
+    MESH_TRAIN_STEPS steps of the synthetic data; one device or
+    ``mesh`` (the train rules). Returns the metrics per step."""
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import partition
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import build_model, moe
+    from repro_torch.optim import make_schedule
+    cfg = _olmoe_cut()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = SyntheticLM(cfg.vocab_size, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, SEED,
+                       device=dev)
+    schedule = make_schedule(cfg.schedule, 3e-3, MESH_TRAIN_STEPS, 1)
+    ep = False
+    if mesh is None:
+        model = build_model(cfg, dev, gen)
+        state = steps_lib.init_train_state(model)
+        step = steps_lib.make_train_step(model, schedule=schedule)
+    else:
+        model = partition.build_local(cfg, mesh, "train", dev, gen)
+        layout = partition.param_layout(model, mesh, "train")
+        state = steps_lib.local_train_state(dict(model.named_parameters()),
+                                            layout)
+        step = steps_lib.make_train_step(model, schedule=schedule,
+                                         mesh=mesh, mode="train")
+        ep = moe.ep_applies(cfg, layout.shards(), MESH_TRAIN_BATCH)
+    build_peak = torch.cuda.max_memory_allocated()
+    model.to_empty(device="meta")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    t = time.perf_counter()
+    for i in range(MESH_TRAIN_STEPS):
+        batch = data.batch_for_step(i)
+        if mesh is not None:
+            batch = steps_lib.shard_batch(batch, mesh, "train")
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    out = {"metrics": metrics, "wall": time.perf_counter() - t, "ep": ep,
+           "peak": torch.cuda.max_memory_allocated(),
+           "build_peak": build_peak,
+           "held": _tree_bytes(state.params) + _tree_bytes(state.opt)}
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank_15(group):
+    """15a, 15c and 15b on this rank of the world (see the module
+    docstring)."""
+    from repro_torch.launch.mesh import Mesh
+    dev = group.device
+    out = {"backend": group.name, "rank": group.rank}
+    mesh = Mesh((1, MESH_RANKS), ("data", "model")).bind(group)
+    out["15a"] = _yi_serve(dev, mesh)
+    out["15c"] = _rwkv_prefill(dev, mesh)
+    out["15c_f32"] = _rwkv_prefill(dev, mesh, f32=True)
+    out["15b"] = {}
+    for shape in ((1, MESH_RANKS), (MESH_RANKS, 1)):
+        m = Mesh(shape, ("data", "model")).bind(group)
+        out["15b"][shape] = _olmoe_train(dev, m)
+    return out
+
+
+def _mesh_rank_15d(group):
+    """15d: on a (1, 1) mesh over NCCL, the train step (2 steps), the
+    prefill and 3 decode steps of yi-9b at full width cut to
+    MESH_EQUAL_LAYERS layers, against the mesh-less steps: bit for
+    bit."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import partition
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_schedule
+    dev = group.device
+    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=MESH_EQUAL_LAYERS)
+    mesh = Mesh((1, 1), ("data", "model")).bind(group)
+
+    def fresh():
+        return build_model(cfg, dev, torch.Generator(device=dev).manual_seed(
+            SEED))
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen,
+                         device=dev)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    schedule = make_schedule("constant", 3e-3, 10)
+    diffs = []
+    # train: two steps each way from the same weights
+    model = fresh()
+    plain = steps_lib.init_train_state(model)
+    plain = steps_lib.TrainState({k: v.clone() for k, v in
+                                  plain.params.items()}, plain.opt)
+    layout = partition.param_layout(model, mesh, "train")
+    meshed = steps_lib.local_train_state(dict(partition.build_local(
+        cfg, mesh, "train", dev, torch.Generator(device=dev).manual_seed(
+            SEED)).named_parameters()), layout)
+    model.to_empty(device="meta")
+    step_p = steps_lib.make_train_step(model, schedule=schedule)
+    step_m = steps_lib.make_train_step(model, schedule=schedule, mesh=mesh)
+    for i in range(2):
+        plain, mp = step_p(plain, batch)
+        meshed, mm = step_m(meshed, batch)
+        for k in ("ce", "grad_norm", "loss"):
+            if not torch.equal(mp[k], mm[k]):
+                diffs.append(f"train step {i} {k}")
+    for k, v in plain.params.items():
+        if not torch.equal(v, meshed.params[k]):
+            diffs.append(f"train parameter {k}")
+    for k, v in plain.opt.m.items():
+        if not torch.equal(v, meshed.opt.m[k]):
+            diffs.append(f"train moment {k}")
+    del plain, meshed, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # serve: the prefill (flash kernel) and 3 decode steps each way
+    runs = []
+    for use_mesh in (False, True):
+        model = fresh()
+        kw = {}
+        if use_mesh:
+            steps_lib.shard_model(model, partition.param_layout(
+                model, mesh, "serve"))
+            kw = dict(mesh=mesh, batch=2)
+        pre = steps_lib.make_prefill_step(model, max_seq=520,
+                                          use_flash=True, **kw)
+        dec = steps_lib.make_decode_step(
+            model, **(dict(kw, max_seq=520) if kw else {}))
+        logits, caches, _ = pre({"tokens": toks})
+        outs = [logits]
+        tok = logits.argmax(-1)[:, None]
+        for s in range(3):
+            logits, caches = dec({"token": tok, "index": 512 + s,
+                                  "caches": caches})
+            tok = logits.argmax(-1)[:, None]
+            outs.append(logits)
+        runs.append((outs, caches))
+        del model
+    for i, (a, b) in enumerate(zip(runs[0][0], runs[1][0])):
+        if not torch.equal(a, b):
+            diffs.append(f"serve logits {i}")
+    for k in ("k", "v", "pos"):
+        if not torch.equal(runs[0][1][0][0][k], runs[1][1][0][0][k]):
+            diffs.append(f"serve cache {k}")
+    return {"diffs": diffs, "backend": group.name}
+
+
+def sharding_phases(card: str):
+    """Phase 15: model land across ranks (see the module docstring)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.core.sharded import spawn
+    from repro_torch.kernels.flash_attention import flash_attention as fa_k
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6 import ref as wkv_ref
+    from repro_torch.kernels.rwkv6 import rwkv6 as wkv_k
+    from repro_torch import compat
+
+    import glob
+    import math
+
+    t15 = time.perf_counter()
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 15e starts first, on the host (a fake group of 256: its own process)
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p))
+    dry_cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               "yi-9b", "--shape", "decode_32k", "--out", out_dir]
+    dry = subprocess.Popen(dry_cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    # the dry run of 15a's and 15b's cells, held to their measured peaks
+    cell_dry = {}
+    for name, cargs in MESH_DRY_CELLS.items():
+        cdir = os.path.join(out_dir, re.sub(r"\W+", "_", name))
+        cell_dry[name] = (cdir, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *cargs,
+             "--out", cdir], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    result = {}
+    log(f"[mesh] f32 products of the served tensor-parallel regions: "
+        f"{compat.f32_product_route(dev)} (torch {torch.__version__})")
+
+    # ---- the kernels at the local-head shapes ----------------------------
+    gen = torch.Generator().manual_seed(SEED)
+    b, s, h, kv, hd = MESH_FLASH_SHAPE
+    q = torch.randn(b, s, h, hd, generator=gen).to(dev, torch.bfloat16)
+    k, v = (torch.randn(b, s, kv, hd, generator=gen).to(dev, torch.bfloat16)
+            for _ in range(2))
+    scale = hd ** -0.5
+    got = fa_k.flash_attention_kernel(q, k, v, scale=scale, causal=True)
+    want = fa_ref.attention(q, k, v, causal=True, scale=scale)
+    atol, rtol = FLASH_TOL["bfloat16"]
+    err = (got.float() - want.float()).abs().max().item()
+    if not (bool(torch.isfinite(got).all()) and torch.allclose(
+            got.float(), want.float(), atol=atol, rtol=rtol)):
+        fail(f"flash at the local-head shape {MESH_FLASH_SHAPE}: max_abs_err"
+             f" {err} beyond atol {atol} rtol {rtol}")
+    ms = event_ms(lambda: fa_k.flash_attention_kernel(
+        q, k, v, scale=scale, causal=True), TIMED_CALLS)
+    plain_ms = event_ms(lambda: fa_ref.attention(q, k, v, causal=True,
+                                                 scale=scale), 3)
+    tq, tk, tv = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    sdpa_ms = event_ms(lambda: F.scaled_dot_product_attention(
+        tq, tk, tv, is_causal=True, scale=scale, enable_gqa=True),
+        TIMED_CALLS)
+    nbytes, ops = flash_work(q, k)
+    bound, by = bound_of(nbytes, bf16_ops=ops)
+    result["flash"] = dict(ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                           bound=bound, by=by, err=err)
+    log(f"[mesh] flash at yi-9b's local heads on 2 ranks {MESH_FLASH_SHAPE} "
+        f"bf16 causal: max_abs_err {err} against ref.attention (atol {atol}"
+        f" rtol {rtol}); {ms:.4f} ms per call, bound {bound:.4f} ms ({by}), "
+        f"{ms / bound:.2f} times it; SDPA {sdpa_ms:.4f} ms; plain "
+        f"{plain_ms:.3f} ms; {card}")
+    del q, k, v, got, want, tq, tk, tv
+    b, s, h, hd = MESH_WKV_SHAPE
+    args = wkv_inputs(gen, b, s, h, hd, "rwkv", dev)
+    bf = [args[0].bfloat16(), args[1].bfloat16(), args[2].bfloat16(),
+          args[3], args[4].bfloat16(), args[5]]
+    got = wkv_ops.wkv(*bf)
+    r, k, v, w, u, s0 = bf
+    want = wkv_ref.wkv_chunked(
+        *(a.float().transpose(1, 2).reshape(b * h, s, hd)
+          for a in (r, k, v, w)),
+        u.float()[None].expand(b, h, hd).reshape(b * h, hd),
+        s0.reshape(b * h, hd, hd), chunk=wkv_k.CHUNK)
+    want = (want[0].reshape(b, h, s, hd).transpose(1, 2),
+            want[1].reshape(b, h, hd, hd))
+    tol = WKV_TOL["rwkv"]
+    werr = max((a - c).abs().max().item() for a, c in zip(got, want))
+    if not all(bool(torch.isfinite(a).all()) and torch.allclose(a, c, **tol)
+               for a, c in zip(got, want)):
+        fail(f"WKV at the local-head shape {MESH_WKV_SHAPE}: max_abs_err "
+             f"{werr} beyond {tol}")
+    wms = event_ms(lambda: wkv_ops.wkv(*bf), TIMED_CALLS)
+    wplain_ms = event_ms(lambda: wkv_k._plain(*bf, wkv_k.CHUNK), 3)
+    wbytes, wf32, wtc = wkv_work(b, h, s, hd, wkv_k.CHUNK, 2)
+    wbound, wby = bound_of(wbytes, f32_ops=wf32, tf32_ops=wtc)
+    result["wkv"] = dict(ms=wms, plain_ms=wplain_ms, bound=wbound, by=wby,
+                         err=werr)
+    log(f"[mesh] WKV at rwkv6-3b's local heads on 2 ranks {MESH_WKV_SHAPE} "
+        f"bf16 r, k, v: max_abs_err {werr} against wkv_chunked ({tol}); "
+        f"{wms:.4f} ms per call, bound {wbound:.4f} ms ({wby}), "
+        f"{wms / wbound:.2f} times it; plain {wplain_ms:.3f} ms; {card}")
+    del args, bf, got, want
+
+    # ---- the one-rank runs the ranks are held to ---------------------------
+    one_yi = _yi_serve(dev)
+    one_rwkv = _rwkv_prefill(dev)
+    one_rwkv32 = _rwkv_prefill(dev, f32=True)
+    one_olmoe = _olmoe_train(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 15a-15c on 2 ranks sharing the card -------------------------------
+    t = time.perf_counter()
+    ranks = spawn(_mesh_rank_15, MESH_RANKS, "gloo", "cuda",
+                  timeout=MESH_TIMEOUT)
+    log(f"[mesh] 15a-15c: {MESH_RANKS} ranks on one card, backend "
+        f"{ranks[0]['backend']}, in {time.perf_counter() - t:.1f} s; {card}")
+    # 15a
+    yi = [r["15a"] for r in ranks]
+    for r, info in enumerate(yi):
+        if info["launches"].get("flash_attention") != 48 or \
+                info["decode_launches"].get("flash_attention"):
+            fail(f"15a rank {r}: flash launches {info['launches']} in the "
+                 f"prefill, {info['decode_launches']} in decode")
+        if not torch.equal(info["logits"], yi[0]["logits"]):
+            fail(f"15a: rank {r}'s logits differ from rank 0's")
+    y_rel = rel_l2(yi[0]["logits"], one_yi["logits"])
+    y_same = (yi[0]["logits"].argmax(-1) == one_yi["logits"].argmax(-1)
+              ).float().mean().item()
+    log(f"[mesh] 15a yi-9b served on (1, 2), the serve rules: prefill "
+        f"{DENSE_BATCH} x {DENSE_PROMPT} (flash on 16 q and 2 kv heads a "
+        f"rank, 48 launches a rank) in {yi[0]['prefill_s'] * 1e3:.1f} ms "
+        f"(the rank's first call {yi[0]['first_s'] * 1e3:.1f} ms), "
+        f"{MESH_NEW} decode steps in {yi[0]['decode_s'] * 1e3:.1f} ms; "
+        f"one rank: {one_yi['prefill_s'] * 1e3:.1f} and "
+        f"{one_yi['decode_s'] * 1e3:.1f} ms; last-position logits relative "
+        f"L2 {y_rel:.4e} from the one-rank prefill (limit {DENSE_BF16_TOL})"
+        f", next token equal in {y_same:.2f} of rows; finite "
+        f"{all(i['finite'] for i in yi)}; {card}")
+    pc, ph, dc, dh = yi[0]["collectives"]
+    log(f"[mesh] 15a rank 0's collectives over model: prefill {pc} "
+        f"({ph * 1e3:.1f} ms of host, its wait for the device and the other "
+        f"rank included, of {yi[0]['prefill_s'] * 1e3:.1f} ms), decode "
+        f"{dc} in {MESH_NEW} steps ({dh * 1e3:.1f} ms of "
+        f"{yi[0]['decode_s'] * 1e3:.1f} ms)")
+    log(f"[mesh] 15a greedy tokens (row 0): 2 ranks "
+        f"{yi[0]['tokens'][0].tolist()}, one rank "
+        f"{one_yi['tokens'][0].tolist()}")
+    for r, info in enumerate(yi):
+        log(f"[mesh] 15a rank {r}: peak device memory {info['peak']} B "
+            f"({info['peak'] / 2**30:.2f} GiB) beside {info['held']} B "
+            f"({info['held'] / 2**30:.2f} GiB) the rules give it (its "
+            f"blocks of the weights and the caches); while it drew its "
+            f"blocks {info['build_peak']} B "
+            f"({info['build_peak'] / 2**30:.2f} GiB, its weights "
+            f"{info['weights'] / 2**30:.2f} GiB); one rank "
+            f"{one_yi['peak'] / 2**30:.2f} GiB beside "
+            f"{one_yi['held'] / 2**30:.2f} GiB, "
+            f"{one_yi['build_peak'] / 2**30:.2f} GiB while it drew the "
+            f"model")
+        if info["build_peak"] >= one_yi["weights"]:
+            fail(f"15a rank {r}: {info['build_peak']} B while drawing its "
+                 f"blocks, not below the whole model's "
+                 f"{one_yi['weights']} B")
+    if y_rel > DENSE_BF16_TOL or not all(i["finite"] for i in yi):
+        fail(f"15a: the (1, 2) prefill's logits lie {y_rel} from the "
+             f"one-rank prefill's (limit {DENSE_BF16_TOL})")
+    # 15c
+    rw = [r["15c"] for r in ranks]
+    for r, info in enumerate(rw):
+        if info["launches"].get("wkv") != 32:
+            fail(f"15c rank {r}: WKV launches {info['launches']}")
+    c_logits = rel_l2(rw[0]["logits"], one_rwkv["logits"])
+    c_state = rel_l2(torch.cat([i["wkv"] for i in rw], dim=2),
+                     one_rwkv["wkv"])
+    log(f"[mesh] 15c rwkv6-3b prefill on (1, 2) ({SERVE_BATCH} x "
+        f"{SERVE_PROMPT}, the WKV kernel on 20 local heads, 32 launches a "
+        f"rank) in {rw[0]['prefill_s'] * 1e3:.1f} ms (one rank "
+        f"{one_rwkv['prefill_s'] * 1e3:.1f} ms): last-position logits "
+        f"relative L2 {c_logits:.4e} (limit {SERVE_BF16_TOL['logits']}), "
+        f"the ranks' wkv states of layer 0..31 put together {c_state:.4e} "
+        f"(limit {SERVE_BF16_TOL['state']}) from the one-rank prefill; "
+        f"{card}")
+    if c_logits > SERVE_BF16_TOL["logits"] or \
+            c_state > SERVE_BF16_TOL["state"]:
+        fail("15c: the (1, 2) rwkv6-3b prefill lies beyond phase 7b's "
+             "limits from the one-rank prefill")
+    rw32 = [r["15c_f32"] for r in ranks]
+    for r, info in enumerate(rw32):
+        if info["launches"].get("wkv") != 32:
+            fail(f"15c f32 rank {r}: WKV launches {info['launches']}")
+    f_logits = rel_l2(rw32[0]["logits"], one_rwkv32["logits"])
+    f_state = rel_l2(torch.cat([i["wkv"] for i in rw32], dim=2),
+                     one_rwkv32["wkv"])
+    log(f"[mesh] 15c f32 twin (weights and activations f32, the f32 WKV "
+        f"kernel on 20 local heads) on (1, 2) in "
+        f"{rw32[0]['prefill_s'] * 1e3:.1f} ms (one rank "
+        f"{one_rwkv32['prefill_s'] * 1e3:.1f} ms): last-position logits "
+        f"relative L2 {f_logits:.4e}, wkv states {f_state:.4e} from the "
+        f"one-rank f32 prefill (limit {SERVE_F32_TOL}); {card}")
+    if max(f_logits, f_state) > SERVE_F32_TOL:
+        fail("15c: the (1, 2) f32 rwkv6-3b prefill lies beyond "
+             "SERVE_F32_TOL from the one-rank f32 prefill")
+    # 15b
+    one_ce = [m["ce"] for m in one_olmoe["metrics"]]
+    one_gn = [m["grad_norm"] for m in one_olmoe["metrics"]]
+    log(f"[mesh] 15b olmoe-1b-7b full width, {MESH_TRAIN_LAYERS} layers, "
+        f"one rank: ce {[round(x, 5) for x in one_ce]}, gnorm "
+        f"{[round(x, 5) for x in one_gn]}, {one_olmoe['wall']:.2f} s, peak "
+        f"{one_olmoe['peak'] / 2**30:.2f} GiB")
+    for shape, tol in MESH_TRAIN_TOL.items():
+        runs = [r["15b"][shape] for r in ranks]
+        for r, info in enumerate(runs):
+            if info["metrics"] != runs[0]["metrics"]:
+                fail(f"15b {shape}: rank {r} reports other metrics")
+        ce = [m["ce"] for m in runs[0]["metrics"]]
+        gn = [m["grad_norm"] for m in runs[0]["metrics"]]
+        d_ce = max(abs(a - c) for a, c in zip(ce, one_ce))
+        d_gn = max(abs(a - c) / c for a, c in zip(gn, one_gn))
+        finite = all(math.isfinite(x) for x in ce + gn)
+        how = ("ZeRO-1 over data" if shape[0] > 1
+               else "heads and experts over model")
+        log(f"[mesh] 15b {shape} ({'EP, ' if runs[0]['ep'] else ''}"
+            f"{how}): ce {[round(x, 5) for x in ce]}, gnorm "
+            f"{[round(x, 5) for x in gn]}; from one rank: ce {d_ce:.4e} "
+            f"(limit {tol['ce']}), gnorm {d_gn:.4e} relative (limit "
+            f"{tol['gnorm']}); {runs[0]['wall']:.2f} s; peak per rank "
+            f"{[round(i['peak'] / 2**30, 2) for i in runs]} GiB beside the "
+            f"state the rules give it "
+            f"{[round(i['held'] / 2**30, 2) for i in runs]} GiB, while it "
+            f"drew its blocks "
+            f"{[round(i['build_peak'] / 2**30, 2) for i in runs]} GiB; "
+            f"{card}")
+        if not finite or d_ce > tol["ce"] or d_gn > tol["gnorm"]:
+            fail(f"15b {shape}: beyond the limits from the one-rank run")
+        if shape == (1, MESH_RANKS) and not runs[0]["ep"]:
+            fail("15b (1, 2): expert parallelism did not apply")
+
+    # ---- 15d: a (1, 1) mesh over NCCL == the mesh-less steps --------------
+    t = time.perf_counter()
+    one = spawn(_mesh_rank_15d, 1, "nccl", "cuda:0", timeout=MESH_TIMEOUT)[0]
+    if one["diffs"]:
+        fail(f"15d: the (1, 1) mesh differs from the mesh-less steps: "
+             f"{one['diffs'][:8]}")
+    log(f"[mesh] 15d: a (1, 1) mesh over {one['backend']} equals the "
+        f"mesh-less steps bit for bit: 2 train steps (metrics, parameters, "
+        f"moments), the flash prefill and 3 decode steps (logits, caches); "
+        f"yi-9b full width, {MESH_EQUAL_LAYERS} layers, in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    # ---- the dry run of 15a's and 15b's cells against their peaks --------
+    measured = {"15a (1, 2)": yi[0]["peak"],
+                **{f"15b {shape}": ranks[0]["15b"][shape]["peak"]
+                   for shape in ((1, MESH_RANKS), (MESH_RANKS, 1))}}
+    for name, (cdir, proc) in cell_dry.items():
+        stdout, stderr = proc.communicate(timeout=MESH_TIMEOUT)
+        recs = sorted(glob.glob(os.path.join(cdir, "*.json")))
+        if proc.returncode != 0 or len(recs) != 1:
+            fail(f"the dry run of {name}: rc {proc.returncode}, "
+                 f"{stdout[-1000:]} {stderr[-2000:]}")
+        with open(recs[0]) as f:
+            rec = json.load(f)
+        dry_b, peak = rec["peak_bytes_per_device"], measured[name]
+        off = (dry_b - peak) / peak
+        log(f"[mesh] dry run of {name} ({' '.join(MESH_DRY_CELLS[name])}):"
+            f" {dry_b / 2**30:.2f} GiB a rank (arguments "
+            f"{rec['argument_bytes'] / 2**30:.2f} + temporaries "
+            f"{rec['temp_bytes'] / 2**30:.2f}) against rank 0's measured "
+            f"peak {peak / 2**30:.2f} GiB: {off:+.4f} relative (limit "
+            f"{MESH_DRY_TOL}); {card}")
+        if abs(off) > MESH_DRY_TOL:
+            fail(f"the dry run of {name} reads {dry_b} B a rank, "
+                 f"{off:+.4f} from the measured peak {peak} B")
+
+    # ---- 15e: the dry run of one production cell ---------------------------
+    stdout, stderr = dry.communicate(timeout=MESH_TIMEOUT)
+    lines = [ln for ln in stdout.strip().splitlines() if ln]
+    if dry.returncode != 0 or not any(ln.startswith("[ok]") and "fits" in ln
+                                      for ln in lines):
+        fail(f"15e: {' '.join(dry_cmd[1:])}: rc {dry.returncode}, "
+             f"{lines[-3:]}, {stderr[-2000:]}")
+    for ln in lines:
+        log(f"[mesh] 15e {ln}")
+    log(f"[mesh] phase 15 in {time.perf_counter() - t15:.1f} s")
+    return result
 
 
 def main() -> int:
@@ -4361,6 +5029,9 @@ def main() -> int:
     t14 = time.perf_counter()
     family_phases(card)
     log(f"[family] phase 14 in {time.perf_counter() - t14:.1f} s")
+
+    # ---- 15: model land across ranks ---------------------------------------
+    mesh_kernels = sharding_phases(card)
 
     result = {"kernels": [
         {"name": "trap_fitness", "route": "cuda",

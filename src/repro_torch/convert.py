@@ -299,13 +299,20 @@ def _by_name(model, tree, dtype_of, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def train_state_from_numpy(model, state: Any, device: DeviceLike = None):
+def train_state_from_numpy(model, state: Any, device: DeviceLike = None,
+                           layout=None):
     """The reference's ``TrainState`` (numpy leaves: ``params`` in the
     model's parameter dtypes, ``opt.m``/``opt.v``/``opt.master`` f32 or a
     None master, ``opt.step``) as the port's
-    :class:`~repro_torch.launch.steps.TrainState` on ``device``."""
-    from .launch.steps import TrainState
+    :class:`~repro_torch.launch.steps.TrainState` on ``device``. With a
+    ``layout`` (:func:`repro_torch.launch.partition.param_layout` on a
+    bound mesh) this rank's blocks of it: the parameters cut by the rules,
+    the optimizer state on the ZeRO-1 layout."""
+    from .launch.steps import TrainState, shard_state
     from .optim import AdamWState
+    if layout is not None:
+        return to_device(shard_state(train_state_from_numpy(
+            model, state, "cpu"), layout), device)
     dev = resolve_device(device)
     dtypes = {n: p.dtype for n, p in model.named_parameters()}
     f32 = lambda _: torch.float32  # noqa: E731
@@ -321,9 +328,16 @@ def train_state_from_numpy(model, state: Any, device: DeviceLike = None):
                               device=dev)))
 
 
-def params_to_numpy(model, params: Mapping[str, torch.Tensor]) -> Dict:
+def params_to_numpy(model, params: Mapping[str, torch.Tensor],
+                    layout=None) -> Dict:
     """A dict of the port's parameters by name (a train state's) as the
-    reference's tree: each segment's layers stacked, f32 numpy leaves."""
+    reference's tree: each segment's layers stacked, f32 numpy leaves.
+    With a ``layout`` ``params`` are this rank's blocks, gathered first
+    (a collective: every rank of the mesh calls it)."""
+    if layout is not None:
+        from .launch import partition
+        params = {n: partition.gather(t, layout.specs[n], layout.mesh)
+                  for n, t in params.items()}
     by_path: Dict[tuple, Dict] = {}
     for name, (path, layer) in model.param_paths().items():
         a = params[name].detach().float().cpu().numpy()

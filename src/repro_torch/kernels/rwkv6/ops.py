@@ -1,7 +1,11 @@
 """WKV6 in the model's layout (B, S, H, hd), which the kernel reads as it
 is.
 
-Replaces ``repro/kernels/rwkv6/ops.py::wkv``.
+Replaces ``repro/kernels/rwkv6/ops.py::wkv``. The kernel is called
+through the custom op ``repro_torch::wkv`` (the CUDA kernel on the card,
+the plain version on the CPU), whose fake implementation allocates the
+outputs alone and whose FLOP formula is :func:`flops`, so the dry run
+traces the kernel, not the plain version.
 """
 from __future__ import annotations
 
@@ -10,9 +14,44 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ... import compat
 from .. import refuse_autograd
 from . import ref as _ref
 from . import rwkv6 as _k
+
+
+@torch.library.custom_op("repro_torch::wkv", mutates_args=())
+def _wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+         chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    y, s = _k.wkv_kernel(r, k, v, w, u, state, chunk=chunk)
+    return y, (s.clone() if s is state else s)
+
+
+@_wkv.register_fake
+def _wkv_fake(r, k, v, w, u, state, chunk):
+    return (r.new_empty(r.shape, dtype=torch.float32),
+            state.new_empty(state.shape, dtype=torch.float32))
+
+
+def flops(r_shape, chunk: int) -> int:
+    """The chunked recurrence's multiply-adds at 2 operations each, per
+    chunk of T tokens and head (K = V = D): r~ S and k^T v (TKV each),
+    the intra-chunk pairs (T(T + 1) / 2 rows of K, then of V) and the
+    decay of S (KV)."""
+    b, seq, h, d = r_shape
+    t = chunk
+    per = 2 * (2 * t * d * d + t * (t + 1) // 2 * 2 * d + d * d)
+    return b * h * (-(-seq // t)) * per
+
+
+_, _register_flop_formula = compat.flop_counter()
+
+
+@_register_flop_formula(torch.ops.repro_torch.wkv)
+def _wkv_flops(r_shape, *args, **kw):
+    chunk = kw.get("chunk", args[5] if len(args) > 5 else _k.CHUNK)
+    return flops(r_shape, chunk)
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -40,5 +79,5 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if pad:
         r, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v))
         w = F.pad(w, (0, 0, 0, 0, 0, pad), value=1.0)
-    y, s_out = _k.wkv_kernel(r, k, v, w, u, state, chunk=chunk)
+    y, s_out = _wkv(r, k, v, w, u, state, chunk)
     return (y[:, :seq] if pad else y), s_out

@@ -18,6 +18,18 @@ The step runs under ``torch.use_deterministic_algorithms`` (the
 embedding's backward accumulates by sort, not by atomics), so a resumed
 run repeats the uninterrupted one bit for bit, on the card and on a CPU
 of several threads.
+
+With a bound ``mesh=`` and ``mode=`` (:mod:`repro_torch.launch.mesh`,
+the rules' modes) the steps run on the ranks of the mesh
+(:mod:`repro_torch.launch.partition`): a state's tensors and a serving
+model's parameters are this rank's blocks (drawn as such by
+:func:`~repro_torch.launch.partition.build_local`, a serving model's
+also cut from global ones by :func:`shard_model`), a batch is
+this rank's rows (:func:`shard_batch`). The train step's metrics are the
+global ones: ``ce`` summed over the batch's ranks, the aux terms (each
+rank's own, as the reference's expert-parallel shard_map returns them)
+those of rank 0. Without a mesh the steps are the single-device ones,
+bit for bit.
 """
 from __future__ import annotations
 
@@ -29,6 +41,8 @@ from torch import nn
 
 from ..models import Model
 from ..optim import AdamWState, adamw_init, adamw_update
+from ..optim.adamw import adamw_init_sharded
+from . import partition
 
 Params = Dict[str, torch.Tensor]
 
@@ -49,6 +63,78 @@ def init_train_state(model: Model,
         model = Model(model.cfg, model.device, generator)
     params = {n: p.detach() for n, p in model.named_parameters()}
     return TrainState(params=params, opt=adamw_init(params))
+
+
+def abstract_train_state(model: Model) -> TrainState:
+    """The train state's stand-ins (meta tensors): the parameters, the
+    f32 moments and, where a parameter is not f32, the f32 master."""
+    params = model.abstract_params()
+    f32 = {k: torch.empty(p.shape, dtype=torch.float32, device="meta")
+           for k, p in params.items()}
+    master = (dict(f32) if any(p.dtype != torch.float32
+                               for p in params.values()) else None)
+    return TrainState(params=params, opt=AdamWState(
+        m=f32, v=dict(f32), master=master,
+        step=torch.zeros((), dtype=torch.int32, device="meta")))
+
+
+def local_train_state(local: Params, layout: "partition.Layout"
+                      ) -> TrainState:
+    """A fresh train state of this rank's blocks ``local`` (by name; a
+    model of :func:`~repro_torch.launch.partition.build_local`, their
+    storage shared): the AdamW state on the ZeRO-1 layout."""
+    local = {n: p.detach() for n, p in local.items()}
+    return TrainState(params=local, opt=adamw_init_sharded(local, layout))
+
+
+def shard_state(state: TrainState, layout: "partition.Layout"
+                ) -> TrainState:
+    """This rank's blocks of a global train state (a resume)."""
+    mesh, opt = layout.mesh, state.opt
+
+    def cut(tree, specs):
+        return (None if tree is None
+                else partition.shard_tree(tree, specs, mesh, mesh.coord))
+
+    return TrainState(
+        params=cut(state.params, layout.specs),
+        opt=AdamWState(m=cut(opt.m, layout.opt), v=cut(opt.v, layout.opt),
+                       master=cut(opt.master, layout.opt),
+                       step=opt.step.clone()))
+
+
+def gather_state(state: TrainState, layout: "partition.Layout"
+                 ) -> TrainState:
+    """The global train state from every rank's blocks (a collective:
+    every rank calls it)."""
+    mesh, opt = layout.mesh, state.opt
+
+    def full(tree, specs):
+        return (None if tree is None
+                else partition.gather_tree(tree, specs, mesh))
+
+    return TrainState(
+        params=full(state.params, layout.specs),
+        opt=AdamWState(m=full(opt.m, layout.opt), v=full(opt.v, layout.opt),
+                       master=full(opt.master, layout.opt), step=opt.step))
+
+
+def shard_batch(batch: Dict, mesh, mode: str = "train") -> Dict:
+    """This rank's rows of a global batch, cut as ``batch_pspecs`` cuts
+    it."""
+    from .shardings import batch_pspecs
+    specs = batch_pspecs(batch, mesh, mode)
+    return {k: partition.shard(v, specs[k], mesh, mesh.coord)
+            for k, v in batch.items()}
+
+
+def shard_model(model: Model, layout: "partition.Layout") -> Model:
+    """``model`` holding this rank's blocks of its parameters in place of
+    the global ones (for the serving steps)."""
+    local = {n: layout.local(n, p.detach())
+             for n, p in model.named_parameters()}
+    partition.load_local(model, layout, local)
+    return model
 
 
 class _Objective(nn.Module):
@@ -93,21 +179,26 @@ def deterministic(device: torch.device):
             det.fill_uninitialized_memory = fill
 
 
-def make_grad_fn(model: Model, remat_mode: str = "layer"
+def make_grad_fn(model: Model, remat_mode: str = "layer",
+                 layout: Optional["partition.Layout"] = None
                  ) -> Callable[[Params, Dict], Tuple[Params, Dict]]:
     """``grads_of(params, batch) -> (grads, metrics)``: the gradient of
     ``model.loss`` at ``params`` (a dict by parameter name, put in place
     of the module's), in the parameters' dtypes, and the loss's metrics
-    (detached)."""
+    (detached). On a mesh (``layout``) ``params`` and the gradients are
+    this rank's blocks and the metrics its own."""
     objective = _Objective(model)
 
     def grads_of(params: Params, batch: Dict) -> Tuple[Params, Dict]:
         with torch.enable_grad():
             leaves = {k: p.detach().requires_grad_(True)
                       for k, p in params.items()}
+            kw = {"remat_mode": remat_mode}
+            if layout is not None:
+                kw["sh"] = layout.shards().register(leaves)
             total, metrics = torch.func.functional_call(
                 objective, {f"model.{k}": v for k, v in leaves.items()},
-                (batch,), {"remat_mode": remat_mode})
+                (batch,), kw)
             grads = torch.autograd.grad(total, list(leaves.values()))
         return (dict(zip(leaves, grads)),
                 {k: v.detach() for k, v in metrics.items()})
@@ -136,7 +227,8 @@ def make_train_step(model: Model, *,
                     max_grad_norm: Optional[float] = 1.0,
                     use_flash: bool = False,
                     use_rwkv_kernel: bool = False,
-                    remat_mode: str = "layer",
+                    remat_mode: str = "layer", mesh=None,
+                    mode: str = "train",
                     ) -> Callable[[TrainState, Dict],
                                   Tuple[TrainState, Dict]]:
     """Build ``train_step(state, batch) -> (state, metrics)``.
@@ -145,14 +237,20 @@ def make_train_step(model: Model, *,
     same math, 1/k of the live activations): the gradients are summed in
     f32 as ``acc + g / k`` and the metrics averaged. ``metrics`` holds the
     loss's (``ce``, ``loss``, the aux terms), ``grad_norm`` (before
-    clipping) and ``lr``, 0-d f32 tensors."""
+    clipping) and ``lr``, 0-d f32 tensors.
+
+    With a bound ``mesh`` the state is this rank's blocks
+    (:func:`local_train_state`) under the rules' ``mode`` (``train`` or
+    ``train_dp``) and the batch its rows (:func:`shard_batch`)."""
     if use_flash:
         raise NotImplementedError(_NO_KERNEL_GRAD.format(
             name="flash-attention", flag="use_flash"))
     if use_rwkv_kernel:
         raise NotImplementedError(_NO_KERNEL_GRAD.format(
             name="WKV", flag="use_rwkv_kernel"))
-    grads_of = make_grad_fn(model, remat_mode)
+    layout = None if mesh is None else partition.param_layout(model, mesh,
+                                                              mode)
+    grads_of = make_grad_fn(model, remat_mode, layout)
     order = model.leaf_groups()
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
@@ -175,14 +273,31 @@ def make_train_step(model: Model, *,
                     ms.append(m)
                 metrics = {key: torch.stack([m[key] for m in ms]).mean()
                            for key in ms[0]}
+            if layout is not None:
+                metrics = _global_metrics(model, layout, metrics)
             lr = schedule(state.opt.step)
             params, opt, om = adamw_update(
                 grads, state.opt, state.params, lr=lr,
                 weight_decay=weight_decay, max_grad_norm=max_grad_norm,
-                order=order)
+                order=order, layout=layout)
         return TrainState(params, opt), {**metrics, **om}
 
     return step
+
+
+def _global_metrics(model: Model, layout: "partition.Layout",
+                    metrics: Dict) -> Dict:
+    """The ranks' metrics as the reference reports them: ``ce`` summed
+    over the batch's ranks (each holds its share of the mean), the aux
+    terms rank 0's, ``loss`` from those."""
+    mesh, cfg = layout.mesh, model.cfg
+    sh = layout.shards()
+    out = {k: partition.broadcast_axes(mesh, mesh.axis_names, v)
+           for k, v in metrics.items()}
+    out["ce"] = partition.sum_axes(mesh, sh.batch_axes, metrics["ce"])
+    out["loss"] = (out["ce"] + cfg.router_aux_weight * out["load_balance"]
+                   + cfg.router_z_weight * out["router_z"])
+    return out
 
 
 def _micro(x: torch.Tensor, k: int, i: int) -> torch.Tensor:
@@ -193,7 +308,8 @@ def _micro(x: torch.Tensor, k: int, i: int) -> torch.Tensor:
 
 def make_prefill_step(model: Model, *, max_seq: Optional[int] = None,
                       use_flash: bool = False,
-                      use_rwkv_kernel: bool = False
+                      use_rwkv_kernel: bool = False, mesh=None,
+                      mode: str = "serve", batch: Optional[int] = None
                       ) -> Callable[[Dict], Tuple[torch.Tensor, List,
                                                   Optional[List]]]:
     """prefill(batch) -> (last-position logits (B, V), caches, cross_kvs
@@ -202,25 +318,61 @@ def make_prefill_step(model: Model, *, max_seq: Optional[int] = None,
     besides. With ``use_flash`` every causal attention layer without a
     window runs the flash-attention kernel, with ``use_rwkv_kernel`` every
     RWKV layer the WKV kernel; each is ignored by the blocks without its
-    mixer."""
+    mixer.
+
+    With a bound ``mesh`` the model holds its blocks
+    (:func:`~repro_torch.launch.partition.build_local`), ``batch`` is the
+    global batch size and a call takes this rank's rows; the logits are
+    its rows' (every vocab entry) and the caches come out as the serve
+    rules store them."""
     if max_seq is not None:
         max_seq += model.cfg.n_meta_tokens
+    layout = None if mesh is None else partition.param_layout(model, mesh,
+                                                              mode)
 
-    def prefill(batch: Dict) -> Tuple[torch.Tensor, List, Optional[List]]:
-        return model.prefill(batch, use_flash=use_flash,
+    def prefill(inputs: Dict) -> Tuple[torch.Tensor, List, Optional[List]]:
+        sh = None
+        if layout is not None:
+            seq = (max_seq if max_seq is not None else
+                   inputs["tokens"].shape[1] + model.cfg.n_meta_tokens)
+            sh = _serving(model, layout, batch, seq)
+        return model.prefill(inputs, use_flash=use_flash,
                              use_rwkv_kernel=use_rwkv_kernel,
-                             max_seq=max_seq)
+                             max_seq=max_seq, sh=sh)
 
     return prefill
 
 
-def make_decode_step(model: Model
+def _serving(model: Model, layout: "partition.Layout", batch: int,
+             seq: int) -> "partition.Shards":
+    sh = layout.shards().register(dict(model.named_parameters()))
+    key = ("cache_specs", batch, seq)
+    if key not in layout.memo:
+        layout.memo[key] = partition.cache_pspecs(model, layout.mesh, batch,
+                                                  seq)
+    sh.cache_specs = layout.memo[key]
+    return sh
+
+
+def make_decode_step(model: Model, *, mesh=None, mode: str = "serve",
+                     batch: Optional[int] = None,
+                     max_seq: Optional[int] = None
                      ) -> Callable[[Dict], Tuple[torch.Tensor, List]]:
     """decode({'token', 'index', 'caches'[, 'cross_kvs']}) -> (logits
-    (B, V), caches); ``index`` counts the meta tokens."""
+    (B, V), caches); ``index`` counts the meta tokens. With a bound
+    ``mesh``: the model holds its blocks, ``batch`` is the global batch
+    size and ``max_seq`` the decode budget (as the prefill step was given
+    it), a call takes this rank's rows and caches."""
+    layout = None if mesh is None else partition.param_layout(model, mesh,
+                                                              mode)
+    if layout is not None and max_seq is not None:
+        max_seq += model.cfg.n_meta_tokens
 
-    def decode(batch: Dict) -> Tuple[torch.Tensor, List]:
-        return model.decode(batch["token"], batch["index"], batch["caches"],
-                            batch.get("cross_kvs"))
+    def decode(inputs: Dict) -> Tuple[torch.Tensor, List]:
+        sh = None
+        if layout is not None:
+            sh = _serving(model, layout, batch, max_seq)
+        return model.decode(inputs["token"], inputs["index"],
+                            inputs["caches"], inputs.get("cross_kvs"), sh=sh)
 
     return decode

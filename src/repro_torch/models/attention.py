@@ -26,6 +26,7 @@ token.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -47,18 +48,18 @@ class Attention(Params):
         super().__init__()
         d, hd = cfg.d_model, cfg.hd
         h, kv = cfg.n_heads, cfg.n_kv_heads
-        self._param("wq", mk(f"{prefix}.wq", (d, h * hd)))
-        self._param("wk", mk(f"{prefix}.wk", (d, kv * hd)))
-        self._param("wv", mk(f"{prefix}.wv", (d, kv * hd)))
-        self._param("wo", mk(f"{prefix}.wo", (h * hd, d)))
+        self._param("wq", mk(f"{prefix}.wq", (d, h * hd), ("embed", "heads")))
+        self._param("wk", mk(f"{prefix}.wk", (d, kv * hd), ("embed", "kv")))
+        self._param("wv", mk(f"{prefix}.wv", (d, kv * hd), ("embed", "kv")))
+        self._param("wo", mk(f"{prefix}.wo", (h * hd, d), ("heads", "embed")))
         if cfg.qk_norm:
             self._param("q_norm.scale", mk(f"{prefix}.q_norm.scale", (hd,),
-                                           1.0))
+                                           (None,), 1.0))
             self._param("k_norm.scale", mk(f"{prefix}.k_norm.scale", (hd,),
-                                           1.0))
+                                           (None,), 1.0))
         if cross:
             # the vision model's tanh gate, zero at init
-            self._param("gate", mk(f"{prefix}.gate", (1,), 0.0))
+            self._param("gate", mk(f"{prefix}.gate", (1,), (None,), 0.0))
 
 
 # ---------------------------------------------------------------------------
@@ -76,6 +77,25 @@ def blank_cache(cfg: ModelConfig, batch: int, cache_window: int,
             "v": torch.zeros(shape, dtype=act, device=device),
             "pos": torch.full(lead + (cache_window,), -1, dtype=torch.int32,
                               device=device)}
+
+
+def cache_specs(cfg: ModelConfig, mk: Maker, batch: int, cache_window: int,
+                layers: Optional[int], name: str = "cache") -> Dict:
+    """The reference's ``init_cache``: the ring cache's leaves through a
+    maker (shapes with :func:`~.common.shape_maker`, logical axes with
+    :func:`~.common.axes_maker`)."""
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    lead = () if layers is None else (layers,)
+    la = () if layers is None else ("layers",)
+    kv_axes = la + ("batch", "cache_seq", "kv_head", None)
+    return {
+        "k": mk(f"{name}.k", lead + (batch, cache_window, kv, hd), kv_axes,
+                0.0),
+        "v": mk(f"{name}.v", lead + (batch, cache_window, kv, hd), kv_axes,
+                0.0),
+        "pos": mk(f"{name}.pos", lead + (cache_window,), la + (None,), 0.0,
+                  dtype_override=torch.int32),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -185,9 +205,10 @@ def _project_qkv(p: Tree, cfg: ModelConfig, x: torch.Tensor,
     return q, k, v
 
 
-def _out(p: Tree, y: torch.Tensor) -> torch.Tensor:
+def _out(p: Tree, y: torch.Tensor, product=None) -> torch.Tensor:
     b, s, h, hd = y.shape
-    o = y.reshape(b, s, h * hd) @ p["wo"]
+    y = y.reshape(b, s, h * hd)
+    o = y @ p["wo"] if product is None else product(y, p["wo"])
     if "gate" in p:
         o = torch.tanh(p["gate"].float()).to(o.dtype) * o
     return o
@@ -200,12 +221,14 @@ def attend(p: Tree, cfg: ModelConfig, x: torch.Tensor, *,
            causal: bool = True, window: int = 0, n_meta: int = 0,
            positions: Optional[torch.Tensor] = None,
            cross_src: Optional[torch.Tensor] = None, use_rope: bool = True,
-           use_flash: bool = False, make_cache: int = 0
+           use_flash: bool = False, make_cache: int = 0, product=None
            ) -> Tuple[torch.Tensor, Optional[Tree]]:
     """Attention over x (B, S, d): self-attention, or cross-attention over
     ``cross_src`` (B, S_src, d) (no rope, not causal). ``make_cache`` > 0
     also returns a ring cache of that window holding the last positions
-    (prefill). Returns (out, cache or None)."""
+    (prefill). Returns (out, cache or None). ``product(y, wo)`` takes the
+    output projection's place where given (a mesh's
+    ``Shards.product``)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -227,7 +250,7 @@ def attend(p: Tree, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         y = _sdpa(q, k, v, _mask(positions, kv_pos, causal, window,
                                  n_meta), scale)
-    out = _out(p, y)
+    out = _out(p, y, product)
     if not make_cache:
         return out, None
     W = make_cache
@@ -250,8 +273,8 @@ def attend(p: Tree, cfg: ModelConfig, x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 def decode_step(p: Tree, cfg: ModelConfig, x: torch.Tensor, cache: Tree,
                 index, *, window: int = 0, n_meta: int = 0,
-                cross_cache: Optional[Dict] = None, use_rope: bool = True
-                ) -> Tuple[torch.Tensor, Tree]:
+                cross_cache: Optional[Dict] = None, use_rope: bool = True,
+                product=None) -> Tuple[torch.Tensor, Tree]:
     """One decode step. x (B, 1, d); ``index`` (an int or a 0-d int
     tensor) the position of this token. Writes its key and value into
     ``cache`` in place and returns (out, cache). With ``cross_cache``
@@ -266,7 +289,8 @@ def decode_step(p: Tree, cfg: ModelConfig, x: torch.Tensor, cache: Tree,
         k, v = cross_cache["k"], cross_cache["v"]
         mask = torch.ones((1, k.shape[1]), dtype=torch.bool,
                           device=x.device)
-        return _out(p, _sdpa(q, k, v, mask, 1.0 / cfg.hd ** 0.5)), cache
+        return _out(p, _sdpa(q, k, v, mask, 1.0 / cfg.hd ** 0.5),
+                    product), cache
     index = int(index)
     pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, x, pos, pos, use_rope)
@@ -276,7 +300,7 @@ def decode_step(p: Tree, cfg: ModelConfig, x: torch.Tensor, cache: Tree,
     cache["pos"][slot] = index
     mask = _mask(pos, cache["pos"], True, window, n_meta)
     y = _sdpa(q, cache["k"], cache["v"], mask, 1.0 / cfg.hd ** 0.5)
-    return _out(p, y), cache
+    return _out(p, y, product), cache
 
 
 def precompute_cross_kv(p: Tree, cfg: ModelConfig, src: torch.Tensor
@@ -289,3 +313,227 @@ def precompute_cross_kv(p: Tree, cfg: ModelConfig, src: torch.Tensor
     if cfg.qk_norm:
         k = rmsnorm_1d(p["k_norm.scale"], k, cfg.norm_eps)
     return {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# On a mesh (launch/partition.py): the heads over ``model``
+# ---------------------------------------------------------------------------
+def _local_cfg(cfg: ModelConfig, h: int, kv: int) -> ModelConfig:
+    return dataclasses.replace(cfg, n_heads=h, n_kv_heads=kv,
+                               head_dim=cfg.hd)
+
+
+def _local_tree(p: Tree, cfg: ModelConfig, sh, split) -> Tree:
+    """The weights of a rank's heads (``split``), or the whole layer
+    (``split`` None)."""
+    hd = cfg.hd
+    if split is None:
+        return {k: sh.w(v) for k, v in p.items() if k != "gate"}
+    out = {"wq": sh.cols(p["wq"], split.q0 * hd, split.q1 * hd),
+           "wk": sh.cols(p["wk"], split.k0 * hd, split.k1 * hd),
+           "wv": sh.cols(p["wv"], split.k0 * hd, split.k1 * hd),
+           "wo": sh.cols(p["wo"], split.q0 * hd, split.q1 * hd, dim=0)}
+    for k in ("q_norm.scale", "k_norm.scale"):
+        if k in p:
+            out[k] = sh.w(p[k], tp=True)
+    return out
+
+
+def _gated(p: Tree, sh, o: torch.Tensor) -> torch.Tensor:
+    if "gate" in p:
+        o = torch.tanh(sh.w(p["gate"]).float()).to(o.dtype) * o
+    return o
+
+
+def cache_cut(cfg: ModelConfig, sh, window: int):
+    """How a ring cache of ``window`` slots is stored on the mesh (the
+    serve rules): ``("kv", k0, k1)``, this rank's kv heads; ``("seq", s0,
+    s1)``, its slots (the kv heads do not divide ``model``); or
+    ``("full",)``."""
+    m = sh.m
+    if m == 1 or cfg.n_kv_heads % m == 0:
+        k0, k1 = sh.chunk(cfg.n_kv_heads)
+        return ("kv", k0, k1)
+    if window % m == 0:
+        return ("seq",) + sh.chunk(window)
+    return ("full",)
+
+
+def attend_sharded(p: Tree, cfg: ModelConfig, x: torch.Tensor, sh, *,
+                   causal: bool = True, window: int = 0, n_meta: int = 0,
+                   positions: Optional[torch.Tensor] = None,
+                   cross_src: Optional[torch.Tensor] = None,
+                   use_rope: bool = True, use_flash: bool = False,
+                   make_cache: int = 0) -> Tuple[torch.Tensor, Optional[Tree]]:
+    """:func:`attend` on a mesh (``sh``: the step's
+    :class:`~repro_torch.launch.partition.Shards`). The query heads split
+    over ``model`` where :func:`partition.head_split` allows (each rank
+    attends with its heads, through the flash kernel on its local heads,
+    and the output projection's parts are summed in rank order);
+    otherwise every rank computes the layer whole from gathered weights.
+    ``make_cache`` stores the ring cache as :func:`cache_cut` cuts it."""
+    split = sh.head_split(cfg.n_heads, cfg.n_kv_heads)
+    lp = _local_tree(p, cfg, sh, split)
+    if split is None:
+        lcfg, xi, src = cfg, x, cross_src
+    else:
+        lcfg = _local_cfg(cfg, split.q1 - split.q0, split.k1 - split.k0)
+        xi = sh.enter(x)
+        src = None if cross_src is None else sh.enter(cross_src)
+    out, cache = attend(lp, lcfg, xi, causal=causal, window=window,
+                        n_meta=n_meta, positions=positions, cross_src=src,
+                        use_rope=use_rope, use_flash=use_flash,
+                        make_cache=make_cache,
+                        product=None if split is None else sh.product)
+    if split is not None:
+        out = sh.leave(out, x.dtype)
+    out = _gated(p, sh, out)
+    if not make_cache:
+        return out, None
+    cut = cache_cut(cfg, sh, make_cache)
+    if cut[0] == "kv" and split is not None:
+        return out, cache
+    # the cache holds every kv head: project them whole
+    b, s, _ = x.shape
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    k = (x @ sh.w(p["wk"])).reshape(b, s, kv, hd)
+    v = (x @ sh.w(p["wv"])).reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        k = rmsnorm_1d(sh.w(p["k_norm.scale"]), k, cfg.norm_eps)
+    if use_rope:
+        k = apply_rope(k, *rope_angles(positions, hd, cfg.rope_theta))
+    cache = _ring_cache(cfg, k, v, make_cache, n_meta, x.device)
+    if cut[0] == "seq":
+        # a copy: with one row a rank the slice is contiguous, and
+        # .contiguous() would return it, holding every slot of the ring
+        cache = dict(cache, k=cache["k"][:, cut[1]:cut[2]].clone(),
+                     v=cache["v"][:, cut[1]:cut[2]].clone())
+    return out, cache
+
+
+def _ring_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, W: int,
+                n_meta: int, device) -> Tree:
+    """A ring cache of ``W`` slots holding the last positions of k, v
+    (B, S, Kv, hd), as :func:`attend` builds it."""
+    b, s = k.shape[:2]
+    if s <= W:
+        keep = torch.arange(s, device=device)
+    else:
+        keep = torch.cat([torch.arange(n_meta, device=device),
+                          torch.arange(s - (W - n_meta), s, device=device)])
+    slots = _slot(keep, W, n_meta)
+    cache = blank_cache(cfg, b, W, None, device)
+    cache["k"][:, slots] = k[:, keep].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, keep].to(cache["v"].dtype)
+    cache["pos"][slots] = keep.to(torch.int32)
+    return cache
+
+
+def _merge_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: torch.Tensor, scale: float, sh) -> torch.Tensor:
+    """Softmax attention of q (B, 1, H, hd) over keys cut by slot across
+    ``model``: each rank's (max, sum, weighted values) over its slots,
+    merged in rank order. Returns (B, 1, H, hd) f32."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float()) * scale
+    logits = torch.where(mask, logits, torch.full((), NEG,
+                                                  device=logits.device))
+    mx = logits.amax(-1, keepdim=True)
+    pr = torch.where(mask, torch.exp(logits - mx), torch.zeros((),
+                                                               device=q.device))
+    part = torch.einsum("bkgst,btkh->bskgh", pr, v.float())
+    ssum = pr.sum(-1)                                      # (B, Kv, G, Sq)
+    from ..launch import partition
+    mxs = partition.gather_dim(sh.mesh, "model", mx[None], 0)
+    sums = partition.gather_dim(sh.mesh, "model", ssum[None], 0)
+    parts = partition.gather_dim(sh.mesh, "model", part[None], 0)
+    top = mxs.amax(0)
+    num, den = None, None
+    for r in range(mxs.shape[0]):
+        c = torch.exp(mxs[r] - top)                        # (B, Kv, G, Sq, 1)
+        wr = parts[r] * c[..., 0].permute(0, 3, 1, 2)[..., None]
+        dr = sums[r] * c[..., 0]
+        num = wr if num is None else num + wr
+        den = dr if den is None else den + dr
+    out = num / den.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, sq, h, hd)
+
+
+def decode_step_sharded(p: Tree, cfg: ModelConfig, x: torch.Tensor,
+                        cache: Tree, index, sh, *, window: int = 0,
+                        n_meta: int = 0, cross_cache: Optional[Dict] = None,
+                        use_rope: bool = True) -> Tuple[torch.Tensor, Tree]:
+    """:func:`decode_step` on a mesh, over a cache stored as
+    :func:`cache_cut` cuts it: its kv heads (the query heads over
+    ``model``, the parts of the output summed in rank order), its slots
+    (every head on every rank, each rank's partial softmax over its slots
+    merged in rank order) or whole (the layer computed whole)."""
+    scale = 1.0 / cfg.hd ** 0.5
+    if cross_cache is not None:
+        b = x.shape[0]
+        kv_cut = cfg.n_kv_heads % sh.m == 0
+        split = sh.head_split(cfg.n_heads, cfg.n_kv_heads) if kv_cut else None
+        lp = _local_tree(p, cfg, sh, split)
+        lcfg = cfg if split is None else _local_cfg(
+            cfg, split.q1 - split.q0, split.k1 - split.k0)
+        q = (x @ lp["wq"]).reshape(b, 1, lcfg.n_heads, cfg.hd)
+        if cfg.qk_norm:
+            q = rmsnorm_1d(lp["q_norm.scale"], q, cfg.norm_eps)
+        k, v = cross_cache["k"], cross_cache["v"]
+        mask = torch.ones((1, k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        if split is None:
+            return _gated(p, sh, _out(lp, _sdpa(q, k, v, mask, scale))), cache
+        o = _out(lp, _sdpa(q, k, v, mask, scale), sh.product)
+        return _gated(p, sh, sh.leave(o, x.dtype)), cache
+    W = cache["pos"].shape[0]
+    cut = cache_cut(cfg, sh, W)
+    index = int(index)
+    slot = _slot(index, W, n_meta)
+    pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
+    if cut[0] == "kv":
+        split = sh.head_split(cfg.n_heads, cfg.n_kv_heads)
+        lp = _local_tree(p, cfg, sh, split)
+        lcfg = _local_cfg(cfg, split.q1 - split.q0, split.k1 - split.k0)
+        o, cache = decode_step(lp, lcfg, x, cache, index, window=window,
+                               n_meta=n_meta, use_rope=use_rope,
+                               product=sh.product)
+        return _gated(p, sh, sh.leave(o, x.dtype)), cache
+    lp = _local_tree(p, cfg, sh, None)
+    q, k_new, v_new = _project_qkv(lp, cfg, x, x, pos, pos, use_rope)
+    cache["pos"][slot] = index
+    if cut[0] == "full":
+        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+        mask = _mask(pos, cache["pos"], True, window, n_meta)
+        y = _sdpa(q, cache["k"], cache["v"], mask, scale)
+        return _gated(p, sh, _out(lp, y)), cache
+    s0, s1 = cut[1], cut[2]
+    if s0 <= slot < s1:
+        cache["k"][:, slot - s0] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot - s0] = v_new[:, 0].to(cache["v"].dtype)
+    mask = _mask(pos, cache["pos"][s0:s1], True, window, n_meta)
+    y = _merge_partial(q, cache["k"], cache["v"], mask, scale, sh)
+    return _gated(p, sh, _out(lp, y.to(q.dtype))), cache
+
+
+def cross_kv_sharded(p: Tree, cfg: ModelConfig, src: torch.Tensor, sh
+                     ) -> Tree:
+    """:func:`precompute_cross_kv` as the mesh stores it: this rank's kv
+    heads where they divide ``model``, else every head."""
+    if cfg.n_kv_heads % sh.m == 0:
+        k0, k1 = sh.chunk(cfg.n_kv_heads)
+        hd = cfg.hd
+        lp = {"wk": sh.cols(p["wk"], k0 * hd, k1 * hd),
+              "wv": sh.cols(p["wv"], k0 * hd, k1 * hd)}
+        lcfg = _local_cfg(cfg, k1 - k0, k1 - k0)
+    else:
+        lp = {"wk": sh.w(p["wk"]), "wv": sh.w(p["wv"])}
+        lcfg = cfg
+    if "k_norm.scale" in p:
+        lp["k_norm.scale"] = sh.w(p["k_norm.scale"])
+    return precompute_cross_kv(lp, lcfg, src)

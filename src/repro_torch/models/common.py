@@ -5,18 +5,35 @@ of the reference (its dtypes as torch dtypes), the makers that build a
 parameter, ``rmsnorm``, ``rmsnorm_1d`` and ``groupnorm_heads``, and what
 the blocks share: :class:`Params`, which holds a block's parameters under
 the reference's keys, and :func:`sigmoid` as the reference rounds it in
-bf16. The sharding machinery (``constrain``, the axes makers) is not
-ported: the port runs on one card.
+bf16.
 
-A maker is called as ``mk(name, shape, scale)`` by the modules'
-constructors. :func:`init_maker` draws like the reference's
-``init_maker``: zeros where ``scale == 0.0``, ones for names ending in
-``norm.scale``, otherwise a normal truncated to [-3, 3] times ``scale``
-(``1 / sqrt(fan_in)`` when ``scale`` is None), drawn in f32 and cast. The
-draws come from a ``torch.Generator``, so they are not the reference's
-bits; the tests carry the reference's weights across with
-:mod:`repro_torch.convert`. :func:`meta_maker` builds the same shapes on
-the ``meta`` device, with no storage, to count parameters.
+A maker is called as ``mk(name, shape, axes, scale=None,
+dtype_override=None)`` by the modules' constructors, ``axes`` naming each
+dim's logical axis as the reference's call site names it (``("embed",
+"heads")`` for ``wq``; :mod:`repro_torch.launch.shardings` maps them to
+mesh axes). :func:`init_maker` draws like the reference's ``init_maker``:
+zeros where ``scale == 0.0``, ones for names ending in ``norm.scale``,
+otherwise a normal truncated to [-3, 3] times ``scale`` (``1 /
+sqrt(fan_in)`` when ``scale`` is None), drawn in f32 and cast. The draws
+come from a ``torch.Generator``, so they are not the reference's bits;
+the tests carry the reference's weights across with
+:mod:`repro_torch.convert`. :func:`meta_maker` and :func:`shape_maker`
+build the same shapes on the ``meta`` device, with no storage;
+:func:`axes_maker` returns the axes tuple itself (for the caches' specs).
+A tensor a maker returns carries its axes as ``.axes``, and
+:func:`param` keeps them on the parameter, so ``Model.param_axes()``
+reads them off a meta model.
+
+The reference pins intermediates with ``constrain`` (a sharding
+constraint under GSPMD). The port's execution over ranks is explicit
+(:mod:`repro_torch.launch.partition`), so it has no such call; each
+reference site has its counterpart there: the chunked-attention keys and
+values of ``attention.py:160-162`` are a rank's heads
+(``partition.head_split`` in :func:`~repro_torch.models.attention.
+attend_sharded`), or the whole layer where the heads do not split; the
+MoE dispatch buffers of ``moe.py:187-226`` are a rank's experts in
+:func:`~repro_torch.models.moe.apply_sharded` (expert parallelism), or
+the rows gathered over the batch's axes for the scatter path.
 """
 from __future__ import annotations
 
@@ -175,24 +192,42 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # Parameter makers
 # ---------------------------------------------------------------------------
-def init_maker(generator: torch.Generator, dtype: torch.dtype,
-               device: torch.device) -> Maker:
-    """Maker of initialised parameters on ``device``, drawn from
-    ``generator`` (which lies on ``device``)."""
+Axes = Tuple[Optional[str], ...]
 
-    def mk(name: str, shape: Sequence[int],
-           scale: Optional[float] = None) -> torch.Tensor:
+
+def _tagged(x: torch.Tensor, axes: Sequence[Optional[str]]) -> torch.Tensor:
+    x.axes = tuple(axes)
+    return x
+
+
+def init_maker(generator: torch.Generator, dtype: torch.dtype,
+               device: torch.device,
+               cut: Optional[Callable[[torch.Tensor, Axes], torch.Tensor]]
+               = None) -> Maker:
+    """Maker of initialised parameters on ``device``, drawn from
+    ``generator`` (which lies on ``device``). With ``cut(x, axes)`` each
+    parameter is drawn whole, as without it, and only the tensor ``cut``
+    returns is kept (a rank's block: the global one is freed before the
+    next is drawn)."""
+
+    def draw(name, shape, dt, scale):
         if scale == 0.0:
-            return torch.zeros(tuple(shape), dtype=dtype, device=device)
+            return torch.zeros(shape, dtype=dt, device=device)
         if scale is None:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             scale = 1.0 / math.sqrt(max(fan_in, 1))
         if name.endswith("norm.scale"):
-            return torch.ones(tuple(shape), dtype=dtype, device=device)
-        x = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+            return torch.ones(shape, dtype=dt, device=device)
+        x = torch.empty(shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -3.0, 3.0,
                                     generator=generator)
-        return (x * scale).to(dtype)
+        return (x * scale).to(dt)
+
+    def mk(name: str, shape: Sequence[int], axes: Sequence[Optional[str]],
+           scale: Optional[float] = None, dtype_override=None
+           ) -> torch.Tensor:
+        x = draw(name, tuple(shape), dtype_override or dtype, scale)
+        return _tagged(x if cut is None else cut(x, tuple(axes)), axes)
 
     return mk
 
@@ -200,11 +235,41 @@ def init_maker(generator: torch.Generator, dtype: torch.dtype,
 def meta_maker(dtype: torch.dtype) -> Maker:
     """Maker of storage-free parameters of the right shapes."""
 
-    def mk(name: str, shape: Sequence[int],
-           scale: Optional[float] = None) -> torch.Tensor:
-        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+    def mk(name: str, shape: Sequence[int], axes: Sequence[Optional[str]],
+           scale: Optional[float] = None, dtype_override=None
+           ) -> torch.Tensor:
+        return _tagged(torch.empty(tuple(shape), dtype=dtype_override or dtype,
+                                   device="meta"), axes)
 
     return mk
+
+
+def shape_maker(dtype: torch.dtype) -> Maker:
+    """The reference's ``shape_maker``: storage-free stand-ins (meta
+    tensors of the shape and dtype)."""
+    return meta_maker(dtype)
+
+
+def axes_maker() -> Maker:
+    """The reference's ``axes_maker``: each call returns its axes tuple."""
+
+    def mk(name, shape, axes, scale=None, dtype_override=None) -> Axes:
+        return tuple(axes)
+
+    return mk
+
+
+def param(value: torch.Tensor) -> nn.Parameter:
+    """``nn.Parameter(value)`` keeping the maker's ``.axes``."""
+    p = nn.Parameter(value)
+    if hasattr(value, "axes"):
+        p.axes = value.axes
+    return p
+
+
+def norm_param(mk: Maker, prefix: str, d: int) -> nn.Parameter:
+    """A norm's scale: ``prefix.norm.scale`` (d,) on ``("embed",)``."""
+    return param(mk(prefix + ".norm.scale", (d,), ("embed",), 1.0))
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +317,7 @@ class Params(nn.Module):
         self._keys: List[str] = []
 
     def _param(self, key: str, value: torch.Tensor) -> None:
-        self.register_parameter(key.replace(".", "_"), nn.Parameter(value))
+        self.register_parameter(key.replace(".", "_"), param(value))
         self._keys.append(key)
 
     def tree(self) -> Tree:

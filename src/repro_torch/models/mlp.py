@@ -25,9 +25,9 @@ class MLP(Params):
         if cfg.mlp not in ("swiglu", "gelu"):
             raise ValueError(f"unknown mlp {cfg.mlp!r}")
         if cfg.mlp == "swiglu":
-            self._param("wg", mk(f"{prefix}.wg", (d, f)))
-        self._param("wu", mk(f"{prefix}.wu", (d, f)))
-        self._param("wd", mk(f"{prefix}.wd", (f, d)))
+            self._param("wg", mk(f"{prefix}.wg", (d, f), ("embed", "ff")))
+        self._param("wu", mk(f"{prefix}.wu", (d, f), ("embed", "ff")))
+        self._param("wd", mk(f"{prefix}.wd", (f, d), ("ff", "embed")))
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -40,8 +40,28 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
 
 
-def apply(p: Tree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def apply(p: Tree, cfg: ModelConfig, x: torch.Tensor,
+          product=None) -> torch.Tensor:
+    """The FFN; ``product(h, wd)`` takes the last product's place where
+    given (a mesh's ``Shards.product``)."""
     if cfg.mlp == "swiglu":
         gate = x @ p["wg"]
-        return (gate * sigmoid(gate) * (x @ p["wu"])) @ p["wd"]
-    return gelu_tanh(x @ p["wu"]) @ p["wd"]
+        h = gate * sigmoid(gate) * (x @ p["wu"])
+    else:
+        h = gelu_tanh(x @ p["wu"])
+    return h @ p["wd"] if product is None else product(h, p["wd"])
+
+
+def apply_sharded(p: Tree, cfg: ModelConfig, x: torch.Tensor, sh
+                  ) -> torch.Tensor:
+    """:func:`apply` on a mesh: the ``ff`` dim over ``model`` where it
+    divides (each rank's columns of ``wg``/``wu`` and rows of ``wd``, the
+    parts summed in rank order), else the layer whole from gathered
+    weights."""
+    f = cfg.d_ff
+    if not sh.splits(f):
+        return apply({k: sh.w(v) for k, v in p.items()}, cfg, x)
+    lo, hi = sh.chunk(f)
+    local = {k: sh.cols(v, lo, hi, dim=0 if k == "wd" else -1)
+             for k, v in p.items()}
+    return sh.leave(apply(local, cfg, sh.enter(x), sh.product), x.dtype)

@@ -1,12 +1,13 @@
 """Mixture-of-Experts FFN: top-k routing with capacity-bounded scatter
 dispatch (dbrx 16 experts top-4, olmoe 64 experts top-8).
 
-Port of ``repro/models/moe.py`` on one device: the scatter path of
+Port of ``repro/models/moe.py``: on one device the scatter path of
 ``apply`` (``_apply_tokens``, by ``SEQ_CHUNK`` slices of long sequences);
-the reference's expert-parallel ``_apply_ep`` needs its device mesh and is
-not ported. :class:`MoE` holds the parameters under the reference's keys,
-each expert's matrices stacked on a leading expert axis; :func:`apply`
-computes from its ``tree()``.
+on a mesh :func:`apply_sharded`, the reference's expert-parallel
+``_apply_ep`` where ``USE_EP`` and the mesh allow it (:func:`ep_applies`),
+else the scatter path on the gathered rows. :class:`MoE` holds the
+parameters under the reference's keys, each expert's matrices stacked on
+a leading expert axis; :func:`apply` computes from its ``tree()``.
 
 Where the reference's bits come from, step by step:
 
@@ -21,7 +22,8 @@ Where the reference's bits come from, step by step:
   drop;
 - the dispatch into the (E, C, d) buffer: each (e, c) slot takes at most
   one token, so an ``index_put_`` without accumulation is exact; dropped
-  choices are masked out, not written;
+  choices go to a spare expert row that is cut off (:func:`dispatch`: no
+  shape depends on the data, so the dry run traces it);
 - the experts: batched products over the stacked buffer, as the
   reference's einsums;
 - the combine: each token's K outputs scaled by ``(gate * keep)`` in the
@@ -52,11 +54,15 @@ class MoE(Params):
     def __init__(self, cfg: ModelConfig, mk: Maker, prefix: str):
         super().__init__()
         d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
-        self._param("router", mk(f"{prefix}.router", (d, e)))
+        self._param("router", mk(f"{prefix}.router", (d, e),
+                                 ("embed", None)))
         if cfg.mlp == "swiglu":
-            self._param("wg", mk(f"{prefix}.wg", (e, d, f)))
-        self._param("wu", mk(f"{prefix}.wu", (e, d, f)))
-        self._param("wd", mk(f"{prefix}.wd", (e, f, d)))
+            self._param("wg", mk(f"{prefix}.wg", (e, d, f),
+                                 ("experts", "embed", None)))
+        self._param("wu", mk(f"{prefix}.wu", (e, d, f),
+                             ("experts", "embed", None)))
+        self._param("wd", mk(f"{prefix}.wd", (e, f, d),
+                             ("experts", None, "embed")))
 
 
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
@@ -133,6 +139,22 @@ def _experts(p: Tree, cfg: ModelConfig, buf: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["wd"])
 
 
+def dispatch(xt: torch.Tensor, experts: torch.Tensor,
+             position: torch.Tensor, keep: torch.Tensor, n_experts: int,
+             capacity: int) -> torch.Tensor:
+    """The (E, C, d) buffer of the kept choices: choice i (token i // K)
+    at (experts[i], position[i]); the dropped ones are written to a spare
+    row E, cut off."""
+    k = experts.shape[0] // xt.shape[0]
+    tok = torch.arange(xt.shape[0], device=xt.device).repeat_interleave(k)
+    e = torch.where(keep, experts, torch.full_like(experts, n_experts))
+    c = torch.where(keep, position, torch.zeros_like(position))
+    buf = torch.zeros((n_experts + 1, capacity, xt.shape[1]),
+                      dtype=xt.dtype, device=xt.device)
+    buf.index_put_((e, c), xt[tok])
+    return buf[:n_experts]
+
+
 def combine(picked: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """sum_k picked[:, k] * w[:, k] over (N, K, d) and (N, K), from zero,
     k = 0 .. K-1, each product and each add rounded to ``picked``'s dtype:
@@ -152,11 +174,9 @@ def _apply_tokens(p: Tree, cfg: ModelConfig, x: torch.Tensor
     xt = x.reshape(n, d)
     r = route(p, cfg, xt)
     flat = r.experts.reshape(-1)
-    tok = torch.arange(n, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((e, r.capacity, d), dtype=x.dtype, device=x.device)
     kept = r.keep
-    buf.index_put_((flat[kept], r.position[kept]), xt[tok[kept]])
-    out = _experts(p, cfg, buf)
+    out = _experts(p, cfg, dispatch(xt, flat, r.position, kept, e,
+                                    r.capacity))
     slot = torch.where(kept, r.position, torch.zeros_like(r.position))
     picked = out[flat, slot].reshape(n, k, d)
     w = (r.gate * kept.reshape(n, k)).to(x.dtype)
@@ -183,3 +203,100 @@ def apply(p: Tree, cfg: ModelConfig, x: torch.Tensor
                for key in auxs[0]}
         return torch.cat(ys, dim=1), aux
     return _apply_tokens(p, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# On a mesh: expert parallelism (the reference's USE_EP / _apply_ep)
+# ---------------------------------------------------------------------------
+# Take the expert-parallel path on (data, model) meshes, as the
+# reference's USE_EP.
+USE_EP = True
+
+
+def ep_applies(cfg: ModelConfig, sh, global_batch: int) -> bool:
+    """The reference's test: a mesh with ``data`` and ``model``, the
+    experts dividing ``model``, the global batch dividing ``data``."""
+    mesh = sh.mesh
+    return (USE_EP and {"data", "model"} <= set(mesh.axis_names)
+            and cfg.n_experts % mesh.shape["model"] == 0
+            and global_batch % mesh.shape["data"] == 0)
+
+
+def _ep_local(p: Tree, cfg: ModelConfig, x: torch.Tensor, sh, tp: bool
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One rank's part of the expert-parallel layer: its tokens routed
+    (replicated over ``model``), dispatched to its ``E / model`` local
+    experts only, with the capacity of its own token count; the combine
+    of its experts' outputs (zeros for the others)."""
+    mesh = sh.mesh
+    b, s, d = x.shape
+    n = b * s
+    e, k = cfg.n_experts, cfg.experts_per_token
+    m = mesh.shape["model"]
+    el = e // m
+    e0 = mesh.coord["model"] * el
+    xt = x.reshape(n, d)
+    r = route({"router": sh.w(p["router"], tp=tp)}, cfg, xt)
+    flat = r.experts.reshape(-1)
+    local = flat - e0
+    mine = (local >= 0) & (local < el)
+    keep = mine & r.keep
+    buf = dispatch(xt, local, r.position, keep, el, r.capacity)
+    wl = {name: sh.w(p[name], (0, e0, e0 + el), tp=tp)
+          for name in ("wg", "wu", "wd") if name in p}
+    out = _experts(wl, cfg, buf)
+    slot = torch.where(keep, r.position, torch.zeros_like(r.position))
+    picked = out[torch.where(keep, local, torch.zeros_like(local)),
+                 slot].reshape(n, k, d)
+    w = (r.gate * keep.reshape(n, k)).to(x.dtype)
+    y = combine(picked, w)
+    from ..launch import partition
+    kept = partition.sum_axes(mesh, ("model",),
+                              keep.sum().to(torch.int32)[None])[0]
+    top1 = F.one_hot(r.experts[:, 0], e).float()
+    aux = {
+        "load_balance": e * torch.sum(r.probs.mean(0) * top1.mean(0)),
+        "router_z": torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2),
+        "dropped_frac": 1.0 - kept.float() / (n * k),
+    }
+    return y.reshape(b, s, d), aux
+
+
+def apply_sharded(p: Tree, cfg: ModelConfig, x: torch.Tensor, sh
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`apply` on a mesh.
+
+    Expert parallelism where :func:`ep_applies` (the reference's
+    ``_apply_ep``): each rank routes its data shard's tokens and runs
+    only its local experts, and ``y`` is summed over ``model`` in rank
+    order. The aux terms are the rank's own: the reference's shard_map
+    returns them unreduced as if replicated, so its gradient of them is
+    their mean over the mesh's devices, which each rank's share
+    (``1 / |mesh|`` of its own) sums to; ``dropped_frac`` counts every
+    rank's kept choices. Under ``train_dp`` the rows are first gathered
+    over ``model`` (the reference's shard_map cuts its input over
+    ``data`` alone) and each rank keeps its own rows of the sum.
+
+    Otherwise the scatter path of :func:`apply` on the global batch (the
+    rows gathered over the batch's axes, every rank computing every
+    expert) and each rank keeps its rows; the aux terms, global, count
+    once in the gradient."""
+    from ..launch import partition
+    n_rows = sh.batch_count()
+    if ep_applies(cfg, sh, x.shape[0] * n_rows):
+        share = 1.0 / sh.mesh.size
+        if sh.tp:
+            y, aux = _ep_local(p, cfg, sh.enter(x), sh, tp=True)
+            y = sh.leave(y)
+        else:
+            y, aux = _ep_local(p, cfg, sh.gather_rows(x, ("model",)), sh,
+                               tp=False)
+            y = sh.sum_own_rows(y, ("model",))
+        return y, {k: partition.scale_grad(v, share) for k, v in aux.items()}
+    full = {k: sh.w(v) for k, v in p.items()}
+    if n_rows == 1:
+        return apply(full, cfg, x)
+    y, aux = apply(full, cfg, sh.gather_rows(x, sh.batch_axes))
+    y = partition.own_rows(sh.mesh, sh.batch_axes, y)
+    return y, {k: partition.scale_grad(v, 1.0 / n_rows)
+               for k, v in aux.items()}

@@ -38,28 +38,38 @@ class TimeMix(Params):
         super().__init__()
         d, lora, m = cfg.d_model, cfg.rwkv_decay_lora, len(_MIX)
         # token-shift base mixing per target; data-dependent LoRA (A shared)
-        self._param("mix_base", mk(f"{prefix}.mix_base", (m, d), 0.5))
-        self._param("mix_A", mk(f"{prefix}.mix_A", (d, lora)))
-        self._param("mix_B", mk(f"{prefix}.mix_B", (m, lora, d), 0.0))
-        for name in ("wr", "wk", "wv", "wg", "wo"):
-            self._param(name, mk(f"{prefix}.{name}", (d, d)))
+        self._param("mix_base", mk(f"{prefix}.mix_base", (m, d),
+                                   (None, "embed"), 0.5))
+        self._param("mix_A", mk(f"{prefix}.mix_A", (d, lora),
+                                ("embed", None)))
+        self._param("mix_B", mk(f"{prefix}.mix_B", (m, lora, d),
+                                (None, None, "embed"), 0.0))
+        for name in ("wr", "wk", "wv", "wg"):
+            self._param(name, mk(f"{prefix}.{name}", (d, d),
+                                 ("embed", "heads")))
+        self._param("wo", mk(f"{prefix}.wo", (d, d), ("heads", "embed")))
         # decay: w_t = exp(-exp(decay_base + lora))
-        self._param("decay_base", mk(f"{prefix}.decay_base", (d,), 0.0))
-        self._param("decay_A", mk(f"{prefix}.decay_A", (d, lora)))
-        self._param("decay_B", mk(f"{prefix}.decay_B", (lora, d), 0.0))
-        self._param("bonus_u", mk(f"{prefix}.bonus_u", (d,), 0.5))
-        self._param("gn.scale", mk(f"{prefix}.gn.scale", (d,), 1.0))
+        self._param("decay_base", mk(f"{prefix}.decay_base", (d,),
+                                     ("embed",), 0.0))
+        self._param("decay_A", mk(f"{prefix}.decay_A", (d, lora),
+                                  ("embed", None)))
+        self._param("decay_B", mk(f"{prefix}.decay_B", (lora, d),
+                                  (None, "embed"), 0.0))
+        self._param("bonus_u", mk(f"{prefix}.bonus_u", (d,), ("embed",),
+                                  0.5))
+        self._param("gn.scale", mk(f"{prefix}.gn.scale", (d,), ("embed",),
+                                   1.0))
 
 
 class ChannelMix(Params):
     def __init__(self, cfg: ModelConfig, mk: Maker, prefix: str):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
-        self._param("mix_k", mk(f"{prefix}.mix_k", (d,), 0.5))
-        self._param("mix_r", mk(f"{prefix}.mix_r", (d,), 0.5))
-        self._param("wk", mk(f"{prefix}.wk", (d, f)))
-        self._param("wv", mk(f"{prefix}.wv", (f, d)))
-        self._param("wr", mk(f"{prefix}.wr", (d, d)))
+        self._param("mix_k", mk(f"{prefix}.mix_k", (d,), ("embed",), 0.5))
+        self._param("mix_r", mk(f"{prefix}.mix_r", (d,), ("embed",), 0.5))
+        self._param("wk", mk(f"{prefix}.wk", (d, f), ("embed", "ff")))
+        self._param("wv", mk(f"{prefix}.wv", (f, d), ("ff", "embed")))
+        self._param("wr", mk(f"{prefix}.wr", (d, d), ("embed", "heads")))
 
 
 # ---------------------------------------------------------------------------
@@ -84,6 +94,25 @@ def blank_state(cfg: ModelConfig, batch: int, layers: Optional[int],
     }
 
 
+def state_specs(cfg: ModelConfig, mk: Maker, batch: int,
+                layers: Optional[int], name: str = "rwkv_state") -> Tree:
+    """The state's leaves through a maker, as the reference's
+    ``state_specs``."""
+    h = cfg.n_heads
+    hd = cfg.d_model // h
+    lead = () if layers is None else (layers,)
+    la = () if layers is None else ("layers",)
+    return {
+        "wkv": mk(f"{name}.wkv", lead + (batch, h, hd, hd),
+                  la + ("batch", "heads_only", None, None), 0.0,
+                  dtype_override=torch.float32),
+        "tm_prev": mk(f"{name}.tm_prev", lead + (batch, cfg.d_model),
+                      la + ("batch", "embed"), 0.0),
+        "cm_prev": mk(f"{name}.cm_prev", lead + (batch, cfg.d_model),
+                      la + ("batch", "embed"), 0.0),
+    }
+
+
 # ---------------------------------------------------------------------------
 # TimeMix
 # ---------------------------------------------------------------------------
@@ -93,11 +122,12 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
 
 
 def _tm_project(p: Tree, cfg: ModelConfig, x: torch.Tensor,
-                prev: torch.Tensor):
-    """r, k, v, g, w and u from the inputs (B, S, d)."""
+                prev: torch.Tensor, heads: Optional[int] = None):
+    """r, k, v, g, w and u from the inputs (B, S, d), of ``heads`` heads
+    (by default all; fewer where ``p`` holds a rank's columns)."""
     b, seq, d = x.shape
-    h = cfg.n_heads
-    hd = d // h
+    h = heads or cfg.n_heads
+    hd = d // cfg.n_heads
     delta = _token_shift(x, prev) - x
     # data-dependent mixing: mix_t = base + tanh(x A) B, per target
     low = torch.tanh(x @ p["mix_A"])
@@ -122,12 +152,16 @@ wkv_ref = rwkv_ref.wkv
 
 
 def tm_apply(p: Tree, cfg: ModelConfig, x: torch.Tensor, state: Tree,
-             use_kernel: bool = False) -> Tuple[torch.Tensor, Tree]:
+             use_kernel: bool = False, heads: Optional[int] = None,
+             product=None) -> Tuple[torch.Tensor, Tree]:
     """TimeMix over a sequence. ``state``: a :func:`blank_state` slice
-    with no layer axis. The new ``tm_prev`` is the last row of ``x``."""
-    b, seq, d = x.shape
-    h = cfg.n_heads
-    r, k, v, g, w, u = _tm_project(p, cfg, x, state["tm_prev"])
+    with no layer axis. The new ``tm_prev`` is the last row of ``x``.
+    ``heads``: the heads ``p`` holds (a rank's, on a mesh), and
+    ``product(y, wo)`` the output projection's place (the mesh's)."""
+    b, seq, _ = x.shape
+    h = heads or cfg.n_heads
+    d = h * (cfg.d_model // cfg.n_heads)
+    r, k, v, g, w, u = _tm_project(p, cfg, x, state["tm_prev"], h)
     if use_kernel:
         y, new_wkv = rwkv_ops.wkv(r, k, v, w, u, state["wkv"])
     else:
@@ -135,7 +169,7 @@ def tm_apply(p: Tree, cfg: ModelConfig, x: torch.Tensor, state: Tree,
                              state["wkv"])
     y = y.reshape(b, seq, d).to(x.dtype)
     y = groupnorm_heads(p["gn.scale"], y, h, cfg.norm_eps) * g
-    out = y @ p["wo"]
+    out = y @ p["wo"] if product is None else product(y, p["wo"])
     return out, dict(state, wkv=new_wkv, tm_prev=x[:, -1])
 
 
@@ -149,4 +183,58 @@ def cm_apply(p: Tree, cfg: ModelConfig, x: torch.Tensor,
     xr = x + (xs - x) * p["mix_r"]
     k = torch.square(torch.relu(xk @ p["wk"]))
     out = sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    return out, dict(state, cm_prev=x[:, -1])
+
+
+# ---------------------------------------------------------------------------
+# On a mesh: the heads over ``model``
+# ---------------------------------------------------------------------------
+def tm_apply_sharded(p: Tree, cfg: ModelConfig, x: torch.Tensor,
+                     state: Tree, sh, use_kernel: bool = False
+                     ) -> Tuple[torch.Tensor, Tree]:
+    """:func:`tm_apply` on a mesh: each rank's heads (their columns of
+    ``wr``/``wk``/``wv``/``wg``/``decay_B``, their channels of
+    ``decay_base``/``bonus_u``/``gn.scale``, their rows of ``wo``; the
+    WKV, through the kernel on the rank's heads, over its slice of the
+    state), the output's parts summed in rank order; where the heads do
+    not divide ``model``, the layer whole."""
+    h = cfg.n_heads
+    if not sh.splits(h):
+        return tm_apply({k: sh.w(v) for k, v in p.items()}, cfg, x, state,
+                        use_kernel)
+    hd = cfg.d_model // h
+    h0, h1 = sh.chunk(h)
+    c0, c1 = h0 * hd, h1 * hd
+    local = {}
+    for k, v in p.items():
+        if k in ("wr", "wk", "wv", "wg", "decay_B"):
+            local[k] = sh.cols(v, c0, c1)
+        elif k in ("decay_base", "bonus_u", "gn.scale"):
+            local[k] = sh.cols(v, c0, c1, dim=0)
+        elif k == "wo":
+            local[k] = sh.cols(v, c0, c1, dim=0)
+        else:
+            local[k] = sh.w(v, tp=True)
+    out, new = tm_apply(local, cfg, sh.enter(x), state, use_kernel,
+                        heads=h1 - h0, product=sh.product)
+    return sh.leave(out, x.dtype), new
+
+
+def cm_apply_sharded(p: Tree, cfg: ModelConfig, x: torch.Tensor,
+                     state: Tree, sh) -> Tuple[torch.Tensor, Tree]:
+    """:func:`cm_apply` on a mesh: the key path's ``ff`` dim over
+    ``model`` where it divides (the parts of ``k @ wv`` summed in rank
+    order), the receptance gate whole."""
+    xs = _token_shift(x, state["cm_prev"])
+    xk = x + (xs - x) * sh.w(p["mix_k"])
+    xr = x + (xs - x) * sh.w(p["mix_r"])
+    f = cfg.d_ff
+    if sh.splits(f):
+        lo, hi = sh.chunk(f)
+        k = torch.square(torch.relu(sh.enter(xk) @ sh.cols(p["wk"], lo, hi)))
+        kv = sh.leave(sh.product(k, sh.cols(p["wv"], lo, hi, dim=0)),
+                      x.dtype)
+    else:
+        kv = torch.square(torch.relu(xk @ sh.w(p["wk"]))) @ sh.w(p["wv"])
+    out = sigmoid(xr @ sh.w(p["wr"])) * kv
     return out, dict(state, cm_prev=x[:, -1])

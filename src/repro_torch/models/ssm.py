@@ -45,15 +45,18 @@ class SSM(Params):
         super().__init__()
         d, n = cfg.d_model, cfg.ssm_state
         di = cfg.ssm_expand * d
-        self._param("win", mk(f"{prefix}.win", (d, 2 * di)))
-        self._param("conv", mk(f"{prefix}.conv", (cfg.conv_width, di), 0.5))
-        self._param("wbc", mk(f"{prefix}.wbc", (di, 2 * n)))
-        self._param("wdt", mk(f"{prefix}.wdt", (di, 1)))
-        self._param("dt_bias", mk(f"{prefix}.dt_bias", (di,), 0.0))
-        self._param("log_a", mk(f"{prefix}.log_a", (di, n), 0.1))
-        self._param("skip_d", mk(f"{prefix}.skip_d", (di,), 0.5))
-        self._param("wout", mk(f"{prefix}.wout", (di, d)))
-        self._param("norm.scale", mk(f"{prefix}.norm.scale", (di,), 1.0))
+        self._param("win", mk(f"{prefix}.win", (d, 2 * di), ("embed", "ff")))
+        self._param("conv", mk(f"{prefix}.conv", (cfg.conv_width, di),
+                               (None, "ff"), 0.5))
+        self._param("wbc", mk(f"{prefix}.wbc", (di, 2 * n), ("ff", None)))
+        self._param("wdt", mk(f"{prefix}.wdt", (di, 1), ("ff", None)))
+        self._param("dt_bias", mk(f"{prefix}.dt_bias", (di,), ("ff",), 0.0))
+        self._param("log_a", mk(f"{prefix}.log_a", (di, n), ("ff", None),
+                                0.1))
+        self._param("skip_d", mk(f"{prefix}.skip_d", (di,), ("ff",), 0.5))
+        self._param("wout", mk(f"{prefix}.wout", (di, d), ("ff", "embed")))
+        self._param("norm.scale", mk(f"{prefix}.norm.scale", (di,), ("ff",),
+                                     1.0))
 
 
 def blank_state(cfg: ModelConfig, batch: int, layers: Optional[int],
@@ -68,6 +71,22 @@ def blank_state(cfg: ModelConfig, batch: int, layers: Optional[int],
                          dtype=torch.float32, device=device),
         "conv": torch.zeros(lead + (batch, cfg.conv_width - 1, di),
                             dtype=cfg.activation_dtype, device=device),
+    }
+
+
+def state_specs(cfg: ModelConfig, mk: Maker, batch: int,
+                layers: Optional[int], name: str = "ssm_state") -> Tree:
+    """The state's leaves through a maker, as the reference's
+    ``state_specs``."""
+    di = cfg.ssm_expand * cfg.d_model
+    lead = () if layers is None else (layers,)
+    la = () if layers is None else ("layers",)
+    return {
+        "h": mk(f"{name}.h", lead + (batch, di, cfg.ssm_state),
+                la + ("batch", "ff", None), 0.0,
+                dtype_override=torch.float32),
+        "conv": mk(f"{name}.conv", lead + (batch, cfg.conv_width - 1, di),
+                   la + ("batch", None, "ff"), 0.0),
     }
 
 

@@ -34,7 +34,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import attention, mlp, moe, rwkv, ssm
-from .common import Maker, ModelConfig, fma, rmsnorm, rmsnorm_1d
+from .common import (Maker, ModelConfig, fma, norm_param, param, rmsnorm,
+                     rmsnorm_1d)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,9 +113,9 @@ class Hybrid(nn.Module):
         super().__init__()
         self.attn = attention.Attention(cfg, mk, f"{prefix}.attn")
         self.ssm = ssm.SSM(cfg, mk, f"{prefix}.ssm")
-        self.attn_norm = nn.Parameter(mk(f"{prefix}.attn_norm.scale",
-                                         (cfg.d_model,), 1.0))
-        self.beta = nn.Parameter(mk(f"{prefix}.beta", (2,), 1.0))
+        self.attn_norm = param(mk(f"{prefix}.attn_norm.scale",
+                                  (cfg.d_model,), ("embed",), 1.0))
+        self.beta = param(mk(f"{prefix}.beta", (2,), (None,), 1.0))
 
     def tree(self) -> Dict[str, Any]:
         return {"attn": self.attn.tree(), "ssm": self.ssm.tree(),
@@ -130,7 +131,7 @@ class Block(nn.Module):
                  prefix: str):
         super().__init__()
         d = cfg.d_model
-        self.ln1 = nn.Parameter(mk(f"{prefix}.ln1.norm.scale", (d,), 1.0))
+        self.ln1 = norm_param(mk, f"{prefix}.ln1", d)
         if bc.mixer in ("attn", "bidir"):
             self.mixer = attention.Attention(cfg, mk, f"{prefix}.attn")
         elif bc.mixer == "cross":
@@ -143,10 +144,9 @@ class Block(nn.Module):
         else:
             raise ValueError(bc.mixer)
         if bc.has_cross:
-            self.ln_cross = nn.Parameter(mk(f"{prefix}.ln_cross.norm.scale",
-                                            (d,), 1.0))
+            self.ln_cross = norm_param(mk, f"{prefix}.ln_cross", d)
             self.cross = attention.Attention(cfg, mk, f"{prefix}.cross")
-        self.ln2 = nn.Parameter(mk(f"{prefix}.ln2.norm.scale", (d,), 1.0))
+        self.ln2 = norm_param(mk, f"{prefix}.ln2", d)
         if bc.ffn == "mlp":
             self.ffn = mlp.MLP(cfg, mk, f"{prefix}.mlp")
         elif bc.ffn == "moe":
@@ -216,6 +216,37 @@ def blank_plan_cache(cfg: ModelConfig, plan: List[Segment], batch: int,
     return out
 
 
+def plan_cache_specs(cfg: ModelConfig, plan: List[Segment], mk: Maker,
+                     batch: int, max_seq: int, name: str = "cache"
+                     ) -> List[Tuple[Any, ...]]:
+    """:func:`blank_plan_cache`'s leaves through a maker (the reference's
+    ``plan_cache_specs``)."""
+    out = []
+    for i, seg in enumerate(plan):
+        caches = []
+        for j, bc in enumerate(seg.pattern):
+            nm = f"{name}.seg{i}.pos{j}"
+            if bc.mixer in ("attn", "bidir"):
+                c = attention.cache_specs(
+                    cfg, mk, batch, _cache_window(bc, cfg, max_seq), seg.n,
+                    nm)
+            elif bc.mixer == "cross":
+                c = None
+            elif bc.mixer == "rwkv":
+                c = rwkv.state_specs(cfg, mk, batch, seg.n, nm)
+            elif bc.mixer == "hybrid":
+                c = {"attn": attention.cache_specs(
+                        cfg, mk, batch, _cache_window(bc, cfg, max_seq),
+                        seg.n, nm + ".attn"),
+                     "ssm": ssm.state_specs(cfg, mk, batch, seg.n,
+                                            nm + ".ssm")}
+            else:
+                raise ValueError(bc.mixer)
+            caches.append(c)
+        out.append(tuple(caches))
+    return out
+
+
 def _layer_of(tree: Any, layer: int) -> Any:
     """One layer's slice (views) of a stacked cache tree."""
     if tree is None:
@@ -275,7 +306,7 @@ def block_apply(bc: BlockCfg, cfg: ModelConfig, p: Dict[str, Any],
                 cross_kv: Optional[Dict] = None,
                 positions: Optional[torch.Tensor] = None,
                 use_flash: bool = False, use_rwkv_kernel: bool = False,
-                cache_len: Optional[int] = None
+                cache_len: Optional[int] = None, sh=None, cache_spec=None
                 ) -> Tuple[torch.Tensor, Any,
                            Optional[Dict[str, torch.Tensor]]]:
     """Apply one block given its parameter tree. Returns (x, new_cache,
@@ -291,7 +322,17 @@ def block_apply(bc: BlockCfg, cfg: ModelConfig, p: Dict[str, Any],
     (decode). RWKV: decode runs the time mix one step in plain PyTorch,
     as the reference does; train and prefill start from ``cache`` or a
     blank state and take the kernel when ``use_rwkv_kernel``. The SSM
-    heads scan the sequence from ``cache`` or zero, or step once."""
+    heads scan the sequence from ``cache`` or zero, or step once.
+
+    On a mesh (``sh``, the step's
+    :class:`~repro_torch.launch.partition.Shards`; ``cache_spec``, the
+    layer's cache specs) :func:`block_apply_sharded` computes it."""
+    if sh is not None:
+        return block_apply_sharded(
+            bc, cfg, p, x, sh, mode=mode, cache=cache, index=index,
+            cross_src=cross_src, cross_kv=cross_kv, positions=positions,
+            use_flash=use_flash, use_rwkv_kernel=use_rwkv_kernel,
+            cache_len=cache_len, cache_spec=cache_spec)
     aux = None
     h = rmsnorm(p["ln1"]["scale"], x, cfg.norm_eps)
     new_cache = cache
@@ -373,7 +414,8 @@ def _nested_group(n: int) -> int:
 
 def _train_layers(cfg: ModelConfig, seg: Segment, layers, x: torch.Tensor,
                   aux: Dict[str, torch.Tensor], positions, cross_src,
-                  use_flash: bool, use_rwkv_kernel: bool, remat: bool
+                  use_flash: bool, use_rwkv_kernel: bool, remat: bool,
+                  sh=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``x`` through ``layers`` (each a list of the pattern's parameter
     trees) in train mode, the aux terms added to ``aux``, each layer
@@ -386,7 +428,7 @@ def _train_layers(cfg: ModelConfig, seg: Segment, layers, x: torch.Tensor,
             h, _, a = block_apply(bc, cfg, p, h, mode="train",
                                   positions=positions, cross_src=cross_src,
                                   use_flash=use_flash,
-                                  use_rwkv_kernel=use_rwkv_kernel)
+                                  use_rwkv_kernel=use_rwkv_kernel, sh=sh)
             aux = _add_aux(aux, a)
         return h, aux
 
@@ -406,8 +448,8 @@ def plan_apply(cfg: ModelConfig, plan: List[Segment], segments: nn.ModuleList,
                cross_kvs: Optional[List] = None,
                positions: Optional[torch.Tensor] = None,
                use_flash: bool = False, use_rwkv_kernel: bool = False,
-               cache_len: Optional[int] = None, remat_mode: str = "layer"
-               ) -> Tuple[torch.Tensor, Optional[List],
+               cache_len: Optional[int] = None, remat_mode: str = "layer",
+               sh=None) -> Tuple[torch.Tensor, Optional[List],
                           Dict[str, torch.Tensor]]:
     """Run x through every layer. Returns (x, new caches, summed aux): the
     caches in decode and prefill, None in train. In decode the attention
@@ -417,7 +459,9 @@ def plan_apply(cfg: ModelConfig, plan: List[Segment], segments: nn.ModuleList,
     ``remat_mode`` (train, under autograd only): ``"layer"`` recomputes
     each layer in the backward pass, ``"nested"`` also each group of
     :func:`_nested_group` layers (the group's boundaries alone are kept
-    between the passes), ``"none"`` keeps every activation."""
+    between the passes), ``"none"`` keeps every activation. ``sh``: the
+    step's layout on a mesh (its ``cache_specs``, the caches' specs in
+    their stacked layout), or None on one device."""
     if remat_mode not in REMAT_MODES:
         raise ValueError(f"remat_mode {remat_mode!r} is not one of "
                          f"{REMAT_MODES}")
@@ -431,7 +475,7 @@ def plan_apply(cfg: ModelConfig, plan: List[Segment], segments: nn.ModuleList,
                 else 1
             for g0 in range(0, seg.n, G):
                 args = (cfg, seg, layers[g0:g0 + G], x, aux, positions,
-                        cross_src, use_flash, use_rwkv_kernel, remat)
+                        cross_src, use_flash, use_rwkv_kernel, remat, sh)
                 x, aux = (_train_layers(*args) if G == 1 else checkpoint(
                     _train_layers, *args, use_reentrant=False,
                     preserve_rng_state=False))
@@ -443,14 +487,161 @@ def plan_apply(cfg: ModelConfig, plan: List[Segment], segments: nn.ModuleList,
                                                               layer)
                 xkv = None if cross_kvs is None else _layer_of(
                     cross_kvs[si][j], layer)
+                cspec = None
+                if sh is not None and sh.cache_specs is not None:
+                    cspec = _unstacked(sh.cache_specs[si][j])
                 x, cache, a = block_apply(
                     bc, cfg, segments[si][layer][j].tree(), x, mode=mode,
                     cache=cache, index=index, cross_src=cross_src,
                     cross_kv=xkv, positions=positions, use_flash=use_flash,
-                    use_rwkv_kernel=use_rwkv_kernel, cache_len=cache_len)
+                    use_rwkv_kernel=use_rwkv_kernel, cache_len=cache_len,
+                    sh=sh, cache_spec=cspec)
                 aux = _add_aux(aux, a)
                 per_pos[j].append(cache)
         new_caches.append(tuple(
             _restack(layers, caches[si][j] if mode == "decode" else None)
             for j, layers in enumerate(per_pos)))
     return x, (new_caches if mode != "train" else None), aux
+
+
+# ---------------------------------------------------------------------------
+# On a mesh (launch/partition.py)
+# ---------------------------------------------------------------------------
+def _unstacked(spec_tree: Any) -> Any:
+    """A stacked cache's specs less their leading ``layers`` entry."""
+    if spec_tree is None:
+        return None
+    if isinstance(spec_tree, dict):
+        return {k: _unstacked(v) for k, v in spec_tree.items()}
+    return tuple(spec_tree[1:])
+
+
+def _state_view(sh, state: Dict[str, torch.Tensor], spec, keep=()):
+    """A recurrent state from its stored blocks to the compute's layout:
+    every stored cut gathered but the batch's (dim 0) and those of
+    ``keep`` (``{key: dim}``, a rank's own heads)."""
+    from ..launch import partition
+    out = {}
+    for k, x in state.items():
+        for i, e in enumerate(spec[k]):
+            if i > 0 and e is not None and dict(keep).get(k) != i:
+                x = partition.gather_dim(sh.mesh, e, x, i)
+        out[k] = x
+    return out
+
+
+def _state_store(sh, state: Dict[str, torch.Tensor], spec, keep=()):
+    """:func:`_state_view`'s inverse: each rank's stored blocks."""
+    from ..launch import partition
+    out = {}
+    for k, x in state.items():
+        sl = list(partition.region(x.shape, spec[k], sh.mesh, sh.mesh.coord))
+        sl[0] = slice(None)
+        if k in dict(keep):
+            sl[dict(keep)[k]] = slice(None)
+        for i, e in enumerate(spec[k]):
+            if e is None:
+                sl[i] = slice(None)
+        out[k] = x[tuple(sl)].clone()
+    return out
+
+
+def _rwkv_state(cfg: ModelConfig, sh, h: torch.Tensor, cache, spec):
+    """The RWKV state in the compute's layout: a rank's heads of ``wkv``
+    where the heads split."""
+    keep = {"wkv": 1} if sh.splits(cfg.n_heads) else {}
+    if cache is None:
+        st = rwkv.blank_state(cfg, h.shape[0], None, h.device)
+        if keep:
+            h0, h1 = sh.chunk(cfg.n_heads)
+            st["wkv"] = st["wkv"][:, h0:h1].clone()
+        return st, keep
+    return _state_view(sh, cache, spec, keep), keep
+
+
+def block_apply_sharded(bc: BlockCfg, cfg: ModelConfig, p: Dict[str, Any],
+                        x: torch.Tensor, sh, *, mode: str, cache: Any = None,
+                        index=None, cross_src=None, cross_kv=None,
+                        positions=None, use_flash: bool = False,
+                        use_rwkv_kernel: bool = False,
+                        cache_len: Optional[int] = None, cache_spec=None):
+    """:func:`block_apply` on a mesh: the residual stream whole on every
+    rank of a batch shard; attention, the FFN, the experts and the RWKV
+    time mix split over ``model`` (``attention.attend_sharded``,
+    ``mlp.apply_sharded``, ``moe.apply_sharded``,
+    ``rwkv.tm_apply_sharded``), the norms and the SSM heads whole. The
+    caches in and out are stored as ``cache_spec`` cuts them (attention
+    caches by ``attention.cache_cut``)."""
+    aux = None
+    w = sh.w
+    h = rmsnorm(w(p["ln1"]["scale"]), x, cfg.norm_eps)
+    new_cache = cache
+    n_meta = cfg.n_meta_tokens if bc.window > 0 else 0
+
+    def self_attention(pa, c, causal=True):
+        if mode == "decode":
+            return attention.decode_step_sharded(
+                pa, cfg, h, c, index, sh, window=bc.window, n_meta=n_meta,
+                use_rope=bc.use_rope)
+        return attention.attend_sharded(
+            pa, cfg, h, sh, causal=causal, window=bc.window, n_meta=n_meta,
+            positions=positions, use_rope=bc.use_rope, use_flash=use_flash,
+            make_cache=_cache_window(bc, cfg, cache_len or h.shape[1])
+            if mode == "prefill" and causal else 0)
+
+    def cross_attention(pa, hh):
+        if mode == "decode":
+            return attention.decode_step_sharded(pa, cfg, hh, None, index, sh,
+                                                 cross_cache=cross_kv)[0]
+        return attention.attend_sharded(pa, cfg, hh, sh,
+                                        cross_src=cross_src)[0]
+
+    rwkv_keep = None
+    if bc.mixer in ("attn", "bidir"):
+        o, new_cache = self_attention(p["mixer"], cache,
+                                      causal=bc.mixer == "attn")
+    elif bc.mixer == "cross":
+        o = cross_attention(p["mixer"], h)
+    elif bc.mixer == "rwkv":
+        st, rwkv_keep = _rwkv_state(cfg, sh, h, cache, cache_spec)
+        o, new_cache = rwkv.tm_apply_sharded(
+            p["mixer"], cfg, h, st, sh,
+            use_kernel=use_rwkv_kernel and mode != "decode")
+    elif bc.mixer == "hybrid":
+        pm = p["mixer"]
+        oa, ca = self_attention(pm["attn"], None if cache is None
+                                else cache["attn"])
+        full = {k: w(v) for k, v in pm["ssm"].items()}
+        sspec = None if cache_spec is None else cache_spec["ssm"]
+        if cache is None:
+            st = ssm.blank_state(cfg, h.shape[0], None, h.device)
+        else:
+            st = _state_view(sh, cache["ssm"], sspec)
+        if mode == "decode":
+            os_, cs = ssm.apply_step(full, cfg, h, st)
+        else:
+            os_, cs = ssm.apply_seq(full, cfg, h, st)
+        if mode != "train":
+            cs = _state_store(sh, cs, sspec)
+        oa = rmsnorm_1d(w(pm["attn_norm.scale"]), oa, cfg.norm_eps)
+        beta = w(pm["beta"]).float()
+        oaf, osf = oa.float(), os_.float()
+        o = (fma(beta[0].expand_as(oaf), oaf, beta[1] * osf) * 0.5).to(
+            x.dtype)
+        new_cache = {"attn": ca, "ssm": cs}
+    else:
+        raise ValueError(bc.mixer)
+    x = x + o
+    if bc.has_cross:
+        hc = rmsnorm(w(p["ln_cross"]["scale"]), x, cfg.norm_eps)
+        x = x + cross_attention(p["cross"], hc)
+    h = rmsnorm(w(p["ln2"]["scale"]), x, cfg.norm_eps)
+    if bc.ffn == "mlp":
+        o = mlp.apply_sharded(p["ffn"], cfg, h, sh)
+    elif bc.ffn == "moe":
+        o, aux = moe.apply_sharded(p["ffn"], cfg, h, sh)
+    else:
+        o, new_cache = rwkv.cm_apply_sharded(p["ffn"], cfg, h, new_cache, sh)
+    if rwkv_keep is not None and mode != "train":
+        new_cache = _state_store(sh, new_cache, cache_spec, rwkv_keep)
+    return x + o, new_cache, aux

@@ -13,6 +13,13 @@ reference's order and dtypes: the bias corrections ``1 - b ** step`` in
 f32 (the power is the f64 one rounded once), the update on the master
 and the decoupled decay ``weight_decay * master`` inside it, the new
 parameters the master cast to their dtype.
+
+On a mesh (``layout``, a :class:`~repro_torch.launch.partition.Layout`)
+the gradients and parameters are each rank's blocks and the state lies
+on the ZeRO-1 layout (``layout.opt``): each ``data`` rank updates its
+slice of the moments and the master, and the new parameters are
+all-gathered over ``data``. The global norm is
+:func:`clip.global_norm_sharded`.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from .clip import clip_scale, global_norm, leaves_of
+from .clip import clip_scale, global_norm, global_norm_sharded, leaves_of
 
 Params = Dict[str, torch.Tensor]
 
@@ -61,7 +68,8 @@ def _correction(b: float, step: torch.Tensor) -> torch.Tensor:
 def adamw_update(grads: Params, state: AdamWState, params: Params, *,
                  lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay=0.1, max_grad_norm: Optional[float] = 1.0,
-                 order: Optional[Sequence[Sequence[str]]] = None
+                 order: Optional[Sequence[Sequence[str]]] = None,
+                 layout=None
                  ) -> Tuple[Params, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step. Returns (new params, new state, metrics
     ``grad_norm`` and ``lr``). ``order`` groups the gradients into the
@@ -78,7 +86,8 @@ def adamw_update(grads: Params, state: AdamWState, params: Params, *,
     gnorm = torch.zeros((), dtype=torch.float32, device=dev)
     scale = None
     if max_grad_norm is not None:
-        gnorm = global_norm(leaves_of(grads, order))
+        gnorm = (global_norm(leaves_of(grads, order)) if layout is None
+                 else global_norm_sharded(grads, order, layout))
         scale = clip_scale(gnorm, max_grad_norm)
     lr = _f32(lr, dev)
     wd = _f32(weight_decay, dev)
@@ -93,14 +102,48 @@ def adamw_update(grads: Params, state: AdamWState, params: Params, *,
         if scale is not None:
             g = (g.float() * scale).to(g.dtype)
         g = g.float()
+        zd = None if layout is None else layout.zero_dim(k)
+        own = p
+        if zd is not None:
+            g = _zero_block(layout, g, zd)
+            own = _zero_block(layout, p, zd)
         # f32 parameters are their own master: p.float() is p itself
-        pm = state.master[k] if state.master is not None else p.float()
+        pm = state.master[k] if state.master is not None else own.float()
         m, v = state.m[k], state.v[k]
         m.mul_(b1_).add_(one_b1 * g)
         v.mul_(b2_).add_(one_b2 * torch.square(g))
         pm.sub_(lr * ((m / c1) / (torch.sqrt(v / c2) + eps_) + wd * pm))
-        if state.master is not None:
+        if zd is not None:
+            from ..launch import partition
+            p.copy_(partition.gather_dim(layout.mesh, "data",
+                                         pm.to(p.dtype), zd))
+        elif state.master is not None:
             p.copy_(pm)
     new_state = AdamWState(m=state.m, v=state.v, master=state.master,
                            step=step)
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _zero_block(layout, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This ``data`` rank's ZeRO-1 slice (a view) of a local block."""
+    n = layout.mesh.shape["data"]
+    size = x.shape[dim] // n
+    return x.narrow(dim, layout.mesh.coord["data"] * size, size)
+
+
+def adamw_init_sharded(params: Params, layout) -> AdamWState:
+    """The AdamW state of local blocks ``params`` on ``layout``'s ZeRO-1
+    layout: zero moments, and the f32 master of each rank's slice."""
+    def block(k, x):
+        zd = layout.zero_dim(k)
+        return x if zd is None else _zero_block(layout, x, zd)
+
+    m = {k: torch.zeros(block(k, x).shape, dtype=torch.float32,
+                        device=x.device) for k, x in params.items()}
+    v = {k: torch.zeros_like(t) for k, t in m.items()}
+    master = ({k: block(k, x).detach().float().clone()
+               for k, x in params.items()}
+              if _needs_master(params) else None)
+    dev = next(iter(params.values())).device
+    return AdamWState(m=m, v=v, master=master,
+                      step=torch.zeros((), dtype=torch.int32, device=dev))

@@ -10,6 +10,10 @@ added in layer order. The leaves are added left to right, as Python's
 once (XLA's f32 ``sqrt`` is correctly rounded; PyTorch's CPU one is not
 always). Within a leaf the order of the sum is PyTorch's, not XLA's
 (ROADMAP Queue C).
+
+On a mesh (:func:`global_norm_sharded`) each tensor's square-sum is its
+local block's, summed over the mesh axes that cut it in rank order, and
+the leaves are then added as on one device.
 """
 from __future__ import annotations
 
@@ -68,3 +72,23 @@ def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     """``min(1, max_norm / max(norm, 1e-12))`` in f32."""
     top = torch.tensor(max_norm, dtype=torch.float32, device=norm.device)
     return torch.clamp(top / torch.clamp(norm, min=1e-12), max=1.0)
+
+
+def global_norm_sharded(tree: Dict[str, torch.Tensor],
+                        order: Sequence[Sequence[str]], layout
+                        ) -> torch.Tensor:
+    """:func:`global_norm` of a tree of local blocks (``layout``, a
+    :class:`~repro_torch.launch.partition.Layout`, cuts each tensor): a
+    tensor's square-sum is its block's summed over the axes that cut it;
+    the ranks along the others hold the same block."""
+    from ..launch import partition
+    from ..launch.shardings import spec_axes
+    total = None
+    for names in order:
+        leaf = None
+        for n in names:
+            s = torch.sum(torch.square(tree[n].float()))
+            s = partition.sum_axes(layout.mesh, spec_axes(layout.specs[n]), s)
+            leaf = s if leaf is None else leaf + s
+        total = leaf if total is None else total + leaf
+    return rand.sqrt_f32(total)
