@@ -274,7 +274,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    decode steps bit for bit; 15e ``python -m repro_torch.launch.dryrun
    --arch yi-9b --shape decode_32k`` in a subprocess (its own fake group
    of 256), its per-rank GiB against the card's memory;
-16. one JSON line with each kernel's launches, time, plain time, bound and
+16. the invariant analyzer (``analysis_phase``): ``python -m
+   repro_torch.analysis --selfcheck``, then the lint of ``src/repro_torch``,
+   ``chip_smoke.py`` and ``tests/test_torch_*.py`` against
+   ``analysis_baseline_torch.json``, both in subprocesses (no finding and no
+   stale entry), and the static kernel, topology and policy registrations
+   equal to the registries the phases above ran on the card; the
+   ``[analysis] findings 0, suppressed N, stale 0, S s`` line;
+17. one JSON line with each kernel's launches, time, plain time, bound and
    library time, then the last line: ``{"ok": true, "device": {...}}``.
 
 It imports the port only (``src/repro_torch``), never JAX or the reference.
@@ -3227,6 +3234,86 @@ def sharding_phases(card: str):
     return result
 
 
+ANALYSIS_PATHS = ("src/repro_torch", "chip_smoke.py", "tests/test_torch_*.py")
+ANALYSIS_BASELINE = "analysis_baseline_torch.json"
+ANALYSIS_SUMMARY = re.compile(r"repro-lint: (\d+) finding\(s\), (\d+) "
+                              r"suppressed, (\d+) stale")
+
+
+def analysis_phase(card: str) -> None:
+    """Phase 16: the port's invariant analyzer (``python -m
+    repro_torch.analysis``) in subprocesses — its self-check, then the lint
+    of :data:`ANALYSIS_PATHS` against the committed baseline, which must
+    report no finding and no stale entry — and its static registry matrix
+    against the registries this process imported and ran on the card."""
+    import glob
+    import torch
+
+    from repro_torch.analysis.engine import collect_python_files
+    from repro_torch.analysis.passes.registry import collect_registrations
+    from repro_torch.analysis.symbols import load_project
+    from repro_torch.core import acceptance as acc_lib
+    from repro_torch.core import migration as mig_lib
+    from repro_torch.kernels.ga.registry import registered_kernels
+
+    t16 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def cli(*args):
+        return subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", *args], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=600)
+
+    check = cli("--selfcheck")
+    if check.returncode != 0:
+        fail(f"analysis --selfcheck exited {check.returncode}: "
+             f"{check.stdout}{check.stderr}")
+    log(f"[analysis] {check.stdout.strip()}")
+    paths = [p for pat in ANALYSIS_PATHS
+             for p in sorted(glob.glob(os.path.join(ROOT, pat)))]
+    lint = cli("--baseline", ANALYSIS_BASELINE,
+               *(os.path.relpath(p, ROOT) for p in paths))
+    summary = ANALYSIS_SUMMARY.search(lint.stdout + lint.stderr)
+    if lint.returncode != 0 or summary is None:
+        fail(f"analysis lint exited {lint.returncode}:\n{lint.stdout}"
+             f"{lint.stderr}")
+    found, suppressed, stale = (int(g) for g in summary.groups())
+    if found or stale:
+        fail(f"analysis: {found} findings, {stale} stale baseline entries:"
+             f"\n{lint.stdout}")
+
+    # the static registry matrix against the runtime registries, after the
+    # phases above dispatched the pallas impls on the card
+    if not torch.cuda.is_available():
+        fail("analysis: the registry check needs the card")
+    project = load_project(collect_python_files(
+        [os.path.join(ROOT, "src", "repro_torch")], root=ROOT))
+    regs = collect_registrations(project)
+    static = {r.key for r in regs if r.family == "kernel"}
+    runtime = set(registered_kernels())
+    if static != runtime:
+        fail(f"analysis: static kernel matrix != runtime registry: only "
+             f"static {sorted(static - runtime)}, only runtime "
+             f"{sorted(runtime - static)}")
+    for family, table in (("topology", mig_lib.TOPOLOGIES),
+                          ("acceptance", acc_lib.ACCEPTANCE_POLICIES)):
+        names = {r.key[0] for r in regs if r.family == family}
+        if names != set(table):
+            fail(f"analysis: static {family} set {sorted(names)} != "
+                 f"runtime {sorted(table)}")
+    if not set(acc_lib.ACCEPTANCE_POLICIES) <= set(acc_lib.HOST_MIRRORED):
+        fail("analysis: a registered policy has no host mirror")
+    impls = sorted({k[2] for k in runtime})
+    if not {"pallas", "pallas_tiled", "pallas_ref"} <= set(impls):
+        fail(f"analysis: the kernel impls are not all registered: {impls}")
+    log(f"[analysis] registry: {len(runtime)} kernel cells (impls "
+        f"{', '.join(impls)}), {len(mig_lib.TOPOLOGIES)} topologies, "
+        f"{len(acc_lib.ACCEPTANCE_POLICIES)} policies: static == runtime")
+    log(f"[analysis] findings {found}, suppressed {suppressed}, stale "
+        f"{stale}, {time.perf_counter() - t16:.2f} s "
+        f"({len(collect_python_files(paths, root=ROOT))} files; card {card})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5032,6 +5119,9 @@ def main() -> int:
 
     # ---- 15: model land across ranks ---------------------------------------
     mesh_kernels = sharding_phases(card)
+
+    # ---- 16: the invariant analyzer ----------------------------------------
+    analysis_phase(card)
 
     result = {"kernels": [
         {"name": "trap_fitness", "route": "cuda",

@@ -335,10 +335,16 @@ def _rank_main(fn, rank: int, world: int, backend: str, device: str,
         dev = rank_device(backend, device, rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        dist.init_process_group(
-            backend, store=dist.FileStore(store_path, world), rank=rank,
-            world_size=world,
-            timeout=datetime.timedelta(seconds=timeout))
+        limit = datetime.timedelta(seconds=timeout)
+        store = dist.FileStore(store_path, world)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world, timeout=limit)
+        # gloo's init returns on one rank while a peer may still be in its
+        # handshake with it: a rank whose function is short would close its
+        # sockets under that handshake ("connectFullMesh failed ...
+        # Connection closed by peer"). No rank starts until all have joined.
+        store.set(f"joined/{rank}", "1")
+        store.wait([f"joined/{r}" for r in range(world)], limit)
         group = ShardGroup.from_default(device=dev)
         result = (True, _to_cpu(fn(group, *args)))
     except BaseException:  # noqa: BLE001 -- reported to the parent

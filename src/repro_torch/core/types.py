@@ -133,9 +133,12 @@ class ExperimentStats(NamedTuple):
 
 
 class ExperimentState(NamedTuple):
-    """The whole run state of one experiment. ``astate`` and ``obs`` are
-    ``()`` in this port (the async runtime and the counters come later);
-    ``stats`` holds the stacked rows so far or ``()``."""
+    """The whole run state of one experiment. ``astate`` is the async
+    drivers' :class:`~repro_torch.core.async_migration.AsyncState` (``()``
+    under the sync drivers), ``obs`` the counters (``()`` when none are
+    kept); ``stats`` holds the stacked rows so far or ``()``. Every value
+    the fused drivers' epoch loops carry has a field here
+    (:mod:`repro_torch.analysis.snapshot` checks it)."""
 
     islands: IslandState
     pool: PoolState

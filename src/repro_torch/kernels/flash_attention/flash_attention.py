@@ -98,6 +98,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, kv,
             sq, sk, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            # repro-lint: disable=PAL01 -- scale is the caller's Python float (the softmax scale), not a device value
             float(scale), int(causal), stream)
     _build.check(err, "flash_attention_kernel")
     LAUNCHES["flash_attention"] += 1

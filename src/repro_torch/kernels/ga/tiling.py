@@ -207,6 +207,7 @@ def launch_child(seed, size, pop, fitness, cum: Optional[torch.Tensor],
             None if cum is None else cum.data_ptr(), new_pop.data_ptr(),
             None if fit_out is None else fit_out.data_ptr(),
             int(spec.kind == "float"), n_isl, n, length, spec.elite,
+            # repro-lint: disable=PAL01 -- rows is the launch shape's Python int, not a device value
             int(rows), 0 if spec.selection == "tournament" else 1,
             spec.tournament_k, _k.CROSSOVERS[spec.crossover],
             float(spec.crossover_rate), float(spec.mutation_rate),

@@ -960,8 +960,8 @@ def test_async_tick_adds_no_host_sync(card):
     k = rand.key(0, device=card)
     islands = island_lib.init_islands(k, 6, problem, cfg, device=card)
     pool = pool_lib.pool_init(16, problem.genome, device=card)
-    astate = init_async_state(k, 6, AsyncConfig(**ASYNC_HETERO), 3,
-                              problem.genome)
+    astate = init_async_state(rand.fold_in(k, 7), 6,
+                              AsyncConfig(**ASYNC_HETERO), 3, problem.genome)
     kw = dict(problem=problem, cfg=cfg, mig=mig, w2=False,
               with_stats=False)
 
