@@ -76,6 +76,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    step of a 10,000 x 1000 population through ``impl="pallas"``, which
    routes it to the tiled kernel (one launch) and then the F15 kernel;
    bit-equal to the plain version, timed as ms per 10,000 evaluations;
+4e. the island drivers' CUDA graphs (``core/graphed.py``: ``run_fused``,
+   ``run_experiment``, ``run_fused_async`` and ``run_experiment_async``
+   replay their steps on the card, as phases 4-4d, 9-11 run them) against
+   the eager functions they capture, at paper-8 and paper-f15-8 width,
+   ``GRAPH_EPOCHS`` epochs of ``GRAPH_GENS`` generations: the fused runner
+   against ``fused_scan`` under ``pallas``, ``pallas_tiled`` and ``jnp``
+   with and without W² (islands, pool, key, epoch, stopped, counters,
+   stats, and the launch counts under replay), an early stop, two
+   ``run_fused`` calls on one capture, segments and a resume, the async
+   driver, the host loops (torus with the server down; a HostBridge)
+   against their eager steps; then eager and graphed runs in turns
+   (``GRAPH_MAIN_TURN``, ``GRAPH_TURN``): evals/s and wall per
+   generation, and the profile under replay (kernels and device busy per
+   generation, the busy share), with each graph's unit, capture time and
+   pool memory (``graph_phases``);
 5. the trap kernel run at 132 islands (one block per SM), 3 epochs;
 6. each kernel's time at the main paths' shapes against its bound, the
    generation kernels' launch shapes and times without their fused eval;
@@ -292,6 +307,7 @@ events around back-to-back calls (:func:`event_ms`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import itertools
 import json
@@ -445,6 +461,15 @@ GENE_ATOL, FIT_RTOL, FIT_ATOL = 2e-6, 2e-4, 1e-3
 ASYNC_TICKS = 10
 PROFILE_TICKS = 2
 KILL_TICKS = 12
+# phase 4e: the graphed drivers against the eager functions they capture:
+# epochs of each bit-for-bit comparison and generations in each (the
+# paper's 100 cut to 5); the turns: paper-8 pallas, the prediction's cell,
+# at 2 epochs of the paper's 100 generations, the other paths at 1 epoch
+# of 10 (an eager jnp generation takes 56-69 ms)
+GRAPH_EPOCHS = 2
+GRAPH_GENS = 5
+GRAPH_MAIN_TURN = (2, 100)
+GRAPH_TURN = (1, 10)
 # phase 11: the bridged runs' epochs and the epochs their device pool and
 # in-process server are down; the wire experiment's seed (its one shard's
 # PoolServer seed is 8191 times it); the wire run's ticks, the tick after
@@ -3240,6 +3265,352 @@ ANALYSIS_SUMMARY = re.compile(r"repro-lint: (\d+) finding\(s\), (\d+) "
                               r"suppressed, (\d+) stale")
 
 
+def graph_profile(tag: str, run, epochs: int, gens: int, card: str):
+    """The graphed twin of :func:`step_profile`: the device kernels and
+    busy time per generation of ``run()`` (``epochs`` epochs of ``gens``
+    generations, replayed), profiled, against its wall per generation
+    measured unprofiled by the caller. Returns (kernels, busy us) per
+    generation, or (None, None) where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_events:
+        log(f"[{tag}] device kernels per generation: not measured (the "
+            f"profiler saw no device events); {card}")
+        return None, None
+    n = epochs * gens
+    by_name = {}
+    for e in dev_events:
+        cnt, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (cnt + 1, us + e.device_time)
+    for name, (cnt, us) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][1])[:4]:
+        log(f"[{tag}]   {us / n:9.2f} us/gen  {cnt / n:6.2f} launches/gen  "
+            f"{name[:90]}")
+    return (len(dev_events) / n,
+            sum(e.device_time for e in dev_events) / n)
+
+
+def graph_phases(card: str) -> None:
+    """Phase 4e: the island drivers replay CUDA graphs (the port's
+    ``jax.jit``), bit for bit the eager functions they capture, at paper-8
+    and paper-f15-8 width (8 islands of 128-256, trap 40x4 and the
+    shipped F15, D 1000, m 50), depth cut to GRAPH_EPOCHS epochs of
+    GRAPH_GENS generations:
+
+    * the fused runner (``evolution.scan_runner``, what ``run_fused``
+      replays) against ``fused_scan`` called eagerly on the same inputs,
+      under ``pallas``, ``pallas_tiled`` and ``jnp``, with and without
+      W², stats and counters on: islands, pool, key, epoch, stopped, the
+      stats rows and the counters equal, and ``kernels.LAUNCHES`` equal
+      under replay; onemax 16 stops early the same way;
+    * two ``run_fused`` calls with one problem capture once, and the first
+      call's results survive the second; a run in segments and a resumed
+      run equal the one-segment run;
+    * ``run_fused_async`` against ``fused_scan_async``,
+      ``run_experiment`` (torus, the server down for an epoch, and with a
+      HostBridge) and ``run_experiment_async`` against their loops of the
+      eager steps (every RunResult field);
+    * in turns with the eager run (eager, graphed, graphed, eager): evals/s
+      and wall per generation of each path and impl, then the profile of
+      a replayed run (kernels and device busy per generation, busy
+      share), each graph's unit, capture time and pool memory."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch import kernels, rand
+    from repro_torch.core import (AsyncConfig, EAConfig, HostBridge,
+                                  MigrationConfig, PoolServer, make_f15,
+                                  make_onemax, make_trap, run_experiment,
+                                  run_experiment_async, run_fused,
+                                  run_fused_async)
+    from repro_torch.core import async_migration as am
+    from repro_torch.core import evolution, graphed
+    from repro_torch.core import island as island_lib
+    from repro_torch.core import pool as pool_lib
+    from repro_torch.obs import counters as obs_lib
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    mig = MigrationConfig(topology="pool")
+    base = {"paper-8": (make_trap(40, 4, impl="pallas"), EAConfig(
+        impl="pallas", max_pop=256, min_pop=128,
+        generations_per_epoch=GRAPH_GENS)),
+        "paper-f15-8": (make_f15(impl="pallas"), EAConfig(
+            impl="pallas", max_pop=256, min_pop=128,
+            generations_per_epoch=GRAPH_GENS, crossover="blend",
+            mutation_sigma=0.3))}
+
+    def start(problem, cfg, mig, n, seed, obs=True):
+        """run_fused's fresh state: (islands, pool, key, epoch, stopped,
+        obs)."""
+        keys = rand.split(rand.key(seed, device=dev), 2)
+        return (island_lib.init_islands(keys[0], n, problem, cfg,
+                                        device=dev),
+                pool_lib.pool_init(mig.pool_capacity, problem.genome,
+                                   device=dev),
+                keys[1], 0, False,
+                obs_lib.init_obs(n, device=dev) if obs else ())
+
+    def same(tag, a, b):
+        la, sa = pytree.tree_flatten(a)
+        lb, sb = pytree.tree_flatten(b)
+        if sa != sb:
+            fail(f"{tag}: the results' structures differ")
+        for i, (x, y) in enumerate(zip(la, lb)):
+            if isinstance(x, torch.Tensor):
+                if not torch.equal(x, y):
+                    fail(f"{tag}: leaf {i} differs between the graphed and "
+                         f"the eager run")
+            elif isinstance(x, np.ndarray):
+                if not np.array_equal(x, y):
+                    fail(f"{tag}: leaf {i} differs between the graphed and "
+                         f"the eager run")
+            elif x != y:
+                fail(f"{tag}: {x!r} against {y!r}")
+
+    def units(runner):
+        g = runner.graph
+        return (f"{graphed.unit_of(g_cfg[id(runner)])} unit, "
+                f"{len(g.graphs)} graphs, captured in {g.capture_s:.3f} s, "
+                f"{g.pool_bytes / 2**20:.1f} MiB of pool")
+
+    g_cfg = {}
+
+    def runner_of(problem, cfg, w2, stats=True):
+        r = evolution.scan_runner(problem, cfg, mig, w2, stats, dev)
+        g_cfg[id(r)] = cfg
+        return r
+
+    # ---- runner against fused_scan, three impls x two paths x W² ----------
+    for path, (problem, c0) in base.items():
+        for impl in ("pallas", "pallas_tiled", "jnp"):
+            cfg = dataclasses.replace(c0, impl=impl)
+            for w2 in (False, True):
+                tag = f"[graphs] {path} {impl} w2={w2}"
+                s0 = start(problem, cfg, mig, 8, SEED)
+                kernels.reset_launches()
+                eager = evolution.fused_scan(
+                    *s0, problem=problem, cfg=cfg, mig=mig, w2=w2,
+                    max_epochs=GRAPH_EPOCHS, with_stats=True)
+                torch.cuda.synchronize()
+                want = dict(kernels.LAUNCHES)
+                runner = runner_of(problem, cfg, w2)
+                runner(*s0, max_epochs=1)          # captures
+                kernels.reset_launches()
+                got = runner(*s0, max_epochs=GRAPH_EPOCHS)
+                torch.cuda.synchronize()
+                if dict(kernels.LAUNCHES) != want:
+                    fail(f"{tag}: launches under replay "
+                         f"{dict(kernels.LAUNCHES)}, eager {want}")
+                if impl != "jnp" and not any(want.values()):
+                    fail(f"{tag}: no kernel launched: {want}")
+                same(tag, got, eager)
+                if runner.graph.captures != 1:
+                    fail(f"{tag}: {runner.graph.captures} captures")
+                log(f"{tag}: graphed == eager (islands, pool, key, epoch, "
+                    f"stopped, counters, {GRAPH_EPOCHS} stats rows); "
+                    f"launches {want}; {units(runner)}")
+                runner.release()
+
+    # early stop: onemax 16 solves in the first epochs and freezes
+    o_problem, o_cfg = make_onemax(16), EAConfig(
+        impl="pallas", max_pop=32, min_pop=16, generations_per_epoch=5)
+    s0 = start(o_problem, o_cfg, mig, 4, 11)
+    eager = evolution.fused_scan(*s0, problem=o_problem, cfg=o_cfg, mig=mig,
+                                 w2=False, max_epochs=6, with_stats=True)
+    runner = runner_of(o_problem, o_cfg, False)
+    got = runner(*s0, max_epochs=6)
+    same("[graphs] onemax-16 early stop", got, eager)
+    if not bool(got[4]) or int(got[3]) >= 6:
+        fail(f"[graphs] onemax-16 did not stop early: epoch {int(got[3])}")
+    log(f"[graphs] onemax-16 early stop at epoch {int(got[3])} of 6: "
+        f"graphed == eager, frozen epochs after the stop; {units(runner)}")
+    runner.release()
+
+    # ---- run_fused: one capture for two calls, segments, resume ------------
+    problem, cfg = base["paper-8"]
+    kw = dict(n_islands=8, max_epochs=4, w2=True, return_stats=True,
+              return_obs=True)
+    first = run_fused(problem, cfg, mig, rng=SEED, **kw)
+    kept = pytree.tree_map(
+        lambda x: x.clone() if isinstance(x, torch.Tensor) else x, first)
+    second = run_fused(problem, cfg, mig, rng=SEED + 1, **kw)
+    same("[graphs] the first run_fused after a second", first, kept)
+    key = (id(problem), ("batched", cfg, mig, True, True, True, 8,
+                         str(dev)))
+    runner = evolution._FUSED_CACHE[key][1]
+    if runner.graph.captures != 1:
+        fail(f"[graphs] two run_fused calls captured "
+             f"{runner.graph.captures} times")
+    if torch.equal(first[0].pop, second[0].pop):
+        fail("[graphs] two seeds gave one population")
+    snap = os.path.join(ROOT, "build", "chip_smoke_graph_snap")
+    shutil.rmtree(snap, ignore_errors=True)
+    seg = run_fused(problem, cfg, mig, rng=SEED, snapshot_every=1,
+                    snapshot_dir=snap, **kw)
+    same("[graphs] segments of 1 == one segment", seg, first)
+    part = os.path.join(snap + "_part")
+    shutil.rmtree(part, ignore_errors=True)
+    run_fused(problem, cfg, mig, rng=SEED, snapshot_every=2,
+              snapshot_dir=part, **dict(kw, max_epochs=2))
+    resumed = run_fused(problem, cfg, mig, rng=SEED, snapshot_every=2,
+                        snapshot_dir=part, resume=True, **kw)
+    same("[graphs] resumed at 2 == uninterrupted", resumed, first)
+    shutil.rmtree(snap, ignore_errors=True)
+    shutil.rmtree(part, ignore_errors=True)
+    log("[graphs] run_fused paper-8 pallas, 4 epochs, W², stats and "
+        "counters: two calls with one problem captured once, the first "
+        "call's results kept; segments of 1 and a resume at epoch 2 == the "
+        "one-segment run")
+
+    # ---- the async drivers and the host loops ------------------------------
+    acfg = AsyncConfig(min_rate=0.25, max_rate=1.0, staleness=3,
+                       churn_fraction=0.25)
+    n_ticks = 2 * GRAPH_EPOCHS
+    a_got = run_fused_async(problem, cfg, mig, acfg, n_islands=8,
+                            max_ticks=n_ticks, rng=SEED, w2=True,
+                            return_stats=True, return_astate=True,
+                            return_obs=True)
+    keys = rand.split(rand.key(SEED, device=dev), 2)
+    s0 = start(problem, cfg, mig, 8, SEED)
+    ast = am.init_async_state(rand.fold_in(keys[0], 7), 8, acfg, n_ticks,
+                              problem.genome)
+    e = am.fused_scan_async(s0[0], s0[1], ast, s0[2], 0, False, s0[5],
+                            problem=problem, cfg=cfg, mig=mig, acfg=acfg,
+                            w2=True, max_ticks=n_ticks, with_stats=True)
+    a_want = (e[0], e[1], e[4], e[7], e[2], obs_lib.harvest(e[6]))
+    same("[graphs] run_fused_async", a_got, a_want)
+
+    def eager_loop(step, carry, steps, server_up, bridge=None):
+        """run_experiment's loop over the eager step: (carry, rows)."""
+        rows = []
+        for t in range(1, steps + 1):
+            up = server_up(t)
+            carry, row = step(carry, t, up)
+            if bridge is not None:
+                carry = (carry[0], bridge.sync(carry[1], t)) + carry[2:]
+            rows.append(evolution.read_row(row)[0])
+        return carry, rows
+
+    def result_of(res, carry, rows):
+        same("[graphs] host loop islands and pool", (res.islands, res.pool),
+             carry[:2])
+        if len(res.stats) != len(rows) or any(
+                not all(np.array_equal(u, v) for u, v in zip(p, q))
+                for p, q in zip(res.stats, rows)):
+            fail("[graphs] host loop stats rows differ")
+        if res.evaluations != int(carry[0].evaluations.sum()):
+            fail("[graphs] host loop evaluations differ")
+
+    down = {2}
+    t_mig = MigrationConfig(topology="torus")
+    res = run_experiment(problem, cfg, t_mig, n_islands=8,
+                         max_epochs=n_ticks, rng=SEED, w2=True,
+                         server_up=lambda e: e not in down)
+    step = graphed.EagerStep(functools.partial(
+        evolution.experiment_step, problem=problem, cfg=cfg, mig=t_mig,
+        w2=True), dev)
+    carry, rows = eager_loop(step, (s0[0], s0[1], s0[2]), n_ticks,
+                             lambda e: e not in down)
+    result_of(res, carry, rows)
+    if res.epochs != n_ticks:
+        fail(f"[graphs] run_experiment ran {res.epochs} epochs")
+
+    bridges = [HostBridge(PoolServer(capacity=256, seed=8191), pull=4)
+               for _ in range(2)]
+    res = run_experiment(problem, cfg, mig, n_islands=8, max_epochs=n_ticks,
+                         rng=SEED, w2=True, host_bridge=bridges[0])
+    step = graphed.EagerStep(functools.partial(
+        evolution.experiment_step, problem=problem, cfg=cfg, mig=mig,
+        w2=True), dev)
+    carry, rows = eager_loop(step, (s0[0], s0[1], s0[2]), n_ticks,
+                             lambda e: True, bridges[1])
+    result_of(res, carry, rows)
+    if bridges[0].stats() != bridges[1].stats():
+        fail(f"[graphs] bridge counts {bridges[0].stats()} against "
+             f"{bridges[1].stats()}")
+
+    res = run_experiment_async(problem, cfg, mig, acfg, n_islands=8,
+                               max_ticks=n_ticks, rng=SEED, w2=True,
+                               server_up=lambda t: t not in down)
+    step = graphed.EagerStep(functools.partial(
+        am.async_experiment_step, problem=problem, cfg=cfg, mig=mig,
+        acfg=acfg, w2=True), dev)
+    carry, rows = eager_loop(step, (s0[0], s0[1], ast, s0[2]), n_ticks,
+                             lambda t: t not in down)
+    result_of(res, carry, rows)
+    same("[graphs] run_experiment_async astate", res.astate, carry[2])
+    log(f"[graphs] run_fused_async ({n_ticks} ticks, churn), run_experiment"
+        f" (torus, server down epoch 2; HostBridge(PoolServer(capacity=256, "
+        f"seed=8191), pull=4) {bridges[0].stats()}) and run_experiment_async"
+        f" (server down tick 2) == their eager steps, every field")
+
+    # ---- turns: eager, graphed, graphed, eager -----------------------------
+    log(f"[graphs] comparisons in {time.perf_counter() - t_phase:.1f} s")
+    t_turns = time.perf_counter()
+    turns = [("paper-8", "pallas", GRAPH_MAIN_TURN),
+             ("paper-8", "pallas_tiled", GRAPH_TURN),
+             ("paper-8", "jnp", GRAPH_TURN),
+             ("paper-f15-8", "pallas", GRAPH_TURN),
+             ("paper-f15-8", "pallas_tiled", GRAPH_TURN),
+             ("paper-f15-8", "jnp", GRAPH_TURN)]
+    for path, impl, (epochs, gens) in turns:
+        problem, c0 = base[path]
+        cfg = dataclasses.replace(c0, impl=impl, generations_per_epoch=gens)
+        s0 = start(problem, cfg, mig, 8, SEED)
+        runner = runner_of(problem, cfg, True, stats=False)
+        runner(*s0, max_epochs=1)
+
+        def eager_run():
+            return evolution.fused_scan(
+                *s0, problem=problem, cfg=cfg, mig=mig, w2=True,
+                max_epochs=epochs, with_stats=False)
+
+        def graph_run():
+            return runner(*s0, max_epochs=epochs)
+
+        walls = {}
+        out = {}
+        for kind, fn in (("eager", eager_run), ("graphed", graph_run),
+                         ("graphed", graph_run), ("eager", eager_run)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out[kind] = fn()
+            torch.cuda.synchronize()
+            walls.setdefault(kind, []).append(time.perf_counter() - t)
+        same(f"[graph-turns] {path} {impl}", out["graphed"], out["eager"])
+        evals = int(out["graphed"][0].evaluations.sum()) - int(
+            s0[0].evaluations.sum())
+        n_gen = epochs * gens
+        log(f"[graph-turns] {path} {impl}, {epochs} epochs of "
+            f"{gens} generations in turns (eager, graphed, graphed, eager): "
+            + "; ".join(f"{k} " + ", ".join(
+                f"{evals / w:.1f} evals/s {w / n_gen * 1e6:.1f} us/gen"
+                for w in ws) for k, ws in walls.items())
+            + f"; {card}")
+        g_wall = min(walls["graphed"]) / n_gen * 1e6
+        kern, busy = graph_profile(f"graph-profile {path} {impl}", graph_run,
+                                   epochs, gens, card)
+        if kern is not None:
+            log(f"[graph-profile] {path} {impl} under replay: {kern:.2f} "
+                f"kernels and {busy:.1f} us device busy per generation, "
+                f"wall {g_wall:.1f} us per generation = busy share "
+                f"{busy / g_wall:.3f}; launches per replayed epoch "
+                f"{runner.graph.launches}; {units(runner)}; {card}")
+        runner.release()
+    log(f"[graphs] turns and profiles in "
+        f"{time.perf_counter() - t_turns:.1f} s; phase 4e in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def analysis_phase(card: str) -> None:
     """Phase 16: the port's invariant analyzer (``python -m
     repro_torch.analysis``) in subprocesses — its self-check, then the lint
@@ -5091,6 +5462,9 @@ def main() -> int:
     log(f"[ea] {' '.join(cmd[1:])}: rc 0 in {time.perf_counter() - t:.1f} s"
         f"; {' | '.join(lines[-3:])}")
 
+    # ---- 4e: the drivers' CUDA graphs against the eager steps --------------
+    graph_phases(card)
+
     # ---- 10: the asynchronous runtime and its durability ------------------
     t10 = time.perf_counter()
     async_phases(problem, f_problem, f_cfg, card)
@@ -5106,6 +5480,10 @@ def main() -> int:
     t12 = time.perf_counter()
     sharded_phases(card)
     log(f"[sharded] phases 12a-12c in {time.perf_counter() - t12:.1f} s")
+
+    # the island phases' cached graphs and their pools go before model land
+    from repro_torch.core import evolution as _evolution
+    _evolution.clear_fused_cache()
 
     # ---- 13: training ----------------------------------------------------
     t13 = time.perf_counter()

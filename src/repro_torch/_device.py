@@ -21,3 +21,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is visible; pass device='cpu' to run the plain "
             "PyTorch versions on the CPU")
     return dev
+
+
+def as_device(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """``value`` as a tensor of ``dtype`` on ``device``: a tensor is cast
+    and moved, a Python value is filled there. A CUDA graph captures the
+    fill, where it refuses the copy from host memory that
+    ``torch.as_tensor`` makes of a Python value."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=dtype)
+    if isinstance(value, (bool, int, float)):
+        return torch.full((), value, dtype=dtype, device=device)
+    return torch.as_tensor(value, dtype=dtype, device=device)

@@ -24,7 +24,10 @@ and the callables handed to ``jax.jit`` / ``pjit`` / ``shard_map``
   ``forward``/``backward`` (and ``setup_context``, ``jvp``, ``vjp``) of
   ``torch.autograd.Function`` subclasses (``models/common.py``,
   ``launch/partition.py``), callables handed to ``torch.compile`` (also
-  as a decorator) or ``torch.cuda.make_graphed_callables``, and
+  as a decorator), ``torch.cuda.make_graphed_callables`` or the island
+  drivers' ``core/graphed.py::StepGraph`` (the steps it captures:
+  ``evolution.scan_epoch``, ``experiment_step``,
+  ``async_migration.scan_tick``, ``async_experiment_step``), and
   everything run inside ``with torch.cuda.graph(...)`` or between a
   graph's ``capture_begin()`` and ``capture_end()`` — the region's own
   lines and the functions it calls.  ``partial`` and one level of
@@ -42,11 +45,11 @@ Flagged in kernel context only (PAL01): any ``np.*`` call other than a
 dtype.  Flagged in traced context only (JIT01): host clock calls
 (``time.time``/``sleep``/``perf_counter``/``monotonic``).
 
-Host syncs that a graph will meet and that are not roots today: the
-fused drivers' early-stop latch ``bool(stopped)``
-(``core/evolution.py::fused_scan``, ``core/async_migration.py::
-fused_scan_async``), read once an epoch or tick without W², stays
-between graph replays; the decode step's ``int(index)``
+Host syncs that stay outside the roots: the fused drivers' early-stop
+latch ``bool(stopped)`` (``core/evolution.py::fused_scan``,
+``core/async_migration.py::fused_scan_async``), read once an epoch or
+tick without W², between graph replays (the loops are not captured, their
+steps are); the decode step's ``int(index)``
 (``models/attention.py::decode_step`` and its sharded twin) is a host
 int that capture would freeze, so a graphed decode step needs the slot
 and the position as device tensors first.  When such code becomes a
@@ -65,7 +68,8 @@ LAUNCH_TAIL = "_build.library"
 LAUNCH_SUFFIX = "_launch"
 BUILD_MODULE_TAIL = "_build"
 COMPILE_NAMES = {"torch.compile"}
-GRAPHED_CALLABLES = {"torch.cuda.make_graphed_callables"}
+GRAPHED_CALLABLES = {"torch.cuda.make_graphed_callables",
+                     "repro_torch.core.graphed.StepGraph"}
 GRAPH_CONTEXTS = {"torch.cuda.graph"}
 CUSTOM_OP_TAILS = {"custom_op"}
 FAKE_TAILS = {"register_fake"}

@@ -38,6 +38,7 @@ with a pool server without waiting on it. The sharded driver is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import queue
 import threading
 import time
@@ -46,12 +47,13 @@ from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .. import convert, rand
-from .._device import resolve_device
+from .. import rand
+from .._device import as_device, resolve_device
 from ..obs import counters as obs_lib
 from ..obs import trace as obs_trace
 from . import acceptance as acceptance_lib
 from . import evolution as evolution_lib
+from . import graphed
 from . import island as island_lib
 from . import migration as migration_lib
 from . import pool as pool_lib
@@ -164,7 +166,7 @@ def init_async_state(rng: torch.Tensor, n_islands: int, acfg: AsyncConfig,
 
 
 def _tick(tick, device) -> torch.Tensor:
-    return torch.as_tensor(tick, dtype=torch.int32, device=device)
+    return as_device(tick, torch.int32, device)
 
 
 def _inbox_push(astate: AsyncState, imm_g: torch.Tensor,
@@ -226,7 +228,7 @@ def async_step(islands: IslandState, pool: PoolState, astate: AsyncState,
                rng: torch.Tensor, problem: Problem, cfg: EAConfig,
                mig: MigrationConfig, acfg: AsyncConfig, w2: bool,
                server_up: Union[bool, torch.Tensor] = True, tick=0,
-               axis=None, obs=None):
+               axis=None, obs=None, evolved: Optional[IslandState] = None):
     """One global tick: clocks accrue, the firing islands evolve an epoch
     and trade through the topology, every other island is left as it was.
 
@@ -238,7 +240,10 @@ def async_step(islands: IslandState, pool: PoolState, astate: AsyncState,
     topologies' vector availability of its islands. With ``obs`` (an
     :class:`~repro_torch.obs.counters.ObsCounters`) the counters record the
     down ticks, the exchange ledger and the absorbed entries' ages, and
-    the return grows to ``(islands, pool, astate, obs)``."""
+    the return grows to ``(islands, pool, astate, obs)``. ``evolved`` is
+    every island after this tick's generations where the caller has run
+    them already (as :func:`~repro_torch.core.evolution.epoch_step`
+    takes it)."""
     dev = islands.pop.device
     tick = _tick(tick, dev)
     up = ~((astate.down_start <= tick) & (tick < astate.down_end))
@@ -250,7 +255,8 @@ def async_step(islands: IslandState, pool: PoolState, astate: AsyncState,
         obs = obs_lib.record_churn(obs, ~up)
 
     # every island evolves; the silent ones are selected back whole
-    evolved = island_lib.island_epoch(islands, problem, cfg)
+    if evolved is None:
+        evolved = island_lib.island_epoch(islands, problem, cfg)
     islands = island_lib.where_islands(fire, evolved, islands)
 
     # the fire mask is the topology's vector availability
@@ -305,6 +311,27 @@ def async_step(islands: IslandState, pool: PoolState, astate: AsyncState,
 # ---------------------------------------------------------------------------
 # The host loop
 # ---------------------------------------------------------------------------
+def async_experiment_step(carry, tick: torch.Tensor, up: torch.Tensor, *,
+                          problem: Problem, cfg: EAConfig,
+                          mig: MigrationConfig, acfg: AsyncConfig, w2: bool,
+                          evolved: Optional[IslandState] = None):
+    """:func:`run_experiment_async`'s tick on ``carry = (islands, pool,
+    astate, rng)``: the key split, :func:`async_step` with the server's
+    state ``up`` and the 1-based ``tick`` (0-d device tensors), and the
+    (7,) row of :func:`~repro_torch.core.evolution.experiment_step`.
+    Returns ``(carry', row)``."""
+    islands, pool, astate, rng = carry
+    keys = rand.split(rng, 2)
+    rng, k_mig = keys[0], keys[1]
+    islands, pool, astate = async_step(
+        islands, pool, astate, k_mig, problem, cfg, mig, acfg, w2,
+        server_up=up, tick=tick, evolved=evolved)
+    solved = success_mask(islands, problem, cfg).any().to(torch.int32)
+    row = torch.cat([evolution_lib.pack_stats(collect_stats(islands, tick)),
+                     solved.reshape(1)])
+    return (islands, pool, astate, rng), row
+
+
 @dataclasses.dataclass
 class AsyncRunResult(RunResult):
     astate: Optional[AsyncState] = None
@@ -342,34 +369,34 @@ def run_experiment_async(problem: Problem,
     dpool = pool_lib.pool_init(mig.pool_capacity, problem.genome, device=dev)
     astate = init_async_state(rand.fold_in(k_init, 7), n_islands, acfg,
                               max_ticks, problem.genome)
+    step = evolution_lib.fused_jit(
+        problem, ("async_host", cfg, mig, acfg, w2, n_islands, str(dev)),
+        lambda: _experiment_runner(problem, cfg, mig, acfg, w2, dev))
     stats: List[ExperimentStats] = []
     t0 = time.perf_counter()
     success = False
     evals_at_solution = None
     tick = 0
     for tick in range(1, max_ticks + 1):
-        keys = rand.split(rng, 2)
-        rng, k_mig = keys[0], keys[1]
         up = True if server_up is None else bool(server_up(tick))
-        islands, dpool, astate = async_step(
-            islands, dpool, astate, k_mig, problem, cfg, mig, acfg, w2,
-            server_up=up, tick=tick)
+        (islands, dpool, astate, rng), row = step(
+            (islands, dpool, astate, rng), tick, up)
         if host_bridge is not None:
             dpool = host_bridge.sync(dpool, tick)
-        st = convert.to_numpy(collect_stats(islands, tick))
+        st, solved = evolution_lib.read_row(row)
         stats.append(st)
         if verbose:
             print(f"tick {tick}: best={st.best_fitness:.4f} "
                   f"evals={int(st.total_evaluations)} "
                   f"fires={int(astate.fires.sum())} "
                   f"server={'up' if up else 'DOWN'}")
-        succeeded_now = bool(success_mask(islands, problem, cfg).any()) or (
-            w2 and int(st.experiments_solved) > 0)
+        succeeded_now = solved or (w2 and int(st.experiments_solved) > 0)
         if succeeded_now and not success:
             success = True
             evals_at_solution = int(st.total_evaluations)
         if success and stop_on_success and not w2:
             break
+    islands, dpool, astate = step.detach((islands, dpool, astate))
     return AsyncRunResult(
         islands=islands, pool=dpool, stats=stats, success=success,
         epochs=tick, wall_time_s=time.perf_counter() - t0,
@@ -381,12 +408,44 @@ def run_experiment_async(problem: Problem,
 # ---------------------------------------------------------------------------
 # The fused driver
 # ---------------------------------------------------------------------------
+def scan_tick(carry, live: bool, *, problem: Problem, cfg: EAConfig,
+              mig: MigrationConfig, acfg: AsyncConfig, w2: bool, axis=None,
+              with_stats: bool = True,
+              evolved: Optional[IslandState] = None):
+    """One iteration of :func:`fused_scan_async`'s loop on ``carry =
+    (islands, pool, astate, key, tick, stopped, obs)``, as
+    :func:`~repro_torch.core.evolution.scan_epoch` is of ``fused_scan``'s:
+    a live tick runs :func:`async_step` (the fire mask on the device), a
+    frozen one only splits the key. Returns ``(carry', row)``."""
+    islands, pool, astate, key, tick, stopped, obs = carry
+    with_obs = hasattr(obs, "_fields")
+    keys = rand.split(key, 2)
+    key, k_mig = keys[0], keys[1]
+    if live:
+        # tick + 1: the host loop's 1-based tick numbers
+        out = async_step(islands, pool, astate, k_mig, problem, cfg, mig,
+                         acfg, w2, server_up=True, tick=tick + 1, axis=axis,
+                         obs=obs if with_obs else None, evolved=evolved)
+        islands, pool, astate = out[:3]
+        if with_obs:
+            obs = out[3]
+        tick = tick + 1
+    if not w2:
+        stopped = stopped | global_success(islands, problem, cfg, axis)
+    if with_obs:
+        obs = obs_lib.record_early_stop(obs, stopped, tick)
+    row = (evolution_lib.pack_stats(collect_stats(islands, tick, axis))
+           if with_stats else None)
+    return (islands, pool, astate, key, tick, stopped, obs), row
+
+
 def fused_scan_async(islands: IslandState, pool: PoolState,
                      astate: AsyncState, key: torch.Tensor, tick0=0,
                      stopped0=False, obs0=(), *, problem: Problem,
                      cfg: EAConfig, mig: MigrationConfig, acfg: AsyncConfig,
                      w2: bool, max_ticks: int, axis=None,
-                     with_stats: bool = True):
+                     with_stats: bool = True,
+                     step: Optional[Callable] = None):
     """``max_ticks`` ticks; returns ``(islands, pool, astate, key, tick,
     stopped, obs, stats)``, the async mirror of
     :func:`~repro_torch.core.evolution.fused_scan` (the same key schedule,
@@ -394,36 +453,59 @@ def fused_scan_async(islands: IslandState, pool: PoolState,
     whole carry goes in and comes out. The early-stop latch is read on the
     host once per tick (never under W²; under ``axis`` after its
     all-reduce, so every rank stops at the same tick); nothing else waits
-    for the device."""
-    with_obs = hasattr(obs0, "_fields")
-    obs = obs0
+    for the device. Each live tick is ``step(carry) -> (carry', row)``,
+    by default :func:`scan_tick`; :func:`run_fused_async` gives the
+    card's graph of it."""
     dev = islands.pop.device
-    tick = torch.as_tensor(tick0, dtype=torch.int32, device=dev)
-    stopped = torch.as_tensor(stopped0, dtype=torch.bool, device=dev)
+    tick = as_device(tick0, torch.int32, dev)
+    stopped = as_device(stopped0, torch.bool, dev)
     if not w2:
         stopped = stopped | global_success(islands, problem, cfg, axis)
+    body = functools.partial(scan_tick, problem=problem, cfg=cfg, mig=mig,
+                             acfg=acfg, w2=w2, axis=axis,
+                             with_stats=with_stats)
+    live = step if step is not None else functools.partial(body, live=True)
+    frozen = functools.partial(body, live=False)
+    obs = obs0
     rows = []
     for _ in range(max_ticks):
-        keys = rand.split(key, 2)
-        key, k_mig = keys[0], keys[1]
-        if w2 or not bool(stopped):
-            # tick + 1: the host loop's 1-based tick numbers
-            out = async_step(islands, pool, astate, k_mig, problem, cfg, mig,
-                             acfg, w2, server_up=True, tick=tick + 1,
-                             axis=axis, obs=obs if with_obs else None)
-            islands, pool, astate = out[:3]
-            if with_obs:
-                obs = out[3]
-            tick = tick + 1
-        if not w2:
-            stopped = stopped | global_success(islands, problem, cfg, axis)
-        if with_obs:
-            obs = obs_lib.record_early_stop(obs, stopped, tick)
+        run = live if w2 or not bool(stopped) else frozen
+        (islands, pool, astate, key, tick, stopped, obs), row = run(
+            (islands, pool, astate, key, tick, stopped, obs))
         if with_stats:
-            rows.append(collect_stats(islands, tick, axis))
-    stats = (ExperimentStats(*(torch.stack(col) for col in zip(*rows)))
+            rows.append(row)
+    stats = (evolution_lib.unpack_stats(torch.stack(rows))
              if with_stats and rows else ())
     return islands, pool, astate, key, tick, stopped, obs, stats
+
+
+def scan_runner(problem: Problem, cfg: EAConfig, mig: MigrationConfig,
+                 acfg: AsyncConfig, w2: bool, with_stats: bool,
+                 device: torch.device):
+    """:func:`fused_scan_async` bound to its statics: eager on the CPU,
+    its live tick replayed as a graph on the card."""
+    run = functools.partial(fused_scan_async, problem=problem, cfg=cfg,
+                            mig=mig, acfg=acfg, w2=w2,
+                            with_stats=with_stats)
+    if not graphed.graphs_on(device):
+        return run
+    live = functools.partial(scan_tick, live=True, problem=problem, cfg=cfg,
+                             mig=mig, acfg=acfg, w2=w2,
+                             with_stats=with_stats)
+    return graphed.Runner(run, graphed.StepGraph(
+        live, **graphed.unit_args(problem, cfg)))
+
+
+def _experiment_runner(problem: Problem, cfg: EAConfig,
+                       mig: MigrationConfig, acfg: AsyncConfig, w2: bool,
+                       device: torch.device):
+    """:func:`async_experiment_step` bound to its statics: called eagerly
+    on the CPU, replayed as a graph on the card."""
+    step = functools.partial(async_experiment_step, problem=problem,
+                             cfg=cfg, mig=mig, acfg=acfg, w2=w2)
+    if not graphed.graphs_on(device):
+        return graphed.EagerStep(step, device)
+    return graphed.StepGraph(step, **graphed.unit_args(problem, cfg))
 
 
 def run_fused_async(problem: Problem,
@@ -488,12 +570,15 @@ def run_fused_async(problem: Problem,
         state = fresh_state(n_islands)
 
     def segment_fn(state: ExperimentState, seg_len: int):
-        islands, pool, astate, key, tick, stopped, obs, seg_stats = \
-            fused_scan_async(state.islands, state.pool, state.astate,
-                             state.key, state.epoch, state.stopped,
-                             state.obs, problem=problem, cfg=cfg, mig=mig,
-                             acfg=acfg, w2=w2, max_ticks=seg_len,
-                             with_stats=return_stats)
+        run = evolution_lib.fused_jit(
+            problem,
+            ("async", cfg, mig, acfg, w2, return_stats, return_obs,
+             int(state.islands.pop.shape[0]), str(dev)),
+            lambda: scan_runner(problem, cfg, mig, acfg, w2, return_stats,
+                                 dev))
+        islands, pool, astate, key, tick, stopped, obs, seg_stats = run(
+            state.islands, state.pool, state.astate, state.key, state.epoch,
+            state.stopped, state.obs, max_ticks=seg_len)
         return state._replace(islands=islands, pool=pool, astate=astate,
                               key=key, epoch=tick, stopped=stopped,
                               obs=obs), seg_stats

@@ -12,7 +12,12 @@ Two drivers, as in the reference:
   counts the live epochs, and the stats rows after a stop repeat the
   frozen state.
 
-Both walk the same keys, so from one seed they reach the same state. Every
+Both walk the same keys, so from one seed they reach the same state. On
+the card both replay CUDA graphs, the port's counterpart of the
+reference's ``jax.jit`` (:func:`fused_jit`, :mod:`repro_torch.core.
+graphed`): ``run_fused`` one graph per epoch of :func:`fused_scan`'s loop,
+``run_experiment`` one per :func:`experiment_step`; on the CPU they call
+the same functions eagerly. Every
 generation inside an epoch dispatches through the kernel table
 (``EAConfig.impl``), every migration through the topology registry
 (``MigrationConfig.topology``, ``.acceptance``). ``return_obs=True`` carries
@@ -33,17 +38,21 @@ migration.HostBridge`).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
 import time
-from typing import Callable, List, Optional, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
+from torch.utils import _pytree as pytree
 
 from .. import convert, rand
-from .._device import resolve_device
+from .._device import as_device, resolve_device
 from ..checkpoint import Checkpointer
 from ..obs import counters as obs_lib
 from ..obs import trace as obs_trace
+from . import graphed
 from . import island as island_lib
 from . import migration as migration_lib
 from . import pool as pool_lib
@@ -59,22 +68,27 @@ def success_mask(islands: IslandState, problem: Problem,
 
 def epoch_step(islands: IslandState, pool: PoolState, rng: torch.Tensor,
                problem: Problem, cfg: EAConfig, mig: MigrationConfig,
-               w2: bool, available=True, epoch=0, axis=None, obs=None):
+               w2: bool, available=True, epoch=0, axis=None, obs=None,
+               evolved: Optional[IslandState] = None):
     """One epoch of every island: evolve, migrate, absorb the immigrants,
     and under W² restart the islands that solved their experiment.
+    ``evolved`` is the islands after this epoch's generations where the
+    caller has run them already (a graph replays them a generation at a
+    time, :mod:`repro_torch.core.graphed`).
 
     With ``axis`` (a :class:`~repro_torch.core.sharded.ShardGroup`) the
     islands are this rank's and migration goes through the group's
     collectives. With ``obs`` (an
     :class:`~repro_torch.obs.counters.ObsCounters`) the migration keeps its
     ledger and the return grows to ``(islands, pool, obs)``."""
-    islands = island_lib.island_epoch(islands, problem, cfg)
+    islands = (island_lib.island_epoch(islands, problem, cfg)
+               if evolved is None else evolved)
     if obs is not None:
         pool, imm_g, imm_f, delivered, accepted = migration_lib.migrate(
             pool, islands.best_genome, islands.best_fitness, rng, mig,
             axis=axis, epoch=epoch, available=available, with_ledger=True)
         n = islands.best_fitness.shape[0]
-        fired = torch.as_tensor(available, device=delivered.device).expand(n)
+        fired = as_device(available, torch.bool, delivered.device).expand(n)
         obs = obs_lib.record_exchange(obs, fired, delivered, accepted)
         # the sync drivers absorb at delivery: age 0
         obs = obs_lib.record_absorb(obs, accepted, torch.zeros(
@@ -114,7 +128,7 @@ def collect_stats(islands: IslandState, epoch,
         mean = axis.sum_in_order(mean) / axis.world
         counts = axis.all_reduce(counts, "sum")
     return ExperimentStats(
-        epoch=torch.as_tensor(epoch, dtype=torch.int32, device=dev),
+        epoch=as_device(epoch, torch.int32, dev),
         best_fitness=best,
         mean_best=mean,
         total_evaluations=counts[0],
@@ -130,48 +144,182 @@ def global_success(islands: IslandState, problem: Problem, cfg: EAConfig,
     return s if axis is None else axis.any(s)
 
 
+def pack_stats(st: ExperimentStats) -> torch.Tensor:
+    """One stats record as a (6,) int32 row, its f32 fields as their bits
+    (one clone or host read moves the whole row)."""
+    return torch.stack([st.epoch.to(torch.int32),
+                        st.best_fitness.view(torch.int32),
+                        st.mean_best.view(torch.int32),
+                        st.total_evaluations, st.n_done,
+                        st.experiments_solved])
+
+
+def unpack_stats(rows: torch.Tensor) -> ExperimentStats:
+    """(k, 6) packed rows -> the stacked :class:`ExperimentStats`."""
+    cols = rows.t().contiguous()
+    return ExperimentStats(
+        epoch=cols[0], best_fitness=cols[1].view(torch.float32),
+        mean_best=cols[2].view(torch.float32), total_evaluations=cols[3],
+        n_done=cols[4], experiments_solved=cols[5])
+
+
+def scan_epoch(carry, live: bool, *, problem: Problem, cfg: EAConfig,
+               mig: MigrationConfig, w2: bool, axis=None,
+               with_stats: bool = True,
+               evolved: Optional[IslandState] = None):
+    """One iteration of :func:`fused_scan`'s loop on ``carry = (islands,
+    pool, key, epoch, stopped, obs)``: the key is split; a live epoch
+    (``live``) runs :func:`epoch_step` and counts itself, a frozen one
+    leaves the state as it is; the stop latch (without W²), the counters'
+    early-stop epoch and the packed stats row (``with_stats``, else None)
+    follow. Returns ``(carry', row)``. The live iteration is what the
+    card's graph captures."""
+    islands, pool, key, epoch, stopped, obs = carry
+    with_obs = hasattr(obs, "_fields")
+    keys = rand.split(key, 2)
+    key, k_mig = keys[0], keys[1]
+    if live:
+        out = epoch_step(islands, pool, k_mig, problem, cfg, mig, w2, True,
+                         epoch=epoch + 1, axis=axis,
+                         obs=obs if with_obs else None, evolved=evolved)
+        islands, pool = out[:2]
+        if with_obs:
+            obs = out[2]
+        epoch = epoch + 1
+    if not w2:
+        stopped = stopped | global_success(islands, problem, cfg, axis)
+    if with_obs:
+        # latches the first stopping epoch, idempotent after
+        obs = obs_lib.record_early_stop(obs, stopped, epoch)
+    row = (pack_stats(collect_stats(islands, epoch, axis)) if with_stats
+           else None)
+    return (islands, pool, key, epoch, stopped, obs), row
+
+
 def fused_scan(islands: IslandState, pool: PoolState, key: torch.Tensor,
                epoch0=0, stopped0=False, obs0=(), *, problem: Problem,
                cfg: EAConfig, mig: MigrationConfig, w2: bool,
-               max_epochs: int, axis=None, with_stats: bool = True):
+               max_epochs: int, axis=None, with_stats: bool = True,
+               step: Optional[Callable] = None):
     """``max_epochs`` epochs; returns ``(islands, pool, key, epoch,
     stopped, obs, stats)`` like the reference's scan. ``obs0`` is an
     :class:`~repro_torch.obs.counters.ObsCounters` to accumulate (``()``:
     none, returned as ``()``); ``stats`` is stacked over epochs, or
     ``()``. Under ``axis`` (a shard group) the islands are this rank's,
     the stats are the global ones, and the stop flag is all-reduced before
-    the host reads it, so every rank stops at the same epoch."""
-    with_obs = hasattr(obs0, "_fields")
-    obs = obs0
+    the host reads it, so every rank stops at the same epoch.
+
+    Each live epoch is ``step(carry) -> (carry', row)``, by default
+    :func:`scan_epoch` called here; :func:`run_fused` gives the card's
+    :class:`~repro_torch.core.graphed.StepGraph` of it. Frozen epochs
+    (after an early stop) run :func:`scan_epoch` eagerly."""
     dev = islands.pop.device
-    epoch = torch.as_tensor(epoch0, dtype=torch.int32, device=dev)
-    stopped = torch.as_tensor(stopped0, dtype=torch.bool, device=dev)
+    epoch = as_device(epoch0, torch.int32, dev)
+    stopped = as_device(stopped0, torch.bool, dev)
     if not w2:
         stopped = stopped | global_success(islands, problem, cfg, axis)
+    body = functools.partial(scan_epoch, problem=problem, cfg=cfg, mig=mig,
+                             w2=w2, axis=axis, with_stats=with_stats)
+    live = step if step is not None else functools.partial(body, live=True)
+    frozen = functools.partial(body, live=False)
+    obs = obs0
     rows = []
     for _ in range(max_epochs):
-        keys = rand.split(key, 2)
-        key, k_mig = keys[0], keys[1]
         # without W² the latch is read on the host once per epoch; with W²
         # it never sets, and the loop never waits for the device
-        if w2 or not bool(stopped):
-            out = epoch_step(islands, pool, k_mig, problem, cfg, mig, w2,
-                             True, epoch=epoch + 1, axis=axis,
-                             obs=obs if with_obs else None)
-            islands, pool = out[:2]
-            if with_obs:
-                obs = out[2]
-            epoch = epoch + 1
-        if not w2:
-            stopped = stopped | global_success(islands, problem, cfg, axis)
-        if with_obs:
-            # latches the first stopping epoch, idempotent after
-            obs = obs_lib.record_early_stop(obs, stopped, epoch)
+        run = live if w2 or not bool(stopped) else frozen
+        (islands, pool, key, epoch, stopped, obs), row = run(
+            (islands, pool, key, epoch, stopped, obs))
         if with_stats:
-            rows.append(collect_stats(islands, epoch, axis))
-    stats = (ExperimentStats(*(torch.stack(col) for col in zip(*rows)))
-             if with_stats and rows else ())
+            rows.append(row)
+    stats = unpack_stats(torch.stack(rows)) if with_stats and rows else ()
     return islands, pool, key, epoch, stopped, obs, stats
+
+
+def unique_buffers(tree):
+    """Copy any tensor leaf whose storage an earlier leaf shares (keyed on
+    the storage, not the Python object: two views of one tensor share it).
+    The reference copies such leaves so that its whole state can be
+    donated; the port's graphs copy a carry into their static buffers
+    (:mod:`repro_torch.core.graphed`), and a leaf that shares storage
+    with a static buffer is copied first, so that no copy reads what an
+    earlier one overwrote."""
+    seen = set()
+
+    def once(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        k = (x.device, x.untyped_storage().data_ptr())
+        if k in seen:
+            return x.clone()
+        seen.add(k)
+        return x
+
+    return pytree.tree_map(once, tree)
+
+
+# One runner per (problem identity, static key), as the reference keeps one
+# compiled driver: on the card a CUDA graph of the driver's step
+# (graphed.StepGraph), on the CPU the eager function. Problem's dataclass
+# equality leaves out its consts, so the cache is keyed on the object's
+# identity, checked against the stored problem (the entry keeps the problem
+# alive, so a live entry's id is never a recycled one). A bounded LRU:
+# runners are evicted oldest first, and an evicted runner releases its
+# graphs and their private memory pool.
+_FUSED_CACHE: "collections.OrderedDict[tuple, Tuple[Problem, Callable]]" = \
+    collections.OrderedDict()
+_FUSED_CACHE_MAX = 32
+
+
+def _release(runner) -> None:
+    release = getattr(runner, "release", None)
+    if release is not None:
+        release()
+
+
+def fused_jit(problem: Problem, static_key: tuple,
+              builder: Callable[[], Callable]) -> Callable:
+    """Memoize ``builder()`` per ``problem`` object and ``static_key``, so
+    repeated runs reuse one runner (one captured graph).
+
+    The key holds what the runner's graph depends on: the driver's name,
+    ``cfg``, ``mig`` (and ``acfg``), ``w2``, ``return_stats``,
+    ``return_obs``, the island count and the device. The reference's key
+    has the segment length instead of the last two: its scan is compiled
+    for a length and a shape is traced from the arguments, while the
+    port's graph holds one epoch, which serves any segment length, over
+    static buffers whose shapes and device are fixed at its capture."""
+    key = (id(problem), static_key)
+    entry = _FUSED_CACHE.get(key)
+    if entry is None or entry[0] is not problem:
+        if entry is not None:
+            _release(entry[1])
+        _FUSED_CACHE[key] = entry = (problem, builder())
+        while len(_FUSED_CACHE) > _FUSED_CACHE_MAX:
+            _release(_FUSED_CACHE.popitem(last=False)[1][1])
+    _FUSED_CACHE.move_to_end(key)
+    return entry[1]
+
+
+def clear_fused_cache() -> None:
+    """Release every cached runner (its graphs and private pool), as
+    ``jax.clear_caches`` drops compiled executables."""
+    while _FUSED_CACHE:
+        _release(_FUSED_CACHE.popitem()[1][1])
+
+
+def scan_runner(problem: Problem, cfg: EAConfig, mig: MigrationConfig,
+                 w2: bool, with_stats: bool, device: torch.device):
+    """:func:`fused_scan` bound to its statics: eager on the CPU, its live
+    epoch replayed as a graph on the card."""
+    run = functools.partial(fused_scan, problem=problem, cfg=cfg, mig=mig,
+                            w2=w2, with_stats=with_stats)
+    if not graphed.graphs_on(device):
+        return run
+    live = functools.partial(scan_epoch, live=True, problem=problem,
+                             cfg=cfg, mig=mig, w2=w2, with_stats=with_stats)
+    return graphed.Runner(run, graphed.StepGraph(
+        live, **graphed.unit_args(problem, cfg)))
 
 
 def empty_stats(device=None) -> ExperimentStats:
@@ -362,10 +510,14 @@ def run_fused(problem: Problem,
         state = fresh_state(n_islands)
 
     def segment_fn(state: ExperimentState, seg_len: int):
-        islands, pool, key, epoch, stopped, obs, seg_stats = fused_scan(
+        run = fused_jit(
+            problem,
+            ("batched", cfg, mig, w2, return_stats, return_obs,
+             int(state.islands.pop.shape[0]), str(dev)),
+            lambda: scan_runner(problem, cfg, mig, w2, return_stats, dev))
+        islands, pool, key, epoch, stopped, obs, seg_stats = run(
             state.islands, state.pool, state.key, state.epoch,
-            state.stopped, state.obs, problem=problem, cfg=cfg, mig=mig,
-            w2=w2, max_epochs=seg_len, with_stats=return_stats)
+            state.stopped, state.obs, max_epochs=seg_len)
         return state._replace(islands=islands, pool=pool, key=key,
                               epoch=epoch, stopped=stopped,
                               obs=obs), seg_stats
@@ -379,6 +531,44 @@ def run_fused(problem: Problem,
     if return_obs:
         out += (obs_lib.harvest(state.obs),)
     return out
+
+
+def experiment_step(carry, epoch: torch.Tensor, up: torch.Tensor, *,
+                    problem: Problem, cfg: EAConfig, mig: MigrationConfig,
+                    w2: bool, evolved: Optional[IslandState] = None):
+    """:func:`run_experiment`'s epoch on ``carry = (islands, pool, rng)``:
+    the key split, :func:`epoch_step` with the server's state ``up`` and
+    the 1-based ``epoch`` (0-d device tensors, filled before each replay
+    on the card), and a (7,) int32 row: the packed stats and whether an
+    island has solved. Returns ``(carry', row)``."""
+    islands, pool, rng = carry
+    keys = rand.split(rng, 2)
+    rng, k_mig = keys[0], keys[1]
+    islands, pool = epoch_step(islands, pool, k_mig, problem, cfg, mig, w2,
+                               available=up, epoch=epoch, evolved=evolved)
+    solved = success_mask(islands, problem, cfg).any().to(torch.int32)
+    row = torch.cat([pack_stats(collect_stats(islands, epoch)),
+                     solved.reshape(1)])
+    return (islands, pool, rng), row
+
+
+def _experiment_runner(problem: Problem, cfg: EAConfig,
+                       mig: MigrationConfig, w2: bool, device: torch.device):
+    """:func:`experiment_step` bound to its statics: called eagerly on the
+    CPU, replayed as a graph on the card."""
+    step = functools.partial(experiment_step, problem=problem, cfg=cfg,
+                             mig=mig, w2=w2)
+    if not graphed.graphs_on(device):
+        return graphed.EagerStep(step, device)
+    return graphed.StepGraph(step, **graphed.unit_args(problem, cfg))
+
+
+def read_row(row: torch.Tensor) -> Tuple[ExperimentStats, bool]:
+    """A host loop's (7,) row on the host: the stats record (numpy 0-d
+    arrays, as :func:`collect_stats` read back) and the solved flag."""
+    row = row.cpu()
+    st = ExperimentStats(*(c[0] for c in unpack_stats(row[None, :6])))
+    return convert.to_numpy(st), bool(row[6])
 
 
 @dataclasses.dataclass
@@ -430,35 +620,37 @@ def run_experiment(problem: Problem,
     islands = island_lib.init_islands(keys[0], n_islands, problem, cfg,
                                       device=dev)
     dpool = pool_lib.pool_init(mig.pool_capacity, problem.genome, device=dev)
+    step = fused_jit(
+        problem, ("host", cfg, mig, w2, n_islands, str(dev)),
+        lambda: _experiment_runner(problem, cfg, mig, w2, dev))
     stats: List[ExperimentStats] = []
     t0 = time.perf_counter()
     success = False
     evals_at_solution = None
     epoch = 0
     for epoch in range(1, max_epochs + 1):
-        keys = rand.split(rng, 2)
-        rng, k_mig = keys[0], keys[1]
         up = True if server_up is None else bool(server_up(epoch))
-        islands, dpool = epoch_step(islands, dpool, k_mig, problem, cfg, mig,
-                                    w2, available=up, epoch=epoch)
+        (islands, dpool, rng), row = step((islands, dpool, rng), epoch, up)
         if host_pool is not None and up:
             _host_pool_exchange(host_pool, islands)
         if host_bridge is not None:
+            # the bridge's pool goes into the graph's buffers at the next
+            # call
             dpool = host_bridge.sync(dpool, epoch)
-        st = convert.to_numpy(collect_stats(islands, epoch))
+        st, solved = read_row(row)
         stats.append(st)
         if verbose:
             print(f"epoch {epoch}: best={st.best_fitness:.4f} "
                   f"evals={int(st.total_evaluations)} done={int(st.n_done)} "
                   f"solved={int(st.experiments_solved)} "
                   f"server={'up' if up else 'DOWN'}")
-        succeeded_now = bool(success_mask(islands, problem, cfg).any()) or (
-            w2 and int(st.experiments_solved) > 0)
+        succeeded_now = solved or (w2 and int(st.experiments_solved) > 0)
         if succeeded_now and not success:
             success = True
             evals_at_solution = int(st.total_evaluations)
         if success and stop_on_success and not w2:
             break
+    islands, dpool = step.detach((islands, dpool))
     return RunResult(
         islands=islands, pool=dpool, stats=stats, success=success,
         epochs=epoch, wall_time_s=time.perf_counter() - t0,

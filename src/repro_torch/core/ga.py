@@ -63,8 +63,8 @@ def roulette_logits(fitness: torch.Tensor,
     valid = torch.isfinite(masked)
     finite = torch.where(valid, masked, 0.0)
     lo = torch.where(valid, masked, float("inf")).amin(-1, keepdim=True)
-    w = torch.where(valid, (finite - lo) + torch.tensor(
-        1e-6, dtype=torch.float32, device=fitness.device), 1.0)
+    w = torch.where(valid, (finite - lo) + rand.const(
+        1e-6, torch.float32, fitness.device), 1.0)
     return torch.where(valid, rand.log_f32(w), NEG_INF)
 
 
@@ -149,8 +149,7 @@ def mutate(rng: torch.Tensor, pop: torch.Tensor, cfg: EAConfig,
         return torch.where(flips, 1 - pop, pop).to(pop.dtype)
     keys = rand.split(rng, 2)
     hits = rand.keyed_bernoulli(keys[:, 0], rate, shape)
-    sigma = torch.tensor(cfg.mutation_sigma, dtype=torch.float32,
-                         device=pop.device)
+    sigma = rand.const(cfg.mutation_sigma, torch.float32, pop.device)
     noisy = rand.fma(rand.keyed_normal(keys[:, 1], shape), sigma, pop)
     out = torch.where(hits, noisy, pop)
     return torch.clamp(out, genome.low, genome.high).to(pop.dtype)

@@ -1,0 +1,292 @@
+"""CUDA graphs of the island drivers' steps: the port's ``jax.jit``.
+
+The reference compiles its island drivers (``repro.core.evolution.
+fused_jit``): ``run_fused``'s ``lax.scan`` segment, ``run_experiment``'s
+jitted ``epoch_step`` and their asynchronous twins each run as one XLA
+executable, with no host launch per operation. The port records the same
+unit of work once as a CUDA graph and replays it. :class:`StepGraph`
+holds a driver step's carry in static buffers:
+
+* the first call clones the carry into the static buffers, runs the step
+  once on a side stream (the warm-up: it builds the kernels, runs the
+  tiled kernel's autotune, which times and synchronises, and settles the
+  allocator), then captures the step and the copy of its result back into
+  the static buffers;
+* every call copies the caller's carry in (leaves that are the static
+  buffers already are skipped), fills the host values of this step (the
+  host loops' epoch or tick and the server's state) into 0-d static
+  tensors, replays, and returns the static carry with a clone of the
+  step's other output. The driver loops hand the static carry straight
+  back to the next call; :meth:`StepGraph.detach` clones it for the
+  caller at the end of a run, so nothing a caller holds is overwritten
+  by a later replay.
+
+Units. The kernel impls (``pallas``, ``pallas_tiled``: about 200 launches
+a generation) capture the whole step, ``generations_per_epoch``
+generations and the exchange, as one graph. Where the generation is the
+plain PyTorch operators on the card (``jnp``, ``pallas_ref``: thousands of
+launches a generation), an epoch graph would hold hundreds of thousands of
+nodes, so one generation is captured twice (from the carry's islands, and
+from the evolved islands) and replayed ``generations_per_epoch`` times in
+all, then a tail graph of the exchange reads the evolved islands
+(:func:`unit_of`).
+
+A captured region reads no device value on the host and copies nothing
+from host memory: the drivers' steps keep to that (their Python values
+are kernel arguments or fills, :func:`repro_torch.rand.const`,
+:func:`repro_torch._device.as_device`). What needs the host stays between
+replays: the fused drivers' early-stop latch without W², a bridge's sync,
+the host loops' stats read. A capture that fails raises; there is no
+eager fallback on the card.
+
+Launch counts. ``kernels.LAUNCHES`` counts Python calls to the wrappers,
+and a replay makes none. The warm-up's and the capture's calls are taken
+back out of the counts; each graph records the launches its capture saw
+per wrapper, and each replay adds them, so a graphed run counts what the
+eager run counts.
+"""
+from __future__ import annotations
+
+import functools
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+from .. import kernels
+from . import evolution as evolution_lib
+from . import island as island_lib
+
+# generation impls that run plain PyTorch operators on the card: captured
+# a generation at a time
+PLAIN_IMPLS = ("jnp", "pallas_ref")
+
+
+def graphs_on(device: torch.device) -> bool:
+    """Whether the drivers replay graphs on ``device``: on the card, and
+    nowhere else."""
+    return device.type == "cuda"
+
+
+def unit_of(cfg) -> str:
+    """``"generation"`` where ``cfg.impl``'s generation is plain PyTorch
+    on the card (and an epoch has generations), else ``"epoch"``."""
+    if cfg.impl in PLAIN_IMPLS and cfg.generations_per_epoch > 0:
+        return "generation"
+    return "epoch"
+
+
+def unit_args(problem, cfg) -> Dict[str, object]:
+    """:class:`StepGraph`'s ``evolve`` and ``gens`` for ``cfg``'s unit
+    (none for the epoch unit)."""
+    if unit_of(cfg) == "epoch":
+        return {}
+    return {"evolve": functools.partial(island_lib.generation_step,
+                                        problem=problem, cfg=cfg),
+            "gens": cfg.generations_per_epoch}
+
+
+def host_scalar(value, device) -> torch.Tensor:
+    """A host loop's per-step Python value (a bool: the server's state; an
+    int: the epoch or tick) as the 0-d device tensor the step reads."""
+    dtype = torch.bool if isinstance(value, bool) else torch.int32
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+class EagerStep:
+    """The CPU's counterpart of :class:`StepGraph`: the step called
+    directly, its host values made device scalars as the graph's are."""
+
+    def __init__(self, step: Callable, device):
+        self.step, self.device = step, torch.device(device)
+
+    def __call__(self, carry, *host):
+        return self.step(carry, *(host_scalar(v, self.device) for v in host))
+
+    def detach(self, tree):
+        return tree
+
+
+def _assign(static: List[torch.Tensor], new: List[torch.Tensor]) -> None:
+    """Copy ``new`` into ``static`` leaf by leaf. A new leaf that is its
+    static buffer is skipped; one that shares storage with any static
+    buffer is copied first (:func:`~repro_torch.core.evolution.
+    unique_buffers`), so no copy reads what an earlier copy overwrote."""
+    pending = [(s, n) for s, n in zip(static, new) if n is not s]
+    if not pending:
+        return
+    for s, n in pending:
+        if n.shape != s.shape or n.dtype != s.dtype:
+            raise ValueError(
+                f"graphed step: a carried leaf of {n.dtype} "
+                f"{tuple(n.shape)} for the static {s.dtype} "
+                f"{tuple(s.shape)}")
+    fresh = evolution_lib.unique_buffers(
+        list(static) + [n for _, n in pending])[len(static):]
+    for (s, _), n in zip(pending, fresh):
+        s.copy_(n)
+
+
+class _Graph:
+    """One captured graph, the times it replays per step and the wrapper
+    launches its capture recorded."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, times: int,
+                 launches: Dict[str, int]):
+        self.graph, self.times, self.launches = graph, times, launches
+
+
+class StepGraph:
+    """A driver step replayed as CUDA graphs over static buffers.
+
+    ``step(carry, *host, evolved=None) -> (carry', out)``: ``carry`` a
+    tree of tensors whose first entry is the islands, ``host`` the 0-d
+    tensors of the step's host values, ``out`` a tensor or None (the
+    packed stats row). Under the generation unit ``evolve(islands) ->
+    islands`` is one generation, replayed ``gens`` times before the step,
+    which then takes the evolved islands as ``evolved``.
+
+    ``capture_s`` is the warm-up and capture time, ``pool_bytes`` the
+    device memory of the graphs' private pool (its segments in
+    ``torch.cuda.memory_snapshot``),
+    ``launches`` the wrapper launches of one replayed step."""
+
+    def __init__(self, step: Callable, *, evolve: Optional[Callable] = None,
+                 gens: int = 0):
+        self.step, self.evolve, self.gens = step, evolve, gens
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        self.captures = 0
+        self._reset()
+
+    def _reset(self) -> None:
+        self.graphs: List[_Graph] = []
+        self.carry = None
+        self.host: Tuple[torch.Tensor, ...] = ()
+        self._static: List[torch.Tensor] = []
+        self._spec = None
+        self._evolved: List[torch.Tensor] = []
+        self._out: Optional[torch.Tensor] = None
+
+    @property
+    def launches(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for g in self.graphs:
+            for name, n in g.launches.items():
+                out[name] = out.get(name, 0) + n * g.times
+        return out
+
+    def __call__(self, carry, *host):
+        if self.carry is None:
+            self._capture(carry, host)
+        else:
+            leaves, spec = pytree.tree_flatten(carry)
+            if spec != self._spec:
+                raise ValueError("graphed step: the carry's structure "
+                                 "changed since the capture")
+            _assign(self._static, leaves)
+        for t, v in zip(self.host, host):
+            t.fill_(v)
+        for g in self.graphs:
+            for _ in range(g.times):
+                g.graph.replay()
+            for name, n in g.launches.items():
+                kernels.LAUNCHES[name] += n * g.times
+        return self.carry, (None if self._out is None else self._out.clone())
+
+    def detach(self, tree):
+        """``tree`` with clones of the leaves that are static buffers."""
+        owned = {id(t) for t in self._static}
+        return pytree.tree_map(
+            lambda x: x.clone() if id(x) in owned else x, tree)
+
+    def release(self) -> None:
+        """Drop the graphs, their private pool and the static buffers; a
+        later call captures again."""
+        for g in self.graphs:
+            g.graph.reset()
+        self._reset()
+
+    # -- capture -----------------------------------------------------------
+    def _capture(self, carry, host) -> None:
+        leaves, self._spec = pytree.tree_flatten(carry)
+        dev = leaves[0].device
+        t0 = time.perf_counter()
+        counts = dict(kernels.LAUNCHES)
+        try:
+            self._static = [t.clone() for t in leaves]
+            self.carry = pytree.tree_unflatten(self._static, self._spec)
+            self.host = tuple(host_scalar(v, dev) for v in host)
+            step = self.step
+            if self.evolve is not None and self.gens > 0:
+                islands = self.carry[0]
+                i_leaves, i_spec = pytree.tree_flatten(islands)
+                self._evolved = [t.clone() for t in i_leaves]
+                evolved = pytree.tree_unflatten(self._evolved, i_spec)
+                self._record(lambda: (self.evolve(islands), None),
+                             self._evolved, 1)
+                if self.gens > 1:
+                    self._record(lambda: (self.evolve(evolved), None),
+                                 self._evolved, self.gens - 1)
+                step = functools.partial(self.step, evolved=evolved)
+            self._out = self._record(lambda: step(self.carry, *self.host),
+                                     self._static, 1)
+        except BaseException:
+            self.release()
+            raise
+        finally:
+            kernels.LAUNCHES.update(counts)
+        torch.cuda.synchronize(dev)
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        pool = self.graphs[0].graph.pool()
+        self.pool_bytes = sum(
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def _record(self, fn, target: List[torch.Tensor], times: int):
+        """Warm ``fn`` up on a side stream, then capture it and the copy of
+        its tree into ``target`` as the next of this step's graphs, and
+        return ``fn``'s other output. The graphs share one private pool:
+        they replay in the order of their capture, each reading only the
+        static buffers and its own temporaries. The capture's wrapper
+        launches are recorded, not counted."""
+        dev = target[0].device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            fn()
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        pool = self.graphs[0].graph.pool() if self.graphs else None
+        before = dict(kernels.LAUNCHES)
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            tree, out = fn()
+            leaves = pytree.tree_leaves(tree)
+            if len(leaves) != len(target):
+                raise ValueError("graphed step: the step returned another "
+                                 "carry than it was given")
+            _assign(target, leaves)
+        self.graphs.append(_Graph(graph, times, {
+            name: kernels.LAUNCHES[name] - n for name, n in before.items()
+            if kernels.LAUNCHES[name] != n}))
+        return out
+
+
+class Runner:
+    """A fused driver's segment function with its step replayed by a
+    :class:`StepGraph`: ``driver(*args, step=graph, **kw)``, its results
+    detached from the static buffers."""
+
+    def __init__(self, driver: Callable, graph: StepGraph):
+        self.driver, self.graph = driver, graph
+
+    def __call__(self, *args, **kwargs):
+        return self.graph.detach(self.driver(*args, step=self.graph,
+                                             **kwargs))
+
+    def release(self) -> None:
+        self.graph.release()

@@ -27,9 +27,7 @@ def success(best: torch.Tensor, problem: Problem,
     """best >= optimum - eps, the threshold rounded to f32 first."""
     if problem.optimum is None:
         return torch.zeros(best.shape, dtype=torch.bool, device=best.device)
-    bar = torch.tensor(problem.optimum - cfg.success_eps,
-                       dtype=torch.float32, device=best.device)
-    return best >= bar
+    return best >= rand.f32(problem.optimum - cfg.success_eps)
 
 
 def where_islands(mask: torch.Tensor, new: IslandState,

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from .. import rand
+from .._device import as_device
 from ..obs import trace as obs_trace
 from . import acceptance as acceptance_lib
 from .pool import (NEG_INF, pool_best, pool_get_random, pool_insert_host,
@@ -132,7 +133,7 @@ def _avail_parts(available, axis, device
     one of them set: the sync drivers' whole-step gate, or the async
     runtime's per-island fire mask (under ``axis``, this rank's
     islands')."""
-    avail = torch.as_tensor(available, dtype=torch.bool, device=device)
+    avail = as_device(available, torch.bool, device)
     return (avail, None) if avail.dim() == 0 else (None, avail)
 
 
@@ -239,7 +240,7 @@ def torus_topology(pool: PoolState, bests_genome: torch.Tensor,
         return _deliver(pool, imm_g, imm_f, scalar, vec)
     n = bests_genome.shape[0]
     rows, cols = _grid(n)
-    east = torch.as_tensor(epoch, device=bests_fitness.device) % 2 == 0
+    east = as_device(epoch, torch.int32, bests_fitness.device) % 2 == 0
 
     def shift(x):
         if rows == 1:
@@ -298,8 +299,10 @@ def broadcast_best_topology(pool: PoolState, bests_genome: torch.Tensor,
         elite_g = axis.sum_in_order(contrib).to(bests_genome.dtype)
         elite_f = all_f.index_select(0, g)[0]
     else:
-        i = bests_fitness.argmax()
-        elite_g, elite_f = bests_genome[i], bests_fitness[i]
+        # a (1,) index: a 0-d tensor index is read on the host
+        i = bests_fitness.argmax().reshape(1)
+        elite_g = bests_genome.index_select(0, i)[0]
+        elite_f = bests_fitness.index_select(0, i)[0]
     imm_g = elite_g.expand((n,) + bests_genome.shape[1:])
     imm_f = elite_f.expand((n,))
     return _deliver(pool, imm_g, imm_f, scalar, vec)

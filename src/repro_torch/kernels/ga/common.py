@@ -241,7 +241,7 @@ def selection_plan(seed: torch.Tensor, fitness: torch.Tensor,
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    return rand.const(x, torch.float32, like.device)
 
 
 def child_tile_math(seed: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,

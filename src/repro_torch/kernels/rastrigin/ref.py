@@ -33,7 +33,7 @@ TWO_PI = 2.0 * math.pi
 
 def rastrigin_terms(z: torch.Tensor) -> torch.Tensor:
     """Element-wise ``z*z - 10*cos(f32(2*pi)*z) + 10`` in f32."""
-    two_pi = torch.tensor(TWO_PI, dtype=torch.float32, device=z.device)
+    two_pi = torch.full((), TWO_PI, dtype=torch.float32, device=z.device)
     return z * z - 10.0 * torch.cos(two_pi * z) + 10.0
 
 

@@ -28,6 +28,8 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
+from .._device import as_device
+
 AGE_BINS = 8
 
 
@@ -82,12 +84,10 @@ def record_absorb(obs: ObsCounters, consumed, age) -> ObsCounters:
 
 def record_early_stop(obs: ObsCounters, stopped, epoch) -> ObsCounters:
     """Latch the first epoch the stop flag is up (idempotent after)."""
-    fresh = (obs.early_stop_epoch < 0) & torch.as_tensor(
-        stopped, device=obs.early_stop_epoch.device)
+    dev = obs.early_stop_epoch.device
+    fresh = (obs.early_stop_epoch < 0) & as_device(stopped, torch.bool, dev)
     return obs._replace(early_stop_epoch=torch.where(
-        fresh, torch.as_tensor(epoch, dtype=torch.int32,
-                               device=fresh.device),
-        obs.early_stop_epoch))
+        fresh, as_device(epoch, torch.int32, dev), obs.early_stop_epoch))
 
 
 def harvest(obs: ObsCounters, axis=None) -> Dict[str, Any]:

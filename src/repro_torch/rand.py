@@ -33,8 +33,11 @@ over them, as ``vmap`` does in the reference.
 from __future__ import annotations
 
 import math
+import numbers
+import operator
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -51,9 +54,28 @@ def _device_of(*xs) -> torch.device:
     return torch.device("cpu")
 
 
-def _u32(x: Word, device: torch.device) -> torch.Tensor:
-    """A word as int64 in [0, 2**32): negative int32 values wrap."""
+def _u32(x: Word, device: torch.device) -> Word:
+    """A word as int64 in [0, 2**32): negative int32 values wrap. A Python
+    word stays a Python int, which the ops take as a kernel argument (a
+    tensor made from it would be a host-to-device copy, which a CUDA
+    graph's capture refuses)."""
+    if isinstance(x, numbers.Integral):
+        return operator.index(x) & MASK32
     return torch.as_tensor(x, dtype=torch.int64, device=device) & MASK32
+
+
+def f32(x: float) -> float:
+    """``x`` rounded to f32, as a Python float. An f32 tensor compared
+    with or scaled by it computes as with the f32 tensor of ``x``."""
+    return float(np.float32(x))
+
+
+def const(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 0-d tensor of a Python value, filled on ``device`` (the value
+    rounds to ``dtype`` as ``torch.tensor(value, dtype=dtype)`` rounds
+    it); a CUDA graph captures the fill, where it refuses the copy from
+    host memory that ``torch.tensor`` makes."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -95,6 +117,8 @@ def threefry2x32(k0: Word, k1: Word, x0: Word,
     ``(k0, k1)``. Inputs broadcast; outputs are int64 words."""
     dev = _device_of(k0, k1, x0, x1)
     k0, k1, x0, x1 = (_u32(v, dev) for v in (k0, k1, x0, x1))
+    if not isinstance(k0, torch.Tensor):
+        k0 = const(k0, torch.int64, dev)
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & MASK32
     x1 = (x1 + ks[1]) & MASK32
@@ -152,7 +176,7 @@ def randint(k0, k1, shape, maxval, salt, offset=(0, 0), row_stride=None):
 def bernoulli(k0, k1, shape, p, salt, offset=(0, 0), row_stride=None):
     """``uniform < p`` with ``p`` rounded to f32 first."""
     u = uniform(k0, k1, shape, salt, offset, row_stride)
-    return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+    return u < f32(p)
 
 
 def normal(k0, k1, shape, salt, offset=(0, 0), row_stride=None):
@@ -163,8 +187,7 @@ def normal(k0, k1, shape, salt, offset=(0, 0), row_stride=None):
     u1 = (b0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
     u2 = (b1 >> 8).to(torch.float32) * (1.0 / (1 << 24))
     r = torch.sqrt(-2.0 * torch.log(1.0 - u1))
-    two_pi = torch.tensor(2.0 * math.pi, dtype=torch.float32, device=dev)
-    return r * torch.cos(two_pi * u2)
+    return r * torch.cos(f32(2.0 * math.pi) * u2)
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +241,8 @@ def keyed_bits(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 
 
 def _batched_scalar(v, k: torch.Tensor, ndim: int) -> torch.Tensor:
+    if isinstance(v, numbers.Integral):
+        return const(operator.index(v), torch.int64, k.device)
     t = torch.as_tensor(v, dtype=torch.int64, device=k.device)
     if t.dim() == 0:
         return t
@@ -255,8 +280,8 @@ def keyed_uniform(k: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     bits = keyed_bits(k, shape)
     fbits = (bits >> 9) | 0x3F800000
     floats = _to_i32(fbits).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    lo = const(minval, torch.float32, k.device)
+    hi = const(maxval, torch.float32, k.device)
     return torch.maximum(lo, fma(floats, hi - lo, lo))
 
 
@@ -264,7 +289,7 @@ def keyed_bernoulli(k: torch.Tensor, p: float,
                     shape: Sequence[int]) -> torch.Tensor:
     """``keyed_uniform < p`` with ``p`` rounded to f32."""
     u = keyed_uniform(k, shape)
-    return u < torch.tensor(p, dtype=torch.float32, device=u.device)
+    return u < f32(p)
 
 
 # ---------------------------------------------------------------------------
@@ -308,8 +333,8 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     t = torch.where(lt, w - 2.5, sqrt_f32(w) - 3.0)
 
     def coef(i):
-        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),
-                           torch.tensor(_ERFINV_GE5[i], device=x.device))
+        return torch.where(lt, const(_ERFINV_LT5[i], torch.float32, x.device),
+                           const(_ERFINV_GE5[i], torch.float32, x.device))
 
     p = coef(0)
     for i in range(1, len(_ERFINV_LT5)):
@@ -356,4 +381,4 @@ def keyed_normal(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """Standard normal f32, ``jax.random.normal``: ``sqrt(2) *
     erf_inv(u)`` of u uniform in [nextafter(-1, 0), 1)."""
     u = keyed_uniform(k, shape, _NORMAL_LOW, 1.0)
-    return torch.tensor(_SQRT2_F32, device=u.device) * erf_inv(u)
+    return const(_SQRT2_F32, torch.float32, u.device) * erf_inv(u)

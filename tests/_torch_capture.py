@@ -1,0 +1,181 @@
+"""What a CUDA graph's capture would refuse, found on the CPU.
+
+A captured region may not read a device value on the host (``bool``,
+``int``, ``.item()``: ``aten::_local_scalar_dense``), copy a Python value
+from host memory (``torch.tensor``/``torch.as_tensor`` of one:
+``aten::lift_fresh``) or size an output by the data (``aten::nonzero``).
+A graphed step must also leave its inputs as they were: the warm-up runs
+it once on the static buffers before the capture. :func:`capture_faults`
+runs a function under a dispatch mode that records each such operation
+with the port's source line that issued it, and each operation that
+writes into an input's storage.
+"""
+import traceback
+from typing import List
+
+import torch
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
+
+REFUSED = {"aten::_local_scalar_dense": "host read",
+           "aten::lift_fresh": "host constant",
+           "aten::lift_fresh_copy": "host constant",
+           "aten::nonzero": "data-sized output"}
+
+
+def _where() -> str:
+    for frame in reversed(traceback.extract_stack()):
+        if "repro_torch" in frame.filename:
+            tail = frame.filename.split("repro_torch/")[-1]
+            return f"{tail}:{frame.lineno} {frame.name}"
+    return "?"
+
+
+class _Recorder(TorchDispatchMode):
+    def __init__(self, inputs):
+        super().__init__()
+        self.inputs = {t.untyped_storage().data_ptr() for t in inputs
+                       if t.numel()}
+        self.faults: List[str] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func._schema.name
+        if name in REFUSED:
+            self.faults.append(f"{REFUSED[name]} {name} at {_where()}")
+        for i, arg in enumerate(func._schema.arguments):
+            if arg.alias_info is None or not arg.alias_info.is_write:
+                continue
+            t = args[i] if i < len(args) else kwargs.get(arg.name)
+            if isinstance(t, torch.Tensor) and t.numel() and \
+                    t.untyped_storage().data_ptr() in self.inputs:
+                self.faults.append(f"writes an input: {name} at {_where()}")
+        return func(*args, **kwargs)
+
+
+def capture_faults(fn, *args, **kwargs) -> List[str]:
+    """Run ``fn(*args, **kwargs)`` and list what a capture would refuse
+    (empty: the function could be captured)."""
+    inputs = [t for t in pytree.tree_leaves((args, kwargs))
+              if isinstance(t, torch.Tensor)]
+    rec = _Recorder(inputs)
+    with rec:
+        fn(*args, **kwargs)
+    return rec.faults
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs emulated on the CPU
+# ---------------------------------------------------------------------------
+def _tensors(x):
+    return [t for t in pytree.tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
+class FakeGraph:
+    """A CUDA graph's semantics on the CPU: the capture records each
+    operation with its arguments (Python values frozen, as a graph's
+    kernel arguments are) and its outputs; a replay runs the operations
+    again and writes each result into the output tensor the capture
+    made, as a graph writes into the memory its capture allocated. What
+    a capture refuses raises. A capture runs nothing on the card, so the
+    emulated one puts back every tensor made before it that it wrote
+    into."""
+
+    def __init__(self):
+        self.ops = []
+
+    def replay(self):
+        for func, args, kwargs, outs, fresh in self.ops:
+            res = func(*args, **kwargs)
+            for o, r, new in zip(_tensors(outs), _tensors(res), fresh):
+                if new and o is not r:
+                    o.copy_(r)
+
+    def reset(self):
+        self.ops = []
+
+    def pool(self):
+        return None
+
+
+class _Capture(TorchDispatchMode):
+    def __init__(self, graph: FakeGraph):
+        super().__init__()
+        self.graph = graph
+        self.made = set()     # storages the capture allocated
+        self.saved = []       # (tensor, its value before the capture)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func._schema.name
+        if name in REFUSED:
+            raise RuntimeError(f"a CUDA graph's capture refuses {name} "
+                               f"({REFUSED[name]}) at {_where()}")
+        for i, arg in enumerate(func._schema.arguments):
+            if arg.alias_info is None or not arg.alias_info.is_write:
+                continue
+            t = args[i] if i < len(args) else kwargs.get(arg.name)
+            if isinstance(t, torch.Tensor) and \
+                    t.untyped_storage().data_ptr() not in self.made:
+                self.saved.append((t, t.clone()))
+        out = func(*args, **kwargs)
+        # outputs that alias an input (views, in-place results) follow
+        # their base; only fresh outputs are written on replay
+        fresh = [r.alias_info is None for r in func._schema.returns]
+        if len(fresh) != len(_tensors(out)):
+            fresh = [fresh[0]] * len(_tensors(out))
+        for t, new in zip(_tensors(out), fresh):
+            if new:
+                self.made.add(t.untyped_storage().data_ptr())
+        self.graph.ops.append((func, args, kwargs, out, fresh))
+        return out
+
+    def __exit__(self, *exc):
+        out = super().__exit__(*exc)
+        for t, value in reversed(self.saved):
+            t.copy_(value)
+        return out
+
+
+class _FakeStream:
+    def wait_stream(self, other):
+        pass
+
+
+class _fake_graph_context:
+    def __init__(self, graph, pool=None, stream=None,
+                 capture_error_mode="global"):
+        self.mode = _Capture(graph)
+
+    def __enter__(self):
+        self.mode.__enter__()
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+class _null_context:
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def emulate_graphs(monkeypatch) -> None:
+    """Make the island drivers replay :class:`FakeGraph` s on the CPU:
+    ``graphed.graphs_on`` answers yes, and the ``torch.cuda`` calls of a
+    capture act on the CPU."""
+    from repro_torch.core import graphed
+    monkeypatch.setattr(graphed, "graphs_on", lambda device: True)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _fake_graph_context)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "stream", _null_context)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a, **k: _FakeStream())
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda *a, **k: [])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
