@@ -122,7 +122,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    32 greedy tokens; the prefill through the plain recurrence must agree:
    layer by layer from the same input, in f32 end to end (the same
    weights), and in bf16 end to end within fixed limits; prefill and
-   decode rates, a device profile of each, peak memory;
+   decode rates, a device profile of each, peak memory. ``generate``
+   replays its prefill and decode step as CUDA graphs, captured by the
+   warm-up at the timed call's shapes (``serve_graph_turns``: capture time
+   and pool bytes; the graphed call's tokens and every step's logits
+   against ``generate(..., graphs=False)``'s, bit for bit or within
+   ``GRAPH_LOGITS_TOL``; eager and graphed calls in turns; a replayed
+   prefill and decode step profiled; ``[serve-graphs]`` lines);
 8a. the flash-attention kernels against their plain version
    (``kernels/flash_attention/ref.attention``): the five shapes of
    ``tests/test_kernels.py``, the shapes phase 14's prefills give the
@@ -143,7 +149,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    agree: each layer's attention output from the same bf16 input, an f32
    twin of the whole model end to end (through the 3xTF32 kernel, one
    launch per layer), and the bf16 model end to end within fixed limits;
-   prefill and decode rates, a device profile of each, peak memory;
+   prefill and decode rates, a device profile of each, peak memory; its
+   graphs as 7b's;
 9a. the classic path (``impl="jnp"``, ``EAConfig()``'s defaults, the
    operators of ``core/ga.py`` in plain PyTorch on the card, the fitness
    through the trap kernel): paper-8 for 5 epochs through ``run_fused``
@@ -266,7 +273,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the flash route against the plain route layer by layer from the same
    input and end to end (``FAMILY_LAYER_TOL``, ``FAMILY_BF16_TOL``), the
    MoE cells' routing sets that differ between the routes counted; a
-   profile of the prefill and of a decode step. Then olmoe's f32 prefill
+   profile of the prefill and of a decode step; its graphs as 7b's. Then
+   olmoe's f32 prefill
    at full width, 2 layers, on the card against the port on the CPU:
    expert indices, positions, keep and ``dropped_frac`` equal, logits
    within ``OLMOE_F32_TOL``;
@@ -403,6 +411,15 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
 SERVE_F32_TOL = 1e-3
 SERVE_LAYER_TOL = {"out": 1e-2, "state": 1e-5}
 SERVE_BF16_TOL = {"logits": 0.2, "state": 0.17}
+# phases 7b, 8b and 14: generate replays its prefill and decode step as
+# CUDA graphs on the card, and generate(..., graphs=False) calls the same
+# steps eagerly: the same kernels on the same buffers, so the tokens and
+# every step's logits should be equal bit for bit. Set before the first
+# run: where they are not (a cuBLAS choice under capture), the first
+# differing element is printed and the logits up to and including the
+# first step whose token differs (the inputs differ after it) must lie
+# within this relative L2 of the eager ones.
+GRAPH_LOGITS_TOL = 1e-3
 # bf16 tensor cores, dense (the H100 SXM data sheet): the bound of the
 # bf16 flash-attention row, whose work the tensor-core kernel does
 BF16_OPS_PER_S = 989e12
@@ -1014,6 +1031,70 @@ def device_profile(tag: str, fn, card: str, top: int = 6):
     log(f"[{tag}] copy and cast kernels (names with 'copy'): "
         f"{sum(c for c, _ in copies)} launches, "
         f"{sum(us for _, us in copies) / 1e3:.3f} ms")
+
+
+def serve_graph_turns(name: str, model, prompts, new: int, extra,
+                      capture, card: str) -> None:
+    """``generate``'s CUDA graphs (phases 7b, 8b, 14): ``capture`` is the
+    info of the call that captured them (its capture time and pool
+    bytes). Then in turns (eager, graphed, graphed, eager) at the same
+    shapes: the first eager and the first graphed call's tokens and logits
+    of every step held equal bit for bit (else to GRAPH_LOGITS_TOL, the
+    first differing element printed), each turn's prefill ms and decode
+    ms a step; then one replayed prefill and one replayed decode step
+    profiled (kernels, device busy, busy share)."""
+    import torch
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.serve import generate
+    tag = f"[serve-graphs] {name}"
+    graphs = dict(steps_lib.serve_graphs(model))
+    if not capture["graphs"] or set(graphs) != {"prefill", "decode"} \
+            or capture["capture_s"] <= 0:
+        fail(f"{tag}: generate captured no prefill and decode graphs: "
+             f"{sorted(graphs)}, capture {capture['capture_s']} s")
+    pre, dec = graphs["prefill"], graphs["decode"]
+    log(f"{tag} graphs: captured in {capture['capture_s']:.3f} s with the "
+        f"warm-up (prefill {pre.capture_s:.3f} s, {len(pre.graphs)} graph;"
+        f" decode step {dec.capture_s:.3f} s), pools {capture['pool_bytes']}"
+        f" B (prefill {pre.pool_bytes} B, decode {dec.pool_bytes} B); "
+        f"launches a replayed prefill {pre.launches}, decode step "
+        f"{dec.launches}; {card}")
+    first, turns = {}, []
+    for kind in ("eager", "graphed", "graphed", "eager"):
+        toks, info = generate(model, prompts, new, graphs=kind == "graphed",
+                              keep_logits=kind not in first, **extra)
+        if kind == "graphed" and (info["capture_s"] or pre.captures != 1
+                                  or dec.captures != 1):
+            fail(f"{tag}: a graphed turn captured again")
+        first.setdefault(kind, (toks, info.pop("logits", None)))
+        steps = info["decode_steps"]
+        turns.append(f"{kind} {info['prefill_s'] * 1e3:.3f} + "
+                     f"{info['decode_s'] / steps * 1e3:.3f}")
+    (tg, lg), (te, le) = first["graphed"], first["eager"]
+    if torch.equal(tg, te) and torch.equal(lg, le):
+        verdict = "equal bit for bit"
+    else:
+        bad = (tg != te).any(0).nonzero()
+        upto = int(bad[0]) + 1 if bad.numel() else tg.shape[1]
+        step, row, col = (int(i) for i in (lg != le).nonzero()[0])
+        err = rel_l2(lg[:upto], le[:upto])
+        verdict = (f"NOT bit for bit: first differing logit at step {step},"
+                   f" row {row}, column {col}: {lg[step, row, col].item()!r}"
+                   f" graphed against {le[step, row, col].item()!r} eager; "
+                   f"tokens equal up to step {upto - 1}; logits of steps "
+                   f"0-{upto - 1} relative L2 {err:.4e} (limit "
+                   f"{GRAPH_LOGITS_TOL})")
+        if err > GRAPH_LOGITS_TOL:
+            fail(f"{tag}: graphed generate against eager: {verdict}")
+    log(f"{tag} graphed generate against eager ({tuple(tg.shape)} tokens, "
+        f"{tuple(lg.shape)} logits): {verdict}")
+    log(f"{tag} turns, prefill ms + decode ms a step (eager, graphed, "
+        f"graphed, eager): {'; '.join(turns)}; {card}")
+    index = prompts.shape[1] + model.cfg.n_meta_tokens
+    device_profile(f"serve-graphs-{name}-prefill", lambda: pre(pre.carry),
+                   card)
+    device_profile(f"serve-graphs-{name}-decode",
+                   lambda: dec(dec.carry, index), card)
 
 
 def loop_profile(tag: str, step, steps: int, card: str):
@@ -2469,6 +2550,7 @@ def family_phases(card: str):
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_lib
     from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import build_model, moe
@@ -2528,7 +2610,8 @@ def family_phases(card: str):
                 (batch, cfg.vision_seq, cfg.d_model), generator=gen,
                 device=dev).to(cfg.activation_dtype)
         b = dict(extra, tokens=prompts)
-        generate(model, prompts, 2, **extra)           # warm-up
+        # the warm-up at the timed call's shapes captures the graphs
+        _, capture = generate(model, prompts, new, **extra)
         kernels.reset_launches()
         toks, times = generate(model, prompts, new, **extra)
         launches = dict(kernels.LAUNCHES)
@@ -2555,6 +2638,8 @@ def family_phases(card: str):
             f"{batch * steps / times['decode_s']:.1f} tokens/s; launches "
             f"{launches}; sample {toks[0, :8].tolist()}; peak device "
             f"memory {torch.cuda.max_memory_allocated()} B; {card}")
+        serve_graph_turns(arch, model, prompts, new, extra, capture, card)
+        steps_lib.release_serve_graphs()
         # the prefill through each route, the routings recorded
         budget = prompt + new
         with moe.recording() as r_k:
@@ -4895,6 +4980,7 @@ def main() -> int:
 
     # ---- 7b: rwkv6-3b served at full size ----------------------------------
     from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_lib
     from repro_torch.launch.serve import generate
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import attention, build_model, transformer
@@ -4912,7 +4998,8 @@ def main() -> int:
         f"{lm_cfg.param_dtype}) drawn in {time.perf_counter() - t:.2f} s")
     prompts = torch.randint(0, lm_cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                             generator=lm_gen, device=dev)
-    generate(model, prompts, 2)                      # warm-up, not counted
+    # the warm-up at the timed call's shapes captures generate's graphs
+    _, capture = generate(model, prompts, SERVE_NEW)
     kernels.reset_launches()
     toks, times = generate(model, prompts, SERVE_NEW)
     serve_launches = dict(kernels.LAUNCHES)
@@ -4935,6 +5022,9 @@ def main() -> int:
     log(f"[serve] sample: {toks[0, :12].tolist()}; peak device memory of "
         f"the weights and one generate {torch.cuda.max_memory_allocated()} "
         f"B ({card})")
+    serve_graph_turns("rwkv6-3b", model, prompts, SERVE_NEW, {}, capture,
+                      card)
+    steps_lib.release_serve_graphs()
     # the prefill through each route, and decode alone
     kernels.reset_launches()
     logits_k, caches_k, _ = make_prefill_step(model,
@@ -5147,7 +5237,8 @@ def main() -> int:
     d_prompts = torch.randint(0, d_cfg.vocab_size, (DENSE_BATCH,
                                                     DENSE_PROMPT),
                               generator=d_gen, device=dev)
-    generate(dense, d_prompts, 2)                    # warm-up, not counted
+    # the warm-up at the timed call's shapes captures generate's graphs
+    _, d_capture = generate(dense, d_prompts, DENSE_NEW)
     kernels.reset_launches()
     d_toks, d_times = generate(dense, d_prompts, DENSE_NEW)
     dense_launches = dict(kernels.LAUNCHES)
@@ -5171,6 +5262,9 @@ def main() -> int:
     log(f"[dense] sample: {d_toks[0, :12].tolist()}; peak device memory of "
         f"the weights and one generate {torch.cuda.max_memory_allocated()} "
         f"B ({card})")
+    serve_graph_turns("yi-9b", dense, d_prompts, DENSE_NEW, {}, d_capture,
+                      card)
+    steps_lib.release_serve_graphs()
     # the prefill through each route, and decode alone
     budget = DENSE_PROMPT + DENSE_NEW
     kernels.reset_launches()

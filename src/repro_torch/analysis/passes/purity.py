@@ -24,10 +24,14 @@ and the callables handed to ``jax.jit`` / ``pjit`` / ``shard_map``
   ``forward``/``backward`` (and ``setup_context``, ``jvp``, ``vjp``) of
   ``torch.autograd.Function`` subclasses (``models/common.py``,
   ``launch/partition.py``), callables handed to ``torch.compile`` (also
-  as a decorator), ``torch.cuda.make_graphed_callables`` or the island
-  drivers' ``core/graphed.py::StepGraph`` (the steps it captures:
-  ``evolution.scan_epoch``, ``experiment_step``,
-  ``async_migration.scan_tick``, ``async_experiment_step``), and
+  as a decorator), ``torch.cuda.make_graphed_callables`` or
+  ``core/graphed.py::StepGraph`` (the steps it captures: the island
+  drivers' ``evolution.scan_epoch``, ``experiment_step``,
+  ``async_migration.scan_tick``, ``async_experiment_step``, and the serve
+  steps ``launch/steps.py::serve_prefill_step`` and
+  ``serve_decode_step``, which call ``Model.prefill`` and ``Model.decode``
+  through the class so that the callgraph follows them into the model's
+  layers), and
   everything run inside ``with torch.cuda.graph(...)`` or between a
   graph's ``capture_begin()`` and ``capture_end()`` — the region's own
   lines and the functions it calls.  ``partial`` and one level of
@@ -49,11 +53,12 @@ Host syncs that stay outside the roots: the fused drivers' early-stop
 latch ``bool(stopped)`` (``core/evolution.py::fused_scan``,
 ``core/async_migration.py::fused_scan_async``), read once an epoch or
 tick without W², between graph replays (the loops are not captured, their
-steps are); the decode step's ``int(index)``
-(``models/attention.py::decode_step`` and its sharded twin) is a host
-int that capture would freeze, so a graphed decode step needs the slot
-and the position as device tensors first.  When such code becomes a
-root, these rules report those lines.
+steps are).  The decode step takes its index as a 0-d device tensor
+(``models/attention.py::decode_step`` writes the ring by tensor-indexed
+copies); only the mesh's eager twin, ``decode_step_sharded``, reads it on
+the host, under a pragma: the callgraph reaches it from the serve steps
+through ``transformer.block_apply``, but a captured step never passes a
+mesh.  When such code becomes a root, these rules report those lines.
 """
 from __future__ import annotations
 

@@ -1,11 +1,16 @@
-"""CUDA graphs of the island drivers' steps: the port's ``jax.jit``.
+"""CUDA graphs of the drivers' steps: the port's ``jax.jit``.
 
 The reference compiles its island drivers (``repro.core.evolution.
 fused_jit``): ``run_fused``'s ``lax.scan`` segment, ``run_experiment``'s
 jitted ``epoch_step`` and their asynchronous twins each run as one XLA
-executable, with no host launch per operation. The port records the same
-unit of work once as a CUDA graph and replays it. :class:`StepGraph`
-holds a driver step's carry in static buffers:
+executable, with no host launch per operation; its serving loop jits the
+prefill and the decode step (``repro.launch.serve``). The port records
+the same unit of work once as a CUDA graph and replays it: the island
+steps (:mod:`repro_torch.core.evolution`,
+:mod:`repro_torch.core.async_migration`) and the serve steps
+(:mod:`repro_torch.launch.steps`: ``serve_prefill_step``,
+``serve_decode_step``). :class:`StepGraph` holds a step's carry in static
+buffers:
 
 * the first call clones the carry into the static buffers, runs the step
   once on a side stream (the warm-up: it builds the kernels, runs the
@@ -16,10 +21,18 @@ holds a driver step's carry in static buffers:
   buffers already are skipped), fills the host values of this step (the
   host loops' epoch or tick and the server's state) into 0-d static
   tensors, replays, and returns the static carry with a clone of the
-  step's other output. The driver loops hand the static carry straight
-  back to the next call; :meth:`StepGraph.detach` clones it for the
-  caller at the end of a run, so nothing a caller holds is overwritten
-  by a later replay.
+  step's other output (a tree: the island steps' stats row, the decode
+  step's logits, the prefill's logits, caches and cross keys and values).
+  The driver loops hand the static carry straight back to the next call;
+  :meth:`StepGraph.detach` clones it for the caller at the end of a run,
+  so nothing a caller holds is overwritten by a later replay.
+
+A step may also update a carried leaf in place and return it as itself
+(the decode step writes its token's key, value and position into the
+ring caches): the copy back skips it. The warm-up then writes the static
+buffers too; that is harmless only where the step writes before it reads
+what it writes, so that a replay after the warm-up writes the same bits
+(``tests/test_torch_serve_graphs.py`` holds the decode step to it).
 
 Units. The kernel impls (``pallas``, ``pallas_tiled``: about 200 launches
 a generation) capture the whole step, ``generations_per_epoch``
@@ -98,6 +111,9 @@ class EagerStep:
     """The CPU's counterpart of :class:`StepGraph`: the step called
     directly, its host values made device scalars as the graph's are."""
 
+    capture_s = 0.0
+    pool_bytes = 0
+
     def __init__(self, step: Callable, device):
         self.step, self.device = step, torch.device(device)
 
@@ -113,7 +129,8 @@ def _assign(static: List[torch.Tensor], new: List[torch.Tensor]) -> None:
     static buffer is skipped; one that shares storage with any static
     buffer is copied first (:func:`~repro_torch.core.evolution.
     unique_buffers`), so no copy reads what an earlier copy overwrote."""
-    pending = [(s, n) for s, n in zip(static, new) if n is not s]
+    pending = [(s, n) for s, n in zip(static, new)
+               if n is not s and isinstance(s, torch.Tensor)]
     if not pending:
         return
     for s, n in pending:
@@ -141,9 +158,10 @@ class StepGraph:
     """A driver step replayed as CUDA graphs over static buffers.
 
     ``step(carry, *host, evolved=None) -> (carry', out)``: ``carry`` a
-    tree of tensors whose first entry is the islands, ``host`` the 0-d
-    tensors of the step's host values, ``out`` a tensor or None (the
-    packed stats row). Under the generation unit ``evolve(islands) ->
+    tree of tensors (the island steps': the islands first), ``host`` the
+    0-d tensors of the step's host values, ``out`` a tree of tensors or
+    None (the packed stats row; the served logits, caches and cross keys
+    and values). Under the generation unit ``evolve(islands) ->
     islands`` is one generation, replayed ``gens`` times before the step,
     which then takes the evolved islands as ``evolved``.
 
@@ -167,7 +185,7 @@ class StepGraph:
         self._static: List[torch.Tensor] = []
         self._spec = None
         self._evolved: List[torch.Tensor] = []
-        self._out: Optional[torch.Tensor] = None
+        self._out = None
 
     @property
     def launches(self) -> Dict[str, int]:
@@ -193,7 +211,9 @@ class StepGraph:
                 g.graph.replay()
             for name, n in g.launches.items():
                 kernels.LAUNCHES[name] += n * g.times
-        return self.carry, (None if self._out is None else self._out.clone())
+        return self.carry, pytree.tree_map(
+            lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+            self._out)
 
     def detach(self, tree):
         """``tree`` with clones of the leaves that are static buffers."""
@@ -211,11 +231,12 @@ class StepGraph:
     # -- capture -----------------------------------------------------------
     def _capture(self, carry, host) -> None:
         leaves, self._spec = pytree.tree_flatten(carry)
-        dev = leaves[0].device
+        dev = next(t for t in leaves if isinstance(t, torch.Tensor)).device
         t0 = time.perf_counter()
         counts = dict(kernels.LAUNCHES)
         try:
-            self._static = [t.clone() for t in leaves]
+            self._static = [t.clone() if isinstance(t, torch.Tensor) else t
+                            for t in leaves]
             self.carry = pytree.tree_unflatten(self._static, self._spec)
             self.host = tuple(host_scalar(v, dev) for v in host)
             step = self.step
@@ -252,7 +273,7 @@ class StepGraph:
         they replay in the order of their capture, each reading only the
         static buffers and its own temporaries. The capture's wrapper
         launches are recorded, not counted."""
-        dev = target[0].device
+        dev = next(t for t in target if isinstance(t, torch.Tensor)).device
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)

@@ -69,4 +69,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _ref.attention(q, k, v, causal=causal, scale=scale)
     refuse_autograd("flash_attention", "kernels/flash_attention/ref.py::"
                     "attention (use_flash=False)", q, k, v)
+    # repro-lint: disable=JIT01 -- scale and causal are the caller's Python float and bool (the softmax scale, the mask), not device values
     return _flash(q, k, v, float(scale), bool(causal))

@@ -19,10 +19,18 @@ kernel (``serve(use_flash=False, use_rwkv_kernel=False)`` runs the plain
 versions instead); windowed, bidirectional and cross-attention take the
 plain route, as in the reference; decode steps in plain PyTorch, as the
 reference does.
+
+On the card :func:`generate` replays the prefill and the greedy decode
+step as CUDA graphs (:func:`~repro_torch.launch.steps.compiled_prefill`,
+:func:`~repro_torch.launch.steps.compiled_decode`), as the reference
+jits them; the first call at a shape captures them (``capture_s``). On
+the CPU it calls the same steps eagerly, and ``generate(...,
+graphs=False)`` does so on the card too.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from typing import Dict, Optional, Tuple
 
@@ -30,8 +38,9 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..configs import ARCHS, get_config
+from ..core import graphed
 from ..models import Model, ModelConfig, build_model
-from .steps import make_decode_step, make_prefill_step
+from . import steps
 
 
 def _sync(device: torch.device) -> None:
@@ -42,45 +51,72 @@ def _sync(device: torch.device) -> None:
 def generate(model: Model, prompts: torch.Tensor, new_tokens: int, *,
              use_flash: bool = True, use_rwkv_kernel: bool = True,
              src_embed: Optional[torch.Tensor] = None,
-             vision_embed: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, Dict[str, float]]:
+             vision_embed: Optional[torch.Tensor] = None,
+             graphs: Optional[bool] = None, keep_logits: bool = False
+             ) -> Tuple[torch.Tensor, Dict]:
     """Prefill ``prompts`` (B, S) and decode ``new_tokens`` greedily (the
     first from the prefill's logits). ``src_embed`` (an encoder-decoder
     arch's source) and ``vision_embed`` (a vision arch's patches) join the
-    prefill's batch; the decode positions count the meta tokens. Returns
-    the tokens (B, new_tokens) and the wall seconds of the prefill (the
-    encoder and the cross keys and values included) and of the decode
-    steps, each ending in a device synchronise."""
+    prefill's batch; the decode positions count the meta tokens.
+
+    ``graphs`` (default: on the card, :func:`~repro_torch.core.graphed.
+    graphs_on`) replays the prefill and the decode step as CUDA graphs,
+    one of each per model and shapes, captured at the first call; a
+    capture that fails raises. ``graphs=False`` calls the same steps
+    eagerly.
+
+    Returns the tokens (B, new_tokens) and a dict: the wall seconds of the
+    prefill (the encoder and the cross keys and values included) and of
+    the decode steps, each ending in a device synchronise, less the
+    warm-up and capture seconds, which are ``capture_s``; ``decode_steps``;
+    ``graphs``; ``pool_bytes`` (the two graphs' private pools); with
+    ``keep_logits`` the logits of every token, (new_tokens, B, V) f32."""
     batch, prompt_len = prompts.shape
     meta = model.cfg.n_meta_tokens
-    prefill = make_prefill_step(model, max_seq=prompt_len + new_tokens,
-                                use_flash=use_flash,
-                                use_rwkv_kernel=use_rwkv_kernel)
-    decode = make_decode_step(model)
+    dev = prompts.device
+    graphs = graphed.graphs_on(dev) if graphs is None else graphs
     b = {"tokens": prompts}
     if src_embed is not None:
         b["src_embed"] = src_embed
     if vision_embed is not None:
         b["vision_embed"] = vision_embed
-    dev = prompts.device
+    max_seq = prompt_len + new_tokens
+    if graphs:
+        prefill = steps.compiled_prefill(model, b, max_seq=max_seq,
+                                         use_flash=use_flash,
+                                         use_rwkv_kernel=use_rwkv_kernel)
+    else:
+        prefill = graphed.EagerStep(functools.partial(
+            steps.serve_prefill_step, model, max_seq + meta, use_flash,
+            use_rwkv_kernel), dev)
+    captured = prefill.capture_s
     t0 = time.perf_counter()
-    logits, caches, cross_kvs = prefill(b)
+    _, (logits, caches, cross_kvs) = prefill(b)
     _sync(dev)
-    t_prefill = time.perf_counter() - t0
-    tok = logits.argmax(-1)[:, None]
-    out = [tok]
+    capture_s = prefill.capture_s - captured
+    t_prefill = time.perf_counter() - t0 - capture_s
+    carry = (logits.argmax(-1)[:, None], caches, cross_kvs)
+    decode = (steps.compiled_decode(model, carry) if graphs else
+              graphed.EagerStep(functools.partial(steps.serve_decode_step,
+                                                  model), dev))
+    out, kept = [carry[0]], [logits]
+    captured = decode.capture_s
     t0 = time.perf_counter()
     for t in range(new_tokens - 1):
-        logits, caches = decode({"token": tok,
-                                 "index": prompt_len + t + meta,
-                                 "caches": caches, "cross_kvs": cross_kvs})
-        tok = logits.argmax(-1)[:, None]
-        out.append(tok)
+        carry, logits = decode(carry, prompt_len + t + meta)
+        out.append(decode.detach(carry[0]))
+        if keep_logits:
+            kept.append(logits)
     _sync(dev)
-    t_decode = time.perf_counter() - t0
-    return torch.cat(out, dim=1), {"prefill_s": t_prefill,
-                                   "decode_s": t_decode,
-                                   "decode_steps": new_tokens - 1}
+    capture_d = decode.capture_s - captured
+    t_decode = time.perf_counter() - t0 - capture_d
+    info = {"prefill_s": t_prefill, "decode_s": t_decode,
+            "decode_steps": new_tokens - 1,
+            "capture_s": capture_s + capture_d, "graphs": graphs,
+            "pool_bytes": prefill.pool_bytes + decode.pool_bytes}
+    if keep_logits:
+        info["logits"] = torch.stack(kept)
+    return torch.cat(out, dim=1), info
 
 
 # source frames of an encoder-decoder arch's stub frontend, as the
@@ -129,13 +165,15 @@ def serve(arch: str = "rwkv6-3b", smoke: bool = True, batch: int = 4,
     toks, t = generate(model, prompts, new_tokens, use_flash=use_flash,
                        use_rwkv_kernel=use_rwkv_kernel, **extra)
     if verbose:
-        steps = t["decode_steps"]
+        n = t["decode_steps"]
         print(f"{arch}: prefill({batch}x{prompt_len}) "
               f"{t['prefill_s'] * 1e3:.1f} ms "
               f"({batch * prompt_len / t['prefill_s']:.1f} tok/s), decode "
-              f"{steps} steps {t['decode_s'] * 1e3:.1f} ms "
-              f"({batch * steps / max(t['decode_s'], 1e-9):.1f} tok/s) on "
-              f"{dev}")
+              f"{n} steps {t['decode_s'] * 1e3:.1f} ms "
+              f"({batch * n / max(t['decode_s'], 1e-9):.1f} tok/s) on "
+              f"{dev}" + (f", CUDA graphs captured in "
+                          f"{t['capture_s']:.2f} s ({t['pool_bytes']} B "
+                          f"of pool)" if t["graphs"] else ""))
         print("sample:", toks[0, :12].tolist())
     return toks
 

@@ -30,16 +30,29 @@ global ones: ``ce`` summed over the batch's ranks, the aux terms (each
 rank's own, as the reference's expert-parallel shard_map returns them)
 those of rank 0. Without a mesh the steps are the single-device ones,
 bit for bit.
+
+The compiled serve steps, the counterparts of the reference's jitted
+prefill and decode (``repro/launch/serve.py``): :func:`serve_prefill_step`
+and :func:`serve_decode_step` are steps in the sense of
+:class:`~repro_torch.core.graphed.StepGraph`, and :func:`compiled_prefill`
+and :func:`compiled_decode` keep one graph of each per model and shapes
+(an LRU of :data:`SERVE_GRAPHS_MAX`; :func:`release_serve_graphs` drops
+them). ``launch/serve.py::generate`` replays them on the card. The mesh's
+serving stays eager: its collectives are host operations.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import _pytree as pytree
 
-from ..models import Model
+from ..core import graphed
+from ..models.model import Model
 from ..optim import AdamWState, adamw_init, adamw_update
 from ..optim.adamw import adamw_init_sharded
 from . import partition
@@ -376,3 +389,106 @@ def make_decode_step(model: Model, *, mesh=None, mode: str = "serve",
                             inputs["caches"], inputs.get("cross_kvs"), sh=sh)
 
     return decode
+
+
+# ---------------------------------------------------------------------------
+# The compiled serve steps
+# ---------------------------------------------------------------------------
+def serve_prefill_step(model: Model, cache_len: int, use_flash: bool,
+                       use_rwkv_kernel: bool, inputs: Dict
+                       ) -> Tuple[Dict, Tuple[torch.Tensor, List,
+                                              Optional[List]]]:
+    """The prefill as a graphed step: ``inputs`` (the tokens and the
+    arch's other inputs) is its carry, returned as it came; its output is
+    (last-position logits, caches of ``cache_len`` slots, cross_kvs or
+    None). (``Model.prefill`` is called through the class, so the
+    analyzer's callgraph follows the step into the model.)"""
+    return inputs, Model.prefill(model, inputs, use_flash=use_flash,
+                                 use_rwkv_kernel=use_rwkv_kernel,
+                                 max_seq=cache_len)
+
+
+def serve_decode_step(model: Model, carry: Tuple, index: torch.Tensor
+                      ) -> Tuple[Tuple, torch.Tensor]:
+    """One greedy decode step as a graphed step: ``carry`` is (token
+    (B, 1), caches, cross_kvs or None), ``index`` the token's position
+    (meta tokens counted) as a 0-d int32 device tensor. Returns the next
+    carry (the greedy token, the caches, the ring caches updated in place,
+    ``cross_kvs`` as they came) and the step's logits (B, V) f32: the
+    next token never leaves the card."""
+    token, caches, cross_kvs = carry
+    logits, caches = Model.decode(model, token, index, caches, cross_kvs)
+    return (logits.argmax(-1)[:, None], caches, cross_kvs), logits
+
+
+# One graph per model, kind and shapes, as the reference's jit keeps one
+# executable per traced shape. The entry holds the model, so a live
+# entry's id is never a recycled one. A prefill graph's private pool holds
+# a prefill's activations and its caches (GBs at the published sizes,
+# PERF.md §6), so the LRU keeps two generate shapes at most; an evicted
+# graph releases its pool.
+_SERVE_GRAPHS: "collections.OrderedDict[tuple, Tuple[Model, graphed.StepGraph]]" \
+    = collections.OrderedDict()
+SERVE_GRAPHS_MAX = 4
+
+
+def _shapes(tree) -> tuple:
+    leaves, spec = pytree.tree_flatten(tree)
+    return (str(spec),) + tuple(
+        (tuple(t.shape), t.dtype, t.device) if isinstance(t, torch.Tensor)
+        else t for t in leaves)
+
+
+def _serve_graph(model: Model, key: tuple,
+                 builder: Callable[[], graphed.StepGraph]
+                 ) -> graphed.StepGraph:
+    key = (id(model),) + key
+    entry = _SERVE_GRAPHS.get(key)
+    if entry is None or entry[0] is not model:
+        if entry is not None:
+            entry[1].release()
+        _SERVE_GRAPHS[key] = entry = (model, builder())
+        while len(_SERVE_GRAPHS) > SERVE_GRAPHS_MAX:
+            _SERVE_GRAPHS.popitem(last=False)[1][1].release()
+    _SERVE_GRAPHS.move_to_end(key)
+    return entry[1]
+
+
+def compiled_prefill(model: Model, inputs: Dict, *,
+                     max_seq: Optional[int] = None, use_flash: bool = False,
+                     use_rwkv_kernel: bool = False) -> graphed.StepGraph:
+    """The graphed prefill for ``inputs``' shapes, the decode budget
+    ``max_seq`` (in tokens, as :func:`make_prefill_step` takes it) and the
+    kernel routes: ``graph(inputs) -> (inputs, (logits, caches,
+    cross_kvs))``, the output cloned out of the graph's pool."""
+    cache_len = (inputs["tokens"].shape[1] if max_seq is None
+                 else max_seq) + model.cfg.n_meta_tokens
+    step = functools.partial(serve_prefill_step, model, cache_len,
+                             use_flash, use_rwkv_kernel)
+    return _serve_graph(model, ("prefill", cache_len, use_flash,
+                                use_rwkv_kernel, _shapes(inputs)),
+                        lambda: graphed.StepGraph(step))
+
+
+def compiled_decode(model: Model, carry: Tuple) -> graphed.StepGraph:
+    """The graphed greedy decode step for ``carry``'s shapes (the batch,
+    the caches', the cross keys and values'): ``graph(carry, index) ->
+    (carry', logits)``, ``carry'`` the graph's static buffers (hand them
+    back to the next call; ``graph.detach`` clones what a caller keeps)."""
+    step = functools.partial(serve_decode_step, model)
+    return _serve_graph(model, ("decode", _shapes(carry)),
+                        lambda: graphed.StepGraph(step))
+
+
+def serve_graphs(model: Model) -> List[Tuple[str, graphed.StepGraph]]:
+    """``model``'s serve graphs as (``"prefill"`` or ``"decode"``, graph),
+    the least recently used first."""
+    return [(key[1], g) for key, (m, g) in _SERVE_GRAPHS.items()
+            if m is model]
+
+
+def release_serve_graphs(model: Optional[Model] = None) -> None:
+    """Drop the serve graphs (``model``'s, or all) and their pools."""
+    for key in [k for k, (m, _) in _SERVE_GRAPHS.items()
+                if model is None or m is model]:
+        _SERVE_GRAPHS.pop(key)[1].release()

@@ -31,6 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .._device import as_device
 from ..kernels.flash_attention import ops as flash_ops
 from .common import Maker, ModelConfig, Params, Tree, rmsnorm_1d
 from .rope import apply_rope, rope_angles
@@ -275,9 +276,13 @@ def decode_step(p: Tree, cfg: ModelConfig, x: torch.Tensor, cache: Tree,
                 index, *, window: int = 0, n_meta: int = 0,
                 cross_cache: Optional[Dict] = None, use_rope: bool = True,
                 product=None) -> Tuple[torch.Tensor, Tree]:
-    """One decode step. x (B, 1, d); ``index`` (an int or a 0-d int
-    tensor) the position of this token. Writes its key and value into
-    ``cache`` in place and returns (out, cache). With ``cross_cache``
+    """One decode step. x (B, 1, d); ``index`` (a 0-d int32 device tensor,
+    or an int made one) the position of this token. Writes its key, value
+    and position into ``cache`` in place by tensor-indexed copies, so the
+    step reads nothing on the host and can be captured in a CUDA graph
+    (a replay reads the index from its device scalar), and returns (out,
+    cache). The step writes the slot before it reads it, so calling it
+    twice on one cache gives the same bits. With ``cross_cache``
     (``{'k', 'v'}`` (B, S_src, Kv, hd), from :func:`precompute_cross_kv`)
     it attends over the source instead and returns ``cache`` as it
     came."""
@@ -291,13 +296,12 @@ def decode_step(p: Tree, cfg: ModelConfig, x: torch.Tensor, cache: Tree,
                           device=x.device)
         return _out(p, _sdpa(q, k, v, mask, 1.0 / cfg.hd ** 0.5),
                     product), cache
-    index = int(index)
-    pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
+    pos = as_device(index, torch.int32, x.device).reshape(1)
     q, k_new, v_new = _project_qkv(p, cfg, x, x, pos, pos, use_rope)
-    slot = _slot(index, cache["k"].shape[1], n_meta)
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
-    cache["pos"][slot] = index
+    slot = _slot(pos, cache["k"].shape[1], n_meta).long()
+    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, slot, pos)
     mask = _mask(pos, cache["pos"], True, window, n_meta)
     y = _sdpa(q, cache["k"], cache["v"], mask, 1.0 / cfg.hd ** 0.5)
     return _out(p, y, product), cache
@@ -492,6 +496,7 @@ def decode_step_sharded(p: Tree, cfg: ModelConfig, x: torch.Tensor,
         return _gated(p, sh, sh.leave(o, x.dtype)), cache
     W = cache["pos"].shape[0]
     cut = cache_cut(cfg, sh, W)
+    # repro-lint: disable=JIT01 -- the mesh's decode runs eagerly and is never captured (its collectives are host operations); the slot picks the rank that holds it
     index = int(index)
     slot = _slot(index, W, n_meta)
     pos = torch.full((1,), index, dtype=torch.int32, device=x.device)

@@ -32,9 +32,10 @@ class MLP(Params):
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu(x, approximate=True)``: its constants are weakly typed,
-    so they round to the input's dtype first."""
+    so they round to the input's dtype first. They are device fills, not
+    copies from host memory, so a CUDA graph captures them."""
     def const(v: float) -> torch.Tensor:
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
+        return torch.full((), v, dtype=x.dtype, device=x.device)
 
     inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * x ** 3)
     return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))

@@ -1,7 +1,9 @@
 """What a CUDA graph's capture would refuse, found on the CPU.
 
 A captured region may not read a device value on the host (``bool``,
-``int``, ``.item()``: ``aten::_local_scalar_dense``), copy a Python value
+``int``, ``float``, ``.item()``: ``aten::_local_scalar_dense``; under
+``torch.inference_mode()`` the dispatcher shows them one level up, as
+``aten::item`` and ``aten::is_nonzero``; ``torch.equal``), copy a Python value
 from host memory (``torch.tensor``/``torch.as_tensor`` of one:
 ``aten::lift_fresh``) or size an output by the data (``aten::nonzero``).
 A graphed step must also leave its inputs as they were: the warm-up runs
@@ -18,6 +20,9 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
 REFUSED = {"aten::_local_scalar_dense": "host read",
+           "aten::item": "host read",
+           "aten::is_nonzero": "host read",
+           "aten::equal": "host read",
            "aten::lift_fresh": "host constant",
            "aten::lift_fresh_copy": "host constant",
            "aten::nonzero": "data-sized output"}
@@ -32,10 +37,11 @@ def _where() -> str:
 
 
 class _Recorder(TorchDispatchMode):
-    def __init__(self, inputs):
+    def __init__(self, inputs, writes=()):
         super().__init__()
+        allowed = {t.untyped_storage().data_ptr() for t in writes}
         self.inputs = {t.untyped_storage().data_ptr() for t in inputs
-                       if t.numel()}
+                       if t.numel()} - allowed
         self.faults: List[str] = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -53,12 +59,14 @@ class _Recorder(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
-def capture_faults(fn, *args, **kwargs) -> List[str]:
+def capture_faults(fn, *args, writes=(), **kwargs) -> List[str]:
     """Run ``fn(*args, **kwargs)`` and list what a capture would refuse
-    (empty: the function could be captured)."""
+    (empty: the function could be captured). ``writes`` are the inputs
+    the step updates in place by design (the decode step's ring caches:
+    a carry it returns as itself), whose writes are not reported."""
     inputs = [t for t in pytree.tree_leaves((args, kwargs))
               if isinstance(t, torch.Tensor)]
-    rec = _Recorder(inputs)
+    rec = _Recorder(inputs, _tensors(writes))
     with rec:
         fn(*args, **kwargs)
     return rec.faults
@@ -85,6 +93,13 @@ class FakeGraph:
         self.ops = []
 
     def replay(self):
+        # inside inference mode, as a card's replay has no such check: a
+        # capture's outputs made under it (a served step's) are inference
+        # tensors, which refuse an in-place write outside it
+        with torch.inference_mode():
+            self._replay()
+
+    def _replay(self):
         for func, args, kwargs, outs, fresh in self.ops:
             res = func(*args, **kwargs)
             for o, r, new in zip(_tensors(outs), _tensors(res), fresh):
@@ -120,10 +135,14 @@ class _Capture(TorchDispatchMode):
                 self.saved.append((t, t.clone()))
         out = func(*args, **kwargs)
         # outputs that alias an input (views, in-place results) follow
-        # their base; only fresh outputs are written on replay
-        fresh = [r.alias_info is None for r in func._schema.returns]
-        if len(fresh) != len(_tensors(out)):
-            fresh = [fresh[0]] * len(_tensors(out))
+        # their base; only fresh outputs are written on replay. By storage,
+        # not by the schema: under inference mode ``aten::to`` shows
+        # undecomposed, and its schema marks the output an alias of the
+        # input (it may return it) where it made a copy
+        inputs = {t.untyped_storage().data_ptr()
+                  for t in _tensors((args, kwargs))}
+        fresh = [t.untyped_storage().data_ptr() not in inputs
+                 for t in _tensors(out)]
         for t, new in zip(_tensors(out), fresh):
             if new:
                 self.made.add(t.untyped_storage().data_ptr())
