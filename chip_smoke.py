@@ -217,23 +217,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    O``, then ``python -m repro_torch.obs T --obs O``: each exits 0;
 12a. the sharded drivers on the one card: 2 ranks of 4 islands sharing
    it (gloo with every collective's tensors copied to the host), paper-8
-   depth cut to 2 epochs: ``run_sharded``, ``run_fused_sharded`` (stats,
-   counters) and ``run_fused_sharded_async`` (phase 10a's
-   ``AsyncConfig``) under ``impl="pallas"`` and ``"pallas_ref"``, each
-   pair bit-equal, the generation kernel launched on every rank, every
-   rank's pool replica and global islands equal to rank 0's; the other
-   four topologies for 2 epochs; paper-f15-8 for 2 epochs (both of its
-   kernels launched on every rank); ``[main]`` (rank 0 alone, 8 islands)
-   and ``[sharded]`` epochs in turns (main, sharded, sharded, main): wall
-   per epoch, evals/s, collectives and their host time per epoch;
+   depth cut to 2 epochs. On the card each rank replays its generations
+   as a CUDA graph between the exchange's collectives (``[sharded-graphs]``
+   lines): under ``impl="pallas"`` (the epoch unit) and ``"pallas_ref"``
+   (the generation unit) each driver's graphed step (``make_sharded_epoch``
+   on the torus with the server down at epoch 2; the ``scan_runner`` s
+   under ``axis``, stats and counters, and phase 10a's ``AsyncConfig``)
+   equals the eager function it captures on every rank bit for bit, in
+   the capturing call and in a replay, with equal launch counts; each
+   rank's capture seconds and pool bytes. Then ``run_sharded``,
+   ``run_fused_sharded`` (stats, counters) and ``run_fused_sharded_async``
+   under ``"pallas"`` and ``"pallas_ref"``, each pair bit-equal, the
+   generation kernel launched on every rank, every rank's pool replica
+   and global islands equal to rank 0's; the other four topologies for an
+   epoch; paper-f15-8 for 2 epochs (both of its kernels launched on every
+   rank); ``[main]`` (rank 0 alone, 8 islands), ``[sharded]`` (graphed)
+   and ``[eager]`` (the driver's ``fused_scan`` called eagerly, equal to
+   ``[sharded]``) epochs in turns (main, sharded, eager, eager, sharded,
+   main): wall per epoch, evals/s, collectives and their host time per
+   epoch; a rank's replay of its turn's generations alone on the card and
+   with the other rank's at once (CUDA events);
 12b. a world of one rank at cuda:0: the fused driver over NCCL equals it
-   over a gloo group with host copies bit for bit; then whether NCCL takes
-   2 ranks on one card (printed: refused or accepted);
-12c. ``ea --sharded --shards 2 --fused --w2 --snapshot-every 1`` in a
-   child process group killed by SIGKILL once its first snapshot has
-   landed, then ``--resume`` in a fresh one: its final snapshot equals the
-   uninterrupted run's (12a's world ran it) leaf for leaf; the killed
-   snapshot resumed by ``--shards 4`` runs to the end with the 8 islands;
+   over a gloo group with host copies bit for bit, each group replaying a
+   graph of its own; then whether NCCL takes 2 ranks on one card
+   (printed: refused or accepted);
+12c. ``ea --sharded --shards 2 --fused --w2 --snapshot-every 1`` (graphs
+   on the card) in a child process group killed by SIGKILL once its first
+   snapshot has landed, then ``--resume`` in a fresh one: its final
+   snapshot equals the uninterrupted run's (12a's world ran it) leaf for
+   leaf; the killed snapshot resumed by ``--shards 4`` runs to the end
+   with the 8 islands;
 13a. training at the published size: ``launch/train.py``'s ``train`` of
    minicpm-2b (40 layers, d 2304, 2.7 B parameters, bf16 with the f32
    master, random weights from the seed), batch 8 x seq 512, remat per
@@ -1900,16 +1913,118 @@ def _first_difference(a, b, path="") -> str:
     return "" if a == b else path
 
 
+def _sharded_graph_checks(group, problem, cfgs, per):
+    """Phase 12a's graphs on one rank: under each impl of ``cfgs``, each
+    driver's graphed step (``make_sharded_epoch``, the runners of
+    ``evolution.scan_runner`` and ``async_migration.scan_runner`` under
+    ``axis``) against the eager function it captures, called directly
+    from the drivers' fresh state: ``epoch_step`` in ``run_sharded``'s
+    loop (the torus, the server down at epoch 2), ``fused_scan`` (stats,
+    counters) and ``fused_scan_async`` (phase 10a's AsyncConfig), W²,
+    SHARD_EPOCHS epochs. Returns, per driver and impl, the first
+    difference, the launches of the eager run, of the capturing call and
+    of a second graphed call, and the graph's unit, graphs, captures,
+    capture seconds and pool bytes."""
+    import torch
+    from repro_torch import kernels, rand
+    from repro_torch.core import AsyncConfig, MigrationConfig
+    from repro_torch.core import async_migration as am
+    from repro_torch.core import evolution, graphed, sharded
+    from repro_torch.obs import counters as obs_lib
+    dev = group.device
+    acfg = AsyncConfig(min_rate=0.25, max_rate=1.0, staleness=3,
+                       churn_fraction=0.25)
+    pool_mig, torus = (MigrationConfig(topology="pool"),
+                       MigrationConfig(topology="torus"))
+    out = {}
+    for impl, cfg in cfgs.items():
+        def init(mig):
+            return sharded._init_sharded(group, problem, cfg, mig, per,
+                                         rand.key(SEED, device=dev))
+
+        def host_loop(step):
+            islands, pool, rng, _ = init(torus)
+            for epoch in range(1, SHARD_EPOCHS + 1):
+                keys = rand.split(rng, 2)
+                rng, k = keys[0], keys[1]
+                islands, pool = step(islands, pool, k, epoch != 2, epoch)
+            return islands, pool
+
+        def fused_state():
+            islands, pool, rng, _ = init(pool_mig)
+            return (islands, pool, rand.split(rng, 2)[1], 0, False,
+                    obs_lib.init_obs(per, device=dev))
+
+        def async_state():
+            islands, pool, rng, k_init = init(pool_mig)
+            ast = am.init_async_state(rand.fold_in(k_init, 7),
+                                      group.world * per, acfg,
+                                      SHARD_EPOCHS, problem.genome)
+            return (islands, pool, sharded._rows_of(group, ast, per),
+                    rand.split(rng, 2)[1], 0, False,
+                    obs_lib.init_obs(per, device=dev))
+
+        fused = dict(problem=problem, cfg=cfg, mig=pool_mig, w2=True,
+                     axis=group, with_stats=True)
+        host_step = sharded.make_sharded_epoch(group, problem, cfg, torus,
+                                               True)
+        fused_run = evolution.scan_runner(problem, cfg, pool_mig, True, True,
+                                          dev, axis=group)
+        async_run = am.scan_runner(problem, cfg, pool_mig, acfg, True, True,
+                                   dev, axis=group)
+        cases = {
+            "run_sharded": (
+                lambda: host_loop(lambda i, p, k, up, e: evolution.epoch_step(
+                    i, p, k, problem, cfg, torus, True, up, e, axis=group)),
+                lambda: host_loop(host_step), host_step),
+            "run_fused_sharded": (
+                lambda: evolution.fused_scan(*fused_state(), **fused,
+                                             max_epochs=SHARD_EPOCHS),
+                lambda: fused_run(*fused_state(), max_epochs=SHARD_EPOCHS),
+                fused_run),
+            "run_fused_sharded_async": (
+                lambda: am.fused_scan_async(*async_state(), **fused,
+                                            acfg=acfg,
+                                            max_ticks=SHARD_EPOCHS),
+                lambda: async_run(*async_state(), max_ticks=SHARD_EPOCHS),
+                async_run),
+        }
+        for name, (eager, replayed, runner) in cases.items():
+            launches, walls, results = [], [], []
+            for fn in (eager, replayed, replayed):
+                torch.cuda.synchronize()
+                group.barrier()
+                kernels.reset_launches()
+                t = time.perf_counter()
+                results.append(fn())
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+                launches.append(dict(kernels.LAUNCHES))
+            g = runner.graph
+            out[f"{name} {impl}"] = {
+                "same": [_first_difference(r, results[0]) or "equal"
+                         for r in results[1:]],
+                "launches": launches, "walls": walls,
+                "unit": graphed.unit_of(cfg), "graphs": len(g.graphs),
+                "captures": g.captures, "capture_s": g.capture_s,
+                "pool_bytes": g.pool_bytes}
+            runner.release()
+    return out
+
+
 def _sharded_rank_12a(group, kill_epochs, whole_dir):
     """Phase 12a on one rank of the card's shared world (see the module
-    docstring): the three drivers under the kernels and the plain
-    versions, the other topologies, paper-f15-8, [main] and [sharded]
-    epochs in turns, and the uninterrupted run of 12c's command."""
+    docstring): the drivers' graphs against the eager functions they
+    capture, the three drivers under the kernels and the plain versions,
+    the other topologies, paper-f15-8, [main], [sharded] and eager
+    [sharded] epochs in turns, a rank's replay alone and both ranks' at
+    once, and the uninterrupted run of 12c's command."""
     import torch
-    from repro_torch import kernels
+    from repro_torch import kernels, rand
     from repro_torch.core import (AcceptanceConfig, AsyncConfig, EAConfig,
                                   MigrationConfig, make_f15, make_problem,
                                   make_trap, run_fused)
+    from repro_torch.core import evolution, sharded
     from repro_torch.core.sharded import (run_fused_sharded,
                                           run_fused_sharded_async,
                                           run_sharded)
@@ -1922,6 +2037,9 @@ def _sharded_rank_12a(group, kill_epochs, whole_dir):
     trap = {"pallas": make_trap(40, 4, impl="pallas"),
             "pallas_ref": make_trap(40, 4)}
     out = {"rank": group.rank, "backend": group.name, "runs": {}}
+    # the kernels and the plain versions: the trap kernel evaluates under
+    # both, so the generation unit launches too
+    out["graphs"] = _sharded_graph_checks(group, trap["pallas"], cfg, per)
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1973,16 +2091,33 @@ def _sharded_rank_12a(group, kill_epochs, whole_dir):
         record(name, k_res, k_info, SHARD_EPOCHS)
     for topo in ("ring", "torus", "random_graph", "broadcast_best"):
         res, info = timed(lambda: drivers["run_fused_sharded"](
-            trap["pallas"], cfg["pallas"], topo, 2))
-        record(f"topology {topo}", res, info, 2)
+            trap["pallas"], cfg["pallas"], topo, 1))
+        record(f"topology {topo}", res, info, 1)
     f_cfg = EAConfig(impl="pallas", crossover="blend", mutation_sigma=0.3,
                      **paper)
     res, info = timed(lambda: drivers["run_fused_sharded"](
         make_f15(impl="pallas", device=group.device), f_cfg, None, 2))
     record("paper-f15-8", res, info, 2)
-    # [main] (rank 0 alone, 8 islands) and [sharded] epochs in turns
-    turns = []
-    for tag in ("main", "sharded", "sharded", "main"):
+    # [main] (rank 0 alone, 8 islands), [sharded] (the graphed driver) and
+    # [eager] (the driver's fused_scan called eagerly, its initial state
+    # and final gather included) epochs in turns; the runners of [main]
+    # and [sharded] captured before (the warm-up above is [sharded]'s)
+    if group.rank == 0:
+        run_fused(trap["pallas"], cfg["pallas"], mig, n_islands=8,
+                  max_epochs=1, rng=SEED + 1, w2=True, device=group.device)
+
+    def eager_sharded():
+        islands, pool, rng, _ = sharded._init_sharded(
+            group, trap["pallas"], cfg["pallas"], mig, per,
+            rand.key(SEED, device=group.device))
+        res = evolution.fused_scan(
+            islands, pool, rand.split(rng, 2)[1], problem=trap["pallas"],
+            cfg=cfg["pallas"], mig=mig, w2=True,
+            max_epochs=SHARD_TURN_EPOCHS, axis=group, with_stats=False)
+        return sharded._gather_of(group, res[0]), res[1]
+
+    turns, ends = [], {}
+    for tag in ("main", "sharded", "eager", "eager", "sharded", "main"):
         if tag == "main":
             res, info = timed(lambda: run_fused(
                 trap["pallas"], cfg["pallas"], mig, n_islands=8,
@@ -1993,13 +2128,70 @@ def _sharded_rank_12a(group, kill_epochs, whole_dir):
         else:
             res, info = timed(lambda: run_fused_sharded(
                 group, trap["pallas"], cfg["pallas"], mig, per,
-                SHARD_TURN_EPOCHS, rng=SEED, w2=True))
+                SHARD_TURN_EPOCHS, rng=SEED, w2=True) if tag == "sharded"
+                else eager_sharded())
             evals = int(res[0].evaluations.sum())
             # the final gather of the islands is not the epochs'
             info["calls"] -= len(res[0])
+            ends[tag] = _digest(res[:2])
         turns.append((tag, info["wall"], evals, info["calls"],
                       info["host_s"]))
     out["turns"] = turns
+    out["turns_same"] = ends["sharded"] == ends["eager"]
+    # the turns' graph: a rank's replay of its SHARD_TURN_EPOCHS epochs of
+    # generations alone on the card (each rank in turn), and both ranks'
+    # at once, by CUDA events; its capture
+    runner = evolution._FUSED_CACHE[(id(trap["pallas"]), (
+        "sharded", cfg["pallas"], mig, True, False, False, per,
+        str(group.device), group))][1]
+    graph = runner.graph
+
+    def replay_ms():
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(SHARD_TURN_EPOCHS):
+            graph._replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    alone = []
+    for r in range(group.world):
+        group.barrier()
+        if group.rank == r:
+            alone = [replay_ms() for _ in range(3)]
+    together = []
+    for _ in range(3):
+        group.barrier()
+        together.append(replay_ms())
+    out["replay"] = {"alone": alone, "together": together,
+                     "capture_s": graph.capture_s,
+                     "pool_bytes": graph.pool_bytes}
+    # one epoch of the turns' runner profiled on every rank at once: this
+    # rank's device kernels and busy time, and its top-level operators
+    # dispatched on the host (the eager tail's and the collectives')
+    from torch.profiler import ProfilerActivity, profile
+    islands, pool, rng, _ = sharded._init_sharded(
+        group, trap["pallas"], cfg["pallas"], mig, per,
+        rand.key(SEED, device=group.device))
+    state = (islands, pool, rand.split(rng, 2)[1])
+    torch.cuda.synchronize()
+    group.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        runner(*state, max_epochs=1)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.name.startswith("aten::") and e.cpu_parent is None]
+    out["profile"] = {"kernels": len(dev_events),
+                      "busy_ms": sum(e.device_time for e in dev_events) / 1e3,
+                      "ops": len(ops),
+                      "ops_ms": sum(e.cpu_time_total for e in ops) / 1e3}
     # 12c's command run here uninterrupted: make_problem("trap") (trap 40x4,
     # the plain fitness), EAConfig(impl="pallas"), seed 0, W², one
     # snapshot an epoch
@@ -2013,28 +2205,35 @@ def _sharded_rank_12a(group, kill_epochs, whole_dir):
 
 def _sharded_rank_12b(group):
     """Phase 12b: one rank at cuda:0, the fused driver over NCCL and over
-    a gloo group of the same rank with host copies."""
+    a gloo group of the same rank with host copies, each group replaying
+    a graph of its own (the runner cache is keyed on the group)."""
     import torch
     import torch.distributed as dist
     from repro_torch.core import EAConfig, MigrationConfig, make_trap
+    from repro_torch.core import evolution
     from repro_torch.core.sharded import ShardGroup, run_fused_sharded
     gloo = ShardGroup.from_default(device=group.device,
                                    pg=dist.new_group(backend="gloo"))
     cfg = EAConfig(impl="pallas", max_pop=256, min_pop=128,
                    generations_per_epoch=100)
+    mig = MigrationConfig(topology="pool")
+    problem = make_trap(40, 4, impl="pallas")
     out = {}
     for g in (group, gloo):
         g.barrier()   # NCCL sets its communicator up at the first call
         g.calls, g.host_s = 0, 0.0
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = run_fused_sharded(g, make_trap(40, 4, impl="pallas"), cfg,
-                                MigrationConfig(topology="pool"), 8, 2,
-                                rng=SEED, w2=True, return_stats=True,
-                                return_obs=True)
+        res = run_fused_sharded(g, problem, cfg, mig, 8, 2, rng=SEED,
+                                w2=True, return_stats=True, return_obs=True)
         torch.cuda.synchronize()
+        graph = evolution._FUSED_CACHE[(id(problem), (
+            "sharded", cfg, mig, True, True, True, 8, str(g.device),
+            g))][1].graph
         out[g.name] = {"res": res, "wall": time.perf_counter() - t,
-                       "calls": g.calls, "host_s": g.host_s}
+                       "calls": g.calls, "host_s": g.host_s,
+                       "captures": graph.captures,
+                       "capture_s": graph.capture_s}
     a, b = out[group.name]["res"], out[gloo.name]["res"]
     out["same"] = _first_difference(a, b) or "equal"
     for v in out.values():
@@ -2070,6 +2269,32 @@ def sharded_phases(card: str):
                   timeout=SHARD_TIMEOUT, args=(SHARD_KILL_EPOCHS, whole))
     log(f"[sharded] 12a: {SHARD_RANKS} ranks on one card, backend "
         f"{ranks[0]['backend']}, in {time.perf_counter() - t:.1f} s; {card}")
+    for tag, info in ranks[0]["graphs"].items():
+        for r in ranks:
+            mine = r["graphs"][tag]
+            if mine["same"] != ["equal", "equal"]:
+                fail(f"sharded graphs {tag}: rank {r['rank']}'s graphed "
+                     f"run differs from the eager one at {mine['same']}")
+            if any(n != mine["launches"][0] for n in mine["launches"][1:]):
+                fail(f"sharded graphs {tag}: rank {r['rank']}'s launches "
+                     f"(eager, capturing call, replay) {mine['launches']}")
+            if mine["captures"] != 1:
+                fail(f"sharded graphs {tag}: rank {r['rank']} captured "
+                     f"{mine['captures']} times")
+            if tag.endswith(" pallas") and \
+                    mine["launches"][0]["generation"] <= 0:
+                fail(f"sharded graphs {tag}: rank {r['rank']} launched no "
+                     f"generation kernel")
+        walls = ", ".join(
+            f"rank {r['rank']} eager {r['graphs'][tag]['walls'][0]:.3f} s, "
+            f"capturing {r['graphs'][tag]['walls'][1]:.3f} s, replayed "
+            f"{r['graphs'][tag]['walls'][2]:.3f} s, captured in "
+            f"{r['graphs'][tag]['capture_s']:.3f} s, pool "
+            f"{r['graphs'][tag]['pool_bytes']} bytes" for r in ranks)
+        log(f"[sharded-graphs] {tag}: graphed == eager on every rank (two "
+            f"calls: the capturing one and a replay; {SHARD_EPOCHS} epochs, "
+            f"W²), launches equal {info['launches'][0]}; {info['unit']} "
+            f"unit, {info['graphs']} graphs; {walls}; {card}")
     zero = ranks[0]["runs"]
     for tag, info in zero.items():
         for r in ranks[1:]:
@@ -2088,7 +2313,8 @@ def sharded_phases(card: str):
                 r["runs"][tag]["launches"]["f15"] for r in ranks) <= 0:
             fail("sharded paper-f15-8: a rank launched no f15 kernel")
         epochs = info["epochs"]
-        line = (f"[sharded] {tag}: {epochs} epochs of {SHARD_RANKS} x "
+        line = (f"[sharded] {tag} (the first call of its runner, the "
+                f"capture included): {epochs} epochs of {SHARD_RANKS} x "
                 f"{8 // SHARD_RANKS} islands in {info['wall']:.3f} s, "
                 f"{info['wall'] / epochs:.4f} s per epoch, "
                 f"{info['evals'] / info['wall']:.1f} evals/s; collectives "
@@ -2107,17 +2333,38 @@ def sharded_phases(card: str):
                      f"pool replica == rank 0's")
         log(line + f"; {card}")
     turns = ranks[0]["turns"]
+    if not all(r["turns_same"] for r in ranks):
+        fail("sharded turns: the eager turn's islands or pool differ from "
+             "the graphed turn's")
     rate = {tag: [e / w for t_, w, e, _, _ in turns if t_ == tag]
-            for tag in ("main", "sharded")}
+            for tag in ("main", "sharded", "eager")}
     for tag, wall, evals, calls, host in turns:
         log(f"[sharded] turn {tag}: {SHARD_TURN_EPOCHS} epochs, {evals} "
             f"evaluations in {wall:.3f} s = {evals / wall:.1f} evals/s, "
             f"{wall / SHARD_TURN_EPOCHS:.4f} s per epoch, collectives "
             f"{calls / SHARD_TURN_EPOCHS:.1f} and "
             f"{1e3 * host / SHARD_TURN_EPOCHS:.3f} ms host per epoch; {card}")
-    log(f"[sharded] evals/s in turns (main, sharded, sharded, main): "
-        f"[sharded] / [main] = "
-        f"{sum(rate['sharded']) / sum(rate['main']):.3f}; {card}")
+    log(f"[sharded] evals/s in turns (main, sharded, eager, eager, sharded, "
+        f"main): [sharded] / [main] = "
+        f"{sum(rate['sharded']) / sum(rate['main']):.3f}, [sharded] / "
+        f"[eager] = {sum(rate['sharded']) / sum(rate['eager']):.3f}; the "
+        f"eager turns' islands and pool == the graphed turns'; {card}")
+    for r in ranks:
+        rp = r["replay"]
+        log(f"[sharded] rank {r['rank']}'s turn graph: its "
+            f"{SHARD_TURN_EPOCHS} epochs of generations replayed alone on "
+            f"the card " + ", ".join(f"{ms:.3f}" for ms in rp["alone"])
+            + " ms; with the other rank's at once "
+            + ", ".join(f"{ms:.3f}" for ms in rp["together"])
+            + f" ms (CUDA events); captured in {rp['capture_s']:.3f} s, "
+            f"pool {rp['pool_bytes']} bytes; {card}")
+        pf = r["profile"]
+        log(f"[sharded] rank {r['rank']}'s turn runner, one epoch profiled "
+            f"with the other rank's: {pf['kernels']} device kernels, "
+            f"{pf['busy_ms']:.3f} ms device busy; {pf['ops']} top-level "
+            f"operators on the host, {pf['ops_ms']:.3f} ms of host time in "
+            f"them (the eager tail's; a copy to the host holds its wait for "
+            f"the card); {card}")
 
     # ---- 12b: world 1, NCCL at cuda:0 against gloo with host copies ------
     t = time.perf_counter()
@@ -2126,9 +2373,13 @@ def sharded_phases(card: str):
     if one["same"] != "equal":
         fail(f"world 1: NCCL and gloo with host copies differ at "
              f"{one['same']}")
+    if any(v["captures"] != 1 for v in one.values() if isinstance(v, dict)):
+        fail(f"world 1: a group did not capture its own graph once: {one}")
     log(f"[sharded] 12b: world 1 at cuda:0, nccl == gloo+host bit for bit "
-        f"(islands, pool, stats, counters; 2 epochs of 8 islands): "
-        + "; ".join(f"{k} {v['wall']:.3f} s, {v['calls']} collectives, "
+        f"(islands, pool, stats, counters; 2 epochs of 8 islands; each "
+        f"group its own graph): "
+        + "; ".join(f"{k} {v['wall']:.3f} s (capture {v['capture_s']:.3f} "
+                    f"s), {v['calls']} collectives, "
                     f"{1e3 * v['host_s']:.3f} ms host"
                     for k, v in one.items() if isinstance(v, dict))
         + f", in {time.perf_counter() - t:.1f} s; {card}")

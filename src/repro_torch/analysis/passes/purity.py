@@ -31,15 +31,18 @@ and the callables handed to ``jax.jit`` / ``pjit`` / ``shard_map``
   steps ``launch/steps.py::serve_prefill_step`` and
   ``serve_decode_step``, which call ``Model.prefill`` and ``Model.decode``
   through the class so that the callgraph follows them into the model's
-  layers), and
+  layers), ``core/graphed.py::RankGraph`` (the generations a rank of the
+  sharded drivers captures, ``island.island_epoch``; its second argument,
+  the eager tail with the exchange's collectives, is no root), and
   everything run inside ``with torch.cuda.graph(...)`` or between a
   graph's ``capture_begin()`` and ``capture_end()`` — the region's own
   lines and the functions it calls.  ``partial`` and one level of
   local-variable indirection are unwrapped, as the JAX package does.
 
-``shard_map`` has no counterpart: the port's ranks run eagerly over a
-``torch.distributed`` group (:mod:`repro_torch.core.sharded`), each its
-own program, so nothing is traced across ranks.
+``shard_map``'s counterpart is ``RankGraph``: each rank of a
+``torch.distributed`` group (:mod:`repro_torch.core.sharded`) is its own
+program and captures only its own generations; its collectives run
+eagerly between replays, so nothing is traced across ranks.
 
 Flagged in both contexts: ``print``/``input``, ``open`` (host file I/O),
 ``global``/``nonlocal`` declarations, the host syncs ``.item()``,
@@ -74,7 +77,8 @@ LAUNCH_SUFFIX = "_launch"
 BUILD_MODULE_TAIL = "_build"
 COMPILE_NAMES = {"torch.compile"}
 GRAPHED_CALLABLES = {"torch.cuda.make_graphed_callables",
-                     "repro_torch.core.graphed.StepGraph"}
+                     "repro_torch.core.graphed.StepGraph",
+                     "repro_torch.core.graphed.RankGraph"}
 GRAPH_CONTEXTS = {"torch.cuda.graph"}
 CUSTOM_OP_TAILS = {"custom_op"}
 FAKE_TAILS = {"register_fake"}
@@ -250,6 +254,8 @@ def _collect_roots(project: Project,
                 if not isinstance(node, ast.Call):
                     continue
                 name = module.call_name(node) or ""
+                if name in module.classes:   # a class of this module
+                    name = f"{module.name}.{name}"
                 if name in COMPILE_NAMES | GRAPHED_CALLABLES \
                         and node.args:
                     for cname in _callable_names(module, node.args[0], env):

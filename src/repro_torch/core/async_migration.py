@@ -481,17 +481,22 @@ def fused_scan_async(islands: IslandState, pool: PoolState,
 
 def scan_runner(problem: Problem, cfg: EAConfig, mig: MigrationConfig,
                  acfg: AsyncConfig, w2: bool, with_stats: bool,
-                 device: torch.device):
+                 device: torch.device, axis=None):
     """:func:`fused_scan_async` bound to its statics: eager on the CPU,
-    its live tick replayed as a graph on the card."""
+    its live tick replayed as a graph on the card. Under ``axis`` (a
+    shard group) the graph holds the rank's generations and the exchange
+    runs eagerly between replays (:class:`~repro_torch.core.graphed.
+    RankGraph`)."""
     run = functools.partial(fused_scan_async, problem=problem, cfg=cfg,
-                            mig=mig, acfg=acfg, w2=w2,
+                            mig=mig, acfg=acfg, w2=w2, axis=axis,
                             with_stats=with_stats)
     if not graphed.graphs_on(device):
         return run
     live = functools.partial(scan_tick, live=True, problem=problem, cfg=cfg,
-                             mig=mig, acfg=acfg, w2=w2,
+                             mig=mig, acfg=acfg, w2=w2, axis=axis,
                              with_stats=with_stats)
+    if axis is not None:
+        return graphed.Runner(run, graphed.rank_graph(problem, cfg, live))
     return graphed.Runner(run, graphed.StepGraph(
         live, **graphed.unit_args(problem, cfg)))
 

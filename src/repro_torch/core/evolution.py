@@ -173,7 +173,8 @@ def scan_epoch(carry, live: bool, *, problem: Problem, cfg: EAConfig,
     leaves the state as it is; the stop latch (without W²), the counters'
     early-stop epoch and the packed stats row (``with_stats``, else None)
     follow. Returns ``(carry', row)``. The live iteration is what the
-    card's graph captures."""
+    card's graph captures (under ``axis``: its generations, the rest
+    running eagerly after the replay)."""
     islands, pool, key, epoch, stopped, obs = carry
     with_obs = hasattr(obs, "_fields")
     keys = rand.split(key, 2)
@@ -284,7 +285,9 @@ def fused_jit(problem: Problem, static_key: tuple,
 
     The key holds what the runner's graph depends on: the driver's name,
     ``cfg``, ``mig`` (and ``acfg``), ``w2``, ``return_stats``,
-    ``return_obs``, the island count and the device. The reference's key
+    ``return_obs``, the island count and the device; a sharded driver's
+    also its group, whose collectives the runner calls (the entry keeps
+    the group alive, as it keeps the problem). The reference's key
     has the segment length instead of the last two: its scan is compiled
     for a length and a shape is traced from the arguments, while the
     port's graph holds one epoch, which serves any segment length, over
@@ -309,15 +312,21 @@ def clear_fused_cache() -> None:
 
 
 def scan_runner(problem: Problem, cfg: EAConfig, mig: MigrationConfig,
-                 w2: bool, with_stats: bool, device: torch.device):
+                 w2: bool, with_stats: bool, device: torch.device,
+                 axis=None):
     """:func:`fused_scan` bound to its statics: eager on the CPU, its live
-    epoch replayed as a graph on the card."""
+    epoch replayed as a graph on the card. Under ``axis`` (a shard group)
+    the graph holds the rank's generations and the exchange runs eagerly
+    between replays (:class:`~repro_torch.core.graphed.RankGraph`)."""
     run = functools.partial(fused_scan, problem=problem, cfg=cfg, mig=mig,
-                            w2=w2, with_stats=with_stats)
+                            w2=w2, axis=axis, with_stats=with_stats)
     if not graphed.graphs_on(device):
         return run
     live = functools.partial(scan_epoch, live=True, problem=problem,
-                             cfg=cfg, mig=mig, w2=w2, with_stats=with_stats)
+                             cfg=cfg, mig=mig, w2=w2, axis=axis,
+                             with_stats=with_stats)
+    if axis is not None:
+        return graphed.Runner(run, graphed.rank_graph(problem, cfg, live))
     return graphed.Runner(run, graphed.StepGraph(
         live, **graphed.unit_args(problem, cfg)))
 

@@ -44,6 +44,13 @@ from the evolved islands) and replayed ``generations_per_epoch`` times in
 all, then a tail graph of the exchange reads the evolved islands
 (:func:`unit_of`).
 
+The sharded drivers' ranks (:mod:`repro_torch.core.sharded`, the
+counterpart of the reference's jitted ``shard_map``) replay only their
+generations: :class:`RankGraph` captures a rank's ``island_epoch`` (or
+its generation, under the plain impls) and hands the evolved islands to
+the rest of the step, called eagerly, whose exchange between ranks copies
+to the host, synchronises and waits on the other ranks between replays.
+
 A captured region reads no device value on the host and copies nothing
 from host memory: the drivers' steps keep to that (their Python values
 are kernel arguments or fills, :func:`repro_torch.rand.const`,
@@ -185,6 +192,7 @@ class StepGraph:
         self._static: List[torch.Tensor] = []
         self._spec = None
         self._evolved: List[torch.Tensor] = []
+        self.evolved = None
         self._out = None
 
     @property
@@ -206,20 +214,31 @@ class StepGraph:
             _assign(self._static, leaves)
         for t, v in zip(self.host, host):
             t.fill_(v)
+        self._replay()
+        return self.carry, pytree.tree_map(
+            lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+            self._out)
+
+    def _replay(self) -> None:
         for g in self.graphs:
             for _ in range(g.times):
                 g.graph.replay()
             for name, n in g.launches.items():
                 kernels.LAUNCHES[name] += n * g.times
-        return self.carry, pytree.tree_map(
-            lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
-            self._out)
 
     def detach(self, tree):
-        """``tree`` with clones of the leaves that are static buffers."""
-        owned = {id(t) for t in self._static}
-        return pytree.tree_map(
-            lambda x: x.clone() if id(x) in owned else x, tree)
+        """``tree`` with clones of the leaves that share storage with a
+        static or an evolved buffer."""
+        owned = {t.untyped_storage().data_ptr()
+                 for t in self._static + self._evolved
+                 if isinstance(t, torch.Tensor)}
+
+        def own(x):
+            if isinstance(x, torch.Tensor) and \
+                    x.untyped_storage().data_ptr() in owned:
+                return x.clone()
+            return x
+        return pytree.tree_map(own, tree)
 
     def release(self) -> None:
         """Drop the graphs, their private pool and the static buffers; a
@@ -231,40 +250,57 @@ class StepGraph:
     # -- capture -----------------------------------------------------------
     def _capture(self, carry, host) -> None:
         leaves, self._spec = pytree.tree_flatten(carry)
-        dev = next(t for t in leaves if isinstance(t, torch.Tensor)).device
-        t0 = time.perf_counter()
-        counts = dict(kernels.LAUNCHES)
-        try:
+
+        def record():
             self._static = [t.clone() if isinstance(t, torch.Tensor) else t
                             for t in leaves]
             self.carry = pytree.tree_unflatten(self._static, self._spec)
+            dev = self._static_device()
             self.host = tuple(host_scalar(v, dev) for v in host)
             step = self.step
             if self.evolve is not None and self.gens > 0:
-                islands = self.carry[0]
-                i_leaves, i_spec = pytree.tree_flatten(islands)
-                self._evolved = [t.clone() for t in i_leaves]
-                evolved = pytree.tree_unflatten(self._evolved, i_spec)
-                self._record(lambda: (self.evolve(islands), None),
-                             self._evolved, 1)
-                if self.gens > 1:
-                    self._record(lambda: (self.evolve(evolved), None),
-                                 self._evolved, self.gens - 1)
-                step = functools.partial(self.step, evolved=evolved)
+                self._record_evolve(self.carry[0])
+                step = functools.partial(self.step, evolved=self.evolved)
             self._out = self._record(lambda: step(self.carry, *self.host),
                                      self._static, 1)
+        self._captured(record)
+
+    def _static_device(self) -> torch.device:
+        return next(t for t in self._static
+                    if isinstance(t, torch.Tensor)).device
+
+    def _captured(self, record: Callable[[], None]) -> None:
+        """Run ``record`` (which fills the static buffers and records the
+        graphs), its wrapper launches taken back out of the counts, and
+        time it; a capture that fails releases what it made and raises."""
+        t0 = time.perf_counter()
+        counts = dict(kernels.LAUNCHES)
+        try:
+            record()
         except BaseException:
             self.release()
             raise
         finally:
             kernels.LAUNCHES.update(counts)
-        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(self._static_device())
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
         pool = self.graphs[0].graph.pool()
         self.pool_bytes = sum(
             seg["total_size"] for seg in torch.cuda.memory_snapshot()
             if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def _record_evolve(self, islands) -> None:
+        """Record the generations from the static ``islands`` into the
+        evolved buffers (``self.evolved``): ``evolve`` once from
+        ``islands``, then ``gens - 1`` times from the evolved islands."""
+        i_leaves, i_spec = pytree.tree_flatten(islands)
+        self._evolved = [t.clone() for t in i_leaves]
+        self.evolved = pytree.tree_unflatten(self._evolved, i_spec)
+        self._record(lambda: (self.evolve(islands), None), self._evolved, 1)
+        if self.gens > 1:
+            self._record(lambda: (self.evolve(self.evolved), None),
+                         self._evolved, self.gens - 1)
 
     def _record(self, fn, target: List[torch.Tensor], times: int):
         """Warm ``fn`` up on a side stream, then capture it and the copy of
@@ -297,10 +333,64 @@ class StepGraph:
         return out
 
 
+class RankGraph(StepGraph):
+    """A rank's step of the sharded drivers (:mod:`repro_torch.core.
+    sharded`): its generations replayed as graphs, the rest of the step
+    called eagerly.
+
+    ``evolve(islands) -> islands`` is the captured stretch, replayed
+    ``gens`` times a step: the rank's whole ``island_epoch`` (the epoch
+    unit, ``gens`` 1) or one generation (the generation unit, captured
+    from the carry's islands and from the evolved ones, as
+    :class:`StepGraph` does). ``tail(carry, *host, evolved=islands)`` is
+    the step after them: the exchange between ranks, the stats and the
+    stop latch, whose collectives copy to the host, synchronise the
+    stream and wait on the other ranks, which no graph holds. The tail
+    gets the carry with its islands in their static buffers, the evolved
+    islands in theirs and the host values as given, and its result is
+    returned as it is.
+
+    The tail may pass a static or an evolved buffer through into its
+    result (a field the exchange leaves as it was); the next replay
+    overwrites it, and :meth:`detach` clones it."""
+
+    def __init__(self, evolve: Callable, tail: Callable, gens: int = 1):
+        super().__init__(tail, evolve=evolve, gens=gens)
+
+    def __call__(self, carry, *host):
+        leaves, spec = pytree.tree_flatten(carry[0])
+        if self.carry is None:
+            def record():
+                self._spec = spec
+                self._static = [t.clone() for t in leaves]
+                self.carry = pytree.tree_unflatten(self._static, spec)
+                self._record_evolve(self.carry)
+            self._captured(record)
+        else:
+            if spec != self._spec:
+                raise ValueError("graphed step: the islands' structure "
+                                 "changed since the capture")
+            _assign(self._static, leaves)
+        self._replay()
+        return self.step((self.carry,) + tuple(carry[1:]), *host,
+                         evolved=self.evolved)
+
+
+def rank_graph(problem, cfg, tail: Callable) -> RankGraph:
+    """The card's :class:`RankGraph` of a sharded driver's step ``tail``
+    under ``cfg``'s unit: ``island_epoch`` captured whole, or a
+    generation replayed ``generations_per_epoch`` times."""
+    gen = unit_args(problem, cfg)
+    if gen:
+        return RankGraph(gen["evolve"], tail, gen["gens"])
+    return RankGraph(functools.partial(island_lib.island_epoch,
+                                       problem=problem, cfg=cfg), tail)
+
+
 class Runner:
-    """A fused driver's segment function with its step replayed by a
-    :class:`StepGraph`: ``driver(*args, step=graph, **kw)``, its results
-    detached from the static buffers."""
+    """A driver's function with its step replayed by a :class:`StepGraph`
+    (or a :class:`RankGraph`): ``driver(*args, step=graph, **kw)``, its
+    results detached from the static buffers."""
 
     def __init__(self, driver: Callable, graph: StepGraph):
         self.driver, self.graph = driver, graph

@@ -44,6 +44,15 @@ Three drivers, as in the reference; each returns the *global* state
 * :func:`run_fused_sharded_async`, the asynchronous runtime in the same
   shape, the per-rank fire mask being the topologies' vector availability.
 
+On the card each rank replays its generations as a CUDA graph, the
+counterpart of the reference's jitted ``shard_map``
+(:class:`~repro_torch.core.graphed.RankGraph`): the exchange between
+ranks, the stats and the stop latch run eagerly between replays, since
+their collectives copy to the host, synchronise the stream and wait on
+the other ranks. Each driver keeps one runner per problem object, statics
+and group (:func:`~repro_torch.core.evolution.fused_jit`); on the CPU the
+ranks call the same steps eagerly.
+
 :func:`spawn` starts a world of ranks on one host (the ``spawn`` start
 method, a ``FileStore`` rendezvous in a temporary directory, a timeout on
 every collective and on the whole world).
@@ -63,9 +72,11 @@ import torch
 import torch.distributed as dist
 
 from .. import rand
+from .._device import DeviceLike, resolve_device
 from ..obs import counters as obs_lib
 from . import async_migration as async_lib
 from . import evolution as evolution_lib
+from . import graphed
 from . import island as island_lib
 from . import pool as pool_lib
 from .async_migration import AsyncConfig
@@ -358,10 +369,12 @@ def _rank_main(fn, rank: int, world: int, backend: str, device: str,
 
 
 def spawn(fn: Callable, world: int, backend: str = "gloo",
-          device: Union[str, torch.device] = "cpu", timeout: float = 120.0,
+          device: DeviceLike = None, timeout: float = 120.0,
           args: Sequence = (), threads: Optional[int] = None) -> List[Any]:
     """Run ``fn(group, *args)`` on ``world`` ranks and return each rank's
-    result (tensors on the CPU), in rank order.
+    result (tensors on the CPU), in rank order. The ranks run on the card
+    unless ``device`` says otherwise; with no card visible and no
+    ``device`` this raises before any rank starts.
 
     Each rank is a process of the ``spawn`` start method (``fn`` must be
     importable by its module: a module of this package, or a torch-only
@@ -371,12 +384,13 @@ def spawn(fn: Callable, world: int, backend: str = "gloo",
     by then is killed and :class:`TimeoutError` raised; a rank that raised
     fails the world with its traceback. ``threads`` sets each rank's
     intra-op CPU threads."""
+    dev = resolve_device(device)
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="repro-shards-") as tmp:
         store = os.path.join(tmp, "store")
         outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
         procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(fn, r, world, backend, str(device), store,
+                             args=(fn, r, world, backend, str(dev), store,
                                    timeout, outs[r], tuple(args), threads))
                  for r in range(world)]
         for p in procs:
@@ -491,12 +505,24 @@ def make_sharded_epoch(group: ShardGroup, problem: Problem, cfg: EAConfig,
                        mig: MigrationConfig, w2: bool = False):
     """The SPMD epoch step of this rank: ``step(islands, pool, rng,
     available, epoch) -> (islands, pool)`` on its slab, the pool
-    replicated, migration through ``group``'s collectives."""
-    def step(islands, pool, rng, available, epoch):
+    replicated, migration through ``group``'s collectives. On the card
+    the rank's generations replay as a graph and the rest of the epoch,
+    with the Python ``available`` and ``epoch``, runs eagerly after them
+    (:class:`~repro_torch.core.graphed.RankGraph`); the results are the
+    caller's own."""
+    def step(islands, pool, rng, available, epoch, evolved=None):
         return evolution_lib.epoch_step(islands, pool, rng, problem, cfg,
                                         mig, w2, available, epoch,
-                                        axis=group)
-    return step
+                                        axis=group, evolved=evolved)
+    if not graphed.graphs_on(group.device):
+        return step
+
+    def tail(carry, available, epoch, evolved):
+        return step(*carry, available, epoch, evolved=evolved)
+
+    def replayed(islands, pool, rng, available, epoch, *, step):
+        return step((islands, pool, rng), available, epoch)
+    return graphed.Runner(replayed, graphed.rank_graph(problem, cfg, tail))
 
 
 def _init_sharded(group: ShardGroup, problem: Problem, cfg: EAConfig,
@@ -535,7 +561,10 @@ def run_sharded(group: ShardGroup, problem: Problem,
     rng = _key(rng, group.device)
     per = islands_per_shard
     islands, pool, rng, _ = _init_sharded(group, problem, cfg, mig, per, rng)
-    step = make_sharded_epoch(group, problem, cfg, mig, w2)
+    step = evolution_lib.fused_jit(
+        problem, ("sharded_host", cfg, mig, w2, per, str(group.device),
+                  group),
+        lambda: make_sharded_epoch(group, problem, cfg, mig, w2))
     epoch = 0
     for epoch in range(1, max_epochs + 1):
         keys = rand.split(rng, 2)
@@ -629,12 +658,16 @@ def run_fused_sharded(group: ShardGroup, problem: Problem,
         state = _resumed(group, ckpt, state, n_total, per, problem, cfg)
 
     def segment_fn(state: ExperimentState, seg_len: int):
-        islands, pool, key, epoch, stopped, obs, seg_stats = \
-            evolution_lib.fused_scan(
-                state.islands, state.pool, state.key, state.epoch,
-                state.stopped, state.obs, problem=problem, cfg=cfg, mig=mig,
-                w2=w2, max_epochs=seg_len, axis=group,
-                with_stats=return_stats)
+        run = evolution_lib.fused_jit(
+            problem,
+            ("sharded", cfg, mig, w2, return_stats, return_obs, per,
+             str(group.device), group),
+            lambda: evolution_lib.scan_runner(problem, cfg, mig, w2,
+                                              return_stats, group.device,
+                                              axis=group))
+        islands, pool, key, epoch, stopped, obs, seg_stats = run(
+            state.islands, state.pool, state.key, state.epoch,
+            state.stopped, state.obs, max_epochs=seg_len)
         return state._replace(islands=islands, pool=pool, key=key,
                               epoch=epoch, stopped=stopped,
                               obs=obs), seg_stats
@@ -687,12 +720,16 @@ def run_fused_sharded_async(group: ShardGroup, problem: Problem,
         state = _resumed(group, ckpt, state, n_total, per, problem, cfg)
 
     def segment_fn(state: ExperimentState, seg_len: int):
-        islands, pool, astate, key, tick, stopped, obs, seg_stats = \
-            async_lib.fused_scan_async(
-                state.islands, state.pool, state.astate, state.key,
-                state.epoch, state.stopped, state.obs, problem=problem,
-                cfg=cfg, mig=mig, acfg=acfg, w2=w2, max_ticks=seg_len,
-                axis=group, with_stats=return_stats)
+        run = evolution_lib.fused_jit(
+            problem,
+            ("sharded_async", cfg, mig, acfg, w2, return_stats, return_obs,
+             per, str(group.device), group),
+            lambda: async_lib.scan_runner(problem, cfg, mig, acfg, w2,
+                                          return_stats, group.device,
+                                          axis=group))
+        islands, pool, astate, key, tick, stopped, obs, seg_stats = run(
+            state.islands, state.pool, state.astate, state.key,
+            state.epoch, state.stopped, state.obs, max_ticks=seg_len)
         return state._replace(islands=islands, pool=pool, astate=astate,
                               key=key, epoch=tick, stopped=stopped,
                               obs=obs), seg_stats

@@ -315,3 +315,138 @@ def migrate_every_topology(group, pool, best_g, best_f, words, epoch,
             epoch=epoch, with_ledger=True)
         out[topo] = convert.to_numpy(res)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The drivers' graphs, emulated on the CPU
+# (tests/test_torch_sharded_graphs.py)
+# ---------------------------------------------------------------------------
+def _rank_graphs():
+    """The RankGraphs of the cached runners, in the cache's order."""
+    from repro_torch.core import evolution, graphed
+    out = []
+    for _, runner in evolution._FUSED_CACHE.values():
+        graph = getattr(runner, "graph", None)
+        assert isinstance(graph, graphed.RankGraph), runner
+        out.append(graph)
+    return out
+
+
+def _emulated(fn):
+    """``fn()`` with CUDA graphs emulated (``_torch_capture``), from an
+    empty runner cache; returns its result and the captures of every
+    cached runner's graph."""
+    import pytest
+
+    from _torch_capture import emulate_graphs
+    from repro_torch.core import evolution
+    evolution.clear_fused_cache()
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            emulate_graphs(mp)
+            res = fn()
+            captures = [g.captures for g in _rank_graphs()]
+    finally:
+        evolution.clear_fused_cache()
+    return res, captures
+
+
+def _two_runs(group, c):
+    """One capture serves two runs of run_fused_sharded with one problem
+    object: the first run's results are kept through the second, and
+    the second equals its eager run."""
+    cfg, mig, _ = configs(c)
+    prob = problem(c["problem"])
+    kw = dict(islands_per_shard=c["per"], max_epochs=c["epochs"], w2=True,
+              return_stats=True, return_obs=True)
+
+    def both():
+        first = run_fused_sharded(group, prob, cfg, mig, rng=c["seed"],
+                                  **kw)
+        kept = convert.to_numpy(first[:4])
+        second = run_fused_sharded(group, prob, cfg, mig,
+                                   rng=c["seed"] + 1, **kw)
+        same = all(np.array_equal(a, b) for a, b in zip(
+            _leaves(convert.to_numpy(first[:4])), _leaves(kept)))
+        return second, same
+
+    (second, kept), captures = _emulated(both)
+    eager = run_fused_sharded(group, prob, cfg, mig, rng=c["seed"] + 1,
+                              **kw)
+    out = {"got": _flat_fused(second), "want": _flat_fused(eager)}
+    out["info"] = {"captures": captures, "first_kept": kept}
+    return out
+
+
+def _leaves(tree):
+    from torch.utils import _pytree as pytree
+    return pytree.tree_leaves(tree)
+
+
+def _flat_fused(res):
+    out = {}
+    flat("islands", res[0], out)
+    flat("pool", res[1], out)
+    out["epochs"] = np.int64(int(res[2]))
+    flat("stats", res[3], out)
+    flat_obs(res[4], out)
+    return out
+
+
+def _two_groups(group, c):
+    """Two groups of the same ranks never share a cached runner: each
+    run captures its own, whose tail calls its own group."""
+    from repro_torch.core import evolution
+    from repro_torch.core.sharded import ShardGroup
+    cfg, mig, _ = configs(c)
+    prob = problem(c["problem"])
+    other = ShardGroup.from_default(device=group.device)
+
+    def run():
+        res = []
+        for g in (group, other):
+            res.append(run_fused_sharded(
+                g, prob, cfg, mig, islands_per_shard=c["per"],
+                max_epochs=c["epochs"], rng=c["seed"], w2=True,
+                return_stats=True, return_obs=True))
+        keys = [k for k in evolution._FUSED_CACHE]
+        groups = [k[1][-1] for k in keys]
+        graphs = _rank_graphs()
+        return res, (len(keys), groups[0] is group and groups[1] is other,
+                     graphs[0] is not graphs[1],
+                     other.calls > 0 and group.calls > 0)
+
+    (res, facts), captures = _emulated(run)
+    out = {"got": _flat_fused(res[1]), "want": _flat_fused(res[0])}
+    out["info"] = {"captures": captures, "facts": facts}
+    return out
+
+
+def _resumed(group, c):
+    """A graphed run with a snapshot every epoch, its newest snapshot
+    dropped and resumed, against the graphed uninterrupted run."""
+    def run():
+        whole = snapshot(group, c)
+        return whole, resume(group, dict(c, per2=c["per"]))
+    (whole, back), captures = _emulated(run)
+    return {"got": back, "want": whole,
+            "info": {"captures": captures}}
+
+
+def graph_cases(group, cases):
+    """Every case run with CUDA graphs emulated and eagerly: name ->
+    ``{"got": the graphed run's arrays, "want": the eager run's, "info":
+    the captures and the case's facts}`` (a resume case: the resumed and
+    the uninterrupted graphed runs; two groups: the second group's and
+    the first's)."""
+    special = {"two_runs": _two_runs, "two_groups": _two_groups,
+               "resume": _resumed}
+    out = {}
+    for c in cases:
+        if c["kind"] in special:
+            out[c["name"]] = special[c["kind"]](group, c)
+            continue
+        got, captures = _emulated(lambda: run_driver(group, c))
+        out[c["name"]] = {"got": got, "want": run_driver(group, c),
+                          "info": {"captures": captures}}
+    return out

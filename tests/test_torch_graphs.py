@@ -441,7 +441,9 @@ def test_graphed_bridged_loop_equals_eager(graphs):
 
 def test_captured_steps_are_jit01_roots():
     """The analyzer holds the captured steps to JIT01: the steps handed to
-    StepGraph and the capture region's own calls are roots."""
+    StepGraph, the generations a sharded rank hands to RankGraph and the
+    capture region's own calls are roots; the ranks' eager tail, with
+    the exchange's collectives, is none."""
     import os
 
     from repro_torch.analysis.engine import collect_python_files
@@ -455,5 +457,6 @@ def test_captured_steps_are_jit01_roots():
             "repro_torch.core.evolution.experiment_step",
             "repro_torch.core.async_migration.scan_tick",
             "repro_torch.core.async_migration.async_experiment_step",
+            "repro_torch.core.island.island_epoch",
             "repro_torch.core.graphed._assign"} <= jit
     assert any(r.module.name == "repro_torch.core.graphed" for r in regions)
