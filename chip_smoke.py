@@ -250,23 +250,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 13a. training at the published size: ``launch/train.py``'s ``train`` of
    minicpm-2b (40 layers, d 2304, 2.7 B parameters, bf16 with the f32
    master, random weights from the seed), batch 8 x seq 512, remat per
-   layer, the WSD schedule at lr 3e-3, 6 steps: every step's ce, gnorm
-   and lr finite; ms per step (CUDA events, the median of 5 after one
-   warm step), tokens/s, peak memory, the share of the dense bf16 peak
-   that 6 N tokens a step make; two more steps, the second profiled
-   (launches, device busy against the first's wall, the largest kernels);
+   layer, the WSD schedule at lr 3e-3, 6 steps, in turns graphed (the
+   step replayed as a donating CUDA graph, the default on the card) and
+   eager (``graphs=False``): every step's ce, gnorm and lr finite; every
+   step's metrics and the final state (per-leaf digests) equal bit for
+   bit; ms per step (CUDA events, the median of 5 after the first),
+   tokens/s, peak memory beside the state's bytes (one copy: a second
+   state fails), the share of the dense bf16 peak that 6 N tokens a step
+   make, the capture's seconds and pool bytes; then the step alone in
+   turns (eager, graphed, graphed, eager) and one replayed step profiled
+   (launches, device busy against its wall and against the eager
+   steps', the largest kernels); the batch draw's time at 13a's and
+   13d's shapes;
 13b. the card against the CPU: smoke minicpm-2b and rwkv6-3b in f32 from
    the same state and batches, 5 steps each, ce, gnorm and final
-   parameters within ``CARD_CPU_TOL``; ``train`` for 6 steps with a
-   checkpoint at 3, the last checkpoint removed and ``resume``: bit for
-   bit the uninterrupted run (both archs); one step of a bf16 reduced
+   parameters within ``CARD_CPU_TOL``; ``train`` (graphed) for 6 steps
+   with a checkpoint at 3, the last checkpoint removed and ``resume``: bit
+   for bit the uninterrupted run (both archs); one step of a bf16 reduced
    minicpm-2b, its params its f32 master rounded;
 13c. rwkv6-3b at full width with its depth cut to 4 layers, batch 8 x seq
-   512, 3 steps through the plain sequential WKV under autograd: finite
-   ce and gnorm, ms per step, peak memory;
-13d. the ``pbt`` command (``evolve.main(["pbt"])``, the reference's
-   defaults: 4 members, 5 epochs of 20 steps) on the card: its lines and
-   best member, the pool's puts = members x epochs; then
+   512, 3 steps through the plain sequential WKV under autograd, graphed
+   and eager from the same state: finite ce and gnorm, every step's
+   metrics and the final state bit for bit, ms per step, the capture's
+   seconds and pool bytes, peak memory; one replayed step profiled (its
+   kernels are the graph's nodes, the eager step's launches; its device
+   time over the eager step's wall is the eager busy share);
+13d. ``run_pbt`` at the reference's defaults (what ``evolve pbt`` runs: 4
+   members, 5 epochs of 20 steps) on the card, eager then graphed (a
+   donating step graph and an eval graph a member): its lines and best
+   member, the pool's puts = members x epochs, the history, every step's
+   metrics and each member's final state bit for bit, the wall and the
+   graphs' capture; a PBT step alone in turns and profiled; then
    ``examples/evolve_lm.py``'s epoch with the pool killed: the member
    trains on and ``migrate`` returns False;
 13e. ``make_train_step(use_flash=True)`` and ``(use_rwkv_kernel=True)``
@@ -1009,7 +1023,8 @@ def randomize_decay_lora(model, gen, layout=None) -> None:
 
 def device_profile(tag: str, fn, card: str, top: int = 6):
     """Device time of one call of ``fn`` by kernel (profiler), against the
-    wall time of the same call unprofiled."""
+    wall time of the same call unprofiled. Returns (kernels, device busy
+    ms, wall ms), or None where the profiler saw no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1044,6 +1059,7 @@ def device_profile(tag: str, fn, card: str, top: int = 6):
     log(f"[{tag}] copy and cast kernels (names with 'copy'): "
         f"{sum(c for c, _ in copies)} launches, "
         f"{sum(us for _, us in copies) / 1e3:.3f} ms")
+    return len(dev_events), busy_ms, wall_ms
 
 
 def serve_graph_turns(name: str, model, prompts, new: int, extra,
@@ -2464,6 +2480,137 @@ def sharded_phases(card: str):
         f"{time.perf_counter() - t:.1f} s; {' | '.join(lines[-2:])}")
 
 
+def _leaves(tree):
+    import torch
+    from torch.utils import _pytree as pytree
+    return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _clone_tree(tree):
+    import torch
+    from torch.utils import _pytree as pytree
+    return pytree.tree_map(
+        lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _metric_bits(metrics):
+    """A step's metrics (0-d tensors, by sorted name) as their f32 bits,
+    on their device (no host read between steps): a replay and an eager
+    step agree when these are equal."""
+    import torch
+    return torch.stack([metrics[k].float() for k in sorted(metrics)]).view(
+        torch.int32)
+
+
+def _state_digest(state, chunk: int = 1 << 24):
+    """Per-leaf digests of a tree of tensors on the card, (leaves, 2) int64
+    on the host: each leaf's bits summed, and summed with weights 1, 2,
+    3, ... (wrapping in int64), in chunks of ``chunk`` elements. A state of
+    35.5 GiB has no twin on the card to compare against; its digests do."""
+    import torch
+    from torch.utils import _pytree as pytree
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    rows = []
+    for t in pytree.tree_leaves(state):
+        if not isinstance(t, torch.Tensor):
+            continue
+        bits = t.detach().reshape(-1).view(ints[t.element_size()])
+        s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+        s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+        for i in range(0, bits.numel(), chunk):
+            c = bits[i:i + chunk].to(torch.int64)
+            s1 += c.sum()
+            s2 += (c * torch.arange(i + 1, i + 1 + c.numel(),
+                                    device=t.device)).sum()
+        rows.append(torch.stack([s1, s2]))
+    return torch.stack(rows).cpu()
+
+
+def _first_step_difference(a, b) -> str:
+    """Where two runs' per-step metric bits or state digests part."""
+    import torch
+    for i, (x, y) in enumerate(zip(a["bits"], b["bits"])):
+        if not torch.equal(x, y):
+            return f"step {i}'s metrics {x.tolist()} against {y.tolist()}"
+    if a["losses"] != b["losses"]:
+        return f"ce {a['losses']} against {b['losses']}"
+    rows = (a["digest"] != b["digest"]).any(1).nonzero().flatten().tolist()
+    return f"the final state's leaves {rows[:8]} (of {len(a['digest'])})"
+
+
+class _spy:
+    """Within the block, ``module.name(...)``'s results are appended to
+    ``made`` (the graphs a driver builds), the attribute restored at the
+    end."""
+
+    def __init__(self, module, name: str, made: list):
+        self.module, self.name, self.made = module, name, made
+
+    def __enter__(self):
+        self.real = real = getattr(self.module, self.name)
+
+        def spy(*args, **kwargs):
+            self.made.append(real(*args, **kwargs))
+            return self.made[-1]
+        setattr(self.module, self.name, spy)
+        return self.made
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
+def _train_step_turns(tag: str, graph, eager, state, batch, card: str,
+                      hypers=()):
+    """A graphed train step (a donating ``StepGraph``, not yet called) and
+    its eager twin (``graphed.EagerStep`` of the same step) on ``state``
+    and ``batch``, ``hypers`` their host values, in turns: eager, the
+    graph's first call (the capture, its warm-up a step), graphed,
+    graphed (and one replay profiled: kernels, device busy, busy share),
+    the graph released, eager; one step each between CUDA events. The
+    eager step launches the replay's kernels, so its busy share is the
+    replay's device time over its own time. Each call is one more step of
+    ``state``. The graph's pool is released before the last eager step:
+    at minicpm-2b's size the pool (14 GiB), the state and an eager step's
+    temporaries do not fit beside what earlier phases hold."""
+    import torch
+    turns = {"eager": [], "graphed": []}
+
+    def timed(kind, run):
+        nonlocal state
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        (state, _), _ = run((state, batch), *hypers)
+        end.record()
+        torch.cuda.synchronize()
+        turns[kind].append(start.elapsed_time(end))
+
+    torch.cuda.synchronize()
+    timed("eager", eager)
+    (state, _), _ = graph((state, batch), *hypers)
+    torch.cuda.synchronize()
+    log(f"[{tag}] graph: captured in {graph.capture_s:.3f} s (the warm-up "
+        f"step included), pool {graph.pool_bytes} B; {card}")
+    timed("graphed", graph)
+    timed("graphed", graph)
+    prof = device_profile(f"{tag}-replay",
+                          lambda: graph((state, batch), *hypers), card)
+    if graph.captures != 1:
+        fail(f"{tag}: the step graph captured {graph.captures} times")
+    graph.release()
+    timed("eager", eager)
+    e, g = turns["eager"], turns["graphed"]
+    busy = (f"; the eager steps' busy share {prof[1] / e[0]:.3f}, "
+            f"{prof[1] / e[1]:.3f} (the replay's device time over their "
+            f"time)" if prof else "")
+    log(f"[{tag}] ms a step in turns (CUDA events; eager, graphed, "
+        f"graphed, eager, the pool released before the last): eager "
+        f"{e[0]:.3f}; graphed {g[0]:.3f}; graphed {g[1]:.3f}; eager "
+        f"{e[1]:.3f}{busy}; {card}")
+    return prof
+
+
 def training_phases(card: str):
     """Phases 13a-13e: training on the card (see the module docstring)."""
     import contextlib
@@ -2475,6 +2622,7 @@ def training_phases(card: str):
     import torch
     from repro_torch import convert, kernels
     from repro_torch.configs import get_config
+    from repro_torch.core import graphed
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
@@ -2493,65 +2641,150 @@ def training_phases(card: str):
             if not bool(torch.isfinite(metrics[k])):
                 fail(f"{tag}: {k} is {float(metrics[k])}")
 
+    laps = [time.perf_counter()]
+
+    def lap(name):
+        laps.append(time.perf_counter())
+        log(f"[train] {name} in {laps[-1] - laps[-2]:.1f} s")
+
     # ---- 13a: minicpm-2b at its published size -----------------------------
+    # `train` graphed (its default on the card) and eager in turns: every
+    # step's metrics and the final state (per-leaf digests: two states of
+    # 35.5 GiB do not fit the card together) bit for bit
     cfg = get_config("minicpm-2b")
     n_params = Model(cfg, device="meta").param_count()
-    ends, ms_seen = [], []
-
-    def on_step(i, state, metrics):
-        finite(f"13a step {i}", metrics)
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        ends.append(ev)
-
-    # what the earlier phases still hold counts in the peak: print both
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        state, losses = train_mod.train(
-            "minicpm-2b", smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
-            seq=TRAIN_SEQ, lr=3e-3, seed=SEED, log_every=1, device="cuda",
-            on_step=on_step)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    for line in buf.getvalue().splitlines():
-        log(f"[train-main] {line}")
-    peak = torch.cuda.max_memory_allocated()
-    for a, b in zip(ends, ends[1:]):
-        ms_seen.append(a.elapsed_time(b))
-    step_ms = statistics.median(ms_seen)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = 6.0 * n_params * tokens
-    log(f"[train-main] minicpm-2b published size ({n_params:,} parameters, "
-        f"40 layers, d 2304, bf16 with the f32 master), batch "
-        f"{TRAIN_BATCH} x seq {TRAIN_SEQ}, remat layer, wsd lr 3e-3: "
-        f"{TRAIN_STEPS} steps in {wall:.1f} s (the weights' draw "
-        f"included); ce {[round(x, 4) for x in losses]}")
-    log(f"[train-main] ms per step {step_ms:.3f} (median of "
-        f"{len(ms_seen)} after one warm step, CUDA events; each "
-        f"{[round(x, 3) for x in ms_seen]}); tokens/s "
-        f"{tokens / step_ms * 1e3:.1f}; peak memory {peak / 2**30:.2f} GiB "
-        f"(max_memory_allocated; {(peak - held) / 2**30:.2f} GiB above the "
-        f"{held / 2**30:.2f} GiB held before 13a); model FLOPs 6 N tokens = "
-        f"{flops:.4g} a "
-        f"step = {flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s = "
-        f"{flops / (step_ms / 1e3) / BF16_FLOPS_PER_S:.3f} of the dense "
-        f"bf16 peak (989 TFLOP/s); {card}")
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"13a: ce {losses}")
-    # two more steps: one unprofiled, one profiled (launches, busy share)
+    runs = {}
+    for turn, graphs in enumerate((True, False)):
+        ends, bits = [], []
+
+        def on_step(i, state, metrics):
+            finite(f"13a step {i}", metrics)
+            bits.append(_metric_bits(metrics))
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ends.append(ev)
+
+        # what the earlier phases still hold counts in the peak: print both
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        made = []
+        t = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), _spy(train_mod,
+                                                   "compiled_train_step",
+                                                   made):
+            state, losses = train_mod.train(
+                "minicpm-2b", smoke=False, steps=TRAIN_STEPS,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=3e-3, seed=SEED,
+                log_every=1, device="cuda", on_step=on_step, graphs=graphs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        kind = "graphed" if graphs else "eager"
+        for line in buf.getvalue().splitlines():
+            log(f"[train-main] {kind}: {line}")
+        ms_seen = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+        step_ms = statistics.median(ms_seen)
+        state_bytes = _tree_bytes(state)
+        runs[kind] = dict(losses=losses, bits=bits,
+                          digest=_state_digest(state), ms=ms_seen)
+        if graphs and (len(made) != 1 or made[0].captures != 1):
+            fail(f"13a: the graphed train captured {len(made)} graphs")
+        if peak - held > 1.5 * state_bytes:
+            fail(f"13a: {kind} train's peak {peak / 2**30:.2f} GiB above the "
+                 f"{held / 2**30:.2f} GiB held holds a second state of "
+                 f"{state_bytes / 2**30:.2f} GiB")
+        cap = (f"; captured in {made[0].capture_s:.3f} s (the first step's "
+               f"warm-up included), pool {made[0].pool_bytes} B"
+               if graphs else "")
+        log(f"[train-main] minicpm-2b published size ({n_params:,} "
+            f"parameters, 40 layers, d 2304, bf16 with the f32 master), "
+            f"batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, remat layer, wsd lr "
+            f"3e-3, turn {turn} {kind}: {TRAIN_STEPS} steps in {wall:.1f} s "
+            f"(the weights' draw included){cap}; ce "
+            f"{[round(x, 4) for x in losses]}")
+        log(f"[train-main] {kind} ms per step {step_ms:.3f} (median of "
+            f"{len(ms_seen)} after the first step, CUDA events; each "
+            f"{[round(x, 3) for x in ms_seen]}); tokens/s "
+            f"{tokens / step_ms * 1e3:.1f}; peak memory "
+            f"{peak / 2**30:.2f} GiB (max_memory_allocated; "
+            f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} "
+            f"GiB held before; the state {state_bytes / 2**30:.2f} GiB, "
+            f"one copy); model FLOPs 6 N tokens = {flops:.4g} a step = "
+            f"{flops / (step_ms / 1e3) / 1e12:.1f} TFLOP/s = "
+            f"{flops / (step_ms / 1e3) / BF16_FLOPS_PER_S:.3f} of the dense "
+            f"bf16 peak (989 TFLOP/s); {card}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"13a: ce {losses}")
+        if graphs:
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+    g_run, e_run = runs["graphed"], runs["eager"]
+    same = (g_run["losses"] == e_run["losses"]
+            and all(torch.equal(a, b)
+                    for a, b in zip(g_run["bits"], e_run["bits"]))
+            and torch.equal(g_run["digest"], e_run["digest"]))
+    log(f"[train-graphs] minicpm-2b: graphed train against eager over "
+        f"{TRAIN_STEPS} steps (the first, capturing, included): every "
+        f"step's metrics ({len(g_run['bits'][0])} of them) and the final "
+        f"state's {len(g_run['digest'])} leaves bit for bit: {same}")
+    if not same:
+        fail("13a: the graphed train step differs from the eager one: "
+             + _first_step_difference(g_run, e_run))
+    # the step alone on the eager run's state, in turns (eager, graphed,
+    # graphed, eager), then one eager and one replayed step profiled
     step = steps_lib.make_train_step(
         Model(cfg, device="meta"),
         schedule=make_schedule(cfg.schedule, 3e-3, TRAIN_STEPS, 2))
     batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, SEED,
                         device=dev).batch_for_step(TRAIN_STEPS)
-    # (the step updates the state in place: each call is one more step)
-    device_profile("train-main", lambda: step(state, batch), card)
+    _train_step_turns("train-main", steps_lib.compiled_train_step(step),
+                      graphed.EagerStep(functools.partial(
+                          steps_lib.train_graph_step, step), dev),
+                      state, batch, card)
     del state, step, batch
     gc.collect()
     torch.cuda.empty_cache()
+    # what the train loop and PBT run between replays: the batch draw,
+    # replayed (the reference jits it) and eager, and their bits
+    from repro_torch import rand
+    from repro_torch.data import synthetic
+    for v, seq in ((cfg.vocab_size, TRAIN_SEQ), (256, 64)):
+        data = SyntheticLM(v, seq, TRAIN_BATCH, SEED, device=dev)
+        shape = (TRAIN_BATCH, seq, v, data.noise, data.n_regimes)
+        ms = {}
+        for kind in ("eager", "graphed", "graphed", "eager"):
+            got = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for i in range(1, 4):
+                if kind == "graphed":
+                    got.append(data.batch_for_step(i))
+                else:
+                    got.append(synthetic._gen(rand.fold_in(rand.fold_in(
+                        rand.key(SEED, dev), i), 0), *shape))
+            torch.cuda.synchronize()
+            ms.setdefault(kind, []).append(
+                (time.perf_counter() - t) / 3 * 1e3)
+            if kind == "graphed" and len(ms[kind]) == 1:
+                drawn = got
+            elif kind == "eager" and len(ms[kind]) == 1:
+                want = got
+        same = all(torch.equal(g[k], w[k]) for g, w in zip(drawn, want)
+                   for k in w)
+        log(f"[train-data] SyntheticLM.batch_for_step {TRAIN_BATCH} x {seq} "
+            f"(vocab {v}), ms a batch in turns (wall, 3 batches each; "
+            f"eager, graphed, graphed, eager; the first graphed turn "
+            f"captures): eager {ms['eager'][0]:.3f}, {ms['eager'][1]:.3f}; "
+            f"graphed {ms['graphed'][0]:.3f}, {ms['graphed'][1]:.3f}; "
+            f"graphed == eager bit for bit: {same}; {card}")
+        if not same:
+            fail("13a: the graphed batch draw differs from the eager one")
+
+    lap("13a")
 
     # ---- 13b: the card against the CPU, smoke f32 ------------------------
     for arch in ("minicpm-2b", "rwkv6-3b"):
@@ -2633,6 +2866,8 @@ def training_phases(card: str):
         fail("13b: the bf16 step's params are not its f32 master rounded")
     del bstate, bstep
 
+    lap("13b")
+
     # ---- 13c: rwkv6-3b at full width, depth cut --------------------------
     rcfg = dataclasses.replace(get_config("rwkv6-3b"),
                                n_layers=RWKV_TRAIN_LAYERS)
@@ -2646,49 +2881,142 @@ def training_phases(card: str):
         "cosine", 3e-3, RWKV_TRAIN_STEPS, 1))
     rdata = SyntheticLM(rcfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, SEED,
                         device=dev)
+    # graphed and eager from the same state (two states of 8 GiB fit)
+    estate = _clone_tree(rstate)
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    r_ms = []
-    for i in range(RWKV_TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        rstate, rm = rstep(rstate, rdata.batch_for_step(i))
-        finite(f"13c step {i}", rm)
-        torch.cuda.synchronize()
-        r_ms.append((time.perf_counter() - t) * 1e3)
-        log(f"[train-rwkv] step {i} ce={float(rm['ce']):.4f} "
-            f"gnorm={float(rm['grad_norm']):.3f} lr={float(rm['lr']):.2e}")
+    rgraph = steps_lib.compiled_train_step(rstep)
+    reager = graphed.EagerStep(functools.partial(steps_lib.train_graph_step,
+                                                 rstep), dev)
+    runs = {}
+    for kind, run, st in (("graphed", rgraph, rstate),
+                          ("eager", reager, estate)):
+        bits, r_ms = [], []
+        for i in range(RWKV_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            (st, _), rm = run((st, rdata.batch_for_step(i)))
+            finite(f"13c {kind} step {i}", rm)
+            torch.cuda.synchronize()
+            r_ms.append((time.perf_counter() - t) * 1e3)
+            bits.append(_metric_bits(rm))
+            log(f"[train-rwkv] {kind} step {i} ce={float(rm['ce']):.4f} "
+                f"gnorm={float(rm['grad_norm']):.3f} "
+                f"lr={float(rm['lr']):.2e}")
+        runs[kind] = dict(state=st, bits=bits, ms=r_ms)
+    peak = torch.cuda.max_memory_allocated()
+    gs, es = runs["graphed"]["state"], runs["eager"]["state"]
+    same = all(torch.equal(a, b) for a, b in zip(
+        runs["graphed"]["bits"], runs["eager"]["bits"])) and all(
+        torch.equal(a, b) for a, b in zip(_leaves(gs), _leaves(es)))
     log(f"[train-rwkv] rwkv6-3b at full width (d 2560, 40 heads of 64, "
         f"d_ff 8960, vocab 65,536, bf16), depth cut from 32 to "
         f"{RWKV_TRAIN_LAYERS} layers, batch {TRAIN_BATCH} x seq {TRAIN_SEQ},"
-        f" the plain sequential WKV under autograd: ms per step (wall) "
-        f"{[round(x, 1) for x in r_ms]} (the first a warm step); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ("
-        f"{held / 2**30:.2f} GiB held before the steps: the state and what "
-        f"earlier phases hold); {card}")
-    del rstate, rstep, rmodel
+        f" the plain sequential WKV under autograd: ms per step (wall), "
+        f"graphed {[round(x, 1) for x in runs['graphed']['ms']]} (the first "
+        f"the capture: warm-up step {rgraph.capture_s:.3f} s with the "
+        f"recording, pool {rgraph.pool_bytes} B), eager "
+        f"{[round(x, 1) for x in runs['eager']['ms']]}; peak memory "
+        f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before the "
+        f"steps: the two states and what earlier phases hold); {card}")
+    log(f"[train-graphs] rwkv6-3b-4L: graphed steps against eager over "
+        f"{RWKV_TRAIN_STEPS} steps (the first, capturing, included): every "
+        f"step's metrics and the final state's {len(_leaves(gs))} leaves "
+        f"bit for bit: {same}")
+    if not same:
+        fail("13c: the graphed rwkv6-3b train step differs from the eager "
+             "one")
+    # one replayed step profiled: its kernels are the graph's nodes
+    batch = rdata.batch_for_step(RWKV_TRAIN_STEPS)
+    prof = device_profile("train-rwkv-replay", lambda: rgraph((gs, batch)),
+                          card)
+    # the eager step launches the replay's kernels: its busy share is the
+    # replay's device time over the eager step's wall (profiling an eager
+    # step of 91,000 launches takes longer than the phase)
+    e_ms = statistics.median(runs["eager"]["ms"][1:])
+    log(f"[train-graphs] rwkv6-3b-4L graph: "
+        f"{prof[0] if prof else 'not measured'} nodes (the kernels a "
+        f"replay runs; an eager step launches the same), captured in "
+        f"{rgraph.capture_s:.3f} s (a warm-up step and the recording), pool "
+        f"{rgraph.pool_bytes} B; a replayed step's busy share "
+        + (f"{prof[1] / prof[2]:.3f}, an eager step's {prof[1] / e_ms:.3f} "
+           f"(the replay's {prof[1]:.3f} ms of device time over the eager "
+           f"step's {e_ms:.1f} ms)" if prof else "not measured")
+        + f"; {card}")
+    rgraph.release()
+    del rstate, estate, gs, es, rstep, rmodel, rgraph, runs
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- 13d: the pbt command on the card --------------------------------
-    t = time.perf_counter()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        ctrl = evolve.main(["pbt"])
-    for line in buf.getvalue().splitlines():
-        log(f"[pbt] {line}")
-    puts = ctrl.pool.stats()["puts"]
-    n_members, n_epochs = 4, 5
-    log(f"[pbt] evolve pbt at the reference's defaults ({n_members} "
-        f"members, {n_epochs} epochs of 20 steps, batch 8 x seq 64, smoke "
-        f"minicpm-2b) on the card in {time.perf_counter() - t:.1f} s: pool "
-        f"puts {puts}, exploits "
-        f"{sum(h['exploited'] for h in ctrl.history)}")
-    if puts != n_members * n_epochs:
-        fail(f"13d: {puts} pool puts, want {n_members * n_epochs}")
+    lap("13c")
+
+    # ---- 13d: the pbt command on the card, eager and graphed -------------
+    # run_pbt at the reference's defaults (what `evolve pbt` runs): every
+    # step's metrics, the history and each member's final state bit for bit
+    n_members, n_epochs, n_steps = 4, 5, 20
+    pruns = {}
+    for kind in ("eager", "graphed"):
+        bits, made = [], []
+        t = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                _spy(steps_lib, "compiled_hyper_step", made), \
+                _spy(steps_lib, "compiled_eval", made):
+            ctrl = evolve.run_pbt(graphs=kind == "graphed",
+                                  on_step=lambda m, met: bits.append(
+                                      _metric_bits(met)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if kind == "graphed":
+            for line in buf.getvalue().splitlines():
+                log(f"[pbt] {line}")
+        puts = ctrl.pool.stats()["puts"]
+        cap = sum(g.capture_s for g in made)
+        log(f"[pbt] {kind}: evolve pbt at the reference's defaults "
+            f"({n_members} members, {n_epochs} epochs of {n_steps} steps, "
+            f"batch 8 x seq 64, smoke minicpm-2b) on the card in {wall:.3f} "
+            f"s ({wall / (n_members * n_epochs * n_steps) * 1e3:.3f} ms a "
+            f"step with the evals, PUTs and GETs"
+            + (f"; {len(made)} graphs captured in {cap:.3f} s, pools "
+               f"{sum(g.pool_bytes for g in made)} B" if made else "")
+            + f"): pool puts {puts}, exploits "
+            f"{sum(h['exploited'] for h in ctrl.history)}; {card}")
+        if puts != n_members * n_epochs:
+            fail(f"13d: {puts} pool puts, want {n_members * n_epochs}")
+        if kind == "graphed" and (len(made) != 2 * n_members or any(
+                g.captures != 1 for g in made)):
+            fail(f"13d: the graphed pbt made {len(made)} graphs, want a "
+                 f"step and an eval graph per member, each captured once")
+        pruns[kind] = dict(ctrl=ctrl, bits=bits)
+    pe, pg = pruns["eager"], pruns["graphed"]
+    same = (pg["ctrl"].history == pe["ctrl"].history
+            and len(pg["bits"]) == len(pe["bits"])
+            and all(torch.equal(a, b) for a, b in zip(pg["bits"], pe["bits"]))
+            and all(torch.equal(a, b)
+                    for mg, me in zip(pg["ctrl"].members, pe["ctrl"].members)
+                    for a, b in zip(_leaves(mg.state), _leaves(me.state))))
+    log(f"[train-graphs] pbt-4x5: graphed run_pbt against eager: the "
+        f"history, every step's metrics ({len(pg['bits'])} steps) and each "
+        f"member's final state bit for bit: {same}")
+    if not same:
+        fail("13d: the graphed pbt differs from the eager one")
+    ctrl = pg["ctrl"]
+    # a PBT step alone, in turns, and profiled (a member's hypers)
+    pcfg = get_config("minicpm-2b", smoke=True)
+    pmodel = Model(pcfg, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    pstate = steps_lib.init_train_state(pmodel)
+    hyp = ctrl.members[0].hypers
+    _train_step_turns(
+        "pbt-step", steps_lib.compiled_hyper_step(pmodel),
+        graphed.EagerStep(functools.partial(
+            steps_lib.hyper_train_step, pmodel, pmodel.leaf_groups()), dev),
+        pstate, SyntheticLM(pcfg.vocab_size, 64, 8, SEED,
+                            device=dev).batch_for_step(0), card,
+        hypers=(hyp["lr"], hyp["weight_decay"]))
+    del pruns, pe, pmodel, pstate
     # examples/evolve_lm.py's dead-pool epoch
     ctrl.pool.kill()
-    pcfg = get_config("minicpm-2b", smoke=True)
     pdata = SyntheticLM(pcfg.vocab_size, 64, 8, device=dev)
     m = ctrl.members[0]
     stats = ctrl.train_epoch(m, (pdata.batch_for_step(s) for s in range(10)),
@@ -2698,6 +3026,8 @@ def training_phases(card: str):
         f"migrated={migrated} (expected False)")
     if migrated or not math.isfinite(stats["val_loss"]):
         fail("13d: a dead pool's migrate must return False")
+
+    lap("13d")
 
     # ---- 13e: the kernels refuse autograd ----------------------------------
     for flag in ("use_flash", "use_rwkv_kernel"):

@@ -31,7 +31,12 @@ and the callables handed to ``jax.jit`` / ``pjit`` / ``shard_map``
   steps ``launch/steps.py::serve_prefill_step`` and
   ``serve_decode_step``, which call ``Model.prefill`` and ``Model.decode``
   through the class so that the callgraph follows them into the model's
-  layers), ``core/graphed.py::RankGraph`` (the generations a rank of the
+  layers; the train, PBT and eval steps ``train_graph_step``,
+  ``hyper_train_step`` and ``eval_graph_step``, handed to the donating
+  ``StepGraph``, which reach ``Model.loss`` through
+  ``torch.func.functional_call(_Objective(model), ...)``, taken as a
+  call of ``_Objective.forward``, and ``optim/``'s AdamW, clip and
+  constants), ``core/graphed.py::RankGraph`` (the generations a rank of the
   sharded drivers captures, ``island.island_epoch``; its second argument,
   the eager tail with the exchange's collectives, is no root), and
   everything run inside ``with torch.cuda.graph(...)`` or between a
@@ -80,6 +85,7 @@ GRAPHED_CALLABLES = {"torch.cuda.make_graphed_callables",
                      "repro_torch.core.graphed.StepGraph",
                      "repro_torch.core.graphed.RankGraph"}
 GRAPH_CONTEXTS = {"torch.cuda.graph"}
+FUNCTIONAL_CALLS = {"torch.func.functional_call"}
 CUSTOM_OP_TAILS = {"custom_op"}
 FAKE_TAILS = {"register_fake"}
 AUTOGRAD_BASE_TAIL = "autograd.Function"
@@ -300,6 +306,11 @@ def _callees(project: Project, entry: FunctionEntry) -> List[FunctionEntry]:
             name = entry.module.call_name(node)
             if not name:
                 continue
+            if name in FUNCTIONAL_CALLS and node.args \
+                    and isinstance(node.args[0], ast.Call):
+                # functional_call(Cls(...), ...) calls Cls.forward
+                cls = entry.module.call_name(node.args[0])
+                name = f"{cls}.forward" if cls else name
             callee = project.resolve_function(entry.module, name)
             if callee and not _in_build(callee):
                 out.append(callee)

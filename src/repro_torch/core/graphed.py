@@ -4,13 +4,16 @@ The reference compiles its island drivers (``repro.core.evolution.
 fused_jit``): ``run_fused``'s ``lax.scan`` segment, ``run_experiment``'s
 jitted ``epoch_step`` and their asynchronous twins each run as one XLA
 executable, with no host launch per operation; its serving loop jits the
-prefill and the decode step (``repro.launch.serve``). The port records
-the same unit of work once as a CUDA graph and replays it: the island
-steps (:mod:`repro_torch.core.evolution`,
-:mod:`repro_torch.core.async_migration`) and the serve steps
-(:mod:`repro_torch.launch.steps`: ``serve_prefill_step``,
-``serve_decode_step``). :class:`StepGraph` holds a step's carry in static
-buffers:
+prefill and the decode step (``repro.launch.serve``), its train loop the
+train step with the state donated (``repro.launch.train``), and PBT its
+step and eval (``repro.launch.evolve``). The port records the same unit
+of work once as a CUDA graph and replays it: the island steps
+(:mod:`repro_torch.core.evolution`,
+:mod:`repro_torch.core.async_migration`), the serve steps and the train,
+PBT and eval steps (:mod:`repro_torch.launch.steps`:
+``serve_prefill_step``, ``serve_decode_step``, ``train_graph_step``,
+``hyper_train_step``, ``eval_graph_step``). :class:`StepGraph` holds a
+step's carry in static buffers:
 
 * the first call clones the carry into the static buffers, runs the step
   once on a side stream (the warm-up: it builds the kernels, runs the
@@ -19,20 +22,46 @@ buffers:
   the static buffers;
 * every call copies the caller's carry in (leaves that are the static
   buffers already are skipped), fills the host values of this step (the
-  host loops' epoch or tick and the server's state) into 0-d static
-  tensors, replays, and returns the static carry with a clone of the
-  step's other output (a tree: the island steps' stats row, the decode
-  step's logits, the prefill's logits, caches and cross keys and values).
-  The driver loops hand the static carry straight back to the next call;
+  host loops' epoch or tick, the server's state, a PBT member's learning
+  rate and weight decay) into 0-d static tensors, replays, and returns the
+  static carry with a clone of the step's other output (a tree: the island
+  steps' stats row, the decode step's logits, the prefill's logits, caches
+  and cross keys and values, the train step's metrics). The driver loops
+  hand the static carry straight back to the next call;
   :meth:`StepGraph.detach` clones it for the caller at the end of a run,
   so nothing a caller holds is overwritten by a later replay.
+
+The donating form (``StepGraph(step, donate=True)``, the counterpart of
+``donate_argnums``) is for a step that consumes its carry: the train
+step's AdamW reads the moments, the master and the parameters it writes
+in place, so a warm-up before the capture would step them once more than
+the counter, and a clone of minicpm-2b's state (38.1 GB) beside the
+caller's would not fit the card. Its rule: the first call adopts the
+carry's tensors as the static buffers (no clone), runs the warm-up on
+the side stream as that call's real step, assigns the warm-up's whole
+result into the static buffers and returns it, then captures, which runs
+nothing on the card; every later call replays. The caller's tensors are
+the state from then on (a later replay updates them, as the eager step
+would), and :meth:`StepGraph.release` drops the graph and its pool but
+never the caller's tensors. A carry given later that is not the static
+one is copied in, as in the other form: a PBT member's adopted payload
+lands in its buffers at its next step.
 
 A step may also update a carried leaf in place and return it as itself
 (the decode step writes its token's key, value and position into the
 ring caches): the copy back skips it. The warm-up then writes the static
 buffers too; that is harmless only where the step writes before it reads
 what it writes, so that a replay after the warm-up writes the same bits
-(``tests/test_torch_serve_graphs.py`` holds the decode step to it).
+(``tests/test_torch_serve_graphs.py`` holds the decode step to it). A
+step that reads what it writes takes the donating form.
+
+The train steps capture their backward: ``torch.autograd.grad`` runs
+inside the capture (autograd's device thread launches on the capture's
+stream), with remat's recompute (``torch.utils.checkpoint`` without the
+RNG state, whose save reads the host) and the deterministic algorithms'
+setting entered inside the step. Their graphed runs equal the eager ones
+bit for bit (``tests/test_torch_train_graphs.py``, ``chip_smoke.py``
+phase 13).
 
 Units. The kernel impls (``pallas``, ``pallas_tiled``: about 200 launches
 a generation) capture the whole step, ``generations_per_epoch``
@@ -62,8 +91,9 @@ eager fallback on the card.
 Launch counts. ``kernels.LAUNCHES`` counts Python calls to the wrappers,
 and a replay makes none. The warm-up's and the capture's calls are taken
 back out of the counts; each graph records the launches its capture saw
-per wrapper, and each replay adds them, so a graphed run counts what the
-eager run counts.
+per wrapper, and each replay adds them (a donating graph's first call
+adds them once for its warm-up, which was a real step), so a graphed run
+counts what the eager run counts.
 """
 from __future__ import annotations
 
@@ -109,8 +139,16 @@ def unit_args(problem, cfg) -> Dict[str, object]:
 
 def host_scalar(value, device) -> torch.Tensor:
     """A host loop's per-step Python value (a bool: the server's state; an
-    int: the epoch or tick) as the 0-d device tensor the step reads."""
-    dtype = torch.bool if isinstance(value, bool) else torch.int32
+    int: the epoch or tick; a float: a PBT member's learning rate or weight
+    decay) as the 0-d device tensor the step reads: bool, int32 or f32, a
+    float rounded as ``torch.tensor(value, dtype=torch.float32)`` rounds
+    it."""
+    if isinstance(value, bool):
+        dtype = torch.bool
+    elif isinstance(value, float):
+        dtype = torch.float32
+    else:
+        dtype = torch.int32
     return torch.full((), value, dtype=dtype, device=device)
 
 
@@ -172,14 +210,24 @@ class StepGraph:
     islands`` is one generation, replayed ``gens`` times before the step,
     which then takes the evolved islands as ``evolved``.
 
+    ``donate=True`` is the form for a step that consumes its carry (the
+    train step's in-place AdamW; the module docstring states its rule):
+    the first call adopts the carry's tensors as the static buffers, its
+    warm-up is that call's step, and :meth:`release` leaves them to the
+    caller. It takes no ``evolve``.
+
     ``capture_s`` is the warm-up and capture time, ``pool_bytes`` the
     device memory of the graphs' private pool (its segments in
     ``torch.cuda.memory_snapshot``),
     ``launches`` the wrapper launches of one replayed step."""
 
     def __init__(self, step: Callable, *, evolve: Optional[Callable] = None,
-                 gens: int = 0):
+                 gens: int = 0, donate: bool = False):
+        if donate and evolve is not None:
+            raise ValueError("graphed step: a donating step graph captures "
+                             "the step whole (no evolve)")
         self.step, self.evolve, self.gens = step, evolve, gens
+        self.donate = donate
         self.capture_s = 0.0
         self.pool_bytes = 0
         self.captures = 0
@@ -204,6 +252,8 @@ class StepGraph:
         return out
 
     def __call__(self, carry, *host):
+        if self.carry is None and self.donate:
+            return self._adopt(carry, host)
         if self.carry is None:
             self._capture(carry, host)
         else:
@@ -242,7 +292,8 @@ class StepGraph:
 
     def release(self) -> None:
         """Drop the graphs, their private pool and the static buffers; a
-        later call captures again."""
+        later call captures again. A donating graph's static buffers are
+        the caller's tensors: they are dropped here, never freed."""
         for g in self.graphs:
             g.graph.reset()
         self._reset()
@@ -264,6 +315,32 @@ class StepGraph:
             self._out = self._record(lambda: step(self.carry, *self.host),
                                      self._static, 1)
         self._captured(record)
+
+    def _adopt(self, carry, host):
+        """The donating form's first call: the carry's tensors become the
+        static buffers, the warm-up on the side stream is this call's step
+        (its whole result assigned into them, its other output returned
+        cloned), then the capture records the step, running nothing. The
+        warm-up's launches count once, as an eager call's would."""
+        leaves, spec = pytree.tree_flatten(carry)
+        first = []
+
+        def record():
+            self._spec = spec
+            self._static = list(leaves)
+            self.carry = pytree.tree_unflatten(self._static, spec)
+            dev = self._static_device()
+            self.host = tuple(host_scalar(v, dev) for v in host)
+
+            def fn():
+                return self.step(self.carry, *self.host)
+            first.append(self._warm(fn, self._static, keep=True))
+            self._out = self._record(fn, self._static, 1, warm=False)
+        self._captured(record)
+        for g in self.graphs:
+            for name, n in g.launches.items():
+                kernels.LAUNCHES[name] += n
+        return self.carry, first[0]
 
     def _static_device(self) -> torch.device:
         return next(t for t in self._static
@@ -302,20 +379,41 @@ class StepGraph:
             self._record(lambda: (self.evolve(self.evolved), None),
                          self._evolved, self.gens - 1)
 
-    def _record(self, fn, target: List[torch.Tensor], times: int):
-        """Warm ``fn`` up on a side stream, then capture it and the copy of
+    @staticmethod
+    def _warm(fn, target: List[torch.Tensor], keep: bool = False):
+        """Run ``fn`` once on a side stream (the warm-up). With ``keep`` its
+        tree is assigned into ``target`` and its other output returned
+        cloned (a donating graph's first step), else both are dropped."""
+        dev = next(t for t in target if isinstance(t, torch.Tensor)).device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        out = None
+        with torch.cuda.stream(side):
+            tree, out = fn()
+            if keep:
+                leaves = pytree.tree_leaves(tree)
+                if len(leaves) != len(target):
+                    raise ValueError("graphed step: the step returned "
+                                     "another carry than it was given")
+                _assign(target, leaves)
+                out = pytree.tree_map(
+                    lambda x: x.clone() if isinstance(x, torch.Tensor)
+                    else x, out)
+        main.wait_stream(side)
+        return out if keep else None
+
+    def _record(self, fn, target: List[torch.Tensor], times: int,
+                warm: bool = True):
+        """Warm ``fn`` up on a side stream (unless ``warm`` is False: a
+        donating graph's caller ran it), then capture it and the copy of
         its tree into ``target`` as the next of this step's graphs, and
         return ``fn``'s other output. The graphs share one private pool:
         they replay in the order of their capture, each reading only the
         static buffers and its own temporaries. The capture's wrapper
         launches are recorded, not counted."""
-        dev = next(t for t in target if isinstance(t, torch.Tensor)).device
-        main = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            fn()
-        main.wait_stream(side)
+        if warm:
+            self._warm(fn, target)
         graph = torch.cuda.CUDAGraph()
         pool = self.graphs[0].graph.pool() if self.graphs else None
         before = dict(kernels.LAUNCHES)

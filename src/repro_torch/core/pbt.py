@@ -23,7 +23,6 @@ import math
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from .. import convert
 from .async_pool import PoolServer, PoolUnavailable
@@ -77,10 +76,14 @@ class PBTMember:
 class PBTController:
     """Drives N members against a PoolServer.
 
-    ``step_fn(state, batch, lr, weight_decay) -> (state, metrics)``: the
-    hypers are f32 0-d tensors, so one step function serves every member.
-    ``eval_fn(state, batch)`` -> a scalar loss. An adopted payload goes
-    to the device of the member's state."""
+    ``step_fn(state, batch, lr, weight_decay, member) -> (state,
+    metrics)``: the hypers are Python floats (the step fills them on the
+    device, so one step function serves every member) and ``member`` is
+    the member's uuid (the card's step keeps a graph a member, whose
+    buffers are that member's state). ``eval_fn(state, batch, member)`` ->
+    a scalar loss. ``on_step(member, metrics)``, when given, is called
+    after each step. An adopted payload goes to the device of the
+    member's state."""
 
     def __init__(self, step_fn: Callable, eval_fn: Callable,
                  init_state_fn: Callable[[int], Any],
@@ -88,9 +91,11 @@ class PBTController:
                  specs=DEFAULT_SPECS, seed: int = 0,
                  exploit_margin: float = 0.0,
                  explore_sigma: float = 0.3,
-                 store_weights: bool = True):
+                 store_weights: bool = True,
+                 on_step: Optional[Callable] = None):
         self.step_fn = step_fn
         self.eval_fn = eval_fn
+        self.on_step = on_step
         self.pool = pool if pool is not None else PoolServer(capacity=256)
         self.specs = specs
         self.rng = np.random.default_rng(seed)
@@ -113,15 +118,13 @@ class PBTController:
     # ------------------------------------------------------------------ epoch
     def train_epoch(self, member: PBTMember, batches,
                     eval_batch) -> Dict[str, float]:
-        dev = member.state.opt.step.device
         for batch in batches:
             member.state, metrics = self.step_fn(
-                member.state, batch,
-                torch.tensor(member.hypers["lr"], dtype=torch.float32,
-                             device=dev),
-                torch.tensor(member.hypers["weight_decay"],
-                             dtype=torch.float32, device=dev))
-        val = float(self.eval_fn(member.state, eval_batch))
+                member.state, batch, member.hypers["lr"],
+                member.hypers["weight_decay"], member.uuid)
+            if self.on_step is not None:
+                self.on_step(member, metrics)
+        val = float(self.eval_fn(member.state, eval_batch, member.uuid))
         member.fitness = -val
         member.epochs += 1
         return {"val_loss": val, **{k: float(v) for k, v in

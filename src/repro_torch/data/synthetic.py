@@ -18,16 +18,27 @@ reaches 3.0e10) and wraps, and ``%`` is then the floor modulus of the
 wrapped value. The port computes in int64, wraps to int32 as the
 reference's multiply and add do, and takes the floor modulus
 (``torch.remainder``).
+
+The reference jits the draw (``_gen``, its shapes static); on the card
+the port replays it as a CUDA graph (:func:`gen_step` in a
+:class:`~repro_torch.core.graphed.StepGraph`, one per shape and
+instance), the key copied in before each replay and the batch cloned out:
+an eager draw launches thousands of small kernels (the keyed draws and
+the recurrence's loop over the sequence), which the train loop and PBT
+would otherwise wait on between their replayed steps. The replay gives
+the eager draw's bits.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Tuple
 
 import torch
 
 from .. import rand
 from .._device import DeviceLike, resolve_device
+from ..core import graphed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +50,9 @@ class SyntheticLM:
     noise: float = 0.15
     n_regimes: int = 8
     device: DeviceLike = None
+    # the draw's graphs by batch shape (the card only)
+    _graphs: Dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     def batch_for_step(self, step: int, shard: int = 0,
                        n_shards: int = 1) -> Dict[str, torch.Tensor]:
@@ -50,8 +64,21 @@ class SyntheticLM:
         dev = resolve_device(self.device)
         key = rand.fold_in(rand.fold_in(rand.key(self.seed, dev), int(step)),
                            int(shard))
-        return _gen(key, b, self.seq_len, self.vocab_size, self.noise,
-                    self.n_regimes)
+        shape = (b, self.seq_len, self.vocab_size, self.noise,
+                 self.n_regimes)
+        if not graphed.graphs_on(dev):
+            return _gen(key, *shape)
+        if shape not in self._graphs:
+            self._graphs[shape] = graphed.StepGraph(
+                functools.partial(gen_step, *shape))
+        return self._graphs[shape](key)[1]
+
+
+def gen_step(batch: int, seq: int, vocab: int, noise: float, n_regimes: int,
+             key: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """The draw as a graphed step: the key is its carry, returned as it
+    came; its output is the batch."""
+    return key, _gen(key, batch, seq, vocab, noise, n_regimes)
 
 
 def _gen(key: torch.Tensor, batch: int, seq: int, vocab: int, noise: float,

@@ -49,6 +49,7 @@ import os
 import time
 
 from functools import partial
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -60,14 +61,14 @@ from ..core import (AcceptanceConfig, AsyncConfig, AsyncHostBridge, EAConfig,
                     run_fused, run_fused_async, run_fused_sharded,
                     run_fused_sharded_async, run_sharded)
 from ..configs import ARCHS, get_config
+from ..core import graphed
 from ..core import pbt as pbt_lib
 from ..core import sharded as sharded_lib
 from ..data import SyntheticLM
 from ..kernels.ga import available_impls
 from ..models import build_model
-from ..optim import adamw_update
-from .steps import (TrainState, deterministic, init_train_state,
-                    make_eval_fn, make_grad_fn)
+from . import steps as steps_lib
+from .steps import init_train_state
 
 
 def run_ea(problem_name: str = "trap", islands: int = 8, epochs: int = 50,
@@ -251,31 +252,53 @@ def _run_ea_sharded(kw, device, shards, timeout):
 
 def run_pbt(arch: str = "minicpm-2b", members: int = 4, epochs: int = 5,
             steps_per_epoch: int = 20, batch: int = 8, seq: int = 64,
-            seed: int = 0, verbose: bool = True, device: DeviceLike = None):
+            seed: int = 0, verbose: bool = True, device: DeviceLike = None,
+            graphs: Optional[bool] = None, on_step=None):
     """Population-based training of ``members`` smoke models of ``arch``
     through a :class:`PoolServer` (capacity 64, seeded ``seed``). Member
     ``uid`` starts from weights drawn from a generator seeded ``seed +
     uid`` on ``device``, trains on its own slice of the step space and is
-    evaluated on a shared batch per epoch. Returns the controller."""
+    evaluated on a shared batch per epoch. Returns the controller.
+
+    ``graphs`` (default: on the card) replays each member's step and eval
+    as CUDA graphs (:func:`~repro_torch.launch.steps.compiled_hyper_step`,
+    :func:`~repro_torch.launch.steps.compiled_eval`), the hypers host
+    values filled before each replay; ``graphs=False`` calls the same
+    steps eagerly. The reference keeps one executable for every member,
+    its states passed in and out; a graph's buffers are one state, so one
+    shared graph would copy each member's state over the last one's and
+    back at every step: the port keeps a donating graph a member, over
+    that member's state. ``on_step(member, metrics)`` is the
+    controller's per-step hook."""
     dev = resolve_device(device)
+    graphs = graphed.graphs_on(dev) if graphs is None else graphs
     cfg = get_config(arch, smoke=True)
     model = build_model(cfg, dev)
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq,
                        global_batch=batch, seed=seed, device=dev)
-    grads_of = make_grad_fn(model)
-    loss_of = make_eval_fn(model)
-    order = model.leaf_groups()
+    runners: Dict[Tuple[str, int], object] = {}
 
-    def step_fn(state, batch_, lr, wd):
-        with deterministic(dev):
-            grads, metrics = grads_of(state.params, batch_)
-            params, opt, om = adamw_update(grads, state.opt, state.params,
-                                           lr=lr, weight_decay=wd,
-                                           order=order)
-        return TrainState(params, opt), {**metrics, **om}
+    def runner(kind: str, uid: int):
+        if (kind, uid) in runners:
+            return runners[kind, uid]
+        if kind == "step":
+            run = (steps_lib.compiled_hyper_step(model) if graphs else
+                   graphed.EagerStep(partial(steps_lib.hyper_train_step,
+                                             model, model.leaf_groups()),
+                                     dev))
+        else:
+            run = (steps_lib.compiled_eval(model) if graphs else
+                   graphed.EagerStep(partial(steps_lib.eval_graph_step,
+                                             model), dev))
+        runners[kind, uid] = run
+        return run
 
-    def eval_fn(state, batch_):
-        return loss_of(state.params, batch_)[0]
+    def step_fn(state, batch_, lr, wd, member):
+        (state, _), metrics = runner("step", member)((state, batch_), lr, wd)
+        return state, metrics
+
+    def eval_fn(state, batch_, member):
+        return runner("eval", member)((state.params, batch_))[1]
 
     def init_state_fn(uid):
         return init_train_state(model, torch.Generator(
@@ -283,7 +306,7 @@ def run_pbt(arch: str = "minicpm-2b", members: int = 4, epochs: int = 5,
 
     ctrl = pbt_lib.PBTController(
         step_fn=step_fn, eval_fn=eval_fn, init_state_fn=init_state_fn,
-        pool=PoolServer(capacity=64, seed=seed), seed=seed)
+        pool=PoolServer(capacity=64, seed=seed), seed=seed, on_step=on_step)
 
     def batches(uid, epoch):
         # each member trains on its own slice of the step space (islands
@@ -298,6 +321,11 @@ def run_pbt(arch: str = "minicpm-2b", members: int = 4, epochs: int = 5,
         return data.batch_for_step(10_000 + epoch, 0, 1)
 
     ctrl.run(members, epochs, batches, eval_batch, verbose=verbose)
+    # the members keep their states (the donated buffers); a later
+    # train_epoch captures again
+    if graphs:
+        for run in runners.values():
+            run.release()
     best = ctrl.best_member()
     if verbose:
         print(f"best member {best.uuid}: val={-best.fitness:.4f} "

@@ -39,22 +39,38 @@ and :func:`compiled_decode` keep one graph of each per model and shapes
 (an LRU of :data:`SERVE_GRAPHS_MAX`; :func:`release_serve_graphs` drops
 them). ``launch/serve.py::generate`` replays them on the card. The mesh's
 serving stays eager: its collectives are host operations.
+
+The compiled train, PBT and eval steps, the counterparts of the
+reference's ``jax.jit(step_fn, donate_argnums=(0,))``
+(``repro/launch/train.py``) and of PBT's jitted ``step_fn`` and
+``eval_fn`` (``repro/launch/evolve.py``): :func:`train_graph_step`,
+:func:`hyper_train_step` (the hyperparameters as the graph's host
+values) and :func:`eval_graph_step` are steps in the sense of
+:class:`~repro_torch.core.graphed.StepGraph`, and
+:func:`compiled_train_step`, :func:`compiled_hyper_step` and
+:func:`compiled_eval` build donating graphs of them, one per state (no
+cache: the graph's buffers are the state). ``launch/train.py::train``
+and ``launch/evolve.py::run_pbt`` replay them on the card. The mesh's
+train step stays eager.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 from torch import nn
 from torch.utils import _pytree as pytree
 
+from .. import rand
 from ..core import graphed
 from ..models.model import Model
-from ..optim import AdamWState, adamw_init, adamw_update
-from ..optim.adamw import adamw_init_sharded
+from ..optim.adamw import (AdamWState, adamw_init, adamw_init_sharded,
+                           adamw_update)
 from . import partition
 
 Params = Dict[str, torch.Tensor]
@@ -151,14 +167,16 @@ def shard_model(model: Model, layout: "partition.Layout") -> Model:
 
 
 class _Objective(nn.Module):
-    """``Model.loss`` as a module's forward, for ``functional_call``."""
+    """``Model.loss`` as a module's forward, for ``functional_call``
+    (called through the class, so the analyzer's callgraph follows a
+    captured train step into the model)."""
 
     def __init__(self, model: Model):
         super().__init__()
         self.model = model
 
     def forward(self, batch, **kw):
-        return self.model.loss(batch, **kw)
+        return Model.loss(self.model, batch, **kw)
 
 
 _NO_KERNEL_GRAD = (
@@ -192,45 +210,64 @@ def deterministic(device: torch.device):
             det.fill_uninitialized_memory = fill
 
 
+def loss_grads(model: Model, params: Params, batch: Dict,
+               remat_mode: str = "layer",
+               layout: Optional["partition.Layout"] = None
+               ) -> Tuple[Params, Dict]:
+    """``(grads, metrics)``: the gradient of ``model.loss`` at ``params``
+    (a dict by parameter name, put in place of the module's), in the
+    parameters' dtypes, and the loss's metrics (detached). On a mesh
+    (``layout``) ``params`` and the gradients are this rank's blocks and
+    the metrics its own."""
+    with torch.enable_grad():
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in params.items()}
+        kw = {"remat_mode": remat_mode}
+        if layout is not None:
+            kw["sh"] = layout.shards().register(leaves)
+        total, metrics = torch.func.functional_call(
+            _Objective(model), {f"model.{k}": v for k, v in leaves.items()},
+            (batch,), kw)
+        grads = torch.autograd.grad(total, list(leaves.values()))
+    return (dict(zip(leaves, grads)),
+            {k: v.detach() for k, v in metrics.items()})
+
+
+def loss_value(model: Model, params: Params, batch: Dict) -> Tuple:
+    """``(total, metrics)`` of ``model.loss`` at ``params``, without
+    autograd."""
+    with torch.no_grad():
+        return torch.func.functional_call(
+            _Objective(model), {f"model.{k}": v for k, v in params.items()},
+            (batch,))
+
+
 def make_grad_fn(model: Model, remat_mode: str = "layer",
                  layout: Optional["partition.Layout"] = None
                  ) -> Callable[[Params, Dict], Tuple[Params, Dict]]:
-    """``grads_of(params, batch) -> (grads, metrics)``: the gradient of
-    ``model.loss`` at ``params`` (a dict by parameter name, put in place
-    of the module's), in the parameters' dtypes, and the loss's metrics
-    (detached). On a mesh (``layout``) ``params`` and the gradients are
-    this rank's blocks and the metrics its own."""
-    objective = _Objective(model)
-
-    def grads_of(params: Params, batch: Dict) -> Tuple[Params, Dict]:
-        with torch.enable_grad():
-            leaves = {k: p.detach().requires_grad_(True)
-                      for k, p in params.items()}
-            kw = {"remat_mode": remat_mode}
-            if layout is not None:
-                kw["sh"] = layout.shards().register(leaves)
-            total, metrics = torch.func.functional_call(
-                objective, {f"model.{k}": v for k, v in leaves.items()},
-                (batch,), kw)
-            grads = torch.autograd.grad(total, list(leaves.values()))
-        return (dict(zip(leaves, grads)),
-                {k: v.detach() for k, v in metrics.items()})
-
-    return grads_of
+    """``grads_of(params, batch) -> (grads, metrics)``: :func:`loss_grads`
+    of ``model``."""
+    return functools.partial(loss_grads, model, remat_mode=remat_mode,
+                             layout=layout)
 
 
-def make_eval_fn(model: Model) -> Callable[[Params, Dict], Tuple]:
-    """``loss_of(params, batch) -> (total, metrics)`` of ``model.loss`` at
-    ``params``, without autograd."""
-    objective = _Objective(model)
+@dataclasses.dataclass(frozen=True, eq=False)
+class TrainStep:
+    """``train_step(state, batch) -> (state, metrics)`` as
+    :func:`make_train_step` builds it: the model and the step's settings,
+    called through :func:`train_step`."""
+    model: Model
+    schedule: Callable[[torch.Tensor], torch.Tensor]
+    accum_steps: int
+    weight_decay: float
+    max_grad_norm: Optional[float]
+    remat_mode: str
+    order: Sequence[Sequence[str]]
+    layout: Optional["partition.Layout"] = None
 
-    def loss_of(params: Params, batch: Dict):
-        with torch.no_grad():
-            return torch.func.functional_call(
-                objective, {f"model.{k}": v for k, v in params.items()},
-                (batch,))
-
-    return loss_of
+    def __call__(self, state: TrainState, batch: Dict
+                 ) -> Tuple[TrainState, Dict]:
+        return train_step(self, state, batch)
 
 
 def make_train_step(model: Model, *,
@@ -242,8 +279,7 @@ def make_train_step(model: Model, *,
                     use_rwkv_kernel: bool = False,
                     remat_mode: str = "layer", mesh=None,
                     mode: str = "train",
-                    ) -> Callable[[TrainState, Dict],
-                                  Tuple[TrainState, Dict]]:
+                    ) -> TrainStep:
     """Build ``train_step(state, batch) -> (state, metrics)``.
 
     ``accum_steps > 1`` splits the batch into sequential microbatches (the
@@ -263,39 +299,44 @@ def make_train_step(model: Model, *,
             name="WKV", flag="use_rwkv_kernel"))
     layout = None if mesh is None else partition.param_layout(model, mesh,
                                                               mode)
-    grads_of = make_grad_fn(model, remat_mode, layout)
-    order = model.leaf_groups()
+    return TrainStep(model=model, schedule=schedule,
+                     accum_steps=accum_steps, weight_decay=weight_decay,
+                     max_grad_norm=max_grad_norm, remat_mode=remat_mode,
+                     order=model.leaf_groups(), layout=layout)
 
-    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        dev = state.opt.step.device
-        with deterministic(dev):
-            if accum_steps == 1:
-                grads, metrics = grads_of(state.params, batch)
-            else:
-                k = torch.tensor(float(accum_steps), dtype=torch.float32,
-                                 device=dev)
-                grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                        device=p.device)
-                         for n, p in state.params.items()}
-                ms: List[Dict] = []
-                for i in range(accum_steps):
-                    micro = {key: _micro(x, accum_steps, i)
-                             for key, x in batch.items()}
-                    g, m = grads_of(state.params, micro)
-                    grads = {n: grads[n] + g[n].float() / k for n in grads}
-                    ms.append(m)
-                metrics = {key: torch.stack([m[key] for m in ms]).mean()
-                           for key in ms[0]}
-            if layout is not None:
-                metrics = _global_metrics(model, layout, metrics)
-            lr = schedule(state.opt.step)
-            params, opt, om = adamw_update(
-                grads, state.opt, state.params, lr=lr,
-                weight_decay=weight_decay, max_grad_norm=max_grad_norm,
-                order=order, layout=layout)
-        return TrainState(params, opt), {**metrics, **om}
 
-    return step
+def train_step(ts: TrainStep, state: TrainState, batch: Dict
+               ) -> Tuple[TrainState, Dict]:
+    """One train step of ``ts``'s settings (see :func:`make_train_step`);
+    it updates ``state``'s tensors in place and returns them."""
+    dev = state.opt.step.device
+    k = ts.accum_steps
+    with deterministic(dev):
+        if k == 1:
+            grads, metrics = loss_grads(ts.model, state.params, batch,
+                                        ts.remat_mode, ts.layout)
+        else:
+            kf = rand.const(float(k), torch.float32, dev)
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for n, p in state.params.items()}
+            ms: List[Dict] = []
+            for i in range(k):
+                micro = {key: _micro(x, k, i) for key, x in batch.items()}
+                g, m = loss_grads(ts.model, state.params, micro,
+                                  ts.remat_mode, ts.layout)
+                grads = {n: grads[n] + g[n].float() / kf for n in grads}
+                ms.append(m)
+            metrics = {key: torch.stack([m[key] for m in ms]).mean()
+                       for key in ms[0]}
+        if ts.layout is not None:
+            metrics = _global_metrics(ts.model, ts.layout, metrics)
+        lr = ts.schedule(state.opt.step)
+        params, opt, om = adamw_update(
+            grads, state.opt, state.params, lr=lr,
+            weight_decay=ts.weight_decay, max_grad_norm=ts.max_grad_norm,
+            order=ts.order, layout=ts.layout)
+    return TrainState(params, opt), {**metrics, **om}
 
 
 def _global_metrics(model: Model, layout: "partition.Layout",
@@ -492,3 +533,78 @@ def release_serve_graphs(model: Optional[Model] = None) -> None:
     for key in [k for k, (m, _) in _SERVE_GRAPHS.items()
                 if model is None or m is model]:
         _SERVE_GRAPHS.pop(key)[1].release()
+
+
+# ---------------------------------------------------------------------------
+# The compiled train, PBT and eval steps
+# ---------------------------------------------------------------------------
+def train_graph_step(ts: TrainStep, carry: Tuple[TrainState, Dict]
+                     ) -> Tuple[Tuple[TrainState, Dict], Dict]:
+    """The train step as a graphed step: ``carry`` is (state, batch),
+    returned with the state's tensors updated in place and the batch as it
+    came; its output is the metrics (0-d f32 tensors)."""
+    state, batch = carry
+    state, metrics = train_step(ts, state, batch)
+    return (state, batch), metrics
+
+
+def hyper_train_step(model: Model, order: Sequence[Sequence[str]],
+                     carry: Tuple[TrainState, Dict], lr: torch.Tensor,
+                     weight_decay: torch.Tensor
+                     ) -> Tuple[Tuple[TrainState, Dict], Dict]:
+    """PBT's step (the reference's jitted ``step_fn``,
+    ``repro/launch/evolve.py``) as a graphed step: ``carry`` is (state,
+    batch) as :func:`train_graph_step` takes it; ``lr`` and
+    ``weight_decay`` are the member's hyperparameters, 0-d f32 device
+    tensors (a graph's host values, filled before each replay)."""
+    state, batch = carry
+    with deterministic(state.opt.step.device):
+        grads, metrics = loss_grads(model, state.params, batch)
+        params, opt, om = adamw_update(grads, state.opt, state.params,
+                                       lr=lr, weight_decay=weight_decay,
+                                       order=order)
+    return (TrainState(params, opt), batch), {**metrics, **om}
+
+
+def eval_graph_step(model: Model, carry: Tuple[Params, Dict]
+                    ) -> Tuple[Tuple[Params, Dict], torch.Tensor]:
+    """PBT's eval (the reference's jitted ``eval_fn``) as a graphed step:
+    ``carry`` is (parameters, batch), returned as it came (nothing is
+    written); its output the 0-d total loss."""
+    params, batch = carry
+    return carry, loss_value(model, params, batch)[0]
+
+
+def compiled_train_step(step: TrainStep) -> graphed.StepGraph:
+    """The graphed train step of ``step``: ``graph((state, batch)) ->
+    ((state, batch), metrics)``, a donating
+    :class:`~repro_torch.core.graphed.StepGraph` (the reference's
+    ``donate_argnums=(0,)``) whose static buffers are the first state it
+    is given; the metrics are cloned out. One graph per step and state, so
+    nothing caches it: a second state of the same shapes handed to it
+    would be copied into the first's tensors. The mesh's step stays eager:
+    its sums over ranks are host operations."""
+    if step.layout is not None:
+        raise NotImplementedError(
+            "the mesh's train step runs eagerly: its gloo collectives "
+            "(the global metrics, the sharded norm, the ZeRO-1 gathers) are "
+            "host operations, which no CUDA graph holds")
+    return graphed.StepGraph(functools.partial(train_graph_step, step),
+                             donate=True)
+
+
+def compiled_hyper_step(model: Model) -> graphed.StepGraph:
+    """A PBT member's graphed step: ``graph((state, batch), lr,
+    weight_decay) -> ((state, batch), metrics)``, donating, the
+    hyperparameters Python floats filled into the graph's f32 host
+    tensors."""
+    return graphed.StepGraph(functools.partial(
+        hyper_train_step, model, model.leaf_groups()), donate=True)
+
+
+def compiled_eval(model: Model) -> graphed.StepGraph:
+    """A PBT member's graphed eval: ``graph((params, batch)) -> ((params,
+    batch), total)``, donating: its static parameters are the member's,
+    so it reads them where the member's step graph writes them."""
+    return graphed.StepGraph(functools.partial(eval_graph_step, model),
+                             donate=True)

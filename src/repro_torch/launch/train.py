@@ -13,6 +13,16 @@ of ranks resumes on any other. ``--resume`` picks up the latest
 checkpoint (parameters, optimizer and the data step); on the same ranks
 it continues bit for bit.
 
+On one card the loop replays the train step as a CUDA graph
+(:func:`~repro_torch.launch.steps.compiled_train_step`, the counterpart
+of the reference's ``jax.jit(step_fn, donate_argnums=(0,))``): the graph
+takes the state's tensors as its static buffers, the batch is copied in
+before each replay, the metrics come out cloned, and the host read of
+``ce``, the batch draw and the checkpoints stay between replays.
+``graphs=False`` runs the same step eagerly. The mesh path stays eager:
+its collectives are gloo host operations, which wait for NCCL on cards of
+their own (ROADMAP A21).
+
 On the card (minicpm-2b at its published size):
 
     python -m repro_torch.launch.train --arch minicpm-2b --full \\
@@ -27,6 +37,7 @@ and on the CPU, one rank or four:
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from typing import Optional
 
@@ -37,15 +48,16 @@ from .. import convert
 from .._device import DeviceLike, resolve_device
 from ..checkpoint import Checkpointer, latest_step, restore
 from ..configs import ARCHS, get_config
+from ..core import graphed
 from ..core.sharded import choose_backend, spawn
 from ..data import ShardedLoader, SyntheticLM
 from ..models import build_model
 from ..optim import make_schedule
 from . import partition
 from .mesh import make_host_group, make_mesh_for_devices
-from .steps import (abstract_train_state, gather_state, init_train_state,
-                    local_train_state, make_train_step, shard_batch,
-                    shard_state)
+from .steps import (abstract_train_state, compiled_train_step, gather_state,
+                    init_train_state, local_train_state, make_train_step,
+                    shard_batch, shard_state, train_graph_step)
 
 
 def train(arch: str, smoke: bool = True, steps: int = 100, batch: int = 8,
@@ -53,7 +65,8 @@ def train(arch: str, smoke: bool = True, steps: int = 100, batch: int = 8,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
           resume: bool = False, seed: int = 0, log_every: int = 10,
           verbose: bool = True, device: DeviceLike = None,
-          on_step=None, world: Optional[int] = None):
+          on_step=None, world: Optional[int] = None,
+          graphs: Optional[bool] = None):
     """Train ``arch`` for ``steps`` steps; returns (state, per-step ce).
 
     The weights are drawn on the device from a generator seeded ``seed``
@@ -69,11 +82,17 @@ def train(arch: str, smoke: bool = True, steps: int = 100, batch: int = 8,
     on cards NCCL, or gloo with host copies where ranks share one) and
     returns rank 0's (global state, ce); inside an initialized group the
     run is over its ranks (the state then this rank's blocks). Without
-    either, one device."""
+    either, one device.
+
+    ``graphs`` (default: on the card, one device) replays the step as a
+    CUDA graph; a capture that fails raises. ``graphs=False`` calls the
+    same step eagerly; the ranks of a group always do, and refuse
+    ``graphs=True``. The returned state is the graph's donated buffers:
+    the caller's from the start."""
     kw = dict(arch=arch, smoke=smoke, steps=steps, batch=batch, seq=seq,
               lr=lr, accum=accum, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
               resume=resume, seed=seed, log_every=log_every,
-              verbose=verbose)
+              verbose=verbose, graphs=graphs)
     if world is not None and world > 1 and not dist.is_initialized():
         dev = resolve_device(device)
         backend, _ = choose_backend(dev, world)
@@ -93,8 +112,15 @@ def _rank_train(group, kw):
 
 
 def _train(arch, smoke, steps, batch, seq, lr, accum, ckpt_dir, ckpt_every,
-           resume, seed, log_every, verbose, device, on_step, group):
+           resume, seed, log_every, verbose, device, on_step, group,
+           graphs=None):
     dev = device
+    if group is not None and graphs:
+        raise NotImplementedError(
+            "the ranks of a group train eagerly: their collectives are "
+            "host operations, which no CUDA graph holds")
+    graphs = group is None and (graphed.graphs_on(dev) if graphs is None
+                                else graphs)
     cfg = get_config(arch, smoke=smoke)
     gen = torch.Generator(device=dev).manual_seed(seed)
     schedule = make_schedule(cfg.schedule, lr, steps, warmup_steps=min(
@@ -144,13 +170,17 @@ def _train(arch, smoke, steps, batch, seq, lr, accum, ckpt_dir, ckpt_every,
                 ckpt.wait()
             group.barrier()
 
+    # the graph adopts the state it is first given (at ``start``, after a
+    # resume): its tensors are the state from then on
+    run = (compiled_train_step(step_fn) if graphs else graphed.EagerStep(
+        functools.partial(train_graph_step, step_fn), dev))
     losses = []
     t0 = time.perf_counter()
     for i in range(start, steps):
         batch_i = loader.next()
         if layout is not None:
             batch_i = shard_batch(batch_i, layout.mesh, "train")
-        state, metrics = step_fn(state, batch_i)
+        (state, _), metrics = run((state, batch_i))
         losses.append(float(metrics["ce"]))
         if on_step is not None:
             on_step(i, state, metrics)
@@ -163,6 +193,11 @@ def _train(arch, smoke, steps, batch, seq, lr, accum, ckpt_dir, ckpt_every,
             snapshot(i)
     if ckpt:
         ckpt.wait()
+    if graphs:
+        if verbose and run.captures:
+            print(f"CUDA graph captured in {run.capture_s:.2f} s "
+                  f"({run.pool_bytes} B of pool)", flush=True)
+        run.release()
     if layout is not None:
         state = gather_state(state, layout)
     return state, losses

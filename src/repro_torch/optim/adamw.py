@@ -27,6 +27,8 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from .. import rand
+from .._device import as_device
 from .clip import clip_scale, global_norm, global_norm_sharded, leaves_of
 
 Params = Dict[str, torch.Tensor]
@@ -56,12 +58,14 @@ def adamw_init(params: Params) -> AdamWState:
 
 
 def _f32(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32).to(device)
+    """``v`` (a Python number or a tensor) as an f32 tensor on ``device``:
+    a number is filled there (a CUDA graph captures the fill)."""
+    return as_device(v, torch.float32, device)
 
 
 def _correction(b: float, step: torch.Tensor) -> torch.Tensor:
     """``1 - b ** step`` in f32, ``b`` rounded to f32 first."""
-    b32 = torch.tensor(b, dtype=torch.float32).double().to(step.device)
+    b32 = rand.const(b, torch.float32, step.device).double()
     return 1.0 - torch.pow(b32, step.double()).float()
 
 

@@ -70,7 +70,7 @@ def clip_by_global_norm(tree: Dict[str, torch.Tensor], max_norm: float,
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     """``min(1, max_norm / max(norm, 1e-12))`` in f32."""
-    top = torch.tensor(max_norm, dtype=torch.float32, device=norm.device)
+    top = rand.const(max_norm, torch.float32, norm.device)
     return torch.clamp(top / torch.clamp(norm, min=1e-12), max=1.0)
 
 

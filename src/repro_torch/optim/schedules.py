@@ -17,9 +17,13 @@ from typing import Callable
 
 import torch
 
+from .. import rand
+
 
 def _f32(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    """``v`` filled as f32 on ``like``'s device (a CUDA graph captures the
+    fill, where it refuses the copy from host memory)."""
+    return rand.const(v, torch.float32, like.device)
 
 
 def _step(step) -> torch.Tensor:
