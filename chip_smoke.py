@@ -319,7 +319,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    olmoe-1b-7b at full width, ``MESH_TRAIN_LAYERS`` layers, trained
    ``MESH_TRAIN_STEPS`` steps on (1, 2) (expert parallelism, 32 local
    experts, and the heads) and on (2, 1) (data parallel, ZeRO-1), ce and
-   gnorm within ``MESH_TRAIN_TOL`` of the one-rank run; 15d a world of one
+   gnorm within ``MESH_TRAIN_TOL`` of the one-rank run; then the mesh's
+   compiled steps (each rank's step a chain of CUDA graphs cut at its
+   collectives, ``core/graphed.py::CutGraph``): 15a's ``generate`` on
+   (1, 2) eagerly, graphed three times and eagerly (the tokens, every
+   step's logits and a replayed prefill's caches bit for bit) and 15b's
+   train steps graphed from the same seed (each step's metrics and every
+   leaf of the state after them bit for bit), with ``[mesh-graphs]``
+   lines (cuts, segments, capture s, pool bytes, collectives and their
+   host ms, ms a step graphed against eager); 15d a world of one
    rank over NCCL: a (1, 1) mesh equals the mesh-less train, prefill and
    decode steps bit for bit; 15e ``python -m repro_torch.launch.dryrun
    --arch yi-9b --shape decode_32k`` in a subprocess (its own fake group
@@ -3430,9 +3438,93 @@ def _yi_serve(dev, mesh=None):
            "peak": torch.cuda.max_memory_allocated(),
            "build_peak": build_peak,
            "finite": bool(torch.isfinite(d_logits).all())}
-    del model, caches
+    del caches, logits, d_logits
+    if mesh is not None:
+        # after the eager readings: the peak above is the eager steps'
+        # (the dry run is held to it), the graphs' pools come on top
+        gc.collect()
+        out["turns"] = _mesh_serve_turns(model, prompts, mesh)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_collectives(mesh):
+    """(calls, host s) of the collectives over every axis of ``mesh``."""
+    groups = [mesh.group(a) for a in mesh.axis_names]
+    return (sum(g.calls for g in groups), sum(g.host_s for g in groups))
+
+
+def _mesh_serve_turns(model, prompts, mesh):
+    """15a's graphs: ``generate`` on the mesh (MESH_NEW tokens) eagerly,
+    graphed three times and eagerly again. A cut graph's first call is
+    the eager step and its second the capture, so the graphed runs cover
+    the prefill's eager call, capture and replay and the decode step's
+    eager call, capture and replays; the third graphed run is replays
+    only (its times are the graphed ones). Every graphed run's tokens and
+    logits (the prefill's first) must equal the eager run's bit for bit;
+    then the prefill graph replays once more beside an eager prefill and
+    their caches must be equal too."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import steps as steps_lib
+    runs = []
+    for graphs in (False, True, True, True, False):
+        kernels.reset_launches()
+        c0 = _mesh_collectives(mesh)
+        toks, info = serve_lib.generate(model, prompts, MESH_NEW,
+                                        graphs=graphs, keep_logits=True,
+                                        mesh=mesh, batch=DENSE_BATCH)
+        c1 = _mesh_collectives(mesh)
+        runs.append({"graphs": graphs, "tokens": toks.cpu(),
+                     "logits": info["logits"].cpu(),
+                     "prefill_s": info["prefill_s"],
+                     "decode_s": info["decode_s"],
+                     "capture_s": info["capture_s"],
+                     "collectives": (c1[0] - c0[0], c1[1] - c0[1]),
+                     "flash": kernels.LAUNCHES["flash_attention"]})
+    eager = runs[0]
+    diffs = []
+    for i, r in enumerate(runs[1:], 1):
+        if not (torch.equal(r["tokens"], eager["tokens"])
+                and torch.equal(r["logits"], eager["logits"])):
+            diffs.append(f"generate run {i} (graphs {r['graphs']})")
+        if r["collectives"][0] != eager["collectives"][0]:
+            diffs.append(f"generate run {i}'s {r['collectives'][0]} "
+                         f"collectives, eager {eager['collectives'][0]}")
+    graphs = dict(steps_lib.serve_graphs(model))
+    b = {"tokens": prompts}
+    budget = DENSE_PROMPT + MESH_NEW
+    seq = budget + model.cfg.n_meta_tokens
+    pre = steps_lib.compiled_prefill(model, b, max_seq=budget,
+                                     use_flash=True, use_rwkv_kernel=True,
+                                     mesh=mesh, batch=DENSE_BATCH)
+    if pre is not graphs["prefill"]:
+        diffs.append("the prefill graph was not generate's")
+    _, (g_logits, g_caches, _) = pre(b)
+    _, (e_logits, e_caches, _) = steps_lib.serve_prefill_step(
+        model, seq, True, True, b,
+        serving=steps_lib.mesh_serving(model, mesh, DENSE_BATCH, seq))
+    if not torch.equal(g_logits, e_logits):
+        diffs.append("the replayed prefill's logits")
+    bad = [i for i, (x, y) in enumerate(zip(_leaves(g_caches),
+                                            _leaves(e_caches)))
+           if not torch.equal(x, y)]
+    if bad:
+        diffs.append(f"the replayed prefill's cache leaves {bad[:8]}")
+    info = {kind: dict(cuts=g.cuts, segments=g.segments,
+                       capture_s=g.capture_s, pool=g.pool_bytes,
+                       captures=g.captures)
+            for kind, g in graphs.items()}
+    out = {"runs": [{k: v for k, v in r.items()
+                     if k not in ("tokens", "logits")} for r in runs],
+           "diffs": diffs, "graphs": info,
+           "cache_leaves": len(_leaves(g_caches)),
+           "finite": bool(torch.isfinite(eager["logits"]).all())}
+    del g_caches, e_caches, pre
+    steps_lib.release_serve_graphs(model)
     return out
 
 
@@ -3479,10 +3571,15 @@ def _rwkv_prefill(dev, mesh=None, f32=False):
     return out
 
 
-def _olmoe_train(dev, mesh=None):
+def _olmoe_train(dev, mesh=None, graphs=False):
     """olmoe-1b-7b at full width, MESH_TRAIN_LAYERS layers, from SEED:
     MESH_TRAIN_STEPS steps of the synthetic data; one device or
-    ``mesh`` (the train rules). Returns the metrics per step."""
+    ``mesh`` (the train rules), there eagerly or (``graphs``) through
+    ``compiled_train_step``: a chain of graphs cut at the step's
+    collectives, whose first call is the eager step, the second the
+    capture, the rest replays. Returns the metrics per step, their bits,
+    each step's wall and collectives, and on a mesh the final state's
+    per-leaf digests."""
     import torch
     from repro_torch.data import SyntheticLM
     from repro_torch.launch import partition
@@ -3515,20 +3612,39 @@ def _olmoe_train(dev, mesh=None):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    metrics = []
+    run = steps_lib.compiled_train_step(step) if graphs else None
+    metrics, bits, times, colls = [], [], [], []
     t = time.perf_counter()
     for i in range(MESH_TRAIN_STEPS):
         batch = data.batch_for_step(i)
         if mesh is not None:
             batch = steps_lib.shard_batch(batch, mesh, "train")
-        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        c0 = (0, 0.0) if mesh is None else _mesh_collectives(mesh)
+        t0 = time.perf_counter()
+        if run is not None:
+            (state, _), m = run((state, batch))
+        else:
+            state, m = step(state, batch)
+        bits.append(_metric_bits(m).cpu())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        c1 = (0, 0.0) if mesh is None else _mesh_collectives(mesh)
+        colls.append((c1[0] - c0[0], c1[1] - c0[1]))
         metrics.append({k: float(v) for k, v in m.items()})
     torch.cuda.synchronize()
     out = {"metrics": metrics, "wall": time.perf_counter() - t, "ep": ep,
+           "bits": bits, "times": times, "collectives": colls,
            "peak": torch.cuda.max_memory_allocated(),
            "build_peak": build_peak,
-           "held": _tree_bytes(state.params) + _tree_bytes(state.opt)}
-    del state, model
+           "held": _tree_bytes(state.params) + _tree_bytes(state.opt),
+           "digest": None if mesh is None else _state_digest(state)}
+    if run is not None:
+        out["graph"] = dict(cuts=run.cuts, segments=run.segments,
+                            capture_s=run.capture_s, pool=run.pool_bytes,
+                            captures=run.captures)
+        run.release()
+    del state, model, run
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3545,9 +3661,11 @@ def _mesh_rank_15(group):
     out["15c"] = _rwkv_prefill(dev, mesh)
     out["15c_f32"] = _rwkv_prefill(dev, mesh, f32=True)
     out["15b"] = {}
+    out["15b_graphs"] = {}
     for shape in ((1, MESH_RANKS), (MESH_RANKS, 1)):
         m = Mesh(shape, ("data", "model")).bind(group)
         out["15b"][shape] = _olmoe_train(dev, m)
+        out["15b_graphs"][shape] = _olmoe_train(dev, m, graphs=True)
     return out
 
 
@@ -3634,6 +3752,87 @@ def _mesh_rank_15d(group):
         if not torch.equal(runs[0][1][0][0][k], runs[1][1][0][0][k]):
             diffs.append(f"serve cache {k}")
     return {"diffs": diffs, "backend": group.name}
+
+
+def _mesh_serve_lines(yi, card: str) -> None:
+    """15a's graphs: every rank's graphed generate runs equal to its eager
+    run bit for bit (tokens, every step's logits, the replayed prefill's
+    caches), and the ``[mesh-graphs]`` lines of rank 0."""
+    for r, info in enumerate(yi):
+        t = info["turns"]
+        if t["diffs"]:
+            fail(f"15a rank {r}: the graphed steps differ from eager: "
+                 f"{t['diffs']}")
+        if not t["finite"]:
+            fail(f"15a rank {r}: generate's logits are not finite")
+        # the third graphed run replays both graphs: one prefill's flash
+        # launches, as the eager run counts them
+        if t["runs"][3]["flash"] != t["runs"][0]["flash"]:
+            fail(f"15a rank {r}: flash launches replayed "
+                 f"{t['runs'][3]['flash']}, eager {t['runs'][0]['flash']}")
+    t = yi[0]["turns"]
+    runs, steps = t["runs"], MESH_NEW - 1
+    eager = [runs[0], runs[4]]
+    replay = runs[3]
+    for kind in ("prefill", "decode"):
+        g = t["graphs"][kind]
+        per = 1 if kind == "prefill" else steps
+        e_ms = [r[f"{kind}_s"] * 1e3 / per for r in eager]
+        g_ms = replay[f"{kind}_s"] * 1e3 / per
+        log(f"[mesh-graphs] 15a yi-9b {kind} on (1, 2), rank 0: "
+            f"{g['cuts']} cuts, {g['segments']} segments, capture "
+            f"{g['capture_s']:.3f} s (the capturing call's step), pool "
+            f"{g['pool']} B; {'a prefill' if per == 1 else 'a step'} "
+            f"{g_ms:.3f} ms graphed (the third graphed run, replays only) "
+            f"against {e_ms[0]:.3f}, {e_ms[1]:.3f} ms eager in turns "
+            f"(eager, graphed x3, eager); {card}")
+    for i, r in enumerate(runs):
+        n, h = r["collectives"]
+        log(f"[mesh-graphs] 15a turn {i} ({'graphed' if r['graphs'] else 'eager'}"
+            f"): prefill {r['prefill_s'] * 1e3:.1f} ms, {steps} decode "
+            f"steps {r['decode_s'] * 1e3:.1f} ms, capture "
+            f"{r['capture_s']:.3f} s; {n} collectives, {h * 1e3:.1f} ms of "
+            f"host; flash launches {r['flash']}")
+    log(f"[mesh-graphs] 15a: every graphed run equals the eager runs bit "
+        f"for bit on both ranks ({MESH_NEW} greedy tokens and their "
+        f"logits, the prefill's first; the replayed prefill's logits and "
+        f"{t['cache_leaves']} cache leaves)")
+
+
+def _mesh_train_lines(shape, eager, graphed, card: str) -> None:
+    """15b's graphs on ``shape``: every rank's graphed steps equal to its
+    eager steps bit for bit (each step's metrics, the final state's every
+    leaf), and the ``[mesh-graphs]`` line of rank 0."""
+    import torch
+    for r, (e, g) in enumerate(zip(eager, graphed)):
+        if g["graph"]["captures"] != 1:
+            fail(f"15b {shape} rank {r}: {g['graph']['captures']} captures")
+        for i, (x, y) in enumerate(zip(e["bits"], g["bits"])):
+            if not torch.equal(x, y):
+                fail(f"15b {shape} rank {r}: step {i}'s metrics graphed "
+                     f"{g['metrics'][i]} against eager {e['metrics'][i]}")
+        if [c[0] for c in e["collectives"]] != \
+                [c[0] for c in g["collectives"]]:
+            fail(f"15b {shape} rank {r}: collectives a step graphed "
+                 f"{g['collectives']} against eager {e['collectives']}")
+        if not torch.equal(e["digest"], g["digest"]):
+            rows = (e["digest"] != g["digest"]).any(1).nonzero()
+            fail(f"15b {shape} rank {r}: the final state's leaves "
+                 f"{rows.flatten().tolist()[:8]} differ graphed from eager")
+    e, g = eager[0], graphed[0]
+    gi = g["graph"]
+    n, h = g["collectives"][-1]
+    en, eh = e["collectives"][-1]
+    log(f"[mesh-graphs] 15b olmoe-1b-7b {MESH_TRAIN_LAYERS}L train on "
+        f"{shape}, rank 0: {gi['cuts']} cuts, {gi['segments']} segments, "
+        f"capture {gi['capture_s']:.3f} s (the capturing call's step), "
+        f"pool {gi['pool']} B; steps {[round(x * 1e3, 1) for x in g['times']]}"
+        f" ms graphed (eager, capture, replay) against "
+        f"{[round(x * 1e3, 1) for x in e['times']]} ms eager; the replay's "
+        f"{n} collectives {h * 1e3:.1f} ms of host (eager {en}, "
+        f"{eh * 1e3:.1f} ms); ce, gnorm and the state's "
+        f"{len(g['digest'])} leaves equal bit for bit on both ranks; "
+        f"{card}")
 
 
 def sharding_phases(card: str):
@@ -3748,6 +3947,8 @@ def sharding_phases(card: str):
     one_olmoe = _olmoe_train(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[mesh] this process holds {torch.cuda.memory_allocated()} B "
+        f"({torch.cuda.memory_reserved()} B reserved) while the ranks run")
 
     # ---- 15a-15c on 2 ranks sharing the card -------------------------------
     t = time.perf_counter()
@@ -3805,6 +4006,7 @@ def sharding_phases(card: str):
     if y_rel > DENSE_BF16_TOL or not all(i["finite"] for i in yi):
         fail(f"15a: the (1, 2) prefill's logits lie {y_rel} from the "
              f"one-rank prefill's (limit {DENSE_BF16_TOL})")
+    _mesh_serve_lines(yi, card)
     # 15c
     rw = [r["15c"] for r in ranks]
     for r, info in enumerate(rw):
@@ -3875,6 +4077,8 @@ def sharding_phases(card: str):
             fail(f"15b {shape}: beyond the limits from the one-rank run")
         if shape == (1, MESH_RANKS) and not runs[0]["ep"]:
             fail("15b (1, 2): expert parallelism did not apply")
+        _mesh_train_lines(shape, runs, [r["15b_graphs"][shape]
+                                        for r in ranks], card)
 
     # ---- 15d: a (1, 1) mesh over NCCL == the mesh-less steps --------------
     t = time.perf_counter()

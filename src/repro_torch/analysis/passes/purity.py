@@ -38,7 +38,13 @@ and the callables handed to ``jax.jit`` / ``pjit`` / ``shard_map``
   call of ``_Objective.forward``, and ``optim/``'s AdamW, clip and
   constants), ``core/graphed.py::RankGraph`` (the generations a rank of the
   sharded drivers captures, ``island.island_epoch``; its second argument,
-  the eager tail with the exchange's collectives, is no root), and
+  the eager tail with the exchange's collectives, is no root),
+  ``core/graphed.py::CutGraph`` (a mesh's steps, captured in segments cut
+  at their collectives: ``train_graph_step`` and the serve steps with a
+  mesh's ``serving``, whose callgraph reaches the model's ``*_sharded``
+  functions and ``decode_step_sharded``; the collectives themselves run
+  eagerly between the segments, and ``ShardGroup``'s methods, called on
+  an object, are not followed), and
   everything run inside ``with torch.cuda.graph(...)`` or between a
   graph's ``capture_begin()`` and ``capture_end()`` — the region's own
   lines and the functions it calls.  ``partial`` and one level of
@@ -63,10 +69,9 @@ latch ``bool(stopped)`` (``core/evolution.py::fused_scan``,
 tick without W², between graph replays (the loops are not captured, their
 steps are).  The decode step takes its index as a 0-d device tensor
 (``models/attention.py::decode_step`` writes the ring by tensor-indexed
-copies); only the mesh's eager twin, ``decode_step_sharded``, reads it on
-the host, under a pragma: the callgraph reaches it from the serve steps
-through ``transformer.block_apply``, but a captured step never passes a
-mesh.  When such code becomes a root, these rules report those lines.
+copies), and so does the mesh's ``decode_step_sharded`` (the slot cut a
+masked write at a clamped slot).  When such code becomes a root, these
+rules report those lines.
 """
 from __future__ import annotations
 
@@ -83,7 +88,8 @@ BUILD_MODULE_TAIL = "_build"
 COMPILE_NAMES = {"torch.compile"}
 GRAPHED_CALLABLES = {"torch.cuda.make_graphed_callables",
                      "repro_torch.core.graphed.StepGraph",
-                     "repro_torch.core.graphed.RankGraph"}
+                     "repro_torch.core.graphed.RankGraph",
+                     "repro_torch.core.graphed.CutGraph"}
 GRAPH_CONTEXTS = {"torch.cuda.graph"}
 FUNCTIONAL_CALLS = {"torch.func.functional_call"}
 CUSTOM_OP_TAILS = {"custom_op"}

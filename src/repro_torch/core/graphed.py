@@ -80,6 +80,40 @@ its generation, under the plain impls) and hands the evolved islands to
 the rest of the step, called eagerly, whose exchange between ranks copies
 to the host, synchronises and waits on the other ranks between replays.
 
+The mesh's steps (a train, prefill or decode step on a bound mesh,
+:mod:`repro_torch.launch.partition`, the counterpart of ``jax.jit`` with
+``in_shardings``) hold many collectives a step, in the forward and in
+autograd's backward. :class:`CutGraph` replays such a step as a chain cut
+at its collectives: a *segment* is a CUDA graph of the work between two
+collectives, a *collective node* the collective run eagerly on the
+segment's static output. Every collective of a rank passes through
+``ShardGroup._timed``, the one place that cuts (:func:`cutting`). The
+first call is the eager step; the second captures segment by segment,
+each segment replayed as soon as it is captured so that the collective
+after it reads real values (that pass is the second call's step); every
+later call replays the chain. Each rank's count of segments and cuts is
+held equal across the world by one integer all-reduce after the capture:
+a rank that cut elsewhere would hang its peer at the first replay. A
+segment ends by copying the collective's input to an input buffer, the
+node leaves its result in a result buffer, and the next segment begins
+with a copy of it (one buffer of each a graph, grown as needed): so no
+tensor of a segment outlives the step's last use of it, and the segments
+reuse their pool as one graph would. A node that held its own input and
+output pinned every collective's tensors, 195 of up to 128 MiB a rank in
+yi-9b's (1, 2) prefill, and ran two ranks out of one card's memory.
+
+The thread rule. A cut inside the backward falls on autograd's device
+thread, so a segment may begin on one thread and end on another, which
+``cudaStreamEndCapture`` allows only in the ``relaxed`` capture mode: in
+``thread_local`` (and ``global``) mode it refuses the end of a capture
+begun by another thread ("attempt to terminate a thread-local capture
+sequence from another thread", ``cudaErrorStreamCaptureWrongThread``,
+read on an H100 with torch 2.11, ``tests/test_torch_mesh_graphs_cuda.py``).
+The segments are
+captured ``relaxed`` (:data:`CUT_CAPTURE_MODE`); the steps' purity is
+held by the capture checks on the CPU (``tests/_torch_capture.py``)
+instead of by the mode.
+
 A captured region reads no device value on the host and copies nothing
 from host memory: the drivers' steps keep to that (their Python values
 are kernel arguments or fills, :func:`repro_torch.rand.const`,
@@ -98,6 +132,7 @@ counts what the eager run counts.
 from __future__ import annotations
 
 import functools
+import gc
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -483,6 +518,329 @@ def rank_graph(problem, cfg, tail: Callable) -> RankGraph:
         return RankGraph(gen["evolve"], tail, gen["gens"])
     return RankGraph(functools.partial(island_lib.island_epoch,
                                        problem=problem, cfg=cfg), tail)
+
+
+# The capture mode of a cut graph's segments: a cut inside the backward
+# ends on autograd's device thread a capture begun on another thread (the
+# module docstring's thread rule).
+CUT_CAPTURE_MODE = "relaxed"
+
+# the cut graph whose capture pass is running (None: no cut is taken)
+_CUT: Optional["CutGraph"] = None
+
+
+def cutting() -> Optional["CutGraph"]:
+    """The :class:`CutGraph` whose capture pass is running, whose
+    :meth:`~CutGraph.collective` a collective must go through; None
+    outside a capture pass (every collective then runs as it is)."""
+    return _CUT
+
+
+_CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """One side stream a device for the cut graphs' captures (its cuBLAS
+    workspace made once, as ``torch.cuda.graph``'s shared stream)."""
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+def _snapshot(counters) -> List[Dict]:
+    return [dict(c) for c in counters]
+
+
+def _deltas(counters, before: List[Dict]) -> List[Dict]:
+    return [{k: v - b.get(k, 0) for k, v in c.items() if v != b.get(k, 0)}
+            for c, b in zip(counters, before)]
+
+
+class _Segment:
+    """A cut graph's segment: its graph and what its capture added to
+    each counter."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, added: List[Dict]):
+        self.graph, self.added = graph, added
+
+
+class _Node:
+    """A cut graph's collective node: ``fn`` run by ``group`` on ``src``
+    (where the segment before it left the collective's input), its result
+    copied to ``dst`` (where the segment after it reads it)."""
+
+    def __init__(self, group, fn: Callable, src: torch.Tensor,
+                 dst: torch.Tensor):
+        self.group, self.fn, self.src, self.dst = group, fn, src, dst
+        # a served step's collectives ran under inference mode, and their
+        # buffers' views are inference tensors, which only it writes
+        self.inference = torch.is_inference_mode_enabled()
+
+    def run(self) -> None:
+        with (torch.inference_mode() if self.inference
+              else torch.no_grad()):
+            self.dst.copy_(self.group._run_timed(self.fn, self.src))
+
+
+def _view(buffers: List[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    """A contiguous view of ``like``'s shape and dtype at the start of the
+    last of ``buffers`` (bytes), which grows by a new buffer where it is
+    too small: an earlier one stays, as the graphs captured so far read
+    it."""
+    n = like.numel() * like.element_size()
+    cap = buffers[-1].numel() if buffers else 0
+    if n > cap:
+        buffers.append(torch.empty(max(n, 2 * cap), dtype=torch.uint8,
+                                   device=like.device))
+    return buffers[-1][:n].view(like.dtype).view(like.shape)
+
+
+class CutGraph:
+    """A rank's step on a bound mesh replayed as a chain of CUDA graphs
+    cut at its collectives (the module docstring).
+
+    ``step(carry, *host) -> (carry', out)`` as :class:`StepGraph` takes
+    it: the train step (:func:`~repro_torch.launch.steps.train_graph_step`,
+    ``donate=True``: the first call adopts the caller's state as the
+    static buffers, as the donating :class:`StepGraph` does) or a serve
+    step (the plain
+    form: the second call clones the carry into static buffers). ``group``
+    is the world's :class:`~repro_torch.core.sharded.ShardGroup`, over
+    which the ranks' cuts are held equal; ``counters`` are dicts of counts
+    the step's Python adds to besides ``kernels.LAUNCHES`` (the mesh's
+    collective bytes, ``partition.COLLECTIVES``): each segment records
+    what its capture added, and each replay adds it.
+
+    ``cuts`` and ``segments`` count the chain's nodes, ``capture_s`` is
+    the capture pass's time (a real step), ``pool_bytes`` the segments'
+    private pool, ``captures`` 1 once captured."""
+
+    def __init__(self, step: Callable, *, group, donate: bool = False,
+                 counters: Tuple[Dict, ...] = ()):
+        self.step, self.group, self.donate = step, group, donate
+        self.extra = tuple(counters)
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        self.captures = 0
+        self._reset()
+
+    def _reset(self) -> None:
+        self.calls = 0
+        self.chain: List[object] = []
+        self.carry = None
+        self.host: Tuple[torch.Tensor, ...] = ()
+        self._static: List[torch.Tensor] = []
+        self._spec = None
+        self._out = None
+        self._open = None       # (graph, counters before) while capturing
+        # where a segment leaves a collective's input and where the
+        # collective leaves its result for the next segment: one buffer
+        # each (grown as needed), so no segment's tensor is held past its
+        # last use and the pool is reused across segments as in one graph
+        self._inputs: List[torch.Tensor] = []
+        self._results: List[torch.Tensor] = []
+
+    @property
+    def counters(self) -> Tuple[Dict, ...]:
+        return (kernels.LAUNCHES,) + self.extra
+
+    @property
+    def segments(self) -> int:
+        return sum(isinstance(x, _Segment) for x in self.chain)
+
+    @property
+    def cuts(self) -> int:
+        return sum(isinstance(x, _Node) for x in self.chain)
+
+    def __call__(self, carry, *host):
+        self.calls += 1
+        leaves, spec = pytree.tree_flatten(carry)
+        if self.calls == 1:
+            return self._eager(carry, leaves, spec, host)
+        if spec != self._spec and self._spec is not None:
+            raise ValueError("graphed step: the carry's structure changed "
+                             "since the first call")
+        if not self.chain:
+            return self._capture(leaves, spec, host)
+        _assign(self._static, leaves)
+        for t, v in zip(self.host, host):
+            t.fill_(v)
+        for x in self.chain:
+            if isinstance(x, _Segment):
+                x.graph.replay()
+                for c, added in zip(self.counters, x.added):
+                    for name, n in added.items():
+                        c[name] = c.get(name, 0) + n
+            else:
+                x.run()
+        return self.carry, self._cloned()
+
+    def _cloned(self):
+        return pytree.tree_map(
+            lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+            self._out)
+
+    def _eager(self, carry, leaves, spec, host):
+        """The first call: the step run eagerly (it builds the kernels,
+        the cuBLAS handles and the gathers' staging). The donating form
+        adopts the carry's tensors as the static buffers and returns
+        them."""
+        dev = next(t for t in leaves if isinstance(t, torch.Tensor)).device
+        tree, out = self.step(carry, *(host_scalar(v, dev) for v in host))
+        if not self.donate:
+            return tree, out
+        self._spec, self._static = spec, list(leaves)
+        self.carry = pytree.tree_unflatten(self._static, spec)
+        new = pytree.tree_leaves(tree)
+        if len(new) != len(self._static):
+            raise ValueError("graphed step: the step returned another "
+                             "carry than it was given")
+        _assign(self._static, new)
+        return self.carry, out
+
+    def _capture(self, leaves, spec, host):
+        """The second call: the step captured segment by segment, each
+        segment replayed once captured (this call's step), then the cuts
+        held equal across the world."""
+        global _CUT
+        if self.donate:
+            _assign(self._static, leaves)
+        else:
+            self._spec = spec
+            self._static = [t.clone() if isinstance(t, torch.Tensor) else t
+                            for t in leaves]
+            self.carry = pytree.tree_unflatten(self._static, spec)
+        dev = next(t for t in self._static
+                   if isinstance(t, torch.Tensor)).device
+        self.host = tuple(host_scalar(v, dev) for v in host)
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        # as torch.cuda.graph does before a capture: the eager call's
+        # freed temporaries go back to the card for the segments' pool
+        gc.collect()
+        torch.cuda.empty_cache()
+        main = torch.cuda.current_stream(dev)
+        side = _capture_stream(dev)
+        side.wait_stream(main)
+        try:
+            with torch.cuda.stream(side):
+                _CUT = self
+                try:
+                    self._begin()
+                    tree, self._out = self.step(self.carry, *self.host)
+                    new = pytree.tree_leaves(tree)
+                    if len(new) != len(self._static):
+                        raise ValueError("graphed step: the step returned "
+                                         "another carry than it was given")
+                    _assign(self._static, new)
+                    self._end()
+                except BaseException:
+                    # on the capture's stream, where its open segment ends
+                    self._abort()
+                    raise
+        finally:
+            _CUT = None
+        main.wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        self._agree()
+        pool = self.chain[0].graph.pool()
+        self.pool_bytes = sum(
+            seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pool)
+        return self.carry, self._cloned()
+
+    def _begin(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        pool = self.chain[0].graph.pool() if self.chain else None
+        before = _snapshot(self.counters)
+        graph.capture_begin(pool=pool, capture_error_mode=CUT_CAPTURE_MODE)
+        self._open = (graph, before)
+
+    def _end(self) -> None:
+        graph, before = self._open
+        self._open = None
+        graph.capture_end()
+        self.chain.append(_Segment(graph, _deltas(self.counters, before)))
+        graph.replay()
+
+    def collective(self, group, fn: Callable, x: torch.Tensor):
+        """``fn(x)``, a collective of the step being captured (called by
+        ``ShardGroup._timed``): the open segment copies ``x`` to the input
+        buffer, ends and is replayed; ``fn`` runs eagerly on the buffer as
+        the next node and its result goes to the result buffer; the next
+        segment begins with its own copy of the result, which it returns
+        (on the card its values exist once the segment replays)."""
+        if self._open is None:
+            raise RuntimeError("cut graph: a collective inside a "
+                               "collective")
+        with torch.no_grad():
+            src = _view(self._inputs, x)
+            src.copy_(x)
+        self._end()
+        out = group._run_timed(fn, src)
+        if not isinstance(out, torch.Tensor):
+            raise TypeError("cut graph: a collective must return one tensor")
+        dst = _view(self._results, out)
+        dst.copy_(out)
+        self.chain.append(_Node(group, fn, src, dst))
+        self._begin()
+        with torch.no_grad():
+            return dst.clone()
+
+    def _abort(self) -> None:
+        """A capture that failed: the open segment is ended (what it
+        recorded is dropped) and the chain released."""
+        if self._open is not None:
+            graph = self._open[0]
+            self._open = None
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass
+        self.release()
+
+    def _agree(self) -> None:
+        """Every rank's segments and cuts equal, or raise on every rank
+        (one integer all-reduce of the counts and their negations, max)."""
+        import torch.distributed as dist
+        counts = [self.segments, self.cuts]
+        t = torch.tensor(counts + [-c for c in counts], dtype=torch.int64)
+        if self.group.backend == "nccl":
+            t = t.to(self.group.device)
+        dist.all_reduce(t, dist.ReduceOp.MAX, group=self.group.pg)
+        top = t.cpu().tolist()
+        hi, lo = top[:2], [-x for x in top[2:]]
+        if hi != lo:
+            self.release()
+            raise RuntimeError(
+                f"cut graph: rank {self.group.rank} captured {counts[0]} "
+                f"segments and {counts[1]} cuts, the world's ranks "
+                f"{lo[0]}-{hi[0]} segments and {lo[1]}-{hi[1]} cuts: a "
+                f"rank that cut elsewhere would hang its peers")
+
+    def detach(self, tree):
+        """``tree`` with clones of the leaves that share storage with a
+        static buffer."""
+        owned = {t.untyped_storage().data_ptr() for t in self._static
+                 if isinstance(t, torch.Tensor)}
+
+        def own(x):
+            if isinstance(x, torch.Tensor) and \
+                    x.untyped_storage().data_ptr() in owned:
+                return x.clone()
+            return x
+        return pytree.tree_map(own, tree)
+
+    def release(self) -> None:
+        """Drop the chain, its pool and the static buffers; the next call
+        is eager again. A donating graph's static buffers are the
+        caller's tensors: dropped here, never freed."""
+        for x in self.chain:
+            if isinstance(x, _Segment):
+                x.graph.reset()
+        self._reset()
 
 
 class Runner:

@@ -49,7 +49,10 @@ counterpart of the reference's jitted ``shard_map``
 (:class:`~repro_torch.core.graphed.RankGraph`): the exchange between
 ranks, the stats and the stop latch run eagerly between replays, since
 their collectives copy to the host, synchronise the stream and wait on
-the other ranks. Each driver keeps one runner per problem object, statics
+the other ranks. A mesh's step is cut at each of its collectives
+(:class:`~repro_torch.core.graphed.CutGraph`): every collective goes
+through ``ShardGroup._timed``, which hands it to the capture in
+progress. Each driver keeps one runner per problem object, statics
 and group (:func:`~repro_torch.core.evolution.fused_jit`); on the CPU the
 ranks call the same steps eagerly.
 
@@ -148,9 +151,20 @@ class ShardGroup:
         t = t.to(like.device)
         return t.to(torch.bool) if like.dtype == torch.bool else t
 
-    def _timed(self, fn):
+    def _timed(self, fn, x: torch.Tensor):
+        """``fn(x)``, the collective of this rank's ``x``, counted. Every
+        collective of the group passes here: while a cut graph captures a
+        step (:func:`~repro_torch.core.graphed.cutting`), it becomes one
+        of its collective nodes, which its replays call again on the
+        values the step gave ``x``."""
+        cut = graphed.cutting()
+        if cut is not None:
+            return cut.collective(self, fn, x)
+        return self._run_timed(fn, x)
+
+    def _run_timed(self, fn, x: torch.Tensor):
         t = time.perf_counter()
-        out = fn()
+        out = fn(x)
         self.calls += 1
         self.host_s += time.perf_counter() - t
         return out
@@ -164,6 +178,12 @@ class ShardGroup:
         cap = 0 if self._staging is None else self._staging.numel()
         if nbytes <= cap:
             return
+        if graphed.cutting() is not None:
+            raise RuntimeError(
+                f"a cut graph's capture would grow the gathers' staging "
+                f"from {cap} to {nbytes} bytes: the eager first call sizes "
+                f"it, and a replay's gathers must find the buffers its "
+                f"capture's did")
         from torch.multiprocessing.reductions import reduce_tensor
         buf = torch.empty(max(nbytes, 2 * cap, 1 << 20), dtype=torch.uint8,
                           device=self.device)
@@ -201,14 +221,14 @@ class ShardGroup:
     def gather_stack(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` stacked in rank order: ``(world, ...)``."""
         if self.host_copies and x.device.type == "cuda":
-            return self._timed(lambda: self._gather_on_card(x))
+            return self._timed(self._gather_on_card, x)
 
-        def run():
+        def run(x):
             w = self._wire(x)
             out = [torch.empty_like(w) for _ in range(self.world)]
             dist.all_gather(out, w, group=self.pg)
             return self._back(torch.stack(out), x)
-        return self._timed(run)
+        return self._timed(run, x)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` concatenated along dim 0 in rank order (the
@@ -224,7 +244,7 @@ class ShardGroup:
         dst = {s: d for s, d in perm}.get(self.rank)
         src = {d: s for s, d in perm}.get(self.rank)
 
-        def run():
+        def run(x):
             w = self._wire(x)
             if src == self.rank and dst == self.rank:
                 return self._back(w.clone(), x)
@@ -238,7 +258,7 @@ class ShardGroup:
                 for req in dist.batch_isend_irecv(ops):
                     req.wait()
             return self._back(buf, x)
-        return self._timed(run)
+        return self._timed(run, x)
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """``psum`` (integers only: a float sum goes through
@@ -246,11 +266,11 @@ class ShardGroup:
         if op == "sum" and x.is_floating_point():
             raise ValueError("float sums go through sum_in_order")
 
-        def run():
+        def run(x):
             w = self._wire(x).clone()
             dist.all_reduce(w, _OPS[op], group=self.pg)
             return self._back(w, x)
-        return self._timed(run)
+        return self._timed(run, x)
 
     def any(self, flag: torch.Tensor) -> torch.Tensor:
         """A bool that is true on every rank when it is true on one."""
@@ -266,11 +286,11 @@ class ShardGroup:
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``x`` on every rank."""
-        def run():
+        def run(x):
             w = self._wire(x).clone()
             dist.broadcast(w, src, group=self.pg)
             return self._back(w, x)
-        return self._timed(run)
+        return self._timed(run, x)
 
     def barrier(self) -> None:
         self.all_reduce(torch.zeros(1, dtype=torch.int32,
@@ -408,15 +428,20 @@ def spawn(fn: Callable, world: int, backend: str = "gloo",
                 if p.is_alive():
                     p.kill()
                 p.join()
-        results = []
+        results, failed = [], []
         for r, path in enumerate(outs):
             if not os.path.exists(path):
-                raise RuntimeError(f"rank {r} of {world} died (exit code "
-                                   f"{procs[r].exitcode})")
+                failed.append(f"rank {r} of {world} died (exit code "
+                              f"{procs[r].exitcode})")
+                continue
             ok, value = torch.load(path, weights_only=False)
             if not ok:
-                raise RuntimeError(f"rank {r} of {world} failed:\n{value}")
+                failed.append(f"rank {r} of {world} failed:\n{value}")
             results.append(value)
+        if failed:
+            # every failed rank: the first to fail may be a later one,
+            # whose peers then fail in their next collective
+            raise RuntimeError("\n".join(failed))
     return results
 
 

@@ -15,7 +15,9 @@ explicit. Three parts:
   order, ``sum_in_order``, one axis after another). A one-rank axis costs
   nothing. Each call adds its bytes to :data:`COLLECTIVES` by kind, with
   the reference's ring factors (``dryrun.py:58-60``): an all-gather its
-  output's bytes, a sum twice its output's.
+  output's bytes, a sum twice its output's. A step replayed as a cut
+  graph (``core/graphed.py::CutGraph``) adds at each replay what its
+  capture added, so graphed and eager steps count alike.
 * **The step's layout**, :class:`Shards`: which parameter has which
   spec, and how a block fetches its weights. Storage follows the rules
   exactly. Compute splits over ``model`` at head granularity where the

@@ -52,7 +52,8 @@ def generate(model: Model, prompts: torch.Tensor, new_tokens: int, *,
              use_flash: bool = True, use_rwkv_kernel: bool = True,
              src_embed: Optional[torch.Tensor] = None,
              vision_embed: Optional[torch.Tensor] = None,
-             graphs: Optional[bool] = None, keep_logits: bool = False
+             graphs: Optional[bool] = None, keep_logits: bool = False,
+             mesh=None, batch: Optional[int] = None
              ) -> Tuple[torch.Tensor, Dict]:
     """Prefill ``prompts`` (B, S) and decode ``new_tokens`` greedily (the
     first from the prefill's logits). ``src_embed`` (an encoder-decoder
@@ -65,13 +66,20 @@ def generate(model: Model, prompts: torch.Tensor, new_tokens: int, *,
     capture that fails raises. ``graphs=False`` calls the same steps
     eagerly.
 
+    On a bound ``mesh`` (a model holding this rank's blocks,
+    ``partition.build_local`` or ``steps.shard_model``) ``prompts`` are
+    this rank's rows of a global ``batch`` (``steps.shard_batch`` under
+    the serve rules), and the steps replay as chains of graphs cut at
+    their collectives (``core/graphed.py::CutGraph``), every rank of the
+    mesh calling ``generate`` alike.
+
     Returns the tokens (B, new_tokens) and a dict: the wall seconds of the
     prefill (the encoder and the cross keys and values included) and of
     the decode steps, each ending in a device synchronise, less the
     warm-up and capture seconds, which are ``capture_s``; ``decode_steps``;
     ``graphs``; ``pool_bytes`` (the two graphs' private pools); with
     ``keep_logits`` the logits of every token, (new_tokens, B, V) f32."""
-    batch, prompt_len = prompts.shape
+    prompt_len = prompts.shape[1]
     meta = model.cfg.n_meta_tokens
     dev = prompts.device
     graphs = graphed.graphs_on(dev) if graphs is None else graphs
@@ -81,14 +89,18 @@ def generate(model: Model, prompts: torch.Tensor, new_tokens: int, *,
     if vision_embed is not None:
         b["vision_embed"] = vision_embed
     max_seq = prompt_len + new_tokens
+    on_mesh = {} if mesh is None else {"mesh": mesh, "batch": batch}
+    serving = (None if mesh is None else
+               steps.mesh_serving(model, mesh, batch, max_seq + meta))
     if graphs:
         prefill = steps.compiled_prefill(model, b, max_seq=max_seq,
                                          use_flash=use_flash,
-                                         use_rwkv_kernel=use_rwkv_kernel)
+                                         use_rwkv_kernel=use_rwkv_kernel,
+                                         **on_mesh)
     else:
         prefill = graphed.EagerStep(functools.partial(
             steps.serve_prefill_step, model, max_seq + meta, use_flash,
-            use_rwkv_kernel), dev)
+            use_rwkv_kernel, serving=serving), dev)
     captured = prefill.capture_s
     t0 = time.perf_counter()
     _, (logits, caches, cross_kvs) = prefill(b)
@@ -96,9 +108,10 @@ def generate(model: Model, prompts: torch.Tensor, new_tokens: int, *,
     capture_s = prefill.capture_s - captured
     t_prefill = time.perf_counter() - t0 - capture_s
     carry = (logits.argmax(-1)[:, None], caches, cross_kvs)
-    decode = (steps.compiled_decode(model, carry) if graphs else
-              graphed.EagerStep(functools.partial(steps.serve_decode_step,
-                                                  model), dev))
+    decode = (steps.compiled_decode(model, carry, max_seq=max_seq,
+                                    **on_mesh) if graphs else
+              graphed.EagerStep(functools.partial(
+                  steps.serve_decode_step, model, serving=serving), dev))
     out, kept = [carry[0]], [logits]
     captured = decode.capture_s
     t0 = time.perf_counter()

@@ -37,8 +37,11 @@ and :func:`serve_decode_step` are steps in the sense of
 :class:`~repro_torch.core.graphed.StepGraph`, and :func:`compiled_prefill`
 and :func:`compiled_decode` keep one graph of each per model and shapes
 (an LRU of :data:`SERVE_GRAPHS_MAX`; :func:`release_serve_graphs` drops
-them). ``launch/serve.py::generate`` replays them on the card. The mesh's
-serving stays eager: its collectives are host operations.
+them). ``launch/serve.py::generate`` replays them on the card. On a
+bound mesh the same steps take the rank's layout (``serving``:
+:func:`mesh_serving`) and replay as
+:class:`~repro_torch.core.graphed.CutGraph` s, a chain of graphs cut at
+the step's collectives, keyed on the mesh (and so its group) too.
 
 The compiled train, PBT and eval steps, the counterparts of the
 reference's ``jax.jit(step_fn, donate_argnums=(0,))``
@@ -51,7 +54,9 @@ values) and :func:`eval_graph_step` are steps in the sense of
 :func:`compiled_eval` build donating graphs of them, one per state (no
 cache: the graph's buffers are the state). ``launch/train.py::train``
 and ``launch/evolve.py::run_pbt`` replay them on the card. The mesh's
-train step stays eager.
+train step replays as a donating
+:class:`~repro_torch.core.graphed.CutGraph` (the reference's
+``jax.jit(..., in_shardings=..., donate_argnums=(0,))``).
 """
 from __future__ import annotations
 
@@ -435,30 +440,49 @@ def make_decode_step(model: Model, *, mesh=None, mode: str = "serve",
 # ---------------------------------------------------------------------------
 # The compiled serve steps
 # ---------------------------------------------------------------------------
+def mesh_serving(model: Model, mesh, batch: int, seq: int
+                 ) -> Callable[[], "partition.Shards"]:
+    """A serving step's layout on a bound ``mesh`` for a global ``batch``
+    and caches of ``seq`` slots (the meta tokens counted): the
+    ``serving`` argument of :func:`serve_prefill_step` and
+    :func:`serve_decode_step`."""
+    layout = partition.param_layout(model, mesh, "serve")
+    return functools.partial(_serving, model, layout, batch, seq)
+
+
 def serve_prefill_step(model: Model, cache_len: int, use_flash: bool,
-                       use_rwkv_kernel: bool, inputs: Dict
+                       use_rwkv_kernel: bool, inputs: Dict,
+                       serving: Optional[Callable] = None
                        ) -> Tuple[Dict, Tuple[torch.Tensor, List,
                                               Optional[List]]]:
     """The prefill as a graphed step: ``inputs`` (the tokens and the
     arch's other inputs) is its carry, returned as it came; its output is
     (last-position logits, caches of ``cache_len`` slots, cross_kvs or
-    None). (``Model.prefill`` is called through the class, so the
-    analyzer's callgraph follows the step into the model.)"""
+    None). On a mesh ``serving`` (:func:`mesh_serving`) gives the rank's
+    layout, and ``inputs`` are its rows. (``Model.prefill`` is called
+    through the class, so the analyzer's callgraph follows the step into
+    the model.)"""
+    sh = None if serving is None else serving()
     return inputs, Model.prefill(model, inputs, use_flash=use_flash,
                                  use_rwkv_kernel=use_rwkv_kernel,
-                                 max_seq=cache_len)
+                                 max_seq=cache_len, sh=sh)
 
 
-def serve_decode_step(model: Model, carry: Tuple, index: torch.Tensor
+def serve_decode_step(model: Model, carry: Tuple, index: torch.Tensor,
+                      serving: Optional[Callable] = None
                       ) -> Tuple[Tuple, torch.Tensor]:
     """One greedy decode step as a graphed step: ``carry`` is (token
     (B, 1), caches, cross_kvs or None), ``index`` the token's position
     (meta tokens counted) as a 0-d int32 device tensor. Returns the next
     carry (the greedy token, the caches, the ring caches updated in place,
     ``cross_kvs`` as they came) and the step's logits (B, V) f32: the
-    next token never leaves the card."""
+    next token never leaves the card. On a mesh ``serving``
+    (:func:`mesh_serving`) gives the rank's layout: the carry is its rows
+    and its caches, the logits its rows' (every vocab entry)."""
     token, caches, cross_kvs = carry
-    logits, caches = Model.decode(model, token, index, caches, cross_kvs)
+    sh = None if serving is None else serving()
+    logits, caches = Model.decode(model, token, index, caches, cross_kvs,
+                                  sh=sh)
     return (logits.argmax(-1)[:, None], caches, cross_kvs), logits
 
 
@@ -495,30 +519,58 @@ def _serve_graph(model: Model, key: tuple,
     return entry[1]
 
 
+def _mesh_key(mesh, batch: Optional[int]) -> tuple:
+    return () if mesh is None else ("mesh", mesh.world, mesh, batch)
+
+
 def compiled_prefill(model: Model, inputs: Dict, *,
                      max_seq: Optional[int] = None, use_flash: bool = False,
-                     use_rwkv_kernel: bool = False) -> graphed.StepGraph:
+                     use_rwkv_kernel: bool = False, mesh=None,
+                     batch: Optional[int] = None) -> graphed.StepGraph:
     """The graphed prefill for ``inputs``' shapes, the decode budget
     ``max_seq`` (in tokens, as :func:`make_prefill_step` takes it) and the
     kernel routes: ``graph(inputs) -> (inputs, (logits, caches,
-    cross_kvs))``, the output cloned out of the graph's pool."""
+    cross_kvs))``, the output cloned out of the graph's pool. On a bound
+    ``mesh`` (``batch`` the global batch, ``inputs`` the rank's rows, as
+    :func:`make_prefill_step` takes them) it is a
+    :class:`~repro_torch.core.graphed.CutGraph`, one per mesh (and so per
+    group) too."""
     cache_len = (inputs["tokens"].shape[1] if max_seq is None
                  else max_seq) + model.cfg.n_meta_tokens
+    serving = (None if mesh is None
+               else mesh_serving(model, mesh, batch, cache_len))
     step = functools.partial(serve_prefill_step, model, cache_len,
-                             use_flash, use_rwkv_kernel)
+                             use_flash, use_rwkv_kernel, serving=serving)
     return _serve_graph(model, ("prefill", cache_len, use_flash,
-                                use_rwkv_kernel, _shapes(inputs)),
-                        lambda: graphed.StepGraph(step))
+                                use_rwkv_kernel, _shapes(inputs))
+                        + _mesh_key(mesh, batch),
+                        (lambda: graphed.StepGraph(step)) if mesh is None
+                        else lambda: graphed.CutGraph(
+                            step, group=mesh.world,
+                            counters=(partition.COLLECTIVES,)))
 
 
-def compiled_decode(model: Model, carry: Tuple) -> graphed.StepGraph:
+def compiled_decode(model: Model, carry: Tuple, *, mesh=None,
+                    batch: Optional[int] = None,
+                    max_seq: Optional[int] = None) -> graphed.StepGraph:
     """The graphed greedy decode step for ``carry``'s shapes (the batch,
     the caches', the cross keys and values'): ``graph(carry, index) ->
     (carry', logits)``, ``carry'`` the graph's static buffers (hand them
-    back to the next call; ``graph.detach`` clones what a caller keeps)."""
-    step = functools.partial(serve_decode_step, model)
-    return _serve_graph(model, ("decode", _shapes(carry)),
-                        lambda: graphed.StepGraph(step))
+    back to the next call; ``graph.detach`` clones what a caller keeps).
+    On a bound ``mesh`` (``batch`` the global batch, ``max_seq`` the
+    decode budget in tokens, as :func:`make_decode_step` takes them) it
+    is a :class:`~repro_torch.core.graphed.CutGraph`, one per mesh too."""
+    serving = None
+    if mesh is not None:
+        serving = mesh_serving(model, mesh, batch,
+                               max_seq + model.cfg.n_meta_tokens)
+    step = functools.partial(serve_decode_step, model, serving=serving)
+    return _serve_graph(model, ("decode", _shapes(carry))
+                        + _mesh_key(mesh, batch),
+                        (lambda: graphed.StepGraph(step)) if mesh is None
+                        else lambda: graphed.CutGraph(
+                            step, group=mesh.world,
+                            counters=(partition.COLLECTIVES,)))
 
 
 def serve_graphs(model: Model) -> List[Tuple[str, graphed.StepGraph]]:
@@ -582,15 +634,16 @@ def compiled_train_step(step: TrainStep) -> graphed.StepGraph:
     ``donate_argnums=(0,)``) whose static buffers are the first state it
     is given; the metrics are cloned out. One graph per step and state, so
     nothing caches it: a second state of the same shapes handed to it
-    would be copied into the first's tensors. The mesh's step stays eager:
-    its sums over ranks are host operations."""
+    would be copied into the first's tensors. A mesh's step (one with a
+    layout) is a donating :class:`~repro_torch.core.graphed.CutGraph`
+    over the mesh's world, cut at its collectives (the forward's fetches
+    and sums, the backward's, the global metrics, the sharded norm)."""
+    fn = functools.partial(train_graph_step, step)
     if step.layout is not None:
-        raise NotImplementedError(
-            "the mesh's train step runs eagerly: its gloo collectives "
-            "(the global metrics, the sharded norm, the ZeRO-1 gathers) are "
-            "host operations, which no CUDA graph holds")
-    return graphed.StepGraph(functools.partial(train_graph_step, step),
-                             donate=True)
+        return graphed.CutGraph(fn, group=step.layout.mesh.world,
+                                donate=True,
+                                counters=(partition.COLLECTIVES,))
+    return graphed.StepGraph(fn, donate=True)
 
 
 def compiled_hyper_step(model: Model) -> graphed.StepGraph:

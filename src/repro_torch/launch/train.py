@@ -19,9 +19,12 @@ of the reference's ``jax.jit(step_fn, donate_argnums=(0,))``): the graph
 takes the state's tensors as its static buffers, the batch is copied in
 before each replay, the metrics come out cloned, and the host read of
 ``ce``, the batch draw and the checkpoints stay between replays.
-``graphs=False`` runs the same step eagerly. The mesh path stays eager:
-its collectives are gloo host operations, which wait for NCCL on cards of
-their own (ROADMAP A21).
+``graphs=False`` runs the same step eagerly. Each rank of a group on the
+card replays its step too (the counterpart of the reference's
+``jax.jit(step_fn, in_shardings=..., donate_argnums=(0,))`` over its
+mesh): a chain of graphs cut at the step's collectives
+(:class:`~repro_torch.core.graphed.CutGraph`), each collective run
+eagerly between two segments, as gloo's host copies need.
 
 On the card (minicpm-2b at its published size):
 
@@ -84,11 +87,11 @@ def train(arch: str, smoke: bool = True, steps: int = 100, batch: int = 8,
     run is over its ranks (the state then this rank's blocks). Without
     either, one device.
 
-    ``graphs`` (default: on the card, one device) replays the step as a
-    CUDA graph; a capture that fails raises. ``graphs=False`` calls the
-    same step eagerly; the ranks of a group always do, and refuse
-    ``graphs=True``. The returned state is the graph's donated buffers:
-    the caller's from the start."""
+    ``graphs`` (default: on the card) replays the step as a CUDA graph,
+    on a group's ranks as a chain of graphs cut at its collectives; a
+    capture that fails raises. ``graphs=False`` calls the same step
+    eagerly. The returned state is the graph's donated buffers: the
+    caller's from the start."""
     kw = dict(arch=arch, smoke=smoke, steps=steps, batch=batch, seq=seq,
               lr=lr, accum=accum, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
               resume=resume, seed=seed, log_every=log_every,
@@ -115,12 +118,7 @@ def _train(arch, smoke, steps, batch, seq, lr, accum, ckpt_dir, ckpt_every,
            resume, seed, log_every, verbose, device, on_step, group,
            graphs=None):
     dev = device
-    if group is not None and graphs:
-        raise NotImplementedError(
-            "the ranks of a group train eagerly: their collectives are "
-            "host operations, which no CUDA graph holds")
-    graphs = group is None and (graphed.graphs_on(dev) if graphs is None
-                                else graphs)
+    graphs = graphed.graphs_on(dev) if graphs is None else graphs
     cfg = get_config(arch, smoke=smoke)
     gen = torch.Generator(device=dev).manual_seed(seed)
     schedule = make_schedule(cfg.schedule, lr, steps, warmup_steps=min(
@@ -194,9 +192,11 @@ def _train(arch, smoke, steps, batch, seq, lr, accum, ckpt_dir, ckpt_every,
     if ckpt:
         ckpt.wait()
     if graphs:
-        if verbose and run.captures:
+        if verbose and rank0 and run.captures:
+            cuts = (f", {run.segments} segments cut at {run.cuts} "
+                    f"collectives" if layout is not None else "")
             print(f"CUDA graph captured in {run.capture_s:.2f} s "
-                  f"({run.pool_bytes} B of pool)", flush=True)
+                  f"({run.pool_bytes} B of pool{cuts})", flush=True)
         run.release()
     if layout is not None:
         state = gather_state(state, layout)

@@ -475,7 +475,13 @@ def decode_step_sharded(p: Tree, cfg: ModelConfig, x: torch.Tensor,
     :func:`cache_cut` cuts it: its kv heads (the query heads over
     ``model``, the parts of the output summed in rank order), its slots
     (every head on every rank, each rank's partial softmax over its slots
-    merged in rank order) or whole (the layer computed whole)."""
+    merged in rank order) or whole (the layer computed whole).
+
+    ``index`` is read on the card only (a 0-d int32 device tensor, or an
+    int made one), as :func:`decode_step` reads it: under the slot cut
+    every rank writes its slice at the slot clamped into it, the old
+    value where the slot is another rank's, so a cut graph's replay
+    writes where the index says."""
     scale = 1.0 / cfg.hd ** 0.5
     if cross_cache is not None:
         b = x.shape[0]
@@ -496,10 +502,6 @@ def decode_step_sharded(p: Tree, cfg: ModelConfig, x: torch.Tensor,
         return _gated(p, sh, sh.leave(o, x.dtype)), cache
     W = cache["pos"].shape[0]
     cut = cache_cut(cfg, sh, W)
-    # repro-lint: disable=JIT01 -- the mesh's decode runs eagerly and is never captured (its collectives are host operations); the slot picks the rank that holds it
-    index = int(index)
-    slot = _slot(index, W, n_meta)
-    pos = torch.full((1,), index, dtype=torch.int32, device=x.device)
     if cut[0] == "kv":
         split = sh.head_split(cfg.n_heads, cfg.n_kv_heads)
         lp = _local_tree(p, cfg, sh, split)
@@ -508,19 +510,25 @@ def decode_step_sharded(p: Tree, cfg: ModelConfig, x: torch.Tensor,
                                n_meta=n_meta, use_rope=use_rope,
                                product=sh.product)
         return _gated(p, sh, sh.leave(o, x.dtype)), cache
+    pos = as_device(index, torch.int32, x.device).reshape(1)
+    slot = _slot(pos, W, n_meta).long()
     lp = _local_tree(p, cfg, sh, None)
     q, k_new, v_new = _project_qkv(lp, cfg, x, x, pos, pos, use_rope)
-    cache["pos"][slot] = index
+    cache["pos"].index_copy_(0, slot, pos)
     if cut[0] == "full":
-        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+        cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
         mask = _mask(pos, cache["pos"], True, window, n_meta)
         y = _sdpa(q, cache["k"], cache["v"], mask, scale)
         return _gated(p, sh, _out(lp, y)), cache
     s0, s1 = cut[1], cut[2]
-    if s0 <= slot < s1:
-        cache["k"][:, slot - s0] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot - s0] = v_new[:, 0].to(cache["v"].dtype)
+    local = slot - s0
+    mine = (local >= 0) & (local < s1 - s0)
+    at = local.clamp(0, s1 - s0 - 1)
+    for name, new in (("k", k_new), ("v", v_new)):
+        old = cache[name].index_select(1, at)
+        cache[name].index_copy_(1, at, torch.where(
+            mine, new.to(cache[name].dtype), old))
     mask = _mask(pos, cache["pos"][s0:s1], True, window, n_meta)
     y = _merge_partial(q, cache["k"], cache["v"], mask, scale, sh)
     return _gated(p, sh, _out(lp, y.to(q.dtype))), cache

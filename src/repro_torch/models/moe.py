@@ -40,7 +40,6 @@ import contextlib
 from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from .common import Maker, ModelConfig, Params, Tree, sigmoid
 from .mlp import gelu_tanh
@@ -166,6 +165,13 @@ def combine(picked: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n).float()`` by a compare with ``arange(n)``: the
+    same values, and no host read (off the card ``one_hot`` reads the
+    indices' min and max on the host to check them)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
 def _apply_tokens(p: Tree, cfg: ModelConfig, x: torch.Tensor
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     b, s, d = x.shape
@@ -181,7 +187,7 @@ def _apply_tokens(p: Tree, cfg: ModelConfig, x: torch.Tensor
     picked = out[flat, slot].reshape(n, k, d)
     w = (r.gate * kept.reshape(n, k)).to(x.dtype)
     y = combine(picked, w)
-    top1 = F.one_hot(r.experts[:, 0], e).float()
+    top1 = _one_hot(r.experts[:, 0], e)
     aux = {
         "load_balance": e * torch.sum(r.probs.mean(0) * top1.mean(0)),
         "router_z": torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2),
@@ -253,7 +259,7 @@ def _ep_local(p: Tree, cfg: ModelConfig, x: torch.Tensor, sh, tp: bool
     from ..launch import partition
     kept = partition.sum_axes(mesh, ("model",),
                               keep.sum().to(torch.int32)[None])[0]
-    top1 = F.one_hot(r.experts[:, 0], e).float()
+    top1 = _one_hot(r.experts[:, 0], e)
     aux = {
         "load_balance": e * torch.sum(r.probs.mean(0) * top1.mean(0)),
         "router_z": torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2),

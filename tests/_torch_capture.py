@@ -10,14 +10,19 @@ A graphed step must also leave its inputs as they were: the warm-up runs
 it once on the static buffers before the capture. :func:`capture_faults`
 runs a function under a dispatch mode that records each such operation
 with the port's source line that issued it, and each operation that
-writes into an input's storage.
+writes into an input's storage. A mesh's step is captured in segments cut
+at its collectives (``core/graphed.py::CutGraph``), each collective run
+eagerly between them: ``capture_faults(..., cuts=True)`` leaves what a
+collective does unchecked, as the capture does.
 """
 import traceback
 from typing import List
 
 import torch
 from torch.utils import _pytree as pytree
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack,
+                                          _pop_mode, _push_mode)
 
 REFUSED = {"aten::_local_scalar_dense": "host read",
            "aten::item": "host read",
@@ -43,9 +48,21 @@ class _Recorder(TorchDispatchMode):
         self.inputs = {t.untyped_storage().data_ptr() for t in inputs
                        if t.numel()} - allowed
         self.faults: List[str] = []
+        self.paused = False
+
+    def collective(self, group, fn, x):
+        """A cut (``ShardGroup._timed`` under ``cuts=True``): the
+        collective runs eagerly, unchecked."""
+        self.paused = True
+        try:
+            return group._run_timed(fn, x)
+        finally:
+            self.paused = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.paused:
+            return func(*args, **kwargs)
         name = func._schema.name
         if name in REFUSED:
             self.faults.append(f"{REFUSED[name]} {name} at {_where()}")
@@ -59,16 +76,26 @@ class _Recorder(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
-def capture_faults(fn, *args, writes=(), **kwargs) -> List[str]:
+def capture_faults(fn, *args, writes=(), cuts=False, **kwargs
+                   ) -> List[str]:
     """Run ``fn(*args, **kwargs)`` and list what a capture would refuse
     (empty: the function could be captured). ``writes`` are the inputs
-    the step updates in place by design (the decode step's ring caches:
-    a carry it returns as itself), whose writes are not reported."""
+    the step updates in place by design (the decode step's ring caches,
+    the train step's donated state), whose writes are not reported.
+    ``cuts``: a mesh's step, its collectives run unchecked as a cut
+    graph's nodes."""
+    from repro_torch.core import graphed
     inputs = [t for t in pytree.tree_leaves((args, kwargs))
               if isinstance(t, torch.Tensor)]
     rec = _Recorder(inputs, _tensors(writes))
-    with rec:
-        fn(*args, **kwargs)
+    saved = graphed._CUT
+    if cuts:
+        graphed._CUT = rec
+    try:
+        with rec:
+            fn(*args, **kwargs)
+    finally:
+        graphed._CUT = saved
     return rec.faults
 
 
@@ -104,13 +131,32 @@ class FakeGraph:
             res = func(*args, **kwargs)
             for o, r, new in zip(_tensors(outs), _tensors(res), fresh):
                 if new and o is not r:
-                    o.copy_(r)
+                    # through .data: a card's replay bumps no autograd
+                    # version, and a cut graph replays a segment inside
+                    # the forward, whose tensors autograd may have saved
+                    o.data.copy_(r)
 
     def reset(self):
         self.ops = []
 
     def pool(self):
         return None
+
+    # a cut graph's segments (core/graphed.py::CutGraph): a capture begun
+    # and ended by calls, the end maybe on autograd's thread of another
+    # node than the begin
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        _OPEN[0] = _Capture(self)
+        if not any(isinstance(m, _Segments)
+                   for m in _get_current_dispatch_mode_stack()):
+            _push_mode(_Segments())
+
+    def capture_end(self):
+        cap, _OPEN[0] = _OPEN[0], None
+        cap.restore()
+        stack = _get_current_dispatch_mode_stack()
+        if stack and isinstance(stack[-1], _Segments):
+            _pop_mode()
 
 
 class _Capture(TorchDispatchMode):
@@ -121,7 +167,16 @@ class _Capture(TorchDispatchMode):
         self.saved = []       # (tensor, its value before the capture)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
+        return self.record(func, args, kwargs or {})
+
+    def restore(self):
+        # through .data: a cut's segment ends inside the forward, where
+        # autograd may hold a tensor it wrote, and the put-back value is
+        # no new version of it
+        for t, value in reversed(self.saved):
+            t.data.copy_(value)
+
+    def record(self, func, args, kwargs):
         name = func._schema.name
         if name in REFUSED:
             raise RuntimeError(f"a CUDA graph's capture refuses {name} "
@@ -151,9 +206,25 @@ class _Capture(TorchDispatchMode):
 
     def __exit__(self, *exc):
         out = super().__exit__(*exc)
-        for t, value in reversed(self.saved):
-            t.copy_(value)
+        self.restore()
         return out
+
+
+# the open segment's capture, recorded through the one _Segments mode on
+# the stack. Autograd runs each backward node under the mode stack of the
+# call that started the backward, and restores it after the node, so a
+# cut inside the backward cannot pop or push the recording mode for the
+# nodes after it: the mode stays, and a cut only swaps what it records
+# into (between segments, nothing: the collective runs as it is).
+_OPEN: List = [None]
+
+
+class _Segments(TorchDispatchMode):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        cap = _OPEN[0]
+        if cap is None:
+            return func(*args, **(kwargs or {}))
+        return cap.record(func, args, kwargs or {})
 
 
 class _FakeStream:

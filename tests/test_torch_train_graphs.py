@@ -302,12 +302,15 @@ def test_graphed_train_equals_eager(monkeypatch, arch, accum):
     for g, w in zip(got_m, want_m):
         _assert_equal_trees(g, w)
     _assert_equal_trees(got_state, want_state)
-    with pytest.raises(NotImplementedError, match="eagerly"):
-        train_mod._train(arch=arch, smoke=True, steps=1, batch=4, seq=32,
-                         lr=3e-3, accum=1, ckpt_dir=None, ckpt_every=1,
-                         resume=False, seed=0, log_every=1, verbose=False,
-                         device=torch.device("cpu"), on_step=None,
-                         group=object(), graphs=True)
+    # a mesh's step is no longer refused: it replays as a donating chain
+    # cut at its collectives (tests/test_torch_mesh_graphs.py runs it)
+    from repro_torch.launch.mesh import Mesh
+    model = Model(get_config(arch, smoke=True), "meta")
+    mesh_step = steps_lib.make_train_step(
+        model, schedule=make_schedule("constant", 3e-3, 10),
+        mesh=Mesh((1, 2), ("data", "model")))
+    cut = steps_lib.compiled_train_step(mesh_step)
+    assert isinstance(cut, graphed.CutGraph) and cut.donate
 
 
 def test_graphed_resume_equals_the_uninterrupted_run(monkeypatch, tmp_path):
